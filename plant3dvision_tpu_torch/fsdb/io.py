@@ -1,0 +1,398 @@
+"""Payload codecs for fsdb Files.
+
+Mirrors the reference `plantdb.io` surface used across plant3dvision
+(tasks/evaluation.py:20-28): read/write_{image,json,npz,volume,point_cloud,
+triangle_mesh,graph,toml}, plus `to_file`.
+"""
+
+from __future__ import annotations
+
+import json
+import pickle
+import shutil
+from io import BytesIO
+from pathlib import Path
+
+import numpy as np
+
+from . import ply as plyio
+from .db import File
+
+
+# -- images ------------------------------------------------------------
+
+#: cv2 (libjpeg-turbo / SIMD libpng) decodes faster than imageio and
+#: releases the GIL, so it is used wherever it is importable. Without
+#: cv2, PNG goes through the numpy + zlib codec below (8-bit gray, gray +
+#: alpha, RGB, RGBA), and other formats through imageio if that imports.
+_CV2_EXTS = {"png", "jpg", "jpeg", "bmp", "tif", "tiff", "webp"}
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+#: PNG color type -> channels (8-bit depth only; no palette)
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _cv2():
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2
+
+
+def _cv2_to_rgb(img):
+    import cv2
+    if img is None:
+        return None
+    if img.ndim == 3 and img.shape[2] == 3:
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    if img.ndim == 3 and img.shape[2] == 4:
+        return cv2.cvtColor(img, cv2.COLOR_BGRA2RGBA)
+    return img
+
+
+def png_encode(image: np.ndarray, level: int = 6) -> bytes:
+    """8-bit (H, W) gray or (H, W, 2|3|4) image -> PNG bytes, every row
+    with filter type 0 (None)."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(image)
+    if img.dtype != np.uint8:
+        raise ValueError(f"png_encode takes uint8 images, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[..., None]
+    H, W, C = img.shape
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    rows = np.zeros((H, 1 + W * C), np.uint8)   # column 0: filter byte 0
+    rows[:, 1:] = img.reshape(H, W * C)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, ctype, 0, 0, 0)
+    return (_PNG_SIG + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + chunk(b"IEND", b""))
+
+
+def _unfilter_row(ftype, cur, prev, bpp):
+    """Reconstruct one PNG scanline (uint8 arrays, in place on `cur`)."""
+    if ftype == 0:
+        return cur
+    if ftype == 1:      # Sub: running sum along each channel, mod 256
+        return np.cumsum(cur.reshape(-1, bpp), axis=0,
+                         dtype=np.uint8).reshape(-1)
+    if ftype == 2:      # Up
+        return cur + prev
+    if ftype == 3:      # Average: left dependency -> per-pixel loop
+        out = cur.astype(np.int32)
+        up = prev.astype(np.int32)
+        out[:bpp] = (out[:bpp] + (up[:bpp] >> 1)) & 0xFF
+        for i in range(bpp, len(out), bpp):
+            out[i:i + bpp] = (out[i:i + bpp]
+                              + ((out[i - bpp:i] + up[i:i + bpp]) >> 1)) & 0xFF
+        return out.astype(np.uint8)
+    if ftype == 4:      # Paeth
+        out = cur.astype(np.int32)
+        up = prev.astype(np.int32)
+        out[:bpp] = (out[:bpp] + up[:bpp]) & 0xFF   # a = c = 0 -> b
+        for i in range(bpp, len(out), bpp):
+            a = out[i - bpp:i]
+            b = up[i:i + bpp]
+            c = up[i - bpp:i]
+            p = a + b - c
+            pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+            pred = np.where((pa <= pb) & (pa <= pc), a,
+                            np.where(pb <= pc, b, c))
+            out[i:i + bpp] = (out[i:i + bpp] + pred) & 0xFF
+        return out.astype(np.uint8)
+    raise ValueError(f"bad PNG filter type {ftype}")
+
+
+def png_decode(data: bytes) -> np.ndarray:
+    """PNG bytes (8-bit gray, gray + alpha, RGB or RGBA; not interlaced)
+    -> (H, W) or (H, W, C) uint8, decoding all five row filter types."""
+    import struct
+    import zlib
+
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    W, H, depth, ctype, _, _, interlace = hdr
+    if depth != 8 or ctype not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"unsupported PNG (bit depth {depth}, color type "
+                         f"{ctype}, interlace {interlace}); cv2 reads it")
+    C = _PNG_CHANNELS[ctype]
+    stride = W * C
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(H, 1 + stride)
+    ftypes = raw[:, 0]
+    img = raw[:, 1:].copy()
+    if ftypes.any():
+        prev = np.zeros(stride, np.uint8)
+        for r in range(H):
+            img[r] = _unfilter_row(int(ftypes[r]), img[r], prev, C)
+            prev = img[r]
+    return img.reshape(H, W) if C == 1 else img.reshape(H, W, C)
+
+
+def read_image(file: File) -> np.ndarray:
+    path = str(file.path())
+    ext = path.rsplit(".", 1)[-1].lower()
+    cv2 = _cv2() if ext in _CV2_EXTS else None
+    if cv2 is not None:
+        img = _cv2_to_rgb(cv2.imread(path, cv2.IMREAD_UNCHANGED))
+        if img is not None:
+            return img
+    if ext == "png":
+        with open(path, "rb") as fh:
+            return png_decode(fh.read())
+    import imageio.v2 as iio
+    return np.asarray(iio.imread(path))
+
+
+def write_image(file: File, image: np.ndarray, ext: str = "png") -> None:
+    ext = ext.lstrip(".").lower()
+    image = np.asarray(image)
+    if image.dtype in (np.float32, np.float64):
+        image = np.clip(image * 255.0 if image.max() <= 1.0 else image, 0, 255).astype(np.uint8)
+    cv2 = _cv2()
+    if (cv2 is not None and ext in ("png", "jpg", "jpeg", "bmp")
+            and image.dtype == np.uint8):
+        bgr = image
+        if image.ndim == 3 and image.shape[2] == 3:
+            bgr = cv2.cvtColor(image, cv2.COLOR_RGB2BGR)
+        elif image.ndim == 3 and image.shape[2] == 4:
+            bgr = cv2.cvtColor(image, cv2.COLOR_RGBA2BGRA)
+        params = ([cv2.IMWRITE_JPEG_QUALITY, 95]
+                  if ext in ("jpg", "jpeg") else [])
+        ok, buf = cv2.imencode("." + ext, bgr, params)
+        if ok:
+            file.write_raw(buf.tobytes(), ext)
+            return
+    if ext == "png" and image.dtype == np.uint8:
+        file.write_raw(png_encode(image), ext)
+        return
+    import imageio.v2 as iio
+    buf = BytesIO()
+    iio.imwrite(buf, image, format=ext if ext != "jpg" else "jpeg")
+    file.write_raw(buf.getvalue(), ext)
+
+
+# -- json / toml -------------------------------------------------------
+
+def read_json(file: File):
+    with open(file.path()) as f:
+        return json.load(f)
+
+
+def write_json(file: File, data, ext: str = "json") -> None:
+    from .db import _json_default
+    file.write_raw(json.dumps(data, indent=4, default=_json_default).encode(), ext)
+
+
+def read_toml(file: File):
+    import tomllib
+    with open(file.path(), "rb") as f:
+        return tomllib.load(f)
+
+
+def write_toml(file: File, data) -> None:
+    file.write_raw(_toml_dumps(data).encode(), "toml")
+
+
+def _toml_dumps(data, prefix=""):
+    """Tiny TOML writer (tables of scalars/lists/nested dicts)."""
+    lines, tables = [], []
+    for k, v in data.items():
+        if isinstance(v, dict):
+            tables.append((f"{prefix}{k}" if not prefix else f"{prefix}.{k}", v))
+        else:
+            lines.append(f"{k} = {_toml_value(v)}")
+    out = "\n".join(lines)
+    for name, tbl in tables:
+        out += f"\n\n[{name}]\n" + _toml_dumps(tbl, name).lstrip()
+    return out.strip() + "\n"
+
+
+def _toml_value(v):
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_toml_value(x) for x in v) + "]"
+    return str(v)
+
+
+# -- arrays / volumes ---------------------------------------------------
+
+def read_npz(file: File) -> dict:
+    return dict(np.load(file.path(), allow_pickle=False))
+
+
+def _npz_bytes(data: dict, compresslevel: int = 1) -> bytes:
+    """Standard .npz bytes at a chosen deflate level. np.savez_compressed
+    pins zlib's default level 6, which costs 3-5x more single-core time
+    than level 1 for ~10-20% smaller volumes — the wrong trade for
+    multi-hundred-MB float volumes on a one-core host."""
+    import zipfile
+    buf = BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_DEFLATED,
+                         compresslevel=compresslevel) as zf:
+        for key, arr in data.items():
+            with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(arr),
+                                          allow_pickle=False)
+    return buf.getvalue()
+
+
+def write_npz(file: File, data: dict) -> None:
+    file.write_raw(_npz_bytes(data), "npz")
+
+
+def write_npz_async(file: File, producer) -> None:
+    """Write `producer() -> dict[str, array]` as NPZ on the background
+    artifact-writer thread (fsdb.handoff); the heavy parts — materializing
+    the arrays (e.g. a device->host volume pull) and deflating them — run
+    off the critical path, while the fsdb mutation happens at flush time
+    on the main thread."""
+    from . import handoff
+    handoff.submit_write(file, lambda: (_npz_bytes(producer()), "npz"))
+
+
+def read_volume(file: File) -> np.ndarray:
+    data = np.load(file.path(), allow_pickle=False)
+    if hasattr(data, "files"):  # npz
+        key = "volume" if "volume" in data.files else data.files[0]
+        return data[key]
+    return data
+
+
+def write_volume(file: File, volume: np.ndarray) -> None:
+    file.write_raw(_npz_bytes({"volume": volume}), "npz")
+
+
+# -- geometry ------------------------------------------------------------
+
+def read_point_cloud(file: File):
+    if file.filename and file.filename.endswith(".obj"):
+        return read_obj(file)
+    return plyio.read_ply(file.path())
+
+
+def write_point_cloud(file: File, pcd, ext: str = "ply") -> None:
+    file.filename = f"{file.id}.{ext}"
+    file.fileset.path().mkdir(parents=True, exist_ok=True)
+    plyio.write_ply(file.path(), pcd)
+    file.scan.store()
+
+
+def read_triangle_mesh(file: File):
+    if file.filename and file.filename.endswith(".obj"):
+        return read_obj(file)
+    return plyio.read_ply(file.path())
+
+
+def write_triangle_mesh(file: File, mesh, ext: str = "ply") -> None:
+    write_point_cloud(file, mesh, ext)
+
+
+def read_obj(file: File):
+    """Wavefront OBJ triangle mesh (the reference's VirtualPlant ground
+    truth format, tasks/evaluation.py:71-130)."""
+    from .geometry import TriangleMesh
+    import numpy as np
+    verts, faces = [], []
+    with open(file.path() if isinstance(file, File) else file) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return TriangleMesh(np.asarray(verts, dtype=float),
+                        np.asarray(faces, dtype=np.int64))
+
+
+def read_obj_materials(file: File):
+    """Wavefront OBJ split by material: {material_name: TriangleMesh}.
+
+    The virtual-plant ground truth ships one `usemtl` block per organ
+    class (fruit/leaf/pedicel/stem) — the reference reads it with
+    pywavefront (tasks/evaluation.py:96-98, :222-226); this is a
+    dependency-free parser with the same per-mesh split. Vertices are
+    re-indexed per material (unreferenced vertices removed, as
+    open3d.remove_unreferenced_vertices does in the reference)."""
+    from .geometry import TriangleMesh
+    import numpy as np
+    verts = []
+    faces_by_mtl = {}
+    current = "default"
+    with open(file.path() if isinstance(file, File) else file) as fh:
+        for line in fh:
+            parts = line.split()
+            if not parts:
+                continue
+            if parts[0] == "v":
+                verts.append([float(x) for x in parts[1:4]])
+            elif parts[0] == "usemtl":
+                current = parts[1] if len(parts) > 1 else "default"
+            elif parts[0] == "f":
+                idx = [int(p.split("/")[0]) - 1 for p in parts[1:]]
+                tris = faces_by_mtl.setdefault(current, [])
+                for k in range(1, len(idx) - 1):
+                    tris.append([idx[0], idx[k], idx[k + 1]])
+    verts = np.asarray(verts, dtype=float)
+    out = {}
+    for mtl, tris in faces_by_mtl.items():
+        tris = np.asarray(tris, dtype=np.int64)
+        used = np.unique(tris)
+        remap = np.full(len(verts), -1, dtype=np.int64)
+        remap[used] = np.arange(len(used))
+        out[mtl] = TriangleMesh(verts[used], remap[tris])
+    return out
+
+
+def write_obj(file: File, mesh) -> None:
+    lines = [f"v {x} {y} {z}" for x, y, z in mesh.vertices]
+    lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in mesh.triangles]
+    file.write_raw(("\n".join(lines) + "\n").encode(), "obj")
+
+
+# -- graphs --------------------------------------------------------------
+
+def read_graph(file: File):
+    with open(file.path(), "rb") as f:
+        return pickle.load(f)
+
+
+def write_graph(file: File, graph, ext: str = "p") -> None:
+    file.write_raw(pickle.dumps(graph), ext)
+
+
+# -- raw -----------------------------------------------------------------
+
+def to_file(file: File, dst_path) -> None:
+    """Copy a File payload out of the DB to an external path."""
+    shutil.copyfile(file.path(), Path(dst_path))
+
+
+def from_file(file: File, src_path) -> None:
+    file.import_file(src_path)
