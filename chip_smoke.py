@@ -16,6 +16,21 @@
    library call computing the same function (CUDA events, median).
 4. Runs the 60-view 1440x1080 carve into a 301x301x561 grid at 0.5 mm and
    vol2pcd on its result.
+5. Drives the ML path through the port's task runtime at full width: a
+   126-view 896x896 photo-domain scan (ProceduralArabidopsis(seed=1)), the
+   committed TPUSegNet, FusedSegmentationCarving at 0.25 mm (165x146x504
+   voxels, 6 labels, bilinear, batches of 32) -> multiclass PointCloud ->
+   OrganSegmentation -> AnglesAndInternodes: one cold pass, two warm passes
+   with Clean between them, one profiled warm pass. Checks that K2-K6 were
+   launched in the warm pass, that at least 10 angles come out and that
+   their mean error (DTW-aligned against the generator's ground truth) is
+   below 20 degrees.
+6. Holds K5 (accumulate; bilinear, box and log modes, through the 3-slab
+   lane) on one real batch of 32 CNN outputs of that scan, K6 (select) on
+   the warm pass's label volumes and K2-K4 on its fruit selection, against
+   their plain versions, and times them beside a PyTorch library chain
+   computing the same function. Each kernel row names the path (geometric
+   or ml) whose shapes it was measured at and whose launches it counts.
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -50,6 +65,32 @@ KERNEL_INFO = {
                           "plant3dvision_tpu/ops/filters.py:40"),
     "band_compact": ("plant3dvision_tpu_torch/kernels/csrc/band.cu",
                      "plant3dvision_tpu/proc3d.py:37"),
+    "accumulate_labels": (
+        "plant3dvision_tpu_torch/kernels/csrc/accumulate.cu",
+        "plant3dvision_tpu/ops/ml_fused.py:30"),
+    "multiclass_select": ("plant3dvision_tpu_torch/kernels/csrc/select.cu",
+                          "plant3dvision_tpu/ops/multiclass.py:31"),
+}
+
+#: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
+ML_VOXEL, ML_SIZE, ML_VIEWS, ML_BATCH = 0.25, 896, 126, 32
+ML_CONFIG = {
+    "ModelFilesetExists": {"scan_id": "models"},
+    "FusedSegmentationCarving": {
+        "upstream_task": "ImagesFilesetExists", "camera_metadata": "camera",
+        "voxel_size": ML_VOXEL, "Sx": ML_SIZE, "Sy": ML_SIZE,
+        "batch_size": ML_BATCH, "log": False, "sample": "bilinear"},
+    "PointCloud": {"upstream_task": "FusedSegmentationCarving",
+                   "level_set_value": 0.2, "background_prior": 1.0,
+                   "min_contrast": 1.0, "min_score": 0.01},
+    "OrganSegmentation": {"upstream_task": "PointCloud", "eps": 0.3,
+                          "min_points": 5},
+    "AnglesAndInternodes": {"upstream_task": "OrganSegmentation",
+                            "organ_type": "fruit", "min_fruit_size": 2.0,
+                            "min_elongation_ratio": 1.0,
+                            "characteristic_length": 1.0, "stem_axis": 2,
+                            "stem_axis_inverted": False},
+    "Clean": {"no_confirm": True},
 }
 
 NORTHSTAR_PLANT = dict(n_fruits=15, divergence_deg=137.5, internode=6.0,
@@ -132,7 +173,7 @@ def run_main_path(db, device_name):
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
 
-    prof = profile_pass(db, cfg)
+    prof = profile_pass(db, "northstar", cfg)
     warm, report, launches = [], None, None
     for _ in range(2):
         run_task(ctx, "Clean", report=False)
@@ -162,7 +203,8 @@ def run_main_path(db, device_name):
         "max_memory_allocated_mb": peak_mb,
         "launches_per_warm_pass": launches}})
     emit({"main_path_profile": prof})
-    missing = [k for k, v in launches.items() if v <= 0]
+    missing = [k for k in ("carve", "signed_distance", "gradient_gaussian",
+                           "band_compact") if launches[k] <= 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
     assert len(angles) > 10, f"only {len(angles)} angles"
     assert err < 1.0, f"mean angle error {err} deg"
@@ -171,7 +213,7 @@ def run_main_path(db, device_name):
     return ctx.scan, vfile, launches
 
 
-def profile_pass(db, cfg):
+def profile_pass(db, scan_id, cfg):
     """A warm pass under torch.profiler: the card's busy time (sum
     of the device time of its kernels and copies; one stream, so nothing
     overlaps) against the pass's wall time, and the top device entries."""
@@ -180,9 +222,9 @@ def profile_pass(db, cfg):
     from torch.profiler import ProfilerActivity, profile
     from plant3dvision_tpu_torch.runtime import RunContext, run_task
 
-    run_task(RunContext(db, "northstar", cfg, device="cuda"), "Clean",
+    run_task(RunContext(db, scan_id, cfg, device="cuda"), "Clean",
              report=False)
-    ctx = RunContext(db, "northstar", cfg, device="cuda")
+    ctx = RunContext(db, scan_id, cfg, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -219,27 +261,28 @@ def load_group(scan, n_views):
     return np.stack(rows), np.stack(cams), hw
 
 
+def kernel_row(name, launches, err, ms, plain, nbytes, nops, library=None,
+               extra=None):
+    """One entry of the `kernels` line (bound from the bytes and operations
+    of this run's inputs)."""
+    b, by = bound_ms(nbytes, nops)
+    src, rep = KERNEL_INFO[name]
+    r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches, "max_abs_err": err, "match": True,
+         "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
+         "bound_by": by, "library_ms": library}
+    r.update(extra or {})
+    return r
+
+
 def check_kernels(scan, vfile, launches):
     """Phase 3: every kernel against its plain version at main-path shapes."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from plant3dvision_tpu_torch.fsdb import io
-    from plant3dvision_tpu_torch.ops import carving, edt, filters
-    from plant3dvision_tpu_torch import proc3d
+    from plant3dvision_tpu_torch.ops import carving
 
     dev = torch.device("cuda")
-    rows = []
-
-    def row(name, err, ms, plain, nbytes, nops, library=None, extra=None):
-        b, by = bound_ms(nbytes, nops)
-        src, rep = KERNEL_INFO[name]
-        r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": launches[name], "max_abs_err": err, "match": True,
-             "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
-             "bound_by": by, "library_ms": library}
-        r.update(extra or {})
-        rows.append(r)
 
     # K1: one 100-view group of the north-star scan
     packed, cams, hw = load_group(scan, 100)
@@ -256,22 +299,49 @@ def check_kernels(scan, vfile, launches):
     nvox = int(np.prod(shape))
     # bytes: the distinct mask bytes that the tests the early exit leaves
     # read, the cameras and flags, the int8 grid written once
-    row("carve", err, cuda_ms(lambda: carving.carve(*args)),
+    rows = [kernel_row(
+        "carve", launches["carve"], err,
+        cuda_ms(lambda: carving.carve(*args)),
         cuda_ms(lambda: carving.carve_plain(*args), reps=5, warmup=1),
         mask_bytes + cm.numel() * 4 + va.numel() + nvox, 24 * tests,
-        extra={"shape": list(shape), "views": len(cams),
+        extra={"path": "geometric", "shape": list(shape), "views": len(cams),
                "voxel_view_tests": tests, "mask_bytes_read": mask_bytes,
-               "mask_bytes_held": pk.numel()})
+               "mask_bytes_held": pk.numel()})]
 
     # K2-K4 on the scan's carved grid (the FusedCarving volume)
     vol = torch.from_numpy(io.read_volume(vfile).astype(np.float32)).to(dev)
+    rows += check_vol2pcd_kernels(vol, 0.0, launches, "geometric")
+    emit({"kernel_checks": {"grid": list(vol.shape),
+                            "group_views": len(cams)}})
+    return rows
+
+
+def check_vol2pcd_kernels(vol, level, launches, path):
+    """K2-K4 on one vol2pcd input (a float32 volume on the card, at the
+    cap and band that vol2pcd gives them), against their plain versions;
+    one kernel row each, with the launches counted on `path`."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch import proc3d
+    from plant3dvision_tpu_torch.ops import edt, filters
+
+    dev = vol.device
+    rows = []
+
+    def row(name, *args, extra=None, **kw):
+        rows.append(kernel_row(name, launches[name], *args, **kw,
+                               extra={"path": path, "shape": list(vol.shape),
+                                      **(extra or {})}))
+
     n = vol.numel()
-    cap = int(min(20, max(vol.shape)))
+    cap = int(min(16 + level + 4, max(vol.shape)))     # as vol2pcd sets it
     sd = edt.signed_distance(vol, cap)
     sd_p = edt.signed_distance_plain(vol, cap)
     torch.cuda.synchronize()
     err = float((sd - sd_p).abs().max())
-    assert err == 0.0, f"signed distance kernel != plain (max {err})"
+    assert err == 0.0, f"signed distance kernel != plain (max {err}, {path})"
+    del sd_p
     reads = sum(2 * (vol.shape[a] - s) * (n // vol.shape[a])
                 for a in range(3)
                 for s in range(1, min(cap, vol.shape[a] - 1) + 1))
@@ -279,7 +349,7 @@ def check_kernels(scan, vfile, launches):
         cuda_ms(lambda: edt.signed_distance(vol, cap)),
         cuda_ms(lambda: edt.signed_distance_plain(vol, cap), reps=5,
                 warmup=1),
-        8 * n, 2 * 2 * reads)
+        8 * n, 2 * 2 * reads, extra={"cap": cap})
 
     def k3(x):
         return [filters.gaussian_filter(g, 1.0) for g in filters.gradient(x)]
@@ -293,7 +363,8 @@ def check_kernels(scan, vfile, launches):
     gp = k3_plain(sd)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    assert err <= 1e-5, f"gradient/gaussian kernel vs plain: {err}"
+    assert err <= 1e-5, f"gradient/gaussian kernel vs plain: {err} ({path})"
+    del gp
 
     w = torch.from_numpy(taps).to(dev)
     r = len(taps) // 2
@@ -319,13 +390,13 @@ def check_kernels(scan, vfile, launches):
         16 * n, (6 + 3 * 3 * 18) * n, library=lib3)
 
     gx, gy, gz = gk
-    ik, dk, vk = proc3d.band_compact(sd, gx, gy, gz, 0.0)
-    ip, dp, vp = proc3d.band_compact_plain(sd, gx, gy, gz, 0.0)
+    ik, dk, vk = proc3d.band_compact(sd, gx, gy, gz, level)
+    ip, dp, vp = proc3d.band_compact_plain(sd, gx, gy, gz, level)
     torch.cuda.synchronize()
-    assert torch.equal(ik, ip), "band index set differs from plain"
+    assert torch.equal(ik, ip), f"band index set differs from plain ({path})"
     err = max(float((dk - dp).abs().max()), float((vk - vp).abs().max()))
-    assert err == 0.0, f"band records differ from plain: {err}"
-    lo, hi = proc3d.band_limits(0.0)
+    assert err == 0.0, f"band records differ from plain: {err} ({path})"
+    lo, hi = proc3d.band_limits(level)
 
     def k4_library():
         flat = sd.reshape(-1)
@@ -334,12 +405,10 @@ def check_kernels(scan, vfile, launches):
         return [t.reshape(-1).index_select(0, idx) for t in (sd, gx, gy, gz)]
 
     row("band_compact", err,
-        cuda_ms(lambda: proc3d.band_compact(sd, gx, gy, gz, 0.0)),
-        cuda_ms(lambda: proc3d.band_compact_plain(sd, gx, gy, gz, 0.0)),
+        cuda_ms(lambda: proc3d.band_compact(sd, gx, gy, gz, level)),
+        cuda_ms(lambda: proc3d.band_compact_plain(sd, gx, gy, gz, level)),
         4 * n + 36 * len(ik), 2 * n, library=cuda_ms(k4_library),
         extra={"n_band": int(len(ik))})
-    emit({"kernel_checks": {"grid": list(vol.shape), "cap": cap,
-                            "group_views": len(cams)}})
     return rows
 
 
@@ -399,6 +468,272 @@ def run_real_grid():
         "vol2pcd_s": pcd_warm_s, "n_points": len(pcd)}})
 
 
+def run_ml_path(db, device_name):
+    """Phase 5: the ML path (bench_e2e.py:run_ml_northstar at 0.25 mm)
+    through the port's runtime, with the committed TPUSegNet."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.evaluation import align_sequences
+    from plant3dvision_tpu_torch.models.zoo import (TPUSEGNET_CHECKPOINT,
+                                                    install_checkpoint)
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth_photo import (ProceduralArabidopsis,
+                                                     generate_photo_scan)
+
+    plant = ProceduralArabidopsis(seed=1)
+    t0 = time.perf_counter()
+    generate_photo_scan(db, "ml_northstar", n_views=ML_VIEWS, width=ML_SIZE,
+                        height=ML_SIZE, plant=plant, with_gt_masks=False)
+    gen_s = time.perf_counter() - t0
+    assert install_checkpoint(db, path=TPUSEGNET_CHECKPOINT,
+                              model_id="tpusegnet_seg") is not None
+
+    ctx = RunContext(db, "ml_northstar", ML_CONFIG, device="cuda")
+    t0 = time.perf_counter()
+    run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    warm, report, launches = [], None, None
+    for _ in range(2):
+        run_task(ctx, "Clean", report=False)
+        ctx = RunContext(db, "ml_northstar", ML_CONFIG, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = run_task(ctx, "AnglesAndInternodes", report=False)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    scan = ctx.scan
+    fs = scan.get_fileset(report["AnglesAndInternodes"]["fileset"])
+    out = json.loads(fs.get_file("AnglesAndInternodes").read_raw())
+    labels = scan.get_fileset(report["PointCloud"]["fileset"]).get_files()[
+        0].get_metadata("labels")
+    organs = [f.id for f in scan.get_fileset(
+        report["OrganSegmentation"]["fileset"]).get_files()]
+    angles = np.asarray(out["angles"], float)
+    dtw = align_sequences(angles.tolist(), out["internodes"],
+                          np.degrees(plant.gt_angles).tolist(),
+                          np.asarray(plant.gt_internodes, float).tolist())
+    err = dtw["mean_angle_error"]
+    ml = {"device": device_name, "n_views": ML_VIEWS,
+          "image": [ML_SIZE, ML_SIZE], "voxel_mm": ML_VOXEL,
+          "batch": ML_BATCH, "scan_generation_s": gen_s, "cold_s": cold_s,
+          "warm_s": warm,
+          "task_s": {k: v["seconds"] for k, v in report.items()},
+          "n_points": {l: labels.count(l) for l in sorted(set(labels))},
+          "n_organs": {l: sum(o.startswith(l + "_") for o in organs)
+                       for l in ("fruit", "stem", "leaf", "pedicel")},
+          "n_angles": int(len(angles)), "n_gt": int(len(plant.gt_angles)),
+          "dtw_normalized_cost": dtw["normalized_cost"],
+          "mean_angle_error_deg": err,
+          "max_memory_allocated_mb": peak_mb,
+          "launches_per_warm_pass": launches}
+    emit({"ml_path": ml})
+    prof = profile_pass(db, "ml_northstar", ML_CONFIG)
+    emit({"ml_path_profile": prof})
+    # the label volumes of the profiled pass (the same as the warm pass's)
+    vfile = scan.get_fileset(
+        report["FusedSegmentationCarving"]["fileset"]).get_files()[0]
+    need = ("signed_distance", "gradient_gaussian", "band_compact",
+            "accumulate_labels", "multiclass_select")
+    missing = [k for k in need if launches[k] <= 0]
+    assert not missing, f"kernels not launched on the ML path: {missing}"
+    assert len(angles) >= 10, f"only {len(angles)} angles"
+    assert err is not None and err < 20.0, f"mean angle error {err} deg"
+    nums = [cold_s, *warm, peak_mb, dtw["normalized_cost"], err,
+            prof["device_idle_share"], *angles, *out["internodes"]]
+    assert np.isfinite(nums).all(), "a number of the ML path is not finite"
+    return scan, vfile, launches
+
+
+def _library_accumulate(probs, cams, origin, vs, shape, sample):
+    """One PyTorch library chain computing the accumulate's function (plain
+    f32 projection, no fused multiply-adds): per view, grid_sample
+    (bilinear) or avg_pool2d + nearest grid_sample (box)."""
+    import torch
+    import torch.nn.functional as F
+    B, C, H, W = probs.shape
+    dev = probs.device
+    ax = [float(origin[a]) + vs * torch.arange(shape[a], dtype=torch.float32,
+                                               device=dev) for a in range(3)]
+    x = ax[0].view(-1, 1, 1)
+    y = ax[1].view(1, -1, 1)
+    z = ax[2].view(1, 1, -1)
+    img = probs
+    if sample == "box":
+        img = F.avg_pool2d(F.pad(probs, (1, 0, 1, 0), mode="replicate"), 2,
+                           stride=1)
+    acc = torch.zeros((C, *shape), device=dev)
+    for b in range(B):
+        c = cams[b]
+        pz = c[10] * x + c[11] * y + c[12] * z + c[15]
+        px = (c[4] * x + c[5] * y + c[6] * z + c[13]) / pz * c[0] + c[2]
+        py = (c[7] * x + c[8] * y + c[9] * z + c[14]) / pz * c[1] + c[3]
+        inside = (pz > 0) & (px > -1) & (px < W) & (py > -1) & (py < H)
+        if sample == "box":
+            px = px.floor().clamp(0, W - 2)
+            py = py.floor().clamp(0, H - 2)
+        grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1],
+                           -1).view(1, 1, -1, 2)
+        v = F.grid_sample(img[b:b + 1], grid, align_corners=True,
+                          mode="nearest" if sample == "box" else "bilinear")
+        acc += torch.where(inside, v.view(C, *shape), 0.0)
+    return acc
+
+
+def check_ml_kernels(scan, vfile, launches):
+    """Phase 6: K5 on one real batch of the ML scan (every mode, through the
+    3-slab lane), K6 on the warm pass's label volumes and K2-K4 on its
+    fruit selection, against their plain versions, at the ML path's own
+    shapes."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.fsdb import handoff, io
+    from plant3dvision_tpu_torch.models.checkpoint import load_model
+    from plant3dvision_tpu_torch.models.unet import forward_probs
+    from plant3dvision_tpu_torch.ops import ml_fused, multiclass
+    from plant3dvision_tpu_torch.ops.carving import (_avg_chunk_voxels,
+                                                     camera_from_metadata)
+
+    dev = torch.device("cuda")
+    rows = []
+    model, config = load_model(
+        scan.db.get_scan("models").get_fileset("models").get_files()[0])
+    model = model.to(device=dev, dtype=torch.bfloat16).eval()
+    labels = config["label_names"]
+    C = len(labels)
+    files = scan.get_fileset("images").get_files()[:ML_BATCH]
+    imgs = torch.from_numpy(np.stack([io.read_image(f)[..., :3]
+                                      for f in files])).to(dev)
+    cams = torch.from_numpy(np.stack([camera_from_metadata(
+        f.get_metadata("camera")) for f in files])).to(dev)
+    probs = forward_probs(model, imgs)
+    del imgs
+    valid = torch.ones(len(files), dtype=torch.bool, device=dev)
+    origin, shape = grid_of(scan.get_metadata("bounding_box"), ML_VOXEL)
+    nvox = int(np.prod(shape))
+    slab_nx = min(shape[0], _avg_chunk_voxels() // (C * shape[1] * shape[2]))
+    nx_pad = -(-shape[0] // slab_nx) * slab_nx
+    assert nx_pad // slab_nx == 3, (shape, slab_nx)
+
+    def k5(vol, fn, log_mode, sample):
+        for xs in range(0, nx_pad, slab_nx):
+            fn(vol, probs, cams, valid, origin, ML_VOXEL, xs, slab_nx,
+               log_mode, sample)
+        return vol
+
+    def fresh():
+        return torch.zeros((C, nx_pad, *shape[1:]), device=dev)
+
+    # the data-dependent work: voxel-view pairs, and those in frame
+    in_frame = sum(int(ml_fused.project(cams[b], origin, ML_VOXEL, 0, shape,
+                                        probs.shape[2:])[2].sum())
+                   for b in range(len(files)))
+    pairs = len(files) * nvox
+    modes = {}
+    for mode, log_mode, sample in (("bilinear", False, "bilinear"),
+                                   ("box", False, "box"),
+                                   ("log", True, "bilinear")):
+        got = k5(fresh(), ml_fused.accumulate, log_mode, sample)
+        want = k5(fresh(), ml_fused.accumulate_plain, log_mode, sample)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        err = float(diff.max())
+        rel = float((diff / want.abs().clamp(min=1.0)).max())
+        n_diff = int((got != want).sum())
+        assert rel <= 1e-6, f"accumulate ({mode}) kernel vs plain: {rel}"
+        vol = fresh()
+        ms = cuda_ms(lambda: k5(vol, ml_fused.accumulate, log_mode, sample))
+        plain = cuda_ms(lambda: k5(fresh(), ml_fused.accumulate_plain,
+                                   log_mode, sample), reps=3, warmup=1)
+        lib = cuda_ms(lambda: _library_accumulate(probs, cams, origin,
+                                                  ML_VOXEL, shape, sample),
+                      reps=3, warmup=1)
+        # the function's work, not the kernel's: per voxel-view pair ~30
+        # operations of projection and frame test; per pixel of the batch
+        # one log (log mode) and the 2x2 prefilter (box: 3 adds, 1
+        # multiply); per in-frame pair 16 operations of bilinear weights
+        # and per label 8 (the 4 taps weighted: 1 multiply + 3 fused
+        # multiply-adds at 2 each; the add into the sum), or in box mode 10
+        # of indices and per label 1 (the one tap added)
+        nops = (30 * pairs + (int(log_mode) + 4 * (sample == "box"))
+                * probs.numel()
+                + ((16 + 8 * C) if sample == "bilinear" else (10 + C))
+                * in_frame)
+        # the batch read once, the volume (its shape[0] rows, not the slab
+        # padding) read and written once
+        nbytes = probs.numel() * 4 + 2 * C * nvox * 4 + cams.numel() * 4 \
+            + valid.numel()
+        modes[mode] = kernel_row(
+            "accumulate_labels", launches["accumulate_labels"], err, ms,
+            plain, nbytes, nops, library=lib,
+            extra={"path": "ml", "mode": mode, "max_rel_err": rel,
+                   "n_differ": n_diff, "tolerance_rel": 1e-6, "batch": len(files),
+                   "slabs": nx_pad // slab_nx, "slab_nx": slab_nx,
+                   "voxel_view_pairs": pairs, "in_frame_pairs": in_frame})
+    rows.append(dict(modes["bilinear"], modes={
+        m: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "max_abs_err", "n_differ")}
+        for m, r in modes.items()}))
+    del probs
+
+    # K6 on the warm pass's label volumes (in the handoff cache, else the NPZ)
+    vols = handoff.cache_get(vfile) or io.read_npz(vfile)
+    stack = torch.stack([torch.as_tensor(vols[l]).to(dev, torch.float32)
+                         for l in labels]).contiguous()
+    pc = ML_CONFIG["PointCloud"]
+    bg = labels.index("background")
+    for contrast in (pc["min_contrast"], 10.0):
+        args = (pc["background_prior"], contrast, pc["min_score"], bg,
+                contrast > 1.0)
+        k = multiclass.select_labels(stack, *args)
+        p = multiclass.select_labels_plain(stack, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), f"select kernel != plain (contrast {contrast})"
+    args = (pc["background_prior"], pc["min_contrast"], pc["min_score"], bg,
+            False)
+
+    def k6_library():
+        s = stack.clone()
+        s[bg] *= pc["background_prior"]
+        org = s.clone()
+        org[bg] = -torch.inf
+        res = torch.where(s[bg] > org.amax(0), bg, org.argmax(0))
+        lane = torch.arange(C, device=dev).view(-1, 1, 1, 1)
+        out = (res[None] == lane) & (s > pc["min_score"])
+        out[bg] = False
+        return out
+
+    sel = multiclass.select_labels(stack, *args)
+    assert torch.equal(k6_library(), sel)
+    n = stack[0].numel()
+    rows.append(kernel_row(
+        "multiclass_select", launches["multiclass_select"], 0,
+        cuda_ms(lambda: multiclass.select_labels(stack, *args)),
+        cuda_ms(lambda: multiclass.select_labels_plain(stack, *args)),
+        C * n * 4 + C * n, (2 * C * C + 4 * C) * n,
+        library=cuda_ms(k6_library),
+        extra={"path": "ml", "shape": list(stack.shape),
+               "selected": {l: int(sel[i].sum())
+                            for i, l in enumerate(labels)}}))
+
+    # K2-K4 on one label's selection at the path's grid (fruit: the organ
+    # whose angles are measured)
+    fruit = sel[labels.index("fruit")].to(torch.float32).contiguous()
+    del stack, sel
+    assert int(fruit.sum()) > 0, "no fruit voxel selected"
+    rows += check_vol2pcd_kernels(fruit, pc["level_set_value"], launches,
+                                  "ml")
+    emit({"ml_kernel_checks": {"grid": list(shape), "labels": labels,
+                               "batch": ML_BATCH, "slab_nx": slab_nx}})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -420,6 +755,8 @@ def main():
         scan, vfile, launches = run_main_path(db, name)
         rows = check_kernels(scan, vfile, launches)
         run_real_grid()
+        ml_scan, ml_vfile, ml_launches = run_ml_path(db, name)
+        rows += check_ml_kernels(ml_scan, ml_vfile, ml_launches)
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

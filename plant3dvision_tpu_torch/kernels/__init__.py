@@ -33,6 +33,8 @@ SOURCES = {
     "signed_distance": "edt.cu",
     "gradient_gaussian": "filters.cu",
     "band_compact": "band.cu",
+    "accumulate_labels": "accumulate.cu",
+    "multiclass_select": "select.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -65,6 +67,13 @@ _ARGTYPES = {
     "p3d_band_tiles": [_L],
     # d, gx, gy, gz, n, lo, hi, offsets, idx_out, d_out, g_out, stream
     "p3d_band_scatter": [_P, _P, _P, _P, _L, _F, _F, _P, _P, _P, _P, _P],
+    # vol, probs, cams, valid, B, C, H, W, ox, oy, oz, vs, nx, ny, nz,
+    # x_start, slab_nx, log_mode, box, stream
+    "p3d_accumulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
+                       _I, _I, _I, _I, _I, _I, _I, _P],
+    # stack, out, L, n, bg, prior, min_contrast, min_score, contrast_on,
+    # stream
+    "p3d_select": [_P, _P, _I, _L, _I, _F, _F, _F, _I, _P],
 }
 
 _lock = threading.Lock()

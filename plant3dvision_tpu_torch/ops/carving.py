@@ -22,6 +22,8 @@ import torch
 
 from .. import kernels
 
+EPS = 1e-9
+
 
 def pack_camera(intrinsics, rot, tvec) -> np.ndarray:
     """[fx,fy,cx,cy] + 3x3 rotmat + tvec -> (16,) float32 row."""
@@ -165,3 +167,13 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
         seen |= in_img & hit
     vol = torch.where(killed, -1, torch.where(seen, 1, 0)).to(torch.int8)
     return (vol, tests, mask_bytes) if count_work else vol
+
+
+#: averaging volumes with more voxel-labels than this go through the grid-slab
+#: lane (FusedSegmentationCarving); the JAX package's default and variable
+#: (plant3dvision_tpu/ops/carving.py:_avg_chunk_voxels). The port's kernel
+#: holds no per-view temporaries, so on the card the slabs bound only the
+#: plain version's memory. Override with P3D_AVG_CHUNK_VOXELS.
+def _avg_chunk_voxels() -> int:
+    import os
+    return int(os.environ.get("P3D_AVG_CHUNK_VOXELS", str(24 << 20)))

@@ -280,3 +280,51 @@ def skeleton_from_distance_to_root_clusters(points, root_index, bin_size, k,
     mst = sp.coo_matrix(mst)
     lines = np.stack([mst.row, mst.col], axis=1)
     return centers, lines
+
+
+def dbscan(points, eps, min_samples):
+    """DBSCAN cluster labels of `points` (N, d), equal to
+    `sklearn.cluster.DBSCAN(eps, min_samples=min_samples).fit(points)
+    .labels_` (scikit-learn is not a dependency of the port):
+
+    - a point's neighbourhood is every point at distance <= eps, itself
+      included, and it is a core point when that holds >= min_samples;
+    - core points within eps of each other share a cluster; clusters are
+      numbered in the order of their first core point by index;
+    - a non-core point within eps of a core point is a border point of the
+      first (lowest-numbered) such cluster — the cluster that reaches it
+      first in scikit-learn's expansion, which finishes one cluster before
+      it starts the next; every other point is noise, -1.
+    """
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+    from scipy.spatial import cKDTree
+
+    points = np.asarray(points, dtype=np.float64)
+    n = len(points)
+    labels = np.full(n, -1, dtype=np.int64)
+    if n == 0:
+        return labels
+    pairs = cKDTree(points).query_pairs(float(eps), output_type="ndarray")
+    a, b = pairs[:, 0], pairs[:, 1]
+    counts = 1 + np.bincount(a, minlength=n) + np.bincount(b, minlength=n)
+    core = counts >= int(min_samples)
+    both = core[a] & core[b]
+    g = sp.coo_matrix((np.ones(int(both.sum()), np.int8),
+                       (a[both], b[both])), shape=(n, n))
+    _, comp = connected_components(g, directed=False)
+    # number the clusters by their first core point
+    first = np.full(n, n, dtype=np.int64)
+    np.minimum.at(first, comp[core], np.flatnonzero(core))
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    labels[core] = rank[comp[core]]
+    # border points: the lowest-numbered cluster among their core neighbours
+    border = np.full(n, n, dtype=np.int64)
+    for c, o in ((a, b), (b, a)):
+        m = core[c] & ~core[o]
+        np.minimum.at(border, o[m], labels[c[m]])
+    nb = ~core & (border < n)
+    labels[nb] = border[nb]
+    return labels

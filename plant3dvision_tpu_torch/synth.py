@@ -12,8 +12,8 @@ metadata on a VirtualPlant fileset). Generates:
 - ground-truth 'angles' (radians) / 'internodes' metadata on a
   VirtualPlant fileset, plus measures.json, for evaluation tasks.
 
-Used by the port's tests and chip_smoke.py. (The ML scan generator of the
-JAX package waits for the port's ML slice.)
+Used by the port's tests and chip_smoke.py. (The photo-domain scans of the
+ML path are in synth_photo.py.)
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
 """Pipeline tasks of the port. Importing this package registers every task
 with the port's TaskRegistry — the CLI relies on that.
 
-This slice ports the geometric main path (configs/geom_pipe_fast.toml):
+Ported so far: the geometric main path (configs/geom_pipe_fast.toml),
 ImagesFilesetExists -> FusedCarving -> PointCloud -> CurveSkeleton ->
-RefineSkeleton -> TreeGraph -> AnglesAndInternodes (+ Clean).
+RefineSkeleton -> TreeGraph -> AnglesAndInternodes (+ Clean); and the fused
+ML path, ImagesFilesetExists + ModelFilesetExists ->
+FusedSegmentationCarving -> PointCloud (multiclass) -> OrganSegmentation ->
+AnglesAndInternodes.
 """
 
 # Base/marker/utility tasks come with the runtime:
@@ -18,5 +21,11 @@ from ..runtime.task import (  # noqa: F401
     VirtualPlantObj,
 )
 from .fused import FusedCarving  # noqa: F401
-from .proc3d import PointCloud, CurveSkeleton, RefineSkeleton  # noqa: F401
+from .fused_ml import FusedSegmentationCarving  # noqa: F401
+from .proc3d import (  # noqa: F401
+    CurveSkeleton,
+    OrganSegmentation,
+    PointCloud,
+    RefineSkeleton,
+)
 from .arabidopsis import TreeGraph, AnglesAndInternodes  # noqa: F401

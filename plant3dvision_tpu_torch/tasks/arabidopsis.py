@@ -38,7 +38,7 @@ class AnglesAndInternodes(RomiTask):
     (reference tasks/arabidopsis.py:120-219).
 
     Dispatches on the upstream task family: TreeGraph (geometric pipeline)
-    or ClusteredMesh/OrganSegmentation (ML pipeline, not ported yet).
+    or ClusteredMesh/OrganSegmentation (ML pipeline).
     """
 
     upstream_task = Parameter(default="TreeGraph")
@@ -87,9 +87,35 @@ class AnglesAndInternodes(RomiTask):
         return measures
 
     def measures_from_organ_segmentation(self):
-        """ML pipeline path (upstream ClusteredMesh/OrganSegmentation):
-        ported with the port's ML slice."""
-        raise NotImplementedError(
-            f"AnglesAndInternodes from upstream {self.upstream_task!r} is "
-            "the ML path, which is not ported yet (it comes with the port's "
-            "ML slice); use upstream_task = 'TreeGraph'")
+        """ML pipeline path: angles from a labelled point cloud
+        (reference arabidopsis.py:379-506), by the organ oriented-bbox
+        direction method."""
+        from ..fsdb.geometry import PointCloud as PCD
+        from ..traits.organs import angles_and_internodes_from_point_cloud
+
+        infs = self.input()
+        if isinstance(infs, (list, tuple)):
+            infs = infs[0]
+        fs = infs.get(create=False)
+        stem_pcds, organ_pcds = [], []
+        for f in fs.get_files():
+            obj = io.read_point_cloud(f)
+            # ClusteredMesh upstream yields meshes; use their vertices
+            pcd = obj if hasattr(obj, "points") else PCD(obj.vertices)
+            label = f.get_metadata("label")
+            if label == "stem":
+                stem_pcds.append(pcd)
+            elif label == str(self.organ_type):
+                organ_pcds.append(pcd)
+        if not stem_pcds:
+            raise ValueError("No stem point cloud found in upstream fileset")
+        stem = stem_pcds[0]
+        for extra in stem_pcds[1:]:
+            stem = stem + extra
+        return angles_and_internodes_from_point_cloud(
+            stem, organ_pcds,
+            characteristic_length=float(self.characteristic_length),
+            stem_axis=int(self.stem_axis),
+            stem_axis_inverted=bool(self.stem_axis_inverted),
+            min_elongation_ratio=float(self.min_elongation_ratio),
+            min_fruit_size=float(self.min_fruit_size))

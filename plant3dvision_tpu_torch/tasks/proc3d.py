@@ -1,5 +1,5 @@
-"""3D tasks of the geometric main path: PointCloud (single-class),
-CurveSkeleton (method "graph"), RefineSkeleton
+"""3D tasks: PointCloud (single-class and multiclass), CurveSkeleton
+(method "graph"), OrganSegmentation, RefineSkeleton
 (port of plant3dvision_tpu/tasks/proc3d.py; reference tasks/proc3d.py)."""
 
 from __future__ import annotations
@@ -13,12 +13,24 @@ from .. import proc3d
 
 logger = configure_logger(__name__)
 
+# default label colors (role of reference config.PointCloudColorConfig)
+LABEL_COLORS = {
+    "stem": [0.2, 0.7, 0.2],
+    "fruit": [0.9, 0.4, 0.1],
+    "leaf": [0.1, 0.9, 0.1],
+    "pedicel": [0.6, 0.6, 0.1],
+    "flower": [0.9, 0.1, 0.6],
+    "background": [0.3, 0.3, 0.3],
+}
+
 
 class PointCloud(RomiTask):
     """Volume -> point cloud with normals (reference tasks/proc3d.py:66-136).
 
-    The multiclass (ML) path of the JAX task is ported with the ML slice;
-    its parameters are kept so fileset ids match the JAX package's.
+    Multiclass NPZ: per-label argmax with background prior / contrast /
+    score filters (ops/multiclass.py, the select kernel on the card), one
+    vol2pcd per non-background label while its selection is still on the
+    device, per-label colors, 'labels' metadata.
     """
 
     upstream_task = Parameter(default="Voxels")
@@ -37,20 +49,46 @@ class PointCloud(RomiTask):
         voxels = handoff.cache_get(ifile)
         if voxels is None:
             voxels = io.read_npz(ifile)
-        if len(voxels.keys()) != 1:
-            raise NotImplementedError(
-                "multiclass PointCloud (the ML path) is not ported yet: it "
-                "comes with the port's ML slice")
-        voxels = voxels[list(voxels.keys())[0]]
-
         origin = np.array(ifile.get_metadata("origin"))
         voxel_size = float(ifile.get_metadata("voxel_size"))
-        pcd = proc3d.vol2pcd(voxels, origin, voxel_size,
-                             float(self.level_set_value),
-                             device=self.ctx.device)
+        level = float(self.level_set_value)
+        dev = self.ctx.device
+
+        if len(voxels.keys()) == 1:
+            pcd = proc3d.vol2pcd(voxels[list(voxels.keys())[0]], origin,
+                                 voxel_size, level, device=dev)
+            outfile = self.output_file()
+            io.write_point_cloud(outfile, pcd)
+            outfile.set_metadata({"voxel_size": voxel_size})
+            return
+
+        from ..fsdb.geometry import PointCloud as PCD
+        from ..ops.multiclass import multiclass_select
+
+        labels = list(voxels.keys())
+        selected = multiclass_select(
+            voxels, labels,
+            background_prior=float(self.background_prior),
+            min_contrast=float(self.min_contrast),
+            min_score=float(self.min_score), device=dev)
+        pcd = PCD()
+        point_labels = []
+        for l in labels:
+            if l == "background":
+                continue
+            out = proc3d.vol2pcd(selected[l], origin, voxel_size, level,
+                                 device=dev)
+            if len(out) == 0:
+                continue
+            color = LABEL_COLORS.get(l, np.random.rand(3).tolist())
+            out.colors = np.tile(np.asarray(color), (len(out), 1))
+            pcd = pcd + out
+            point_labels += [l] * len(out)
+
         outfile = self.output_file()
         io.write_point_cloud(outfile, pcd)
-        outfile.set_metadata({"voxel_size": voxel_size})
+        outfile.set_metadata({"labels": point_labels,
+                              "voxel_size": voxel_size})
 
 
 class CurveSkeleton(RomiTask):
@@ -90,6 +128,40 @@ class CurveSkeleton(RomiTask):
         outfile = self.output_file()
         io.write_json(outfile, {"points": centers.tolist(),
                                 "lines": lines.tolist()})
+
+
+class OrganSegmentation(RomiTask):
+    """Split each label's points into organ instances with DBSCAN
+    (reference tasks/proc3d.py:419-521: eps=2.0, min_points=5, stem kept
+    whole); proc3d.dbscan gives scikit-learn's labels."""
+
+    upstream_task = Parameter(default="SegmentedPointCloud")
+    eps = Parameter(default=2.0)
+    min_points = Parameter(default=5)
+
+    def run(self):
+        from ..fsdb.geometry import PointCloud as PCD
+
+        infile = self.input_file()
+        pcd = io.read_point_cloud(infile)
+        labels = np.asarray(infile.get_metadata("labels"))
+        outfs = self.output().get()
+        for label in sorted(set(labels.tolist())):
+            pts = pcd.points[labels == label]
+            if len(pts) == 0:
+                continue
+            if label == "stem":
+                f = outfs.get_file("stem_000", create=True)
+                io.write_point_cloud(f, PCD(pts))
+                f.set_metadata("label", "stem")
+                continue
+            clu = proc3d.dbscan(pts, float(self.eps), int(self.min_points))
+            for organ_id in sorted(set(clu.tolist())):
+                if organ_id < 0:
+                    continue
+                f = outfs.get_file(f"{label}_{organ_id:03d}", create=True)
+                io.write_point_cloud(f, PCD(pts[clu == organ_id]))
+                f.set_metadata("label", label)
 
 
 class RefineSkeleton(RomiTask):

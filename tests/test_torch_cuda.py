@@ -120,3 +120,102 @@ def test_entry_points_default_to_cuda(dev):
     from plant3dvision_tpu_torch.runtime import RunContext
     with TemporaryDB() as db:
         assert RunContext(db, "s").device.type == "cuda"
+
+
+def _label_views(rng, B, C, H, W):
+    from plant3dvision_tpu_torch.camera import pose_to_extrinsics
+    from plant3dvision_tpu_torch.ops.carving import pack_camera
+    cams = np.zeros((B, 16), np.float32)
+    for v in range(B):
+        a = 2 * np.pi * v / B + rng.uniform(0, 0.3)
+        R, t = pose_to_extrinsics([30 * np.cos(a), 30 * np.sin(a),
+                                   rng.uniform(-4, 6)], rng.uniform(-1, 1, 3))
+        cams[v] = pack_camera([40.0, 42.0, W / 2 + 0.3, H / 2 - 0.2], R, t)
+    probs = rng.random((B, C, H, W)).astype(np.float32)
+    probs[:, :, 3:5, 4:9] = 0.0                       # log(EPS) taps
+    return probs, cams
+
+
+@pytest.mark.parametrize("sample", ["bilinear", "box"])
+@pytest.mark.parametrize("log_mode", [False, True])
+@pytest.mark.parametrize("C,shape,hw", [(6, (21, 9, 13), (24, 32)),
+                                        (1, (7, 33, 5), (31, 17)),
+                                        (8, (12, 12, 12), (2, 2))])
+def test_accumulate_kernel_matches_plain(dev, sample, log_mode, C, shape,
+                                         hw):
+    """Every mode, odd sizes, an invalid (padded) view, a non-zero
+    accumulator, whole grid and slab lane (x offsets 0, 3, 6, ...):
+    bit-equal (the same f32 operations in the same order)."""
+    from plant3dvision_tpu_torch.ops import ml_fused
+    rng = np.random.default_rng(C)
+    H, W = hw
+    probs, cams = _label_views(rng, 5, C, H, W)
+    valid = np.array([True, False, True, True, True])
+    origin = np.array([-16.0, -7.0, -9.0], np.float32)
+    vol0 = rng.random((C, *shape)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (probs, cams, valid)]
+    k = ml_fused.accumulate_label_views(torch.from_numpy(vol0).to(dev), *t,
+                                        origin, 1.6, shape, log_mode, sample)
+    p = ml_fused.accumulate_plain(torch.from_numpy(vol0).to(dev), *t, origin,
+                                  1.6, 0, shape[0], log_mode, sample)
+    assert torch.equal(k, p)
+    assert (k != torch.from_numpy(vol0).to(dev)).any()
+    nx_pad = -(-shape[0] // 3) * 3
+    slab = torch.zeros((C, nx_pad, *shape[1:]), device=dev)
+    slab[:, :shape[0]] = torch.from_numpy(vol0).to(dev)
+    for xs in range(0, nx_pad, 3):
+        ml_fused.accumulate_label_views_slab(slab, *t, origin, 1.6, xs, 3,
+                                             log_mode, sample)
+    assert torch.equal(slab[:, :shape[0]], k)
+
+
+def test_accumulate_kernel_refuses_what_it_cannot_take(dev):
+    from plant3dvision_tpu_torch.ops import ml_fused
+    vol = torch.zeros((9, 4, 4, 4), device=dev)
+    probs = torch.zeros((1, 9, 8, 8), device=dev)
+    cams = torch.zeros((1, 16), device=dev)
+    valid = torch.ones(1, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="8 labels"):
+        ml_fused.accumulate(vol, probs, cams, valid, np.zeros(3), 1.0, 0, 4,
+                            False)
+    with pytest.raises(ValueError, match="CUDA"):
+        ml_fused.accumulate(vol[:2], probs[:, :2].cpu(), cams, valid,
+                            np.zeros(3), 1.0, 0, 4, False)
+
+
+@pytest.mark.parametrize("bg", [0, 5, None])
+@pytest.mark.parametrize("contrast_on", [False, True])
+@pytest.mark.parametrize("L", [6, 2, 8])
+def test_select_kernel_matches_plain(dev, bg, contrast_on, L):
+    """Exact ties between organs and between the background and an organ
+    (coarse score values), with and without a background label."""
+    from plant3dvision_tpu_torch.ops import multiclass
+    if bg is not None and bg >= L:
+        bg = L - 1
+    rng = np.random.default_rng(L)
+    s = (rng.integers(0, 5, (L, 17, 19, 23)) / 4.0).astype(np.float32)
+    s *= rng.random(s.shape) < 0.5
+    stack = torch.from_numpy(s).to(dev)
+    args = (1.0 if bg is None else 0.75, 10.0 if contrast_on else 1.0,
+            0.2, bg, contrast_on)
+    k = multiclass.select_labels(stack, *args)
+    p = multiclass.select_labels_plain(stack, *args)
+    assert k.dtype == torch.bool and torch.equal(k, p)
+    assert k.any()
+    if bg is not None:
+        assert not k[bg].any()
+
+
+def test_ml_entry_points_run_on_the_card(dev):
+    """multiclass_select keeps its selections on the card, and vol2pcd
+    takes them from there."""
+    from plant3dvision_tpu_torch.ops.multiclass import multiclass_select
+    from plant3dvision_tpu_torch.proc3d import vol2pcd
+    vols = {l: np.zeros((24, 24, 30), np.float32)
+            for l in ("background", "fruit", "stem")}
+    vols["background"][:] = 1.0
+    vols["fruit"][8:16, 8:16, 6:20] = 1.0
+    sel = multiclass_select(vols, list(vols), 1.0, 1.0, 0.01)
+    assert sel["fruit"].device.type == "cuda" and sel["fruit"].sum() > 0
+    pcd = vol2pcd(sel["fruit"], np.zeros(3), 1.0, 0.2)
+    assert len(pcd) > 100

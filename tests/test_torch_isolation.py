@@ -14,15 +14,20 @@ PORT = ROOT / "plant3dvision_tpu_torch"
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "plant3dvision_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "sklearn",
+                   "plant3dvision_tpu")
 
 
 def test_no_jax_or_jax_package_imports_in_the_port():
-    """AST scan of every module of the port and of chip_smoke.py: no
-    import statement and no importlib string names jax or
-    plant3dvision_tpu."""
+    """AST scan of every module of the port (models/, synth_photo.py and
+    evaluation.py included) and of chip_smoke.py: no import statement and no
+    importlib string names jax, flax, scikit-learn or plant3dvision_tpu."""
     offenders = []
-    for path in sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+    paths = sorted(PORT.rglob("*.py"))
+    for name in ("models/segnet.py", "synth_photo.py", "evaluation.py",
+                 "ops/ml_fused.py", "tasks/fused_ml.py"):
+        assert PORT / name in paths
+    for path in paths + [ROOT / "chip_smoke.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []
@@ -63,7 +68,8 @@ assert (vol == 1).any() and (vol == -1).any()
 assert TaskRegistry.get("AnglesAndInternodes").__module__.startswith(
     "plant3dvision_tpu_torch.")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "plant3dvision_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn",
+                                    "plant3dvision_tpu"))
 assert not bad, bad
 print("ok")
 """
