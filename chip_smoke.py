@@ -29,8 +29,23 @@
    lane) on one real batch of 32 CNN outputs of that scan, K6 (select) on
    the warm pass's label volumes and K2-K4 on its fruit selection, against
    their plain versions, and times them beside a PyTorch library chain
-   computing the same function. Each kernel row names the path (geometric
-   or ml) whose shapes it was measured at and whose launches it counts.
+   computing the same function. Each kernel row names the path (geometric,
+   ml or ml_separate) whose shapes it was measured at and whose launches it
+   counts.
+7. Drives the separate-task ML route (configs/ml_pipe_virtual.toml without
+   its evaluation tasks) on phase 5's scan with the committed ResUNet at
+   full width (896x896): Segmentation2D -> Voxels (averaging, 0.25 mm, 5
+   labels) -> multiclass PointCloud -> SegmentedPointCloud ->
+   OrganSegmentation -> AnglesAndInternodes; one cold pass, two warm passes
+   with Clean between them, one profiled warm pass; then Segmentation2D
+   alone with the reference's binarised masks (threshold 0.01, dilation 1).
+   Checks that K2-K4, K5-avg, K6 and K7 were launched in the warm pass and
+   K8 in the binarised run, that at least 10 angles come out and that their
+   mean error is below 25 degrees.
+8. Holds K5-avg (one label's 126 masks, plain and log'd), K7 (the warm
+   pass's points and 630 masks) and K8 (the pass's 756 masks thresholded at
+   0.01, radius 1 and 3) against their plain versions at that route's
+   shapes, and times them beside a PyTorch library chain.
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -70,6 +85,12 @@ KERNEL_INFO = {
         "plant3dvision_tpu/ops/ml_fused.py:30"),
     "multiclass_select": ("plant3dvision_tpu_torch/kernels/csrc/select.cu",
                           "plant3dvision_tpu/ops/multiclass.py:31"),
+    "average": ("plant3dvision_tpu_torch/kernels/csrc/accumulate.cu",
+                "plant3dvision_tpu/ops/carving.py:99"),
+    "reproject_scores": ("plant3dvision_tpu_torch/kernels/csrc/reproject.cu",
+                         "plant3dvision_tpu/ops/reproject.py:16"),
+    "dilate_disk": ("plant3dvision_tpu_torch/kernels/csrc/dilate.cu",
+                    "plant3dvision_tpu/ops/masks.py:55"),
 }
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
@@ -92,6 +113,13 @@ ML_CONFIG = {
                             "stem_axis_inverted": False},
     "Clean": {"no_confirm": True},
 }
+
+#: the separate-task ML route: configs/ml_pipe_virtual.toml's tasks (its
+#: evaluation and visualisation tasks left out) on phase 5's scan, with the
+#: committed ResUNet named (phase 5 installed TPUSegNet first), phase 5's
+#: 0.25 mm grid and batches of 32
+SEP_TASKS = ("ModelFilesetExists", "Segmentation2D", "Voxels", "PointCloud",
+             "SegmentedPointCloud", "OrganSegmentation")
 
 NORTHSTAR_PLANT = dict(n_fruits=15, divergence_deg=137.5, internode=6.0,
                        stem_radius=2.0, fruit_radius=1.5, fruit_length=35.0,
@@ -734,6 +762,284 @@ def check_ml_kernels(scan, vfile, launches):
     return rows
 
 
+def separate_config(**seg):
+    """The separate route's configuration (SEP_TASKS of ml_pipe_virtual.toml
+    with phase 7's changes); `seg` overrides Segmentation2D settings."""
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+    toml = load_toml(ROOT / "configs" / "ml_pipe_virtual.toml")
+    cfg = {t: dict(toml[t]) for t in SEP_TASKS}
+    cfg["Segmentation2D"].update(model_id="unet_seg", batch_size=ML_BATCH,
+                                 **seg)
+    cfg["Voxels"]["voxel_size"] = ML_VOXEL
+    cfg["AnglesAndInternodes"] = dict(ML_CONFIG["AnglesAndInternodes"])
+    cfg["Clean"] = {"no_confirm": True}
+    return cfg
+
+
+def run_ml_separate_path(db, device_name):
+    """Phase 7: the separate-task ML route through the port's runtime on
+    phase 5's scan, with the committed ResUNet."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.evaluation import align_sequences
+    from plant3dvision_tpu_torch.models.zoo import install_checkpoint
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth_photo import ProceduralArabidopsis
+
+    plant = ProceduralArabidopsis(seed=1)      # phase 5's plant: its GT
+    assert install_checkpoint(db).id == "unet_seg"
+    cfg = separate_config()
+    toml = cfg["Segmentation2D"]
+    assert (toml["Sx"], toml["Sy"], toml["binarize"], toml["dilation"]) == \
+        (ML_SIZE, ML_SIZE, False, 0)
+
+    ctx = RunContext(db, "ml_northstar", cfg, device="cuda")
+    run_task(ctx, "Clean", report=False)
+    t0 = time.perf_counter()
+    run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    warm, report, launches = [], None, None
+    for _ in range(2):
+        run_task(ctx, "Clean", report=False)
+        ctx = RunContext(db, "ml_northstar", cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = run_task(ctx, "AnglesAndInternodes", report=False)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    scan = ctx.scan
+    out = json.loads(scan.get_fileset(report["AnglesAndInternodes"][
+        "fileset"]).get_file("AnglesAndInternodes").read_raw())
+    labels = scan.get_fileset(report["SegmentedPointCloud"][
+        "fileset"]).get_files()[0].get_metadata("labels")
+    organs = [f.id for f in scan.get_fileset(
+        report["OrganSegmentation"]["fileset"]).get_files()]
+    angles = np.asarray(out["angles"], float)
+    dtw = align_sequences(angles.tolist(), out["internodes"],
+                          np.degrees(plant.gt_angles).tolist(),
+                          np.asarray(plant.gt_internodes, float).tolist())
+    err = dtw["mean_angle_error"]
+
+    # the reference's mask settings: Segmentation2D alone, binarised and
+    # dilated (K8's path)
+    bcfg = separate_config(binarize=True, threshold=0.01, dilation=1)
+    bctx = RunContext(db, "ml_northstar", bcfg, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    brep = run_task(bctx, "Segmentation2D", report=False)
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    bin_launches = dict(kernels.LAUNCHES)
+    bfs = scan.get_fileset(brep["Segmentation2D"]["fileset"])
+    assert len(bfs.get_files()) == ML_VIEWS * 6
+    scan.delete_fileset(bfs.id)
+
+    ml = {"device": device_name, "n_views": ML_VIEWS,
+          "image": [ML_SIZE, ML_SIZE], "voxel_mm": ML_VOXEL,
+          "batch": ML_BATCH, "model": "unet_seg", "cold_s": cold_s,
+          "warm_s": warm,
+          "task_s": {k: v["seconds"] for k, v in report.items()},
+          "n_points": {l: labels.count(l) for l in sorted(set(labels))},
+          "n_organs": {l: sum(o.startswith(l + "_") for o in organs)
+                       for l in ("fruit", "stem", "leaf", "pedicel")},
+          "n_angles": int(len(angles)), "n_gt": int(len(plant.gt_angles)),
+          "dtw_normalized_cost": dtw["normalized_cost"],
+          "mean_angle_error_deg": err,
+          "max_memory_allocated_mb": peak_mb,
+          "launches_per_warm_pass": launches,
+          "binarised_segmentation_s": bin_s,
+          "binarised_launches": bin_launches}
+    emit({"ml_separate_path": ml})
+    prof = profile_pass(db, "ml_northstar", cfg)
+    emit({"ml_separate_path_profile": prof})
+    need = ("signed_distance", "gradient_gaussian", "band_compact", "average",
+            "multiclass_select", "reproject_scores")
+    missing = [k for k in need if launches[k] <= 0]
+    assert not missing, f"kernels not launched on the separate route: " \
+        f"{missing}"
+    assert bin_launches["dilate_disk"] > 0, "K8 not launched (binarised run)"
+    assert len(angles) >= 10, f"only {len(angles)} angles"
+    assert err is not None and err < 25.0, f"mean angle error {err} deg"
+    nums = [cold_s, *warm, peak_mb, bin_s, dtw["normalized_cost"], err,
+            prof["device_idle_share"], *angles, *out["internodes"]]
+    assert np.isfinite(nums).all(), "a number of the separate route is " \
+        "not finite"
+    # K8's launches are the binarised run's (the route itself does not
+    # binarise)
+    return scan, report, dict(launches, dilate_disk=bin_launches[
+        "dilate_disk"])
+
+
+def _library_reproject(points, masks, cams, label_idx, L):
+    """One PyTorch chain computing K7's function: every point-file
+    projection at once (matmuls), one gather, one index_add_ into the
+    labels (its sums in another order)."""
+    import torch
+    F, H, W = masks.shape
+    R = cams[:, 4:13].view(F, 3, 3)
+    p = torch.einsum("fij,nj->fni", R, points) + cams[:, None, 13:16]
+    pz = p[..., 2].clamp(min=1e-9)
+    px = (p[..., 0] / pz * cams[:, None, 0] + cams[:, None, 2]).long()
+    py = (p[..., 1] / pz * cams[:, None, 1] + cams[:, None, 3]).long()
+    inside = (p[..., 2] > 0) & (px >= 0) & (px < W) & (py >= 0) & (py < H)
+    lin = py.clamp(0, H - 1) * W + px.clamp(0, W - 1)
+    vals = torch.gather(masks.view(F, -1), 1, lin).float() / 255.0
+    scores = torch.zeros((L, points.shape[0]), device=points.device)
+    scores.index_add_(0, label_idx.long(), torch.where(inside, vals, 0.0))
+    return scores.T
+
+
+def check_separate_kernels(scan, report, launches):
+    """Phase 8: K5-avg, K7 and K8 against their plain versions at the
+    separate route's shapes (the warm pass's masks, grid and points)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.ops import carving, masks as masks_ops
+    from plant3dvision_tpu_torch.ops import reproject
+
+    dev = torch.device("cuda")
+    rows = []
+    fs = scan.get_fileset(report["Segmentation2D"]["fileset"])
+    files = fs.get_files()
+    with ThreadPoolExecutor(8) as ex:
+        stack = np.stack(list(ex.map(io.read_image, files)))   # (756, H, W)
+    channels = [f.get_metadata("channel") for f in files]
+    cams = np.stack([carving.camera_from_metadata(f.get_metadata("camera"))
+                     for f in files])
+    H, W = stack.shape[1:]
+
+    # K5-avg: one label's 126 masks (fruit), / 255 as Backprojection scales
+    # them, and the same masks log'd
+    origin, shape = grid_of(scan.get_metadata("bounding_box"), ML_VOXEL)
+    nvox = int(np.prod(shape))
+    sel = [i for i, c in enumerate(channels) if c == "fruit"]
+    cm = torch.from_numpy(cams[sel]).to(dev)
+    va = torch.ones(len(sel), dtype=torch.bool, device=dev)
+    fm = stack[sel].astype(np.float32) / 255.0
+    in_frame = sum(int(carving.project(cm[v], origin, ML_VOXEL, 0, shape,
+                                       (H, W), grid_fma=False)[2].sum())
+                   for v in range(len(sel)))
+    pairs = len(sel) * nvox
+    modes = {}
+    for mode, m in (("plain", fm), ("log", np.log(carving.EPS + fm))):
+        mt = torch.from_numpy(m).to(dev)
+        args = (mt, cm, va, origin, ML_VOXEL, shape)
+        got = carving.average(*args)
+        want = carving.average_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        assert torch.equal(got, want), f"average ({mode}) kernel != plain"
+        lib = cuda_ms(lambda: _library_accumulate(
+            mt[:, None], cm, origin, ML_VOXEL, shape, "bilinear"), reps=3,
+            warmup=1)
+        # per voxel-view pair ~30 operations of projection and frame test;
+        # per in-frame pair 16 of weights and 8 for the four taps and the
+        # sum; bytes: the masks read once, the volume written once
+        modes[mode] = kernel_row(
+            "average", launches["average"], err,
+            cuda_ms(lambda: carving.average(*args)),
+            cuda_ms(lambda: carving.average_plain(*args), reps=2, warmup=1),
+            mt.numel() * 4 + nvox * 4 + cm.numel() * 4 + len(sel),
+            30 * pairs + 24 * in_frame, library=lib,
+            extra={"path": "ml_separate", "mode": mode, "shape": list(shape),
+                   "views": len(sel), "voxel_view_pairs": pairs,
+                   "in_frame_pairs": in_frame})
+        del mt, got, want
+    rows.append(dict(modes["plain"], modes={
+        m: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "max_abs_err")}
+        for m, r in modes.items()}))
+
+    # K7: the warm pass's points and its 630 organ masks, in fileset order
+    pfile = scan.get_fileset(report["PointCloud"]["fileset"]).get_files()[0]
+    pts = torch.from_numpy(np.asarray(io.read_point_cloud(pfile).points,
+                                      np.float32)).to(dev)
+    organ = [i for i, c in enumerate(channels) if c != "background"]
+    labels = [l for l in fs.get_metadata("label_names") if l != "background"]
+    mk = torch.from_numpy(stack[organ]).to(dev)
+    ck = torch.from_numpy(cams[organ]).to(dev)
+    lk = torch.tensor([labels.index(channels[i]) for i in organ],
+                      dtype=torch.int32, device=dev)
+    L = len(labels)
+    args = (pts, mk, ck, lk, L)
+    got = reproject.score_points_by_masks(*args)
+    want = reproject.score_points_by_masks_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), "reproject kernel != plain"
+    lib_scores = _library_reproject(*args)
+    touched, in_pairs = 0, 0
+    for f in range(len(organ)):
+        lin, inside = reproject.project_points(pts, ck[f], (H, W))
+        touched += int(torch.unique(lin[inside]).numel())
+        in_pairs += int(inside.sum())
+    n = pts.shape[0]
+    # per point-file pair ~32 operations (three dot products, two
+    # divisions and fused multiply-adds, frame test, / 255, the add); bytes:
+    # the points, cameras and labels read once, the distinct mask bytes the
+    # in-frame pairs read, the scores written once
+    rows.append(kernel_row(
+        "reproject_scores", launches["reproject_scores"], 0.0,
+        cuda_ms(lambda: reproject.score_points_by_masks(*args)),
+        cuda_ms(lambda: reproject.score_points_by_masks_plain(*args), reps=3,
+                warmup=1),
+        12 * n + ck.numel() * 4 + lk.numel() * 4 + touched + 4 * n * L,
+        32 * n * len(organ),
+        library=cuda_ms(lambda: _library_reproject(*args), reps=3, warmup=1),
+        extra={"path": "ml_separate", "points": n, "files": len(organ),
+               "labels": L, "in_frame_pairs": in_pairs,
+               "mask_bytes_read": touched, "mask_bytes_held": mk.numel(),
+               "library_max_abs_diff": float((lib_scores - got).abs().max())}))
+    del mk, lib_scores
+
+    # K8: the pass's 756 masks thresholded at 0.01, radius 1 and 3
+    m = torch.from_numpy(stack).to(dev)
+    binm = carving.div_f32(m.float(), 255.0) > float(np.float32(0.01))
+    del m
+    radii = {}
+    for r in (1, 3):
+        got = masks_ops.binary_dilation(binm, r)
+        want = masks_ops.binary_dilation_plain(binm, r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"dilate kernel != plain (radius {r})"
+        offs = masks_ops._disk_offsets(r)
+        fp = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=dev)
+        fp[0, 0, offs[:, 0] + r, offs[:, 1] + r] = 1.0
+
+        def lib():
+            return F.conv2d(binm[:, None].float(), fp, padding=r)[:, 0] > 0
+
+        assert torch.equal(lib(), got), f"conv2d footprint != K8 (r {r})"
+        radii[r] = kernel_row(
+            "dilate_disk", launches["dilate_disk"], 0.0,
+            cuda_ms(lambda: masks_ops.binary_dilation(binm, r)),
+            cuda_ms(lambda: masks_ops.binary_dilation_plain(binm, r)),
+            2 * binm.numel(), len(offs) * binm.numel(),
+            library=cuda_ms(lib, reps=3, warmup=1),
+            extra={"path": "ml_separate", "radius": r,
+                   "launches_counted_in": "binarised Segmentation2D",
+                   "shape": list(binm.shape), "offsets": len(offs),
+                   "true_in": int(binm.sum()), "true_out": int(got.sum())})
+        del got, want
+    rows.append(dict(radii[1], radii={
+        r: {k: x[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by")} for r, x in radii.items()}))
+    emit({"ml_separate_kernel_checks": {
+        "grid": list(shape), "masks": list(stack.shape), "points": n}})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -757,6 +1063,8 @@ def main():
         run_real_grid()
         ml_scan, ml_vfile, ml_launches = run_ml_path(db, name)
         rows += check_ml_kernels(ml_scan, ml_vfile, ml_launches)
+        sep_scan, sep_report, sep_launches = run_ml_separate_path(db, name)
+        rows += check_separate_kernels(sep_scan, sep_report, sep_launches)
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

@@ -27,14 +27,18 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
-#: kernel name -> source file under csrc/
+#: kernel name -> source file under csrc/ (K5-avg, "average", is a mode of
+#: the accumulate kernel: one source, its own launch count)
 SOURCES = {
     "carve": "carve.cu",
     "signed_distance": "edt.cu",
     "gradient_gaussian": "filters.cu",
     "band_compact": "band.cu",
     "accumulate_labels": "accumulate.cu",
+    "average": "accumulate.cu",
     "multiclass_select": "select.cu",
+    "reproject_scores": "reproject.cu",
+    "dilate_disk": "dilate.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -68,12 +72,16 @@ _ARGTYPES = {
     # d, gx, gy, gz, n, lo, hi, offsets, idx_out, d_out, g_out, stream
     "p3d_band_scatter": [_P, _P, _P, _P, _L, _F, _F, _P, _P, _P, _P, _P],
     # vol, probs, cams, valid, B, C, H, W, ox, oy, oz, vs, nx, ny, nz,
-    # x_start, slab_nx, log_mode, box, stream
+    # x_start, slab_nx, log_mode, box, avg, store_x0, stream
     "p3d_accumulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                       _I, _I, _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # stack, out, L, n, bg, prior, min_contrast, min_score, contrast_on,
     # stream
     "p3d_select": [_P, _P, _I, _L, _I, _F, _F, _F, _I, _P],
+    # points, masks, cams, label_idx, N, F, H, W, L, scores, stream
+    "p3d_reproject": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    # in, out, M, H, W, offsets (host int32 pairs), n_off, stream
+    "p3d_dilate": [_P, _P, _L, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -132,10 +140,10 @@ def build() -> Path:
         out_dir.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
         tag = os.getpid()
-        objs = [out_dir / f"{Path(src).stem}.{tag}.o"
-                for src in SOURCES.values()]
+        srcs = sorted(set(SOURCES.values()))
+        objs = [out_dir / f"{Path(src).stem}.{tag}.o" for src in srcs]
         _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
-                  for obj, src in zip(objs, SOURCES.values())])
+                  for obj, src in zip(objs, srcs)])
         tmp = so.with_suffix(f".{tag}.tmp")
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])

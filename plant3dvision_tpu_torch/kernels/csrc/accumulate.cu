@@ -2,7 +2,10 @@
 //
 // Replaces plant3dvision_tpu/ops/ml_fused.py:_accumulate_core, as called by
 // accumulate_label_views (whole grid) and accumulate_label_views_slab (an
-// x-slab of the grid, with the global x offset in the projection).
+// x-slab of the grid, with the global x offset in the projection); and, in
+// its `avg` mode at C = 1 (K5-avg), plant3dvision_tpu/ops/carving.py:average
+// and average_chunked (the Voxels(type="averaging") volume of one label's
+// masks, the x offset of a slab in the projection, the slab stored alone).
 //
 // Per voxel and view of the batch: project the voxel centre (the
 // projection of ops/carving.py:_project), then, if the view is valid and
@@ -24,7 +27,9 @@
 // per launch and then served from L2. The least work is the projection and
 // tap arithmetic of the in-frame voxel-views (operations), just above the
 // bytes (batch read once, volume read and written once); in practice the
-// kernel is bound by the latency of the gathers.
+// kernel is bound by the latency of the gathers. K5-avg is the same at C = 1:
+// one f32 mask plane per view (3.2 MB at 896x896) stays in L2; the 126-view
+// stack of one label (405 MB) is read about once per launch.
 //
 // Design: one thread per voxel of the (slab) grid, flat index in C order (z
 // fastest), so a warp's voxels are neighbours along z and project to
@@ -43,6 +48,12 @@
 //   pz = fma(r8, z, fma(r7, y, r6*x)) + t2     (likewise for the numerators)
 //   px = fma(num/pz, fx, cx)
 //   bilinear value = fma(v11, w11, fma(v10, w10, fma(v00, w00, v01*w01)))
+// In `average` (avg mode; tests/test_torch_seg.py, bit-equal on one view of
+// a 64^3 grid) the x coordinate is unfused, as in the carve, and the value,
+// written g00*(1-fx)*(1-fy) + g01*fx*(1-fy) + g10*(1-fx)*fy + g11*fx*fy, is
+//   fma(g11*fx, fy, fma(g10*gx, fy, fma(g01*fx, gy, (g00*gx)*gy)))
+// with gx = 1-fx, gy = 1-fy; its masks arrive already scaled (and log'd) by
+// the caller, so the kernel runs it with log_mode 0.
 // The library is built with -fmad=false, so nvcc adds no contraction of its
 // own, and the plain version (ops/ml_fused.py) repeats every operation, so
 // kernel and plain version agree to the last bit.
@@ -67,6 +78,12 @@ __device__ __forceinline__ float tap(const float* __restrict__ p,
   return log_mode ? logf(__fadd_rn(kEps, v)) : v;
 }
 
+__device__ __forceinline__ float grid_coord(float o, float vs, int i,
+                                            int avg) {
+  return avg ? __fadd_rn(o, __fmul_rn(vs, (float)i))
+             : __fmaf_rn(vs, (float)i, o);
+}
+
 template <int C>
 __global__ void accumulate_kernel(float* __restrict__ vol,
                                   const float* __restrict__ probs,
@@ -75,7 +92,7 @@ __global__ void accumulate_kernel(float* __restrict__ vol,
                                   int H, int W, float ox, float oy, float oz,
                                   float vs, int nx, int ny, int nz,
                                   int x_start, int slab_nx, int log_mode,
-                                  int box) {
+                                  int box, int avg, int store_x0) {
   const long long n = (long long)slab_nx * ny * nz;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
@@ -83,12 +100,13 @@ __global__ void accumulate_kernel(float* __restrict__ vol,
   const long long r = idx / nz;
   const int j = (int)(r % ny);
   const int gi = x_start + (int)(r / ny);          // global x index
-  const float x = __fmaf_rn(vs, (float)gi, ox);
-  const float y = __fmaf_rn(vs, (float)j, oy);
-  const float z = __fmaf_rn(vs, (float)k, oz);
+  const float x = grid_coord(ox, vs, gi, avg);
+  const float y = grid_coord(oy, vs, j, avg);
+  const float z = grid_coord(oz, vs, k, avg);
 
+  // the volume stores the x rows [store_x0, store_x0 + nx)
   const long long plane = (long long)nx * ny * nz;  // one label's volume
-  const long long off = ((long long)gi * ny + j) * nz + k;
+  const long long off = ((long long)(gi - store_x0) * ny + j) * nz + k;
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = vol[c * plane + off];
@@ -143,9 +161,16 @@ __global__ void accumulate_kernel(float* __restrict__ vol,
         const float v01 = tap(p, i00 + 1, log_mode);
         const float v10 = tap(p, i00 + W, log_mode);
         const float v11 = tap(p, i00 + W + 1, log_mode);
-        const float val = __fmaf_rn(
-            v11, w11,
-            __fmaf_rn(v10, w10, __fmaf_rn(v00, w00, __fmul_rn(v01, w01))));
+        const float val =
+            avg ? __fmaf_rn(
+                      __fmul_rn(v11, fx), fy,
+                      __fmaf_rn(__fmul_rn(v10, gx), fy,
+                                __fmaf_rn(__fmul_rn(v01, fx), gy,
+                                          __fmul_rn(__fmul_rn(v00, gx), gy))))
+                : __fmaf_rn(v11, w11,
+                            __fmaf_rn(v10, w10,
+                                      __fmaf_rn(v00, w00,
+                                                __fmul_rn(v01, w01))));
         acc[c] = __fadd_rn(acc[c], val);
       }
     }
@@ -158,33 +183,36 @@ template <int C>
 cudaError_t launch(void* vol, const void* probs, const void* cams,
                    const void* valid, int B, int H, int W, float ox,
                    float oy, float oz, float vs, int nx, int ny, int nz,
-                   int x_start, int slab_nx, int log_mode, int box,
-                   cudaStream_t stream) {
+                   int x_start, int slab_nx, int log_mode, int box, int avg,
+                   int store_x0, cudaStream_t stream) {
   const long long n = (long long)slab_nx * ny * nz;
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
   accumulate_kernel<C><<<(unsigned)blocks, threads, 0, stream>>>(
       (float*)vol, (const float*)probs, (const float*)cams,
       (const uint8_t*)valid, B, H, W, ox, oy, oz, vs, nx, ny, nz, x_start,
-      slab_nx, log_mode, box);
+      slab_nx, log_mode, box, avg, store_x0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// vol (C, nx, ny, nz) f32 is updated in place on x rows
-// [x_start, x_start + slab_nx); probs (B, C, H, W) f32; cams (B, 16) f32;
-// valid (B,) uint8. C is 1..8.
+// vol (C, nx, ny, nz) f32 holds the x rows [store_x0, store_x0 + nx) of
+// the grid and is updated in place on the global x rows [x_start, x_start +
+// slab_nx); probs (B, C, H, W) f32; cams (B, 16) f32; valid (B,) uint8.
+// C is 1..8; avg selects average's coordinates and bilinear association.
 extern "C" int p3d_accumulate(void* vol, const void* probs, const void* cams,
                               const void* valid, int B, int C, int H, int W,
                               float ox, float oy, float oz, float vs, int nx,
                               int ny, int nz, int x_start, int slab_nx,
-                              int log_mode, int box, void* stream) {
+                              int log_mode, int box, int avg, int store_x0,
+                              void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-#define P3D_ACC(NC)                                                         \
-  case NC:                                                                  \
-    return (int)launch<NC>(vol, probs, cams, valid, B, H, W, ox, oy, oz, vs, \
-                           nx, ny, nz, x_start, slab_nx, log_mode, box, s);
+#define P3D_ACC(NC)                                                          \
+  case NC:                                                                   \
+    return (int)launch<NC>(vol, probs, cams, valid, B, H, W, ox, oy, oz, vs,  \
+                           nx, ny, nz, x_start, slab_nx, log_mode, box, avg, \
+                           store_x0, s);
   switch (C) {
     P3D_ACC(1)
     P3D_ACC(2)

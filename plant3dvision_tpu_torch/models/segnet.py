@@ -31,7 +31,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .unet import SEGMENTATION_LABELS
+#: plant3dvision_tpu/models/unet.py:SEGMENTATION_LABELS (models/unet.py
+#: exports it too; it lives here so that unet.py can build on this module)
+SEGMENTATION_LABELS = ["background", "flower", "fruit", "leaf", "pedicel", "stem"]
 
 
 def _same_pads(size, k, s):

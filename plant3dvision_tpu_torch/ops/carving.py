@@ -13,6 +13,12 @@ Masks arrive bit-packed, (V, ceil(HW/8)) uint8 rows of `np.packbits`
 (MSB first), as FusedCarving builds them. `carve` dispatches on the
 tensors' device: CUDA goes to the hand-written kernel
 (kernels/csrc/carve.cu), CPU to `carve_plain`.
+
+`average` (and its grid-slab lane `average_chunked`) accumulates one
+label's bilinearly sampled mask values over the in-frustum views: on CUDA
+the accumulate kernel's `avg` mode at C = 1 (K5-avg,
+kernels/csrc/accumulate.cu), on the CPU `average_plain`. `Backprojection`
+is the reference's cl.Backprojection surface over both (Voxels).
 """
 
 from __future__ import annotations
@@ -114,9 +120,43 @@ def fma_f32(a, b, c):
     return s.float()
 
 
+def div_f32(x, d: float):
+    """x / d, correctly rounded on every device: PyTorch's CUDA division by
+    a Python scalar multiplies by the scalar's reciprocal (another rounding),
+    so the divisor goes in as a tensor on x's device."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def _dot3_add(a, b, c, x, y, z, t):
     """((a*x + b*y) + c*z) + t as XLA compiles it (see carve.cu)."""
     return fma_f32(c, z, fma_f32(b, y, a * x)) + t
+
+
+def project(cam, origin, voxel_size, x_start, shape, hw, grid_fma=True):
+    """(px, py, in_img) of the voxel centres of the x rows [x_start,
+    x_start + shape[0]) of a grid, for one packed camera row, in the f32
+    operations of the JAX programs as XLA compiles them on the CPU: the
+    grid coordinate is fma(vs, i, origin) in ml_fused's accumulate
+    (`grid_fma`) and origin + vs*i in `average` (see
+    kernels/csrc/accumulate.cu); the dot products and pixels as carve.cu."""
+    H, W = hw
+    dev = cam.device
+    f32 = torch.float32
+    o = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
+    vs = torch.tensor(np.float32(voxel_size), device=dev)
+    ax = []
+    for a, (n, off) in enumerate(zip(shape, (x_start, 0, 0))):
+        i = torch.arange(off, off + n, dtype=f32, device=dev)
+        g = fma_f32(vs, i, o[a]) if grid_fma else o[a] + vs * i
+        ax.append(g.view([-1 if b == a else 1 for b in range(3)]))
+    x, y, z = ax
+    c = cam
+    pz = _dot3_add(c[10], c[11], c[12], x, y, z, c[15])
+    px = fma_f32(_dot3_add(c[4], c[5], c[6], x, y, z, c[13]) / pz, c[0], c[2])
+    py = fma_f32(_dot3_add(c[7], c[8], c[9], x, y, z, c[14]) / pz, c[1], c[3])
+    # trunc(p) in [0, W-1]  <=>  -1 < p < W  (for non-NaN p)
+    in_img = (pz > 0) & (px > -1) & (px < W) & (py > -1) & (py < H)
+    return px, py, in_img
 
 
 def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
@@ -177,3 +217,232 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
 def _avg_chunk_voxels() -> int:
     import os
     return int(os.environ.get("P3D_AVG_CHUNK_VOXELS", str(24 << 20)))
+
+
+def _check_average_args(masks, cameras, valid, shape):
+    if masks.dtype != torch.float32 or masks.ndim != 3:
+        raise ValueError("masks must be (V, H, W) float32")
+    V, H, W = masks.shape
+    if H < 2 or W < 2:
+        raise ValueError(f"masks must be at least 2x2, got {H}x{W}")
+    if cameras.dtype != torch.float32 or tuple(cameras.shape) != (V, 16):
+        raise ValueError("cameras must be (V, 16) float32")
+    if valid.dtype != torch.bool or tuple(valid.shape) != (V,):
+        raise ValueError("valid must be (V,) bool")
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"bad grid shape {shape}")
+
+
+def average(masks, cameras, valid, origin, voxel_size, shape, x_off=0):
+    """Accumulate bilinearly sampled mask values over all in-frustum views
+    (plant3dvision_tpu/ops/carving.py:average).
+
+    masks (V, H, W) float32 (already scaled, and log-transformed by the
+    caller in the reference's 'log' mode), cameras (V, 16) float32, valid
+    (V,) bool, all on one device; origin (3,), voxel_size float, shape
+    (nx, ny, nz). `x_off` shifts the x index by a global voxel index (a
+    slab of a larger grid, `average_chunked`). Returns the float32 `shape`
+    volume on that device."""
+    shape = tuple(int(s) for s in shape)
+    _check_average_args(masks, cameras, valid, shape)
+    if masks.device.type == "cpu":
+        return average_plain(masks, cameras, valid, origin, voxel_size,
+                             shape, x_off)
+    kernels.require_cuda("average", masks, cameras, valid)
+    V, H, W = masks.shape
+    nx, ny, nz = shape
+    o = np.asarray(origin, np.float32)
+    vol = torch.zeros(shape, dtype=torch.float32, device=masks.device)
+    valid_u8 = valid.to(torch.uint8)
+    rc = kernels.lib().p3d_accumulate(
+        vol.data_ptr(), masks.data_ptr(), cameras.data_ptr(),
+        valid_u8.data_ptr(), V, 1, H, W, float(o[0]), float(o[1]),
+        float(o[2]), float(np.float32(voxel_size)), nx, ny, nz, int(x_off),
+        nx, 0, 0, 1, int(x_off), kernels.stream_ptr(masks.device))
+    kernels.LAUNCHES["average"] += 1
+    kernels.check("average", rc)
+    return vol
+
+
+def average_plain(masks, cameras, valid, origin, voxel_size, shape, x_off=0):
+    """Plain PyTorch version of K5-avg: `average`'s f32 operations in its
+    order (the value g00*(1-fx)*(1-fy) + g01*fx*(1-fy) + g10*(1-fx)*fy +
+    g11*fx*fy with XLA's fused multiply-adds, accumulate.cu), one view at a
+    time over the grid."""
+    V, H, W = masks.shape
+    acc = torch.zeros(shape, dtype=torch.float32, device=masks.device)
+    flat = masks.reshape(V, H * W)
+    for v in range(V):
+        if not bool(valid[v]):
+            continue
+        px, py, in_img = project(cameras[v], origin, voxel_size, x_off, shape,
+                                 (H, W), grid_fma=False)
+        fx0 = torch.nan_to_num(torch.floor(px).clamp(0, W - 2))
+        fy0 = torch.nan_to_num(torch.floor(py).clamp(0, H - 2))
+        fx = (px - fx0).clamp(0.0, 1.0)
+        fy = (py - fy0).clamp(0.0, 1.0)
+        gx, gy = 1 - fx, 1 - fy
+        i00 = fy0.long() * W + fx0.long()
+
+        def g(i):
+            return flat[v][i.reshape(-1)].reshape(i.shape)
+
+        val = fma_f32(g(i00 + W + 1) * fx, fy,
+                      fma_f32(g(i00 + W) * gx, fy,
+                              fma_f32(g(i00 + 1) * fx, gy,
+                                      (g(i00) * gx) * gy)))
+        acc += torch.where(in_img, val, 0.0)
+    return acc
+
+
+def average_chunked(masks, cameras, valid, origin, voxel_size, shape,
+                    max_slab_voxels=16 << 20):
+    """Grid-slab `average` (plant3dvision_tpu/ops/carving.py:
+    average_chunked): the x axis in equal slabs of at most
+    `max_slab_voxels` voxels, each projected with its global x offset and
+    cropped into the `shape` volume. On the card the kernel holds no
+    per-view temporaries, so the slabs bound only the plain version's
+    memory; the rule is the JAX package's."""
+    nx, ny, nz = (int(s) for s in shape)
+    per_x = ny * nz
+    sx = max(1, max(int(max_slab_voxels), per_x) // per_x)
+    sx = min(sx, nx)
+    out = torch.empty((nx, ny, nz), dtype=torch.float32, device=masks.device)
+    for xs in range(0, nx, sx):
+        vol = average(masks, cameras, valid, origin, voxel_size,
+                      (sx, ny, nz), x_off=xs)
+        take = min(sx, nx - xs)
+        out[xs:xs + take] = vol[:take]
+    return out
+
+
+class Backprojection:
+    """The reference's cl.Backprojection surface (cl.py:118) over the
+    port's kernels (port of plant3dvision_tpu/ops/carving.py:
+    Backprojection): `type="carving"` carves every flush with K1 and merges
+    flushes (killed in any, else seen in any); `type="averaging"` sums the
+    views' sampled mask values (uint8 masks / 255, log(EPS + m) in `log`
+    mode, in numpy float32 as the JAX package) with K5-avg, through the
+    grid-slab lane above `_avg_chunk_voxels()` voxels. The JAX package
+    sends two-valued masks to its tile engine (ops/averaging_tiled.py),
+    which computes the same function; here they take the same call.
+
+    `engine` ("auto" or "sharded", the JAX package's multi-chip lane) runs
+    on the one device. Values are tensors on `device`."""
+
+    def __init__(self, shape, origin, voxel_size, type="carving",
+                 default_value=0, labels=None, log=False,
+                 kill_tolerance=0, engine="auto", device="cpu"):
+        self.shape = tuple(int(s) for s in shape)
+        self.origin = np.asarray(origin, dtype=np.float32)
+        self.voxel_size = float(voxel_size)
+        self.type = type
+        self.default_value = default_value
+        self.labels = labels
+        self.log = log
+        self.kill_tolerance = int(kill_tolerance)
+        self.device = torch.device(device)
+        if type not in ("carving", "averaging"):
+            raise ValueError(
+                f"Unknown kernel type {type}, valid values are 'averaging' or 'carving'!")
+        if type == "carving" and self.kill_tolerance > 0:
+            raise NotImplementedError(
+                "Backprojection kill_tolerance > 0 (the vote carve "
+                "carve_tolerant/count_kills) is not ported yet: ROADMAP "
+                "Queue B item 13")
+        self.dtype = torch.int32 if type == "carving" else torch.float32
+        self._pending_masks = []
+        self._pending_cams = []
+        self._values = None
+
+    def process_view(self, intrinsics, rot, tvec, mask):
+        self._pending_masks.append(np.asarray(mask))
+        self._pending_cams.append(pack_camera(intrinsics, rot, tvec))
+
+    def _flush(self):
+        if not self._pending_masks:
+            if self._values is None:
+                self._values = torch.full(self.shape, self.default_value,
+                                          dtype=self.dtype, device=self.device)
+            return
+        masks = np.stack(self._pending_masks)
+        dev = self.device
+        cams = torch.from_numpy(np.stack(self._pending_cams)).to(dev)
+        valid = torch.ones(len(masks), dtype=torch.bool, device=dev)
+        if self.type == "carving":
+            packed = torch.from_numpy(pack_masks(masks)).to(dev)
+            vol = carve(packed, cams, valid, self.origin, self.voxel_size,
+                        self.shape, masks.shape[1:]).to(torch.int32)
+            if self._values is not None:
+                prev = self._values
+                killed = (prev == -1) | (vol == -1)
+                seen = (prev == 1) | (vol == 1)
+                vol = torch.where(killed, -1, torch.where(seen, 1, 0)).to(
+                    torch.int32)
+        else:
+            fmasks = masks.astype(np.float32)
+            if masks.dtype == np.uint8:
+                fmasks = fmasks / 255.0
+            if self.log:
+                fmasks = np.log(EPS + fmasks)
+            fm = torch.from_numpy(fmasks).to(dev)
+            if int(np.prod(self.shape)) > _avg_chunk_voxels():
+                vol = average_chunked(fm, cams, valid, self.origin,
+                                      self.voxel_size, self.shape)
+            else:
+                vol = average(fm, cams, valid, self.origin, self.voxel_size,
+                              self.shape)
+            if self._values is not None:
+                vol = self._values + vol
+        self._values = vol
+        self._pending_masks = []
+        self._pending_cams = []
+
+    def get_values(self):
+        self._flush()
+        return self._values.reshape(self.shape)
+
+    def clear(self):
+        self._pending_masks = []
+        self._pending_cams = []
+        self._values = None
+
+    def process_fileset(self, fs, camera_metadata, invert=False):
+        """One volume ((L, *shape) float32 with `labels`: one label's masks
+        each, selected by their 'channel' metadata)."""
+        files = fs.get_files() if hasattr(fs, "get_files") else list(fs)
+        if self.labels is not None:
+            result = torch.zeros((len(self.labels), *self.shape),
+                                 dtype=torch.float32, device=self.device)
+            for i, label in enumerate(self.labels):
+                self.clear()
+                result[i] = self.process_label(files, camera_metadata, label,
+                                               invert)
+            return result
+        return self.process_label(files, camera_metadata, None, invert=invert)
+
+    def process_label(self, files, camera_metadata, label=None, invert=False):
+        from concurrent.futures import ThreadPoolExecutor
+        from ..fsdb import io
+
+        selected = []
+        for fi in files:
+            if label is not None and fi.get_metadata("channel") != label:
+                continue
+            cam = fi.get_metadata(camera_metadata, default=None)
+            if cam is None:
+                continue
+            selected.append((fi, cam))
+
+        def _load(item):
+            fi, cam = item
+            mask = io.read_image(fi)
+            if invert:
+                mask = np.invert(mask)
+            return camera_from_metadata(cam), mask
+
+        # PNG decode dominates mask ingestion: load in parallel
+        with ThreadPoolExecutor(max_workers=8) as ex:
+            for c, mask in ex.map(_load, selected):
+                self.process_view(c[0:4], c[4:13], c[13:16], mask)
+        return self.get_values()

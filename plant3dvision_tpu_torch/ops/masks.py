@@ -1,14 +1,19 @@
-"""2D mask computation on the host (numpy): vegetation filter, threshold,
-exact-disk dilation.
+"""2D mask computation: vegetation filter, threshold, exact-disk dilation.
 
-The part of plant3dvision_tpu/ops/masks.py that FusedCarving uses
-(`compute_mask_numpy`, `_dilate_np`, `_disk_offsets`). The device mask path
-of the JAX package waits for the port's image front-end slice.
+Port of plant3dvision_tpu/ops/masks.py: the host path that FusedCarving and
+Masks use (`compute_mask_numpy`, `_dilate_np`, `_disk_offsets`), and
+`binary_dilation`, which Segmentation2D runs on its thresholded masks: on
+CUDA the hand-written dilate kernel (kernels/csrc/dilate.cu), on the CPU
+`binary_dilation_plain`. The device filter + threshold (`compute_mask`)
+waits for the port's image front-end slice.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .. import kernels
 
 
 def _disk_offsets(radius: int) -> np.ndarray:
@@ -17,6 +22,45 @@ def _disk_offsets(radius: int) -> np.ndarray:
     dy, dx = np.mgrid[-r: r + 1, -r: r + 1]
     keep = dy ** 2 + dx ** 2 <= r ** 2
     return np.stack([dy[keep], dx[keep]], axis=1)
+
+
+def binary_dilation(mask, radius: int):
+    """Binary dilation of a (..., H, W) bool tensor with the exact Euclidean
+    disk of `radius` (`_disk_offsets`): a pixel is true when any in-frame
+    pixel of the disk around it is; pixels outside the frame count as
+    false. radius <= 0 returns `mask` as it is (as the JAX package does)."""
+    if radius <= 0:
+        return mask
+    if mask.dtype != torch.bool or mask.ndim < 2:
+        raise ValueError("mask must be a (..., H, W) bool tensor")
+    if mask.device.type == "cpu":
+        return binary_dilation_plain(mask, radius)
+    kernels.require_cuda("dilate_disk", mask)
+    H, W = mask.shape[-2:]
+    offsets = np.ascontiguousarray(_disk_offsets(radius), dtype=np.int32)
+    out = torch.empty_like(mask)
+    rc = kernels.lib().p3d_dilate(
+        mask.data_ptr(), out.data_ptr(), mask.numel() // (H * W), H, W,
+        offsets.ctypes.data, len(offsets), kernels.stream_ptr(mask.device))
+    kernels.LAUNCHES["dilate_disk"] += 1
+    kernels.check("dilate_disk", rc)
+    return out
+
+
+def binary_dilation_plain(mask, radius: int):
+    """Plain PyTorch version of the dilate kernel: the OR of the mask
+    shifted by every offset of the disk, the shifted-in rows and columns
+    false."""
+    H, W = mask.shape[-2:]
+    out = mask.clone()
+    for dy, dx in _disk_offsets(radius):
+        dy, dx = int(dy), int(dx)
+        if abs(dy) >= H or abs(dx) >= W:
+            continue
+        # out[y, x] |= mask[y - dy, x - dx]
+        out[..., max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] |= \
+            mask[..., max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)]
+    return out
 
 
 def compute_mask_numpy(image, filter_type="linear", coefs=(0.0, 1.0, 0.0),

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .carving import EPS, _dot3_add, fma_f32
+from .carving import EPS, fma_f32, project
 
 SAMPLES = ("bilinear", "box")
 
@@ -74,35 +74,10 @@ def accumulate(vol, probs, cams, valid, origin, voxel_size, x_start,
         valid_u8.data_ptr(), B, C, H, W, float(o[0]), float(o[1]),
         float(o[2]), float(np.float32(voxel_size)), nx, ny, nz,
         int(x_start), int(slab_nx), int(bool(log_mode)),
-        int(sample == "box"), kernels.stream_ptr(vol.device))
+        int(sample == "box"), 0, 0, kernels.stream_ptr(vol.device))
     kernels.LAUNCHES["accumulate_labels"] += 1
     kernels.check("accumulate_labels", rc)
     return vol
-
-
-def project(cam, origin, voxel_size, x_start, shape, hw):
-    """(px, py, in_img) of the voxel centres of the x rows [x_start,
-    x_start + shape[0]) of a grid, for one packed camera row, in the f32
-    operations of the JAX program as XLA compiles it on the CPU (fused
-    multiply-adds where it fuses them; see kernels/csrc/accumulate.cu)."""
-    H, W = hw
-    dev = cam.device
-    f32 = torch.float32
-    o = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
-    vs = torch.tensor(np.float32(voxel_size), device=dev)
-    ax = []
-    for a, (n, off) in enumerate(zip(shape, (x_start, 0, 0))):
-        i = torch.arange(off, off + n, dtype=f32, device=dev)
-        ax.append(fma_f32(vs, i, o[a]).view([-1 if b == a else 1
-                                             for b in range(3)]))
-    x, y, z = ax
-    c = cam
-    pz = _dot3_add(c[10], c[11], c[12], x, y, z, c[15])
-    px = fma_f32(_dot3_add(c[4], c[5], c[6], x, y, z, c[13]) / pz, c[0], c[2])
-    py = fma_f32(_dot3_add(c[7], c[8], c[9], x, y, z, c[14]) / pz, c[1], c[3])
-    # trunc(p) in [0, W-1]  <=>  -1 < p < W  (for non-NaN p)
-    in_img = (pz > 0) & (px > -1) & (px < W) & (py > -1) & (py < H)
-    return px, py, in_img
 
 
 def accumulate_plain(vol, probs, cams, valid, origin, voxel_size, x_start,

@@ -6,7 +6,10 @@ ImagesFilesetExists -> FusedCarving -> PointCloud -> CurveSkeleton ->
 RefineSkeleton -> TreeGraph -> AnglesAndInternodes (+ Clean); and the fused
 ML path, ImagesFilesetExists + ModelFilesetExists ->
 FusedSegmentationCarving -> PointCloud (multiclass) -> OrganSegmentation ->
-AnglesAndInternodes.
+AnglesAndInternodes; and the separate-task ML route
+(configs/ml_pipe_virtual.toml), Segmentation2D -> Voxels (averaging) ->
+PointCloud (multiclass) -> SegmentedPointCloud -> OrganSegmentation ->
+AnglesAndInternodes (+ Masks, and Voxels in carving mode).
 """
 
 # Base/marker/utility tasks come with the runtime:
@@ -20,12 +23,15 @@ from ..runtime.task import (  # noqa: F401
     NamedFilesetExists,
     VirtualPlantObj,
 )
+from .cl import Voxels  # noqa: F401
 from .fused import FusedCarving  # noqa: F401
 from .fused_ml import FusedSegmentationCarving  # noqa: F401
+from .proc2d import Masks, Segmentation2D  # noqa: F401
 from .proc3d import (  # noqa: F401
     CurveSkeleton,
     OrganSegmentation,
     PointCloud,
     RefineSkeleton,
+    SegmentedPointCloud,
 )
 from .arabidopsis import TreeGraph, AnglesAndInternodes  # noqa: F401

@@ -1,5 +1,5 @@
 """3D tasks: PointCloud (single-class and multiclass), CurveSkeleton
-(method "graph"), OrganSegmentation, RefineSkeleton
+(method "graph"), SegmentedPointCloud, OrganSegmentation, RefineSkeleton
 (port of plant3dvision_tpu/tasks/proc3d.py; reference tasks/proc3d.py)."""
 
 from __future__ import annotations
@@ -128,6 +128,75 @@ class CurveSkeleton(RomiTask):
         outfile = self.output_file()
         io.write_json(outfile, {"points": centers.tolist(),
                                 "lines": lines.tolist()})
+
+
+class SegmentedPointCloud(RomiTask):
+    """Label an existing point cloud by reprojecting it into the 2D label
+    masks (reference tasks/proc3d.py:185-253): per point, the sum over mask
+    files of the mask value at its projection, per label (ops/reproject.py,
+    the reproject kernel on the card), then the first label of maximum
+    score."""
+
+    upstream_task = Parameter(default="PointCloud")
+    upstream_segmentation = Parameter(default="Segmentation2D")
+    use_colmap_poses = Parameter(default=True)
+
+    def requires(self):
+        return {"pcd": self._upstream(),
+                "masks": self.ctx.get_task(self.upstream_segmentation)}
+
+    def run(self):
+        from concurrent.futures import ThreadPoolExecutor
+
+        import torch
+
+        from ..ops.carving import camera_from_metadata
+        from ..ops.reproject import score_points_by_masks
+        from ..runtime.task import paused_gc
+
+        dev = self.ctx.device
+        pcd_fs = self.input()["pcd"].get(create=False)
+        pcd = io.read_point_cloud(pcd_fs.get_files()[0])
+        masks_fs = self.input()["masks"].get(create=False)
+        labels = masks_fs.get_metadata("label_names")
+        labels = [l for l in labels if l != "background"]
+
+        cam_key = "colmap_camera" if bool(self.use_colmap_poses) else "camera"
+        selected = []          # (file, camera, label index), fileset order
+        for f in masks_fs.get_files():
+            ch = f.get_metadata("channel")
+            if ch not in labels:
+                continue
+            cam = f.get_metadata(cam_key) or f.get_metadata("camera")
+            if cam is None:
+                continue
+            selected.append((f, camera_from_metadata(cam), labels.index(ch)))
+        if not selected:
+            raise ValueError("No labelled masks with camera metadata found")
+
+        with paused_gc(), ThreadPoolExecutor(max_workers=8) as ex:
+            masks = np.stack(list(ex.map(lambda s: io.read_image(s[0]),
+                                         selected)))
+        scores = score_points_by_masks(
+            torch.from_numpy(np.asarray(pcd.points, np.float32)).to(dev),
+            torch.from_numpy(masks).to(dev),
+            torch.from_numpy(np.stack([s[1] for s in selected])).to(dev),
+            torch.tensor([s[2] for s in selected], dtype=torch.int32,
+                         device=dev),
+            len(labels)).cpu().numpy()
+        winner = np.argmax(scores, axis=1)
+        point_labels = [labels[i] for i in winner]
+
+        colors = np.zeros((len(pcd), 3))
+        for i, l in enumerate(labels):
+            colors[winner == i] = LABEL_COLORS.get(l, [0.5, 0.5, 0.5])
+        pcd.colors = colors
+        outfile = self.output_file()
+        io.write_point_cloud(outfile, pcd)
+        outfile.set_metadata({"labels": point_labels})
+        vs = pcd_fs.get_files()[0].get_metadata("voxel_size")
+        if vs is not None:
+            outfile.set_metadata("voxel_size", vs)
 
 
 class OrganSegmentation(RomiTask):

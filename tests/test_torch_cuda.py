@@ -219,3 +219,76 @@ def test_ml_entry_points_run_on_the_card(dev):
     assert sel["fruit"].device.type == "cuda" and sel["fruit"].sum() > 0
     pcd = vol2pcd(sel["fruit"], np.zeros(3), 1.0, 0.2)
     assert len(pcd) > 100
+
+
+# -- the separate-task ML route: K5-avg, K7, K8 --------------------------------
+
+@pytest.mark.parametrize("log_masks", [False, True])
+@pytest.mark.parametrize("shape,hw,x_offs", [((21, 9, 13), (24, 32), (0, 5)),
+                                            ((7, 33, 5), (31, 17), (0, 3)),
+                                            ((12, 12, 12), (2, 2), (0,))])
+def test_average_kernel_matches_plain(dev, log_masks, shape, hw, x_offs):
+    """K5-avg (one label's masks, log'd by the caller or not) at odd sizes,
+    an invalid view, and slabs projected with their global x offsets:
+    bit-equal to its plain version; the slab lane equals the whole grid."""
+    from plant3dvision_tpu_torch.ops import carving
+    rng = np.random.default_rng(len(x_offs))
+    H, W = hw
+    probs, cams = _label_views(rng, 5, 1, H, W)
+    masks = probs[:, 0]
+    if log_masks:
+        masks = np.log(np.float32(1e-9) + masks)
+    valid = np.array([True, False, True, True, True])
+    origin = np.array([-16.0, -7.0, -9.0], np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (masks, cams, valid)]
+    for xo in x_offs:
+        k = carving.average(*t, origin, 1.6, shape, x_off=xo)
+        p = carving.average_plain(*t, origin, 1.6, shape, x_off=xo)
+        assert torch.equal(k, p)
+        assert (k != 0).any()
+    whole = carving.average(*t, origin, 1.6, shape)
+    sx = shape[1] * shape[2] * 2                  # slabs of 2 x-rows
+    assert torch.equal(carving.average_chunked(*t, origin, 1.6, shape,
+                                               max_slab_voxels=sx), whole)
+
+
+@pytest.mark.parametrize("L", [1, 2, 5, 6])
+def test_reproject_kernel_matches_plain(dev, L):
+    """K7 with points out of frame, behind the camera and on it (pz clamped
+    to 1e-9), files of every label in mixed order, a label outside [0, L):
+    bit-equal to its plain version (the same f32 operations and sums in
+    file order)."""
+    from plant3dvision_tpu_torch.ops.reproject import (
+        score_points_by_masks, score_points_by_masks_plain)
+    rng = np.random.default_rng(L)
+    H, W, F = 37, 53, 3 * L + 2
+    _, cams = _label_views(rng, F, 1, H, W)
+    pts = rng.uniform(-12, 12, (4099, 3)).astype(np.float32)
+    pts[:300] *= 5                                # behind some cameras
+    R, tv = cams[0, 4:13].reshape(3, 3), cams[0, 13:16]
+    pts[300] = -R.T @ tv                          # file 0's centre: p = 0
+    masks = rng.integers(0, 256, (F, H, W), dtype=np.uint8)
+    lab = rng.integers(0, L, F).astype(np.int32)
+    lab[-1] = L                                   # adds nothing
+    t = [torch.from_numpy(a).to(dev) for a in (pts, masks, cams, lab)]
+    k = score_points_by_masks(*t, L)
+    p = score_points_by_masks_plain(*t, L)
+    assert k.shape == (4099, L) and torch.equal(k, p)
+    assert (k > 0).any() and (k == 0).any()
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 5])
+def test_dilate_kernel_matches_plain(dev, radius):
+    """K8 at radii 0-5 on sparse masks with set pixels on every frame edge
+    and corner, a 1-pixel-wide stack and an empty mask: equal."""
+    from plant3dvision_tpu_torch.ops.masks import (binary_dilation,
+                                                   binary_dilation_plain)
+    rng = np.random.default_rng(radius)
+    for shape in ((4, 29, 41), (2, 1, 17), (1, 8, 8)):
+        m = rng.random(shape) > 0.97
+        m[0, 0, :] = m[0, -1, 0] = m[0, :, -1] = True
+        m[-1] = False
+        t = torch.from_numpy(m).to(dev)
+        k = binary_dilation(t, radius)
+        p = t if radius == 0 else binary_dilation_plain(t, radius)
+        assert k.dtype == torch.bool and torch.equal(k, p)

@@ -199,17 +199,12 @@ def test_load_model_from_a_jax_saved_checkpoint(temp_db):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-5)
 
 
-def test_model_from_config_refuses_resunet():
-    with pytest.raises(NotImplementedError, match="resunet"):
-        checkpoint.model_from_config({"label_names": ["a", "b"]})
-
-
 def test_install_checkpoint_metadata_matches_jax(temp_db):
     from plant3dvision_tpu.models.zoo import (
         install_checkpoint as jax_install)
     from plant3dvision_tpu.models.zoo import TPUSEGNET_CHECKPOINT as JAX_CKPT
     assert JAX_CKPT == TPUSEGNET_CHECKPOINT
-    f = install_checkpoint(temp_db, model_id="a")
+    f = install_checkpoint(temp_db, path=TPUSEGNET_CHECKPOINT, model_id="a")
     g = jax_install(temp_db, path=JAX_CKPT, model_id="b")
     for key in ("label_names", "model_config"):
         assert f.get_metadata(key) == g.get_metadata(key)
