@@ -46,6 +46,28 @@
    pass's points and 630 masks) and K8 (the pass's 756 masks thresholded at
    0.01, radius 1 and 3) against their plain versions at that route's
    shapes, and times them beside a PyTorch library chain.
+9. Drives the real-scan front end (configs/geom_pipe_real_selfcal.toml's
+   tasks after its TurntableCalibration: Undistorted -> Masks -> Voxels
+   with vote carving (kill_tolerance 3) at 0.5 mm into phase 4's
+   301x301x561 grid -> PointCloud -> CurveSkeleton -> RefineSkeleton ->
+   TreeGraph -> AnglesAndInternodes) on a 60-view 1440x1080 RGB scan of the
+   north-star plant through a lens with OPENCV k1 = -0.08, as
+   TurntableCalibration leaves it (colmap_camera, pose_estimation; two
+   views "incorrect", which Undistorted's query drops): one cold pass, two
+   warm passes with Clean between them, one profiled warm pass; then a
+   control pass with strict carving, undilated masks and the main path's
+   skeleton settings. Checks (after phase 10) that K2-K4 and K8-K11 were
+   launched in the warm pass, that 58 undistorted images and 58 masks were
+   written, that at least 10 angles come out with a mean error
+   (DTW-aligned against the plant's ground truth) below 10 degrees (the
+   config's real-plant settings cost accuracy on this plant), and that the
+   control gives at least 10 angles below 2 degrees.
+10. Holds K9 (the 58 raw images), K10 (linear and excess green, on the 58
+   undistorted images; also against compute_mask_numpy) and K11
+   (count_kills and carve_tolerant at 3, on the 58 masks) against their
+   plain versions at that path's shapes, and times them beside a PyTorch
+   library chain (grid_sample for K9, tensordot + compare for K10; none
+   for K11).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -91,6 +113,12 @@ KERNEL_INFO = {
                          "plant3dvision_tpu/ops/reproject.py:16"),
     "dilate_disk": ("plant3dvision_tpu_torch/kernels/csrc/dilate.cu",
                     "plant3dvision_tpu/ops/masks.py:55"),
+    "undistort": ("plant3dvision_tpu_torch/kernels/csrc/undistort.cu",
+                  "plant3dvision_tpu/ops/undistort.py:64"),
+    "mask_filter": ("plant3dvision_tpu_torch/kernels/csrc/mask.cu",
+                    "plant3dvision_tpu/ops/masks.py:83"),
+    "count_kills": ("plant3dvision_tpu_torch/kernels/csrc/carve.cu",
+                    "plant3dvision_tpu/ops/carving.py:215"),
 }
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
@@ -124,6 +152,137 @@ SEP_TASKS = ("ModelFilesetExists", "Segmentation2D", "Voxels", "PointCloud",
 NORTHSTAR_PLANT = dict(n_fruits=15, divergence_deg=137.5, internode=6.0,
                        stem_radius=2.0, fruit_radius=1.5, fruit_length=35.0,
                        first_node=30.0)
+
+
+#: the real-scan front end (phase 9): configs/geom_pipe_real_selfcal.toml's
+#: tasks after its TurntableCalibration, on a 60-view scan of phase 4's
+#: camera ring with OPENCV k1 lens distortion (about 30 px at the corners)
+FRONTEND_TASKS = ("Undistorted", "Masks", "Voxels", "PointCloud",
+                  "CurveSkeleton", "RefineSkeleton", "TreeGraph",
+                  "AnglesAndInternodes")
+FRONTEND_K1 = -0.08
+FRONTEND_BBOX = {"x": [-75.0, 75.0], "y": [-75.0, 75.0], "z": [-20.0, 260.0]}
+FRONTEND_INCORRECT = (17, 43)
+PLANT_RGB, BACKGROUND_RGB, NOISE_SIGMA = (60, 170, 50), (20, 20, 25), 4.0
+
+
+def frontend_config(voxel_size=0.5, strict=False):
+    """geom_pipe_real_selfcal.toml's tasks after TurntableCalibration, whose
+    output (colmap_camera and pose_estimation metadata) the scan already
+    holds: Undistorted without its upstream_pose (the calibration task),
+    Voxels with upstream_colmap = "ImagesFilesetExists" and phase 4's
+    bounding box, no TriangleMesh.
+
+    strict=True is phase 9's control: the same front end with strict
+    carving (kill_tolerance 0) and undilated masks, and
+    geom_pipe_fast.toml's PointCloud, skeleton, tree and angle settings
+    (the main path's, for synthetic scans), in place of the ones the config
+    tunes for self-calibrated poses of the real_plant fixture."""
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+    toml = load_toml(ROOT / "configs" / "geom_pipe_real_selfcal.toml")
+    cfg = {t: dict(toml[t]) for t in FRONTEND_TASKS}
+    cfg["Undistorted"]["upstream_pose"] = ""
+    cfg["Voxels"].update(upstream_colmap="ImagesFilesetExists",
+                         bounding_box=FRONTEND_BBOX, voxel_size=voxel_size)
+    if strict:
+        fast = load_toml(ROOT / "configs" / "geom_pipe_fast.toml")
+        for t in ("PointCloud", "CurveSkeleton", "RefineSkeleton",
+                  "TreeGraph", "AnglesAndInternodes"):
+            cfg[t] = dict(fast[t], upstream_task=cfg[t]["upstream_task"])
+        cfg["RefineSkeleton"]["upstream_pcd"] = "PointCloud"
+        cfg["Voxels"]["kill_tolerance"] = 0
+        cfg["Masks"]["dilation"] = 0
+    cfg["Clean"] = {"no_confirm": True}
+    return cfg
+
+
+def frontend_angles(scan, report, plant):
+    """(angles, internodes, DTW alignment) of a front-end pass against the
+    plant's ground truth."""
+    import numpy as np
+    from plant3dvision_tpu_torch.evaluation import align_sequences
+    out = json.loads(scan.get_fileset(report["AnglesAndInternodes"][
+        "fileset"]).get_file("AnglesAndInternodes").read_raw())
+    dtw = align_sequences(out["angles"], out["internodes"],
+                          np.degrees(plant.gt_angles).tolist(),
+                          np.asarray(plant.gt_internodes, float).tolist())
+    return np.asarray(out["angles"], float), out["internodes"], dtw
+
+
+def write_distorted_scan(db, scan_id, plant, n_views, width, height, f,
+                         k1=FRONTEND_K1, incorrect=FRONTEND_INCORRECT, seed=0,
+                         render_step=0.5):
+    """A turntable scan of RGB photos through a lens with OPENCV radial
+    distortion k1, as TurntableCalibration leaves it: per image
+    'colmap_camera' (OPENCV [fx, fy, cx, cy, k1, 0, 0, 0], rotmat, tvec)
+    and 'pose_estimation' ("incorrect" for the views in `incorrect`).
+
+    Each view renders the plant's silhouette through the pinhole camera
+    (synth.render_mask), and each distorted pixel samples it (bilinearly) at
+    its undistorted position, found by fixed-point iteration in float64;
+    the plant is coloured PLANT_RGB over BACKGROUND_RGB with seeded noise.
+    Phase 4's camera ring (distance 450, height 120, target (0, 0, 70))."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.synth import render_mask, turntable_cameras
+
+    rng = np.random.default_rng(seed)
+    cams = turntable_cameras(n_views, dist=450.0, z=120.0,
+                             target=(0, 0, 70.0), f=f, width=width,
+                             height=height)
+    K = cams[0][0]
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    v, u = np.mgrid[0:height, 0:width].astype(np.float64)
+    xd, yd = (u - cx) / fx, (v - cy) / fy
+    x, y = xd.copy(), yd.copy()
+    for _ in range(10):                 # x + x*k1*r2 = xd
+        r2 = x * x + y * y
+        x, y = xd - x * k1 * r2, yd - y * k1 * r2
+    su, sv = x * fx + cx, y * fy + cy   # where each photo pixel looks
+    x0 = np.clip(np.floor(su), 0, width - 2).astype(np.int64)
+    y0 = np.clip(np.floor(sv), 0, height - 2).astype(np.int64)
+    wx, wy = np.clip(su - x0, 0, 1), np.clip(sv - y0, 0, 1)
+    inside = (su >= 0) & (su <= width - 1) & (sv >= 0) & (sv <= height - 1)
+    plant_rgb = np.asarray(PLANT_RGB, np.float64)
+    bg_rgb = np.asarray(BACKGROUND_RGB, np.float64)
+
+    scan = db.get_scan(scan_id, create=True)
+    images = scan.get_fileset("images", create=True)
+
+    def photo(view):
+        Kv, R, t = cams[view]
+        a = render_mask(plant, Kv, R, t, width, height,
+                        step=render_step).astype(np.float64) / 255.0
+        alpha = ((a[y0, x0] * (1 - wx) + a[y0, x0 + 1] * wx) * (1 - wy)
+                 + (a[y0 + 1, x0] * (1 - wx) + a[y0 + 1, x0 + 1] * wx) * wy)
+        return np.where(inside, alpha, 0.0)
+
+    def write(view, alpha, noise):
+        Kv, R, t = cams[view]
+        img = bg_rgb + alpha[..., None] * (plant_rgb - bg_rgb) + noise
+        fimg = images.create_file(f"{view:05d}_rgb")
+        io.write_image(fimg, np.clip(np.rint(img), 0, 255).astype(np.uint8),
+                       "png")
+        fimg.set_metadata({
+            "shot_id": f"{view:06d}", "channel": "rgb",
+            "colmap_camera": {
+                "camera_model": {"model": "OPENCV",
+                                 "params": [fx, fy, cx, cy, k1, 0.0, 0.0,
+                                            0.0],
+                                 "width": width, "height": height},
+                "rotmat": np.asarray(R).tolist(),
+                "tvec": np.asarray(t).tolist()},
+            "pose_estimation": ("incorrect" if view in incorrect
+                                else "correct")})
+
+    with scan.deferred_store(), ThreadPoolExecutor(8) as ex:
+        alphas = ex.map(photo, range(n_views))
+        noise = (rng.normal(0.0, NOISE_SIGMA, (height, width, 3))
+                 for _ in range(n_views))
+        list(ex.map(write, range(n_views), alphas, noise))
+    return scan
 
 
 def emit(obj):
@@ -1040,6 +1199,301 @@ def check_separate_kernels(scan, report, launches):
     return rows
 
 
+def run_frontend_path(db, device_name):
+    """Phase 9: the real-scan front end (frontend_config) on a 60-view
+    1440x1080 distorted photo scan of the north-star plant, two views marked
+    "incorrect"; the 0.5 mm grid of phase 4; then the strict control pass
+    (frontend_config(strict=True)) on the same scan. Returns the scan, the
+    warm pass's report and launches, and the checks, which main() asserts
+    after phase 10."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth import SyntheticPlant
+
+    V, W, H = 60, 1440, 1080
+    plant = SyntheticPlant(**NORTHSTAR_PLANT)
+    t0 = time.perf_counter()
+    write_distorted_scan(db, "frontend", plant, V, W, H, 1400.0)
+    gen_s = time.perf_counter() - t0
+    cfg = frontend_config()
+
+    ctx = RunContext(db, "frontend", cfg, device="cuda")
+    t0 = time.perf_counter()
+    run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    warm, report, launches = [], None, None
+    for _ in range(2):
+        run_task(ctx, "Clean", report=False)
+        ctx = RunContext(db, "frontend", cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = run_task(ctx, "AnglesAndInternodes", report=False)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    scan = ctx.scan
+    n_files = {t: len(scan.get_fileset(report[t]["fileset"]).get_files())
+               for t in ("Undistorted", "Masks")}
+    vol = np.load(scan.get_fileset(report["Voxels"]["fileset"])
+                  .get_files()[0].path())["volume"]
+    angles, internodes, dtw = frontend_angles(scan, report, plant)
+    gt = np.degrees(plant.gt_angles)
+    n = min(len(angles), len(gt))
+    pos_err = float(np.abs(angles[:n] - gt[:n]).mean()) if n else None
+    err = dtw["mean_angle_error"]
+    emit({"frontend_path": {
+        "device": device_name, "n_views": V, "image": [W, H],
+        "k1": FRONTEND_K1, "incorrect_views": list(FRONTEND_INCORRECT),
+        "voxel_mm": cfg["Voxels"]["voxel_size"], "shape": list(vol.shape),
+        "kill_tolerance": cfg["Voxels"]["kill_tolerance"],
+        "scan_generation_s": gen_s, "cold_s": cold_s, "warm_s": warm,
+        "task_s": {k: v["seconds"] for k, v in report.items()},
+        "files_written": n_files,
+        "voxels": {"alive": int((vol == 1).sum()),
+                   "killed": int((vol == -1).sum())},
+        "n_angles": int(len(angles)), "n_gt": int(len(gt)),
+        "angles": angles.tolist(),
+        "mean_angle_error_deg": err, "positional_mean_error_deg": pos_err,
+        "dtw_normalized_cost": dtw["normalized_cost"],
+        "max_memory_allocated_mb": peak_mb,
+        "launches_per_warm_pass": launches}})
+    prof = profile_pass(db, "frontend", cfg)
+    emit({"frontend_path_profile": prof})
+
+    # the control: the profiled pass's Undistorted output is reused
+    strict = frontend_config(strict=True)
+    t0 = time.perf_counter()
+    srep = run_task(RunContext(db, "frontend", strict, device="cuda"),
+                    "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    s_s = time.perf_counter() - t0
+    s_angles, _, s_dtw = frontend_angles(scan, srep, plant)
+    s_err = s_dtw["mean_angle_error"]
+    emit({"frontend_strict_control": {
+        "settings": {"Voxels.kill_tolerance": 0, "Masks.dilation": 0,
+                     "skeleton and angles": "geom_pipe_fast.toml"},
+        "s": s_s, "task_s": {k: v["seconds"] for k, v in srep.items()},
+        "n_angles": int(len(s_angles)), "angles": s_angles.tolist(),
+        "mean_angle_error_deg": s_err,
+        "dtw_normalized_cost": s_dtw["normalized_cost"]}})
+    need = ("undistort", "mask_filter", "dilate_disk", "count_kills",
+            "signed_distance", "gradient_gaussian", "band_compact")
+    checks = {
+        "kernels launched in the warm pass": not [
+            k for k in need if launches[k] <= 0],
+        "58 undistorted images and 58 masks": n_files == {
+            "Undistorted": V - len(FRONTEND_INCORRECT),
+            "Masks": V - len(FRONTEND_INCORRECT)},
+        "at least 10 angles": len(angles) >= 10,
+        # the config's vote tolerance, dilation and 6 mm skeleton bins are
+        # the real_plant fixture's; on this plant's 6 mm internodes they
+        # cost accuracy (PERF.md): the control holds the front end to
+        # the main path's accuracy
+        "mean angle error below 10 deg": err is not None and err < 10.0,
+        "control: at least 10 angles, mean error below 2 deg":
+            len(s_angles) >= 10 and s_err is not None and s_err < 2.0,
+        "finite numbers": bool(np.isfinite(
+            [cold_s, *warm, s_s, peak_mb, prof["device_idle_share"],
+             *angles, *internodes, *s_angles]).all()),
+    }
+    return scan, report, launches, checks
+
+
+def _library_undistort(imgs, K, dist):
+    """One PyTorch library chain for K9's function: the source map in plain
+    f32 tensor operations (no fused multiply-adds), grid_sample (bilinear,
+    zeros outside, pixel centres at integers), round and clip."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.ops.undistort import _params
+    N, H, W, C = imgs.shape
+    dev = imgs.device
+    (fx, fy, cx, cy), (k1, k2, p1, p2, k3) = _params(K, dist)
+    u = torch.arange(W, device=dev, dtype=torch.float32)[None, :]
+    v = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+    x, y = (u - float(cx)) / float(fx), (v - float(cy)) / float(fy)
+    r2 = x * x + y * y
+    rm = r2 * (float(k1) + r2 * (float(k2) + r2 * float(k3)))
+    dx = x * rm + 2 * float(p1) * x * y + float(p2) * (r2 + 2 * x * x)
+    dy = y * rm + float(p1) * (r2 + 2 * y * y) + 2 * float(p2) * x * y
+    px, py = u + dx * float(fx), v + dy * float(fy)
+    grid = torch.stack([px / (W - 1) * 2 - 1, py / (H - 1) * 2 - 1], -1)
+    out = F.grid_sample(imgs.permute(0, 3, 1, 2).float(),
+                        grid[None].expand(N, H, W, 2), mode="bilinear",
+                        padding_mode="zeros", align_corners=True)
+    return out.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
+
+
+def check_frontend_kernels(scan, report, launches):
+    """Phase 10: K9 on the 58 raw images, K10 (linear and excess green) on
+    the warm pass's 58 undistorted images, K11 (count_kills and
+    carve_tolerant at 3) on its 58 masks, each against its plain version
+    (K10 also against compute_mask_numpy) and timed beside it and, where one
+    exists, a PyTorch library chain."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import camera as cameralib
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.ops import carving, masks, undistort
+
+    dev = torch.device("cuda")
+    rows = []
+    cfg = frontend_config()
+    query = json.loads(cfg["Undistorted"]["query"])
+    raw_files = scan.get_fileset("images").get_files(query=query)
+    with ThreadPoolExecutor(8) as ex:
+        raw = np.stack(list(ex.map(io.read_image, raw_files)))
+    cam = cameralib.get_camera_kwargs_from_images_metadata(raw_files[0])
+    K, dist = cam["K"].astype(np.float32), cam["dist"].astype(np.float32)
+
+    # K9: the 58 raw images
+    imgs = torch.from_numpy(raw).to(dev)
+    got = undistort.undistort_batch(imgs, K, dist)
+    want = undistort.undistort_plain(imgs, K, dist)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    assert n_diff == 0, f"undistort kernel != plain ({n_diff} values)"
+    lib = _library_undistort(imgs, K, dist)
+    lib_diff = int((lib != got).sum())
+    N, H, W, C = imgs.shape
+    # bytes: the stack read once, written once; operations: ~40 for a
+    # pixel's source position and weights, 8 per value for the lerps
+    rows.append(kernel_row(
+        "undistort", launches["undistort"], 0,
+        cuda_ms(lambda: undistort.undistort_batch(imgs, K, dist)),
+        cuda_ms(lambda: undistort.undistort_plain(imgs, K, dist), reps=1,
+                warmup=0),
+        2 * imgs.numel(), 40 * H * W + 8 * imgs.numel(),
+        library=cuda_ms(lambda: _library_undistort(imgs, K, dist)),
+        extra={"path": "frontend", "shape": list(imgs.shape),
+               "k1": float(dist[0]),
+               "library_values_differing": lib_diff}))
+    del imgs, got, want, lib
+
+    # K10: the warm pass's 58 undistorted images
+    und = scan.get_fileset(report["Undistorted"]["fileset"]).get_files()
+    with ThreadPoolExecutor(8) as ex:
+        und = np.stack(list(ex.map(io.read_image, und)))
+    imgs = torch.from_numpy(und).to(dev)
+    mcfg = cfg["Masks"]
+    coefs = tuple(map(float, json.loads(mcfg["parameters"])))
+    lanes = {}
+    for ftype, thr in (("linear", float(mcfg["threshold"])),
+                       ("excess_green", 0.15)):
+        args = (imgs, ftype, coefs, thr, True)
+        got = masks.mask_filter(*args)
+        want = masks.mask_filter_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"mask kernel != plain ({ftype})"
+        with ThreadPoolExecutor(8) as ex:
+            host = np.stack(list(ex.map(
+                lambda im: masks.compute_mask_numpy(im, ftype, coefs, thr,
+                                                    as_bool=True), und)))
+        n_host = int((got.cpu().numpy() != host).sum())
+        assert n_host == 0, f"mask kernel != compute_mask_numpy ({ftype}, " \
+            f"{n_host} pixels)"
+        cvec = torch.tensor(coefs, device=dev)
+
+        def lib():
+            x = carving.div_f32(imgs.float(), 255.0)
+            if ftype == "linear":
+                return torch.tensordot(x, cvec, dims=([3], [0])) > thr
+            s = x.sum(-1).clamp(min=1e-12)
+            return (2 * x[..., 1] - x[..., 0] - x[..., 2]) / s > thr
+
+        # bytes: the images read once, the masks written once; operations:
+        # 1 compare per pixel (the fast lane) or 3 divisions, 2 adds and
+        # the filter (~12) per pixel
+        npx = N * H * W
+        lanes[ftype] = kernel_row(
+            "mask_filter", launches["mask_filter"], 0,
+            cuda_ms(lambda: masks.mask_filter(*args)),
+            cuda_ms(lambda: masks.mask_filter_plain(*args)),
+            imgs.numel() + npx, (1 if ftype == "linear" else 12) * npx,
+            library=cuda_ms(lib),
+            extra={"path": "frontend", "filter": ftype, "threshold": thr,
+                   "shape": list(imgs.shape), "true": int(got.sum()),
+                   "library_pixels_differing": int((lib() != got).sum()),
+                   "compute_mask_numpy_pixels_differing": n_host})
+    rows.append(dict(lanes["linear"], filters={
+        f: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "true")}
+        for f, r in lanes.items()}))
+    del imgs, got, want
+
+    # K11: the warm pass's 58 masks, count_kills and carve_tolerant at 3
+    mfiles = scan.get_fileset(report["Masks"]["fileset"]).get_files()
+    with ThreadPoolExecutor(8) as ex:
+        mstack = np.stack(list(ex.map(io.read_image, mfiles)))
+    cams = np.stack([carving.camera_from_metadata(
+        f.get_metadata("colmap_camera")) for f in mfiles])
+    origin, shape = grid_of(FRONTEND_BBOX, 0.5)
+    pk = torch.from_numpy(carving.pack_masks(mstack)).to(dev)
+    cm = torch.from_numpy(cams).to(dev)
+    va = torch.ones(len(cams), dtype=torch.bool, device=dev)
+    hw = mstack.shape[1:]
+    args = (pk, cm, va, origin, 0.5, shape, hw)
+    tol = int(cfg["Voxels"]["kill_tolerance"])
+    kills, seen = carving.count_kills(*args)
+    kp, sp, mask_bytes = carving.count_kills_plain(*args, count_work=True)
+    vt = carving.carve_tolerant(*args, tol)
+    vp = carving.carve_tolerant_plain(*args, tol)
+    torch.cuda.synchronize()
+    assert torch.equal(kills, kp) and torch.equal(seen, sp), \
+        "count_kills kernel != plain"
+    assert torch.equal(vt, vp), "carve_tolerant kernel != plain"
+    assert torch.equal(vt, carving.tolerance_verdict(kills, seen, tol))
+    # carve_tolerant's tests: a voxel stops at its (tol+1)-th kill
+    tests, alive = 0, torch.ones(shape, dtype=torch.bool, device=dev)
+    k = torch.zeros(shape, dtype=torch.int16, device=dev)
+    for in_img, hit, _ in carving._view_tests(*args):
+        tests += int(alive.sum())
+        k += (alive & in_img & ~hit).to(torch.int16)
+        alive &= k <= tol
+    nvox = int(np.prod(shape))
+    pairs = len(cams) * nvox
+    # bytes: the distinct mask bytes the in-frame tests read, the cameras,
+    # the outputs written once (int16 + bool, or int8); operations: 24 per
+    # voxel-view test (as K1)
+    modes = {
+        "count_kills": kernel_row(
+            "count_kills", launches["count_kills"], 0,
+            cuda_ms(lambda: carving.count_kills(*args)),
+            cuda_ms(lambda: carving.count_kills_plain(*args), reps=1,
+                    warmup=0),
+            mask_bytes + cm.numel() * 4 + 3 * nvox, 24 * pairs,
+            extra={"path": "frontend", "shape": list(shape),
+                   "views": len(cams), "voxel_view_tests": pairs,
+                   "mask_bytes_read": mask_bytes,
+                   "mask_bytes_held": pk.numel(),
+                   "killed_at_tolerance": int((vt == -1).sum()),
+                   "alive_at_tolerance": int((vt == 1).sum())}),
+        "carve_tolerant": kernel_row(
+            "count_kills", launches["count_kills"], 0,
+            cuda_ms(lambda: carving.carve_tolerant(*args, tol)),
+            cuda_ms(lambda: carving.carve_tolerant_plain(*args, tol),
+                    reps=1, warmup=0),
+            mask_bytes + cm.numel() * 4 + nvox, 24 * tests,
+            extra={"voxel_view_tests": tests, "max_kills": tol})}
+    rows.append(dict(modes["count_kills"], modes={
+        m: {key: r[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "voxel_view_tests")}
+        for m, r in modes.items()}))
+    emit({"frontend_kernel_checks": {
+        "images": list(raw.shape), "masks": list(mstack.shape),
+        "grid": list(shape)}})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1065,6 +1519,11 @@ def main():
         rows += check_ml_kernels(ml_scan, ml_vfile, ml_launches)
         sep_scan, sep_report, sep_launches = run_ml_separate_path(db, name)
         rows += check_separate_kernels(sep_scan, sep_report, sep_launches)
+        fe_scan, fe_report, fe_launches, fe_checks = run_frontend_path(db,
+                                                                       name)
+        rows += check_frontend_kernels(fe_scan, fe_report, fe_launches)
+        failed = [c for c, ok in fe_checks.items() if not ok]
+        assert not failed, f"front-end path checks failed: {failed}"
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

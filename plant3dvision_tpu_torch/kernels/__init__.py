@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
 #: kernel name -> source file under csrc/ (K5-avg, "average", is a mode of
-#: the accumulate kernel: one source, its own launch count)
+#: the accumulate kernel, and K11, "count_kills", a kernel of carve.cu: one
+#: source each, their own launch counts)
 SOURCES = {
     "carve": "carve.cu",
     "signed_distance": "edt.cu",
@@ -39,6 +40,9 @@ SOURCES = {
     "multiclass_select": "select.cu",
     "reproject_scores": "reproject.cu",
     "dilate_disk": "dilate.cu",
+    "undistort": "undistort.cu",
+    "mask_filter": "mask.cu",
+    "count_kills": "carve.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -59,6 +63,10 @@ _ARGTYPES = {
     # nx, ny, nz, out, stream
     "p3d_carve": [_P, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                   _I, _I, _I, _P, _P],
+    # p3d_carve's arguments up to nz, then max_kills, kills, seen, vol,
+    # stream
+    "p3d_count_kills": [_P, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F,
+                        _I, _I, _I, _I, _P, _P, _P, _P],
     # src_a, src_b, out_a, out_b, nx, ny, nz, axis, cap, mode, stream
     "p3d_edt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, g, nx, ny, nz, axis, stream
@@ -82,6 +90,14 @@ _ARGTYPES = {
     "p3d_reproject": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # in, out, M, H, W, offsets (host int32 pairs), n_off, stream
     "p3d_dilate": [_P, _P, _L, _I, _I, _P, _I, _P],
+    # in, out, N, H, W, C, dtype, gray2d, fx, fy, cx, cy, k1, k2, p1, p2,
+    # k3, stream
+    "p3d_undistort": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                      _F, _F, _F, _F, _P],
+    # in, out, N, H, W, C, dtype, mode, coefs (host float*), n, channel,
+    # binarize, threshold, fast_t, ranges, stream
+    "p3d_mask": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F, _F, _P,
+                 _P],
 }
 
 _lock = threading.Lock()

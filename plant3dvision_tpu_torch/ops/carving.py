@@ -14,6 +14,12 @@ Masks arrive bit-packed, (V, ceil(HW/8)) uint8 rows of `np.packbits`
 tensors' device: CUDA goes to the hand-written kernel
 (kernels/csrc/carve.cu), CPU to `carve_plain`.
 
+`count_kills` / `carve_tolerant` (the vote carve of ops/carving.py:176-239:
+per voxel the number of in-frame views that miss it, int16, and whether any
+hits it; killed when the count exceeds a tolerance) read the same packed
+masks: on CUDA the kills kernel of kernels/csrc/carve.cu (K11), on the CPU
+`count_kills_plain` / `carve_tolerant_plain`.
+
 `average` (and its grid-slab lane `average_chunked`) accumulates one
 label's bilinearly sampled mask values over the in-frustum views: on CUDA
 the accumulate kernel's `avg` mode at C = 1 (K5-avg,
@@ -159,17 +165,9 @@ def project(cam, origin, voxel_size, x_start, shape, hw, grid_fma=True):
     return px, py, in_img
 
 
-def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
-                count_work=False):
-    """Plain PyTorch version of the carve kernel (the same f32 operations,
-    fused multiply-adds at the same places; one view at a time over the
-    whole grid).
-
-    count_work=True returns (volume, tests, mask_bytes): the work that a
-    kernel which stops at a voxel's first kill has to do on these inputs,
-    as the number of voxel-view tests it makes and the number of distinct
-    packed-mask bytes those tests read.
-    """
+def _view_tests(packed, cameras, valid, origin, voxel_size, shape, hw):
+    """(in_img, hit, lin) of every valid view over the whole grid, in the
+    carve kernel's f32 operations (fused multiply-adds at the same places)."""
     H, W = hw
     nx, ny, nz = (int(s) for s in shape)
     dev = packed.device
@@ -179,9 +177,6 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
     x = (o[0] + vs * torch.arange(nx, dtype=f32, device=dev)).view(nx, 1, 1)
     y = (o[1] + vs * torch.arange(ny, dtype=f32, device=dev)).view(1, ny, 1)
     z = (o[2] + vs * torch.arange(nz, dtype=f32, device=dev)).view(1, 1, nz)
-    killed = torch.zeros((nx, ny, nz), dtype=torch.bool, device=dev)
-    seen = torch.zeros_like(killed)
-    tests = mask_bytes = 0
     for v in range(packed.shape[0]):
         if not bool(valid[v]):
             continue
@@ -199,6 +194,26 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
         lin = pyi * W + pxi
         byte = packed[v][lin >> 3].to(torch.int64)
         hit = ((byte >> (7 - (lin & 7))) & 1) == 1
+        yield in_img, hit, lin
+
+
+def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
+                count_work=False):
+    """Plain PyTorch version of the carve kernel (the same f32 operations,
+    fused multiply-adds at the same places; one view at a time over the
+    whole grid).
+
+    count_work=True returns (volume, tests, mask_bytes): the work that a
+    kernel which stops at a voxel's first kill has to do on these inputs,
+    as the number of voxel-view tests it makes and the number of distinct
+    packed-mask bytes those tests read.
+    """
+    shape = tuple(int(s) for s in shape)
+    killed = torch.zeros(shape, dtype=torch.bool, device=packed.device)
+    seen = torch.zeros_like(killed)
+    tests = mask_bytes = 0
+    for in_img, hit, lin in _view_tests(packed, cameras, valid, origin,
+                                           voxel_size, shape, hw):
         if count_work:
             tests += int((~killed).sum())
             mask_bytes += int(torch.unique(
@@ -207,6 +222,94 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
         seen |= in_img & hit
     vol = torch.where(killed, -1, torch.where(seen, 1, 0)).to(torch.int8)
     return (vol, tests, mask_bytes) if count_work else vol
+
+
+def _check_kills_args(packed, cameras, valid, shape, hw):
+    _check_args(packed, cameras, valid, shape, hw)
+    if packed.shape[0] > 32767:
+        raise ValueError("the int16 kill counts take at most 32767 views")
+
+
+def count_kills(packed, cameras, valid, origin, voxel_size, shape, hw):
+    """Per-voxel dissenting-view count (int16) and seen flag (bool) of the
+    valid views (plant3dvision_tpu/ops/carving.py:count_kills): the
+    arguments as `carve`'s; both on the tensors' device."""
+    _check_kills_args(packed, cameras, valid, shape, hw)
+    if packed.device.type == "cpu":
+        return count_kills_plain(packed, cameras, valid, origin, voxel_size,
+                                 shape, hw)
+    shape = tuple(int(s) for s in shape)
+    kills = torch.empty(shape, dtype=torch.int16, device=packed.device)
+    seen = torch.empty(shape, dtype=torch.bool, device=packed.device)
+    _launch_kills(packed, cameras, valid, origin, voxel_size, shape, hw, -1,
+                  kills.data_ptr(), seen.data_ptr(), None)
+    return kills, seen
+
+
+def carve_tolerant(packed, cameras, valid, origin, voxel_size, shape, hw,
+                   max_kills):
+    """Vote carve (plant3dvision_tpu/ops/carving.py:carve_tolerant): int8
+    -1 where more than `max_kills` in-frame views miss the voxel, else 1 if
+    one hits it, else 0; the arguments as `carve`'s."""
+    _check_kills_args(packed, cameras, valid, shape, hw)
+    if int(max_kills) < 0:
+        raise ValueError("max_kills must be >= 0")
+    if packed.device.type == "cpu":
+        return carve_tolerant_plain(packed, cameras, valid, origin,
+                                    voxel_size, shape, hw, max_kills)
+    shape = tuple(int(s) for s in shape)
+    vol = torch.empty(shape, dtype=torch.int8, device=packed.device)
+    _launch_kills(packed, cameras, valid, origin, voxel_size, shape, hw,
+                  min(int(max_kills), 32767), None, None, vol.data_ptr())
+    return vol
+
+
+def _launch_kills(packed, cameras, valid, origin, voxel_size, shape, hw,
+                  max_kills, kills_ptr, seen_ptr, vol_ptr):
+    kernels.require_cuda("count_kills", packed, cameras, valid)
+    H, W = hw
+    nx, ny, nz = shape
+    o = np.asarray(origin, np.float32)
+    valid_u8 = valid.to(torch.uint8)
+    rc = kernels.lib().p3d_count_kills(
+        packed.data_ptr(), packed.shape[1], cameras.data_ptr(),
+        valid_u8.data_ptr(), packed.shape[0], H, W, float(o[0]), float(o[1]),
+        float(o[2]), float(np.float32(voxel_size)), nx, ny, nz, max_kills,
+        kills_ptr, seen_ptr, vol_ptr, kernels.stream_ptr(packed.device))
+    kernels.LAUNCHES["count_kills"] += 1
+    kernels.check("count_kills", rc)
+
+
+def count_kills_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
+                      count_work=False):
+    """Plain PyTorch version of the kills kernel's count mode (one view at
+    a time). count_work=True also returns the number of distinct packed-mask
+    bytes that its in-frame tests read."""
+    shape = tuple(int(s) for s in shape)
+    kills = torch.zeros(shape, dtype=torch.int16, device=packed.device)
+    seen = torch.zeros(shape, dtype=torch.bool, device=packed.device)
+    mask_bytes = 0
+    for in_img, hit, lin in _view_tests(packed, cameras, valid, origin,
+                                           voxel_size, shape, hw):
+        kills += (in_img & ~hit).to(torch.int16)
+        seen |= in_img & hit
+        if count_work:
+            mask_bytes += int(torch.unique((lin >> 3)[in_img]).numel())
+    return (kills, seen, mask_bytes) if count_work else (kills, seen)
+
+
+def tolerance_verdict(kills, seen, max_kills):
+    """int8 -1 / 1 / 0 of (merged) int16 kill counts and seen flags."""
+    return torch.where(kills > min(int(max_kills), 32767), -1,
+                       torch.where(seen, 1, 0)).to(torch.int8)
+
+
+def carve_tolerant_plain(packed, cameras, valid, origin, voxel_size, shape,
+                         hw, max_kills):
+    """Plain PyTorch version of the kills kernel's verdict mode."""
+    kills, seen = count_kills_plain(packed, cameras, valid, origin,
+                                    voxel_size, shape, hw)
+    return tolerance_verdict(kills, seen, max_kills)
 
 
 #: averaging volumes with more voxel-labels than this go through the grid-slab
@@ -320,7 +423,10 @@ class Backprojection:
     """The reference's cl.Backprojection surface (cl.py:118) over the
     port's kernels (port of plant3dvision_tpu/ops/carving.py:
     Backprojection): `type="carving"` carves every flush with K1 and merges
-    flushes (killed in any, else seen in any); `type="averaging"` sums the
+    flushes (killed in any, else seen in any), or with `kill_tolerance > 0`
+    counts each flush's kills with K11 and merges the counts and seen flags
+    across flushes, the tolerance applied to the merged counts (never per
+    flush); `type="averaging"` sums the
     views' sampled mask values (uint8 masks / 255, log(EPS + m) in `log`
     mode, in numpy float32 as the JAX package) with K5-avg, through the
     grid-slab lane above `_avg_chunk_voxels()` voxels. The JAX package
@@ -345,15 +451,12 @@ class Backprojection:
         if type not in ("carving", "averaging"):
             raise ValueError(
                 f"Unknown kernel type {type}, valid values are 'averaging' or 'carving'!")
-        if type == "carving" and self.kill_tolerance > 0:
-            raise NotImplementedError(
-                "Backprojection kill_tolerance > 0 (the vote carve "
-                "carve_tolerant/count_kills) is not ported yet: ROADMAP "
-                "Queue B item 13")
         self.dtype = torch.int32 if type == "carving" else torch.float32
         self._pending_masks = []
         self._pending_cams = []
         self._values = None
+        self._kills = None
+        self._seen = None
 
     def process_view(self, intrinsics, rot, tvec, mask):
         self._pending_masks.append(np.asarray(mask))
@@ -371,9 +474,19 @@ class Backprojection:
         valid = torch.ones(len(masks), dtype=torch.bool, device=dev)
         if self.type == "carving":
             packed = torch.from_numpy(pack_masks(masks)).to(dev)
-            vol = carve(packed, cams, valid, self.origin, self.voxel_size,
-                        self.shape, masks.shape[1:]).to(torch.int32)
-            if self._values is not None:
+            args = (packed, cams, valid, self.origin, self.voxel_size,
+                    self.shape, masks.shape[1:])
+            if self.kill_tolerance > 0:
+                kills, seen = count_kills(*args)
+                if self._kills is not None:
+                    kills += self._kills
+                    seen |= self._seen
+                self._kills, self._seen = kills, seen
+                vol = tolerance_verdict(kills, seen, self.kill_tolerance).to(
+                    torch.int32)
+            else:
+                vol = carve(*args).to(torch.int32)
+            if self._values is not None and self.kill_tolerance <= 0:
                 prev = self._values
                 killed = (prev == -1) | (vol == -1)
                 seen = (prev == 1) | (vol == 1)
@@ -406,6 +519,8 @@ class Backprojection:
         self._pending_masks = []
         self._pending_cams = []
         self._values = None
+        self._kills = None
+        self._seen = None
 
     def process_fileset(self, fs, camera_metadata, invert=False):
         """One volume ((L, *shape) float32 with `labels`: one label's masks

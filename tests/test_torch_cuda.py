@@ -292,3 +292,84 @@ def test_dilate_kernel_matches_plain(dev, radius):
         k = binary_dilation(t, radius)
         p = t if radius == 0 else binary_dilation_plain(t, radius)
         assert k.dtype == torch.bool and torch.equal(k, p)
+
+
+# -- the real-scan front end: K9, K10, K11 -------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("channels", [None, 1, 3, 4])
+@pytest.mark.parametrize("dist", [(0.0, 0.0, 0.0, 0.0),
+                                  (-0.21, 0.07, 0.011, -0.007),
+                                  (-0.21, 0.07, 0.011, -0.007, 0.013)])
+def test_undistort_kernel_matches_plain(dev, dtype, channels, dist):
+    """K9 on gray (2-D), 1-, 3- and 4-channel stacks of every type it takes,
+    zero and nonzero distortion, len(dist) 4 and 5: bit-equal to its plain
+    version (the same f32 operations, the same rounding)."""
+    from plant3dvision_tpu_torch.ops.undistort import (undistort_batch,
+                                                       undistort_plain)
+    rng = np.random.default_rng(len(dist))
+    H, W = 61, 83
+    shape = (3, H, W) + (() if channels is None else (channels,))
+    if dtype == np.float32:
+        img = rng.random(shape).astype(dtype)
+    else:
+        img = rng.integers(0, 256 if dtype == np.uint8 else 65536, shape)
+        img = img.astype(dtype)
+    K = np.array([[W * 1.1 + 0.3, 0, W / 2 - 0.7],
+                  [0, W * 1.08, H / 2 + 0.4], [0, 0, 1]], np.float32)
+    t = torch.from_numpy(img).to(dev)
+    k = undistort_batch(t, K, np.float32(dist))
+    p = undistort_plain(t, K, np.float32(dist))
+    assert k.dtype == p.dtype and torch.equal(k, p)
+    assert (k != 0).any()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+@pytest.mark.parametrize("lane", [("linear", (0.0, 1.0, 0.0), True),
+                                  ("linear", (0.2, 0.7, 0.1), True),
+                                  ("linear", (0.2, 0.5, 0.1, 0.3), False),
+                                  ("excess_green", (0.0, 1.0, 0.0), True),
+                                  ("excess_green", (0.0, 1.0, 0.0), False)])
+def test_mask_kernel_matches_plain(dev, dtype, lane):
+    """K10 in every lane (the uint8 fast lane, the linear filter over 3 and
+    4 channels, excess green; binarised and clipped) on uint8, uint16 and
+    float32 RGBA stacks: equal to its plain version."""
+    from plant3dvision_tpu_torch.ops.masks import mask_filter, mask_filter_plain
+    ftype, coefs, binarize = lane
+    rng = np.random.default_rng(7)
+    shape = (3, 37, 53, 4)
+    if dtype == np.float32:
+        img = (rng.random(shape) * 3 - 1).astype(dtype)
+    else:
+        img = rng.integers(0, 256 if dtype == np.uint8 else 65536, shape)
+        img = img.astype(dtype)
+    t = torch.from_numpy(img).to(dev)
+    for thr in (0.15, 0.2, 0.3):
+        k = mask_filter(t, ftype, coefs, thr, binarize)
+        p = mask_filter_plain(t, ftype, coefs, thr, binarize)
+        assert k.dtype == p.dtype and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("shape,vs", [((40, 37, 45), 0.5), ((17, 64, 9), 0.7)])
+def test_kills_kernel_matches_plain(dev, shape, vs):
+    """K11: count_kills (int16 counts, seen flags) and carve_tolerant at
+    tolerances 0-3 with an invalid view: equal to their plain versions;
+    carve_tolerant at 0 is the strict carve (K1)."""
+    from plant3dvision_tpu_torch.ops import carving
+    rng = np.random.default_rng(0)
+    packed, cams, hw = _scene(rng)
+    valid = np.ones(len(cams), bool)
+    valid[3] = False
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.from_numpy(valid).to(dev),
+            -(np.array(shape) - 1) * vs / 2 + 0.3, vs, shape, hw)
+    kills, seen = carving.count_kills(*args)
+    kp, sp = carving.count_kills_plain(*args)
+    assert kills.dtype == torch.int16 and seen.dtype == torch.bool
+    assert torch.equal(kills, kp) and torch.equal(seen, sp)
+    assert int(kills.max()) >= 3
+    for tol in range(4):
+        k = carving.carve_tolerant(*args, tol)
+        assert torch.equal(k, carving.carve_tolerant_plain(*args, tol))
+        assert torch.equal(k, carving.tolerance_verdict(kills, seen, tol))
+    assert torch.equal(carving.carve_tolerant(*args, 0), carving.carve(*args))

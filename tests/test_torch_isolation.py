@@ -20,17 +20,20 @@ def _forbidden(name: str) -> bool:
 
 def test_no_jax_or_jax_package_imports_in_the_port():
     """AST scan of every module of the port (models/, synth_photo.py,
-    evaluation.py and the separate-task ML route's modules included) and of
-    chip_smoke.py: no import statement and no importlib string names jax,
-    flax, scikit-learn or plant3dvision_tpu."""
+    evaluation.py, the separate-task ML route's and the real-scan front
+    end's modules included), of chip_smoke.py and of tools/frontend_angles.py:
+    no import statement and no importlib string names jax, flax,
+    scikit-learn or plant3dvision_tpu."""
     offenders = []
     paths = sorted(PORT.rglob("*.py"))
     for name in ("models/segnet.py", "synth_photo.py", "evaluation.py",
                  "ops/ml_fused.py", "tasks/fused_ml.py", "models/unet.py",
                  "models/checkpoint.py", "ops/reproject.py", "ops/masks.py",
-                 "tasks/proc2d.py", "tasks/cl.py"):
+                 "tasks/proc2d.py", "tasks/cl.py", "ops/undistort.py",
+                 "ops/carving.py", "utils.py"):
         assert PORT / name in paths
-    for path in paths + [ROOT / "chip_smoke.py"]:
+    for path in paths + [ROOT / "chip_smoke.py",
+                         ROOT / "tools" / "frontend_angles.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []
