@@ -86,19 +86,37 @@
    Prints the reprojection (raw, and up to the turntable's axis gauges)
    and the quality bars the JAX package's calibration misses here too
    (coherence >= 0.9, a median reprojection below 2 px, angles below 10
-   degrees).
+   degrees). Checks that the cold and the warm pass calibrated the scan to
+   equal cameras and prints both passes' angle errors. After phase 12, one
+   pass of configs/ml_pipe_real_hybrid.toml's tasks after its calibration
+   on phase 11's calibration (segnet_real at 704x528 with resize = true),
+   run to the angles with no angle bar.
 12. Holds K11b (a round-0 and a round-1 CEM population), K12 (the two
    populations and the polish's V x G launch) and K13 (the 60 grays in
    chunks of 12) against their plain versions at phase 11's shapes, and
    times them beside a library chain for K13 (rolls + avg_pool2d +
    max_pool2d; none for K11b, K12).
+13. Drives CurveSkeleton(method="fim") on phase 9's scan (written here if
+   phase 9 did not run) through phase 9's strict front end (0.5 mm, the
+   301x301x561 grid; bin_size 4 voxels = 2 mm): one cold pass, one warm
+   pass after Clean, one profiled warm pass, Undistorted to
+   AnglesAndInternodes. Prints the eikonal solve's sweep count, its ms in
+   total and a sweep, the host clustering seconds, and the angles' count
+   and DTW error (no angle bar). Checks (after phase 14) that K14 was
+   launched in the warm pass, that the skeleton is a tree and has the
+   solve's clusters, and, with --time-whole-grid-clusters, that the JAX
+   package's whole-grid clustering gives the same clusters and tree.
+14. Holds K14 (the whole solve on phase 13's volume, bit for bit, the same
+   sweep count) and K15 (2000 steps of 0.5 from the skeleton's leaf nodes,
+   on the solve's flow; votes equal) against their plain versions and
+   times both (none has a library call).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when there is no CUDA device or any
 phase fails.
 
-Usage: python3 chip_smoke.py [--only 11,12]
+Usage: python3 chip_smoke.py [--only 13,14] [--time-whole-grid-clusters]
 """
 
 from __future__ import annotations
@@ -149,6 +167,10 @@ KERNEL_INFO = {
                      "plant3dvision_tpu/ops/selfcal.py:109"),
     "harris_response": ("plant3dvision_tpu_torch/kernels/csrc/harris.cu",
                         "plant3dvision_tpu/ops/sfmlite.py:52"),
+    "eikonal_sweep": ("plant3dvision_tpu_torch/kernels/csrc/eikonal.cu",
+                      "plant3dvision_tpu/ops/eikonal.py:59"),
+    "trace_geodesics": ("plant3dvision_tpu_torch/kernels/csrc/geodesics.cu",
+                        "plant3dvision_tpu/ops/geodesics.py:42"),
 }
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
@@ -1774,6 +1796,10 @@ def run_selfcal_path(db, device_name):
     gen_s = time.perf_counter() - t0
     cfg = selfcal_config()
 
+    def calibrated_cameras(scan):
+        return np.stack([camera_from_metadata(f.get_metadata(
+            "colmap_camera")) for f in scan.get_fileset("images").get_files()])
+
     ctx = RunContext(db, "selfcal", cfg, device="cuda")
     t0 = time.perf_counter()
     crep = run_task(ctx, "TurntableCalibration", report=False)
@@ -1782,9 +1808,11 @@ def run_selfcal_path(db, device_name):
     emit({"selfcal_cold_calibration": {"s": cal_cold_s, **json.loads(
         ctx.scan.get_fileset(crep["TurntableCalibration"]["fileset"])
         .get_file("calibration").read_raw())}})
-    run_task(ctx, "AnglesAndInternodes", report=False)
+    crep = run_task(ctx, "AnglesAndInternodes", report=False)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
+    cold_cams = calibrated_cameras(ctx.scan)
+    cold_err = frontend_angles(ctx.scan, crep, plant)[2]["mean_angle_error"]
 
     run_task(ctx, "Clean", report=False)
     ctx = RunContext(db, "selfcal", cfg, device="cuda")
@@ -1801,8 +1829,10 @@ def run_selfcal_path(db, device_name):
     cal = json.loads(scan.get_fileset(report["TurntableCalibration"][
         "fileset"]).get_file("calibration").read_raw())
     files = scan.get_fileset("images").get_files()
-    cams = np.stack([camera_from_metadata(f.get_metadata("colmap_camera"))
-                     for f in files])
+    cams = calibrated_cameras(scan)
+    # the cold and the warm pass calibrate the same scan: the same cameras
+    # bit for bit (no float atomics in the BA's sums)
+    repeats = bool(np.array_equal(cams, cold_cams))
     correct = [i for i, f in enumerate(files)
                if f.get_metadata("pose_estimation") == "correct"]
     errors = calibration_errors(cams, true_cams, pts, correct)
@@ -1820,6 +1850,11 @@ def run_selfcal_path(db, device_name):
         "n_angles": int(len(angles)), "angles": angles.tolist(),
         "mean_angle_error_deg": dtw["mean_angle_error"],
         "dtw_normalized_cost": dtw["normalized_cost"],
+        "calibration_repeats": {
+            "cameras_equal": repeats,
+            "max_abs_camera_diff": float(np.abs(cams - cold_cams).max()),
+            "cold_mean_angle_error_deg": cold_err,
+            "warm_mean_angle_error_deg": dtw["mean_angle_error"]},
         "max_memory_allocated_mb": peak_mb,
         "launches_per_warm_pass": launches}})
     prof = profile_pass(db, "selfcal", cfg)
@@ -1854,6 +1889,7 @@ def run_selfcal_path(db, device_name):
         "kernels launched in the warm pass": not [
             k for k in need if launches[k] <= 0],
         "feature_ba not null": cal["feature_ba"] is not None,
+        "two calibrations of the scan give equal cameras": repeats,
         "at least 55 views correct": len(correct) >= 55,
         "at least 10 angles": len(angles) >= 10,
         "mean angle error below 15 deg": err is not None and err < 15.0,
@@ -1869,6 +1905,78 @@ def run_selfcal_path(db, device_name):
              *angles, *internodes, med]).all()),
     }
     return scan, report, launches, true_cams, checks
+
+
+HYBRID_TASKS = ("Undistorted", "Masks", "ModelFilesetExists",
+                "Segmentation2D", "Voxels", "PointCloud",
+                "SegmentedPointCloud", "OrganSegmentation",
+                "AnglesAndInternodes")
+
+
+def hybrid_config():
+    """configs/ml_pipe_real_hybrid.toml's tasks after its calibration (no
+    evaluation), on phase 11's calibration (selfcal_config's
+    TurntableCalibration, complete in the DB) and phase 9's box: the
+    committed segnet_real at 704x528 with resize = true (the input shrunk
+    as cv2 INTER_AREA, the probabilities grown back as INTER_LINEAR)."""
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+    toml = load_toml(ROOT / "configs" / "ml_pipe_real_hybrid.toml")
+    cfg = {t: dict(toml[t]) for t in HYBRID_TASKS}
+    cfg["TurntableCalibration"] = selfcal_config()["TurntableCalibration"]
+    cfg["Voxels"]["bounding_box"] = FRONTEND_BBOX
+    cfg["Clean"] = {"no_confirm": True}
+    return cfg
+
+
+def run_hybrid_pass(db, device_name):
+    """Phase 11's last step: one pass of hybrid_config on phase 11's
+    calibrated scan, Undistorted to AnglesAndInternodes (organ angles; the
+    net was trained for the real_plant fixture, so no angle bar). Returns
+    its checks."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.models.zoo import install_checkpoint
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth import SyntheticPlant
+
+    assert install_checkpoint(db, model_id="segnet_real", path=ROOT /
+                              "checkpoints" / "segnet_real.npz") is not None
+    cfg = hybrid_config()
+    ctx = RunContext(db, "selfcal", cfg, device="cuda")
+    t0 = time.perf_counter()
+    report = run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scan = ctx.scan
+    seg = scan.get_fileset(report["Segmentation2D"]["fileset"])
+    seg_files = seg.get_files()
+    png = io.read_image(seg_files[0])
+    img = io.read_image(scan.get_fileset("images").get_files()[0])
+    organs = [f.id for f in scan.get_fileset(
+        report["OrganSegmentation"]["fileset"]).get_files()]
+    angles, internodes, dtw = frontend_angles(
+        scan, report, SyntheticPlant(**NORTHSTAR_PLANT))
+    emit({"hybrid_pass": {
+        "device": device_name, "config": "ml_pipe_real_hybrid.toml",
+        "model": "segnet_real", "net_input": [cfg["Segmentation2D"]["Sx"],
+                                              cfg["Segmentation2D"]["Sy"]],
+        "s": wall, "task_s": {k: v["seconds"] for k, v in report.items()},
+        "task_status": {k: v["status"] for k, v in report.items()},
+        "segmentation_files": len(seg_files),
+        "label_names": seg.get_metadata("label_names"),
+        "n_organs": len(organs), "n_angles": int(len(angles)),
+        "mean_angle_error_deg": dtw["mean_angle_error"]}})
+    return {
+        "hybrid: AnglesAndInternodes reached":
+            report["AnglesAndInternodes"]["status"] == "done",
+        "hybrid: the calibration reused":
+            report["TurntableCalibration"]["status"] == "skipped",
+        "hybrid: probabilities grown back to the image size":
+            png.shape == img.shape[:2],
+        "hybrid: finite numbers": bool(np.isfinite(
+            [wall, *angles, *internodes]).all()),
+    }
 
 
 def _population(theta, scale, B, seed):
@@ -2087,9 +2195,259 @@ def check_selfcal_kernels(scan, report, launches):
     return rows
 
 
+def fim_config():
+    """Phase 13: phase 9's strict front end (frontend_config(strict=True):
+    Voxels at 0.5 mm into FRONTEND_BBOX) with the eikonal skeleton,
+    CurveSkeleton.method = "fim" at bin_size 4 (voxels: 2 mm, the strict
+    control's bin)."""
+    cfg = frontend_config(strict=True)
+    cfg["CurveSkeleton"].update(method="fim", bin_size=4.0)
+    return cfg
+
+
+def fim_inputs(scan, report, cfg):
+    """The eikonal solve's inputs as CurveSkeleton(method="fim") forms them
+    from the pass's Voxels volume: the occupied voxels and their root
+    plane, on the card."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.tasks.proc3d import root_plane_seeds
+    vol = np.load(scan.get_fileset(report["Voxels"]["fileset"])
+                  .get_files()[0].path())["volume"]
+    mask = torch.from_numpy(vol).cuda() > 0.5
+    skel = cfg["CurveSkeleton"]
+    return mask, root_plane_seeds(mask, int(skel.get("stem_axis", 2)),
+                                  bool(skel.get("stem_axis_inverted")))
+
+
+def whole_grid_clusters(mask, dist, bin_size):
+    """The JAX package's _skeleton_fim clustering as it is written there
+    (tasks/proc3d.py:242-276): one ndi.label of the whole grid per distance
+    bin and one comparison of the whole grid per component. Returns
+    (centers, the spanning tree's edges)."""
+    import numpy as np
+    import scipy.ndimage as ndi
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import minimum_spanning_tree
+    reach = mask & (dist < 1e9)
+    idx = np.argwhere(reach)
+    bins = np.floor(dist[reach] / bin_size).astype(np.int64)
+    centers = []
+    next_id = 0
+    vol_bins = np.full(mask.shape, -1, dtype=np.int64)
+    vol_bins[tuple(idx.T)] = bins
+    for b in range(int(bins.max()) + 1):
+        comp, n = ndi.label(vol_bins == b)
+        for c in range(1, n + 1):
+            sel = comp == c
+            centers.append(np.argwhere(sel).mean(axis=0))
+            vol_bins[sel] = -1000 - next_id
+            next_id += 1
+    cluster_of = -(vol_bins + 1000)
+    edges = set()
+    for axis in range(3):
+        a = cluster_of.take(range(0, mask.shape[axis] - 1), axis=axis)
+        b = cluster_of.take(range(1, mask.shape[axis]), axis=axis)
+        ok = (a >= 0) & (b >= 0) & (a != b)
+        for u, v in zip(a[ok].ravel(), b[ok].ravel()):
+            edges.add((min(u, v), max(u, v)))
+    centers = np.asarray(centers)
+    edges = np.asarray(sorted(edges), dtype=np.int64)
+    w = np.linalg.norm(centers[edges[:, 0]] - centers[edges[:, 1]], axis=1)
+    g = sp.coo_matrix((w, (edges[:, 0], edges[:, 1])),
+                      shape=(len(centers), len(centers)))
+    mst = sp.coo_matrix(minimum_spanning_tree(g.maximum(g.T)))
+    return centers, np.stack([mst.row, mst.col], axis=1)
+
+
+def run_fim_path(db, device_name, time_whole_grid=False):
+    """Phase 13: the eikonal skeleton (fim_config) on phase 9's 60-view
+    1440x1080 distorted scan (written here if phase 9 did not run): one
+    cold pass, one warm pass after Clean, one profiled warm pass, each from
+    Undistorted to AnglesAndInternodes; then the solve alone on the pass's
+    volume (the sweep count, ms per sweep and in total) and the host
+    clustering seconds. Returns the scan, the warm pass's report, launches
+    and checks, which main() asserts after phase 14."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.eikonal import geodesic_distance
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth import SyntheticPlant
+    from plant3dvision_tpu_torch.tasks.proc3d import distance_bin_clusters
+
+    V, W, H = 60, 1440, 1080
+    plant = SyntheticPlant(**NORTHSTAR_PLANT)
+    gen_s = 0.0
+    if db.get_scan("frontend") is None:
+        t0 = time.perf_counter()
+        write_distorted_scan(db, "frontend", plant, V, W, H, 1400.0)
+        gen_s = time.perf_counter() - t0
+    cfg = fim_config()
+    run_task(RunContext(db, "frontend", cfg, device="cuda"), "Clean",
+             report=False)
+
+    ctx = RunContext(db, "frontend", cfg, device="cuda")
+    t0 = time.perf_counter()
+    run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+
+    run_task(ctx, "Clean", report=False)
+    ctx = RunContext(db, "frontend", cfg, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    scan = ctx.scan
+    skel = json.loads(scan.get_fileset(report["CurveSkeleton"]["fileset"])
+                      .get_files()[0].read_raw())
+    angles, internodes, dtw = frontend_angles(scan, report, plant)
+
+    mask, seeds = fim_inputs(scan, report, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist, sweeps = geodesic_distance(mask, seeds, return_sweeps=True)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    mask_np, dist_np = mask.cpu().numpy(), dist.cpu().numpy()
+    t0 = time.perf_counter()
+    centers, edges = distance_bin_clusters(mask_np, dist_np, 4.0)
+    clusters_s = time.perf_counter() - t0
+    whole = None
+    if time_whole_grid:
+        t0 = time.perf_counter()
+        wc, we = whole_grid_clusters(mask_np, dist_np, 4.0)
+        whole = {"s": time.perf_counter() - t0, "clusters": len(wc),
+                 "centers_within_1e-9": bool(
+                     len(wc) == len(centers) and np.allclose(
+                         centers, wc, rtol=1e-9, atol=0)),
+                 "edges_equal": bool(np.array_equal(edges, we))}
+    stages = report["CurveSkeleton"].get("stages", {})
+    emit({"fim_path": {
+        "device": device_name, "n_views": V, "image": [W, H],
+        "voxel_mm": cfg["Voxels"]["voxel_size"], "shape": list(mask.shape),
+        "bin_size_voxels": cfg["CurveSkeleton"]["bin_size"],
+        "mask_voxels": int(mask.sum()), "seed_voxels": int(seeds.sum()),
+        "reached_voxels": int((dist < 1e9).sum()),
+        "scan_generation_s": gen_s, "cold_s": cold_s, "warm_s": warm_s,
+        "task_s": {k: v["seconds"] for k, v in report.items()},
+        "curve_skeleton_stages_s": stages,
+        "sweeps": sweeps, "solve_ms": solve_s * 1e3,
+        "ms_per_sweep": solve_s * 1e3 / max(sweeps, 1),
+        "host_clusters_s": clusters_s, "whole_grid_clusters": whole,
+        "skeleton_nodes": len(skel["points"]),
+        "skeleton_edges": len(skel["lines"]),
+        "n_angles": int(len(angles)), "angles": angles.tolist(),
+        "mean_angle_error_deg": dtw["mean_angle_error"],
+        "dtw_normalized_cost": dtw["normalized_cost"],
+        "max_memory_allocated_mb": peak_mb,
+        "launches_per_warm_pass": launches}})
+    prof = profile_pass(db, "frontend", cfg)
+    emit({"fim_path_profile": prof})
+    need = ("eikonal_sweep", "undistort", "mask_filter", "signed_distance",
+            "gradient_gaussian", "band_compact")
+    n_nodes = len(skel["points"])
+    checks = {
+        "kernels launched in the warm pass": not [
+            k for k in need if launches[k] <= 0],
+        "AnglesAndInternodes reached": report["AnglesAndInternodes"][
+            "status"] == "done",
+        "the skeleton is a tree of at least 20 nodes":
+            n_nodes >= 20 and len(skel["lines"]) == n_nodes - 1,
+        "the task's skeleton has the solve's clusters": n_nodes == len(
+            centers),
+        "the solve's sweeps equal the launches' count": 0 < sweeps <= launches[
+            "eikonal_sweep"],
+        "whole-grid clusters equal (when timed)": whole is None or (
+            whole["centers_within_1e-9"] and whole["edges_equal"]),
+        "finite numbers": bool(np.isfinite(
+            [cold_s, warm_s, solve_s, clusters_s, peak_mb,
+             prof["device_idle_share"], *np.ravel(skel["points"]),
+             *angles, *internodes]).all()),
+    }
+    return scan, report, launches, checks
+
+
+def check_fim_kernels(scan, report, launches):
+    """Phase 14: K14 (the whole solve on phase 13's volume, 301x301x561)
+    against its plain version, bit for bit with the same sweep count; K15
+    on the solve's flow and where(mask, d, 0) from the skeleton's leaf
+    nodes (index coordinates), 2000 steps of 0.5, votes equal."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.ops.eikonal import (
+        geodesic_distance, geodesic_distance_plain, gradient_flow)
+    from plant3dvision_tpu_torch.ops.geodesics import (trace_geodesics,
+                                                       trace_geodesics_plain)
+
+    cfg = fim_config()
+    mask, seeds = fim_inputs(scan, report, cfg)
+    k, nk = geodesic_distance(mask, seeds, return_sweeps=True)
+    t0 = time.perf_counter()
+    p, np_ = geodesic_distance_plain(mask, seeds, return_sweeps=True)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert nk == np_, f"K14 stopped at sweep {nk}, its plain version {np_}"
+    diff = int((k != p).sum())
+    assert diff == 0, f"K14 != plain on {diff} voxels"
+    ms = cuda_ms(lambda: geodesic_distance(mask, seeds), reps=3, warmup=1)
+    nvox = mask.numel()
+    active = int((mask & ~seeds).sum())
+    # bytes: mask and seeds read once, the distances written once;
+    # operations: ~45 f32 operations a sweep for each voxel it updates
+    rows = [kernel_row(
+        "eikonal_sweep", launches["eikonal_sweep"], 0.0, ms, plain_ms,
+        2 * nvox + 4 * nvox, 45 * active * nk,
+        extra={"path": "fim", "shape": list(mask.shape), "sweeps": nk,
+               "ms_per_sweep": ms / nk, "active_voxels": active,
+               "launches_per_solve": launches["eikonal_sweep"]})]
+
+    flow = gradient_flow(k, mask)
+    values = torch.where(mask, k, 0.0)
+    skel = json.loads(scan.get_fileset(report["CurveSkeleton"]["fileset"])
+                      .get_files()[0].read_raw())
+    vfile = scan.get_fileset(report["Voxels"]["fileset"]).get_files()[0]
+    origin = np.asarray(vfile.get_metadata("origin"))
+    vs = float(vfile.get_metadata("voxel_size"))
+    lines = np.asarray(skel["lines"]).reshape(-1, 2)
+    deg = np.bincount(lines.ravel(), minlength=len(skel["points"]))
+    leaves = (np.asarray(skel["points"])[deg == 1] - origin) / vs
+    tips = torch.from_numpy(leaves.astype(np.float32)).cuda()
+    vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
+    t0 = time.perf_counter()
+    vp = trace_geodesics_plain(flow, values, tips, step=0.5, n_steps=2000)
+    torch.cuda.synchronize()
+    tplain_ms = (time.perf_counter() - t0) * 1e3
+    vdiff = int((vk - vp).abs().sum())
+    assert vdiff == 0, f"K15 votes differ from the plain version's by {vdiff}"
+    tms = cuda_ms(lambda: trace_geodesics(flow, values, tips, step=0.5,
+                                          n_steps=2000))
+    votes = int(vk.sum())
+    # bytes: the flow, the values and the tips read once, the votes written
+    # once; operations: ~130 a step taken (4 trilinear samples, the step,
+    # the clip, the tests), votes + one final step per particle
+    rows.append(kernel_row(
+        "trace_geodesics", launches["trace_geodesics"], 0, tms, tplain_ms,
+        16 * nvox + tips.numel() * 4 + 4 * nvox,
+        130 * (votes + len(leaves)),
+        extra={"path": "phase 14 only (no task calls it)",
+               "particles": len(leaves), "votes": votes,
+               "n_steps": 2000}))
+    emit({"fim_kernel_checks": {"grid": list(mask.shape), "sweeps": nk,
+                                "particles": len(leaves), "votes": votes}})
+    return rows
+
+
 PHASES = {"2": "main", "3": "main", "4": "real_grid", "5": "ml", "6": "ml",
           "7": "separate", "8": "separate", "9": "frontend",
-          "10": "frontend", "11": "selfcal", "12": "selfcal"}
+          "10": "frontend", "11": "selfcal", "12": "selfcal", "13": "fim",
+          "14": "fim"}
 
 
 def main(argv=None):
@@ -2097,11 +2455,15 @@ def main(argv=None):
 
     import torch
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                 "GPU (phases 1-12, see the docstring)")
+                                 "GPU (phases 1-14, see the docstring)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (2-12; a kernel "
-                    "check phase runs with its path, e.g. 11,12); default "
+                    help="comma-separated phases to run (2-14; a kernel "
+                    "check phase runs with its path, e.g. 13,14); default "
                     "all")
+    ap.add_argument("--time-whole-grid-clusters", action="store_true",
+                    help="phase 13 also times the JAX package's whole-grid "
+                    "clustering on the solve's distances and holds the "
+                    "port's to it")
     args = ap.parse_args(argv)
     groups = ({PHASES[p] for p in args.only.split(",") if p}
               if args.only else set(PHASES.values()))
@@ -2148,8 +2510,15 @@ def main(argv=None):
             sc_scan, sc_report, sc_launches, _, sc_checks = run_selfcal_path(
                 db, name)
             rows += check_selfcal_kernels(sc_scan, sc_report, sc_launches)
+            sc_checks.update(run_hybrid_pass(db, name))
             failed = [c for c, ok in sc_checks.items() if not ok]
             assert not failed, f"calibrated path checks failed: {failed}"
+        if "fim" in groups:
+            fim_scan, fim_report, fim_launches, fim_checks = run_fim_path(
+                db, name, args.time_whole_grid_clusters)
+            rows += check_fim_kernels(fim_scan, fim_report, fim_launches)
+            failed = [c for c, ok in fim_checks.items() if not ok]
+            assert not failed, f"eikonal skeleton path checks failed: {failed}"
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

@@ -47,6 +47,8 @@ SOURCES = {
     "carve_candidates": "carve.cu",
     "ray_coverage": "coverage.cu",
     "harris_response": "harris.cu",
+    "eikonal_sweep": "eikonal.cu",
+    "trace_geodesics": "geodesics.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -112,6 +114,14 @@ _ARGTYPES = {
                          _F, _F, _I, _I, _I, _I, _F, _P, _P, _P],
     # gray, mask, V, H, W, border, kappa, out, stream
     "p3d_harris": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
+    # buf0, buf1, active, speed_inv (or null), nx, ny, nz, k0, k1, tol, ctl,
+    # blocks, stream
+    "p3d_eikonal_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I,
+                           _P],
+    # flow, values, tips, N, nx, ny, nz, step, n_steps, bx, by, bz, votes,
+    # stream
+    "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
+                            _P, _P],
 }
 
 _lock = threading.Lock()

@@ -16,12 +16,13 @@ centres are known from the CNC up to the mount offset, so only ~10 global
 - matching: one batched product per turntable stride (every view pair of
   the stride at once), mutual-best + ratio test;
 - bundle adjustment: rays from the fixed centres, least-squares track
-  triangulation (`index_add_` and batched 3x3 solves), Huber-IRLS
+  triangulation (per-track sums in observation order, no atomics, so a
+  run on the card repeats bit for bit; batched 3x3 solves), Huber-IRLS
   Levenberg-Marquardt with `torch.func.jacfwd`.
 
 Every product here runs with TF32 off (`_full_f32`). The BA works in
 float32 as the JAX package does, but sums in another order (jacfwd, the
-3x3 solves, index_add_), so its trajectory agrees to a tolerance, not
+3x3 solves, the track sums), so its trajectory agrees to a tolerance, not
 bit for bit (tests/test_torch_sfmlite.py).
 """
 
@@ -317,12 +318,33 @@ def build_tracks(va, vb, ka, kb, n_views, k):
     return track_of.astype(np.int32), nodes
 
 
+def track_slots(obs_track, n_tracks: int):
+    """The observations of each track in a fixed order: (R, T) int64 on
+    obs_track's device, row r holding every track's r-th observation (in
+    observation order), or M (a zero row appended to the summands) where
+    the track has fewer. Summing the rows in order is the per-track sum in
+    observation order, the order of the CPU's `index_add_`, without
+    atomics: the CUDA `index_add_` sums in an order that changes from run
+    to run, and the BA (jacfwd's tangents included) then does not repeat."""
+    tr = obs_track.cpu().numpy().astype(np.int64)
+    order = np.argsort(tr, kind="stable")
+    start = np.searchsorted(tr[order], np.arange(n_tracks))
+    rank = np.arange(len(tr)) - start[tr[order]]
+    slots = np.full((rank.max(initial=-1) + 1, n_tracks), len(tr), np.int64)
+    slots[rank, tr[order]] = order
+    return torch.as_tensor(slots, device=obs_track.device)
+
+
 def _track_residuals(p, poses, obs_track, obs_view, obs_uv, width, height,
-                     n_tracks: int):
+                     n_tracks: int, slots=None):
     """Reprojection residuals (M_obs, 2) of multi-view tracks: each
     track's point is the least-squares intersection of all its rays
-    (X = [sum(I - dd^T)]^-1 [sum (I - dd^T) C]; `index_add_` sums, one
-    batched 3x3 solve), reprojected into every observing view."""
+    (X = [sum(I - dd^T)]^-1 [sum (I - dd^T) C]; per-track sums in
+    observation order over `slots` (`track_slots`, made here if not
+    given), one batched 3x3 solve), reprojected into every observing
+    view."""
+    if slots is None:
+        slots = track_slots(obs_track, n_tracks)
     cams = _cameras_from_params(p, poses, width, height)
     k1 = p[K1_IDX]
     co = cams[obs_view]
@@ -330,25 +352,31 @@ def _track_residuals(p, poses, obs_track, obs_view, obs_uv, width, height,
     eye = torch.eye(3, dtype=torch.float32, device=p.device)
     P = eye[None] - d[:, :, None] * d[:, None, :]         # (M, 3, 3)
     Pb = (P * C[:, None, :]).sum(-1)
-    A = torch.zeros((n_tracks, 3, 3), dtype=P.dtype,
-                    device=p.device).index_add(0, obs_track, P)
-    b = torch.zeros((n_tracks, 3), dtype=P.dtype,
-                    device=p.device).index_add(0, obs_track, Pb)
+    rows = torch.cat([P.reshape(-1, 9), Pb], dim=1)
+    rows = torch.cat([rows, rows.new_zeros((1, 12))])
+    acc = rows.new_zeros((n_tracks, 12))
+    for r in range(slots.shape[0]):
+        acc = acc + rows[slots[r]]
+    A = acc[:, :9].reshape(-1, 3, 3)
+    b = acc[:, 9:]
     A = A + 1e-6 * eye[None]
     X = torch.linalg.solve(A, b[..., None])[..., 0]       # (T, 3)
     return _project_points(co, X[obs_track], k1) - obs_uv
 
 
 def _gn_step(p, p_prior, poses, obs_track, obs_view, obs_uv, w_obs,
-             width, height, free_idx, reg, lam, n_free: int, n_tracks: int):
+             width, height, free_idx, reg, lam, n_free: int, n_tracks: int,
+             slots=None):
     """One Huber-IRLS Levenberg-Marquardt step on the free parameters
     (Marquardt diagonal scaling; `reg` is a Tikhonov prior toward
     `p_prior`). Returns (p, rms, per-observation error)."""
+    if slots is None:
+        slots = track_slots(obs_track, n_tracks)
 
     def r_free(pf):
         return _track_residuals(p.index_put((free_idx,), pf), poses,
                                 obs_track, obs_view, obs_uv, width, height,
-                                n_tracks)
+                                n_tracks, slots)
 
     with _full_f32():
         pf = p[free_idx]
@@ -370,7 +398,7 @@ def _gn_step(p, p_prior, poses, obs_track, obs_view, obs_uv, w_obs,
         dp = torch.linalg.solve(A, -JTr)
         rms = torch.sqrt(((r * wgt) ** 2).sum()
                          / (wgt.sum() * 2).clamp(min=1.0))
-    return p.index_add(0, free_idx, dp), rms, err
+    return p.index_put((free_idx,), p[free_idx] + dp), rms, err
 
 
 def refine_turntable(matches, poses, theta0, width, height, *,
@@ -468,6 +496,7 @@ def _lm_stages(p, p_prior, poses, obs_track, obs_view, obs_uv, w_obs, W, H,
     gate half as many again, its inlier set fixed after `iters`), then the
     gate's inliers become the next stage's weights."""
     rms = np.inf
+    slots = track_slots(obs_track, n_tracks)
     for stage, gate in enumerate(gate_px):
         free_idx, reg, n_free = stage_params(
             per_view and stage >= jitter_from_stage)
@@ -478,7 +507,7 @@ def _lm_stages(p, p_prior, poses, obs_track, obs_view, obs_uv, w_obs, W, H,
                                    obs_uv, w_obs, W, H, free_idx, reg,
                                    torch.tensor(np.float32(lam),
                                                 device=device),
-                                   n_free, n_tracks=n_tracks)
+                                   n_free, n_tracks=n_tracks, slots=slots)
             lam = max(lam * 0.6, 1e-4)
             if stage == len(gate_px) - 1 and it == iters - 1:
                 w_obs = (err <= gate).to(torch.float32)

@@ -14,8 +14,9 @@ with the PNG decodes and encodes on a pool of threads:
   segmentation_inference) and derives the written masks from its uint8
   probabilities there, for the whole stack at once (each step of the JAX
   task's per-file host code is one IEEE operation, so the result is the
-  same); the disk dilation is the dilate kernel. `resize=True` waits for
-  the calibration slice.
+  same); the disk dilation is the dilate kernel. `resize=True` shrinks
+  the inputs and grows the probabilities back as cv2 does
+  (ops/resize.py: INTER_AREA on the host, INTER_LINEAR on the device).
 """
 
 from __future__ import annotations
@@ -234,7 +235,9 @@ class Segmentation2D(Masks):
     Sy = Parameter(default=896)
     #: False (reference behavior, tasks/proc2d.py:351): center-crop the
     #: input to (Sy, Sx) and shift the written camera principal point.
-    #: True (resize to the net and back) is not ported yet.
+    #: True: shrink the input to (Sx, Sy) as cv2 INTER_AREA does and grow
+    #: the probabilities back as cv2 INTER_LINEAR does (ops/resize.py);
+    #: the camera metadata stays as it is.
     resize = Parameter(default=False)
     single_label = Parameter(default="")
     inverted_labels = Parameter(default=["background"])
@@ -259,13 +262,10 @@ class Segmentation2D(Masks):
 
         from ..models.checkpoint import load_model
         from ..models.unet import segmentation_inference
+        from ..ops.carving import div_f32
+        from ..ops.resize import resize_area_u8, resize_linear_f32
         from ..runtime.task import paused_gc
 
-        if bool(self.resize):
-            raise NotImplementedError(
-                "Segmentation2D resize=True (cv2 INTER_AREA / INTER_LINEAR "
-                "resampling) is not ported yet: it comes with the "
-                "hybrid/calibration slice")
         model_fs = self.input()["model"].get(create=False)
         if model_fs is None:
             raise FileNotFoundError("No 'models' fileset found")
@@ -278,12 +278,18 @@ class Segmentation2D(Masks):
         files = images_fs.get_files(query=self.query or None)
         logger.info(f"Segmentation2D: {len(files)} images, labels={labels}")
         Sx, Sy = int(self.Sx), int(self.Sy)
+        resize = bool(self.resize)
 
         def _load(fin):
             img = io.read_image(fin)
             if img.ndim == 2:
                 img = np.repeat(img[..., None], 3, axis=-1)
             H, W = img.shape[:2]
+            if resize:
+                if (W, H) != (Sx, Sy):
+                    img = resize_area_u8(img[..., :3], (Sx, Sy))
+                # the original size, to grow the probabilities back to
+                return img[..., :3], (W, H)
             # center crop to (Sy, Sx) as the reference does (:351)
             y0 = max((H - Sy) // 2, 0)
             x0 = max((W - Sx) // 2, 0)
@@ -292,7 +298,6 @@ class Segmentation2D(Masks):
         with paused_gc(), ThreadPoolExecutor(max_workers=8) as ex:
             loaded = list(ex.map(_load, files))
         batch = np.stack([im for im, _ in loaded])
-        offsets = [off for _, off in loaded]
 
         probs = segmentation_inference(model, batch,
                                        batch_size=int(self.batch_size),
@@ -300,9 +305,25 @@ class Segmentation2D(Masks):
                                        conv_mode=str(self.conv_mode),
                                        data_parallel=self.data_parallel,
                                        device=self.ctx.device)  # uint8 NCHW
+        pred = div_f32(probs.to(torch.float32), 255.0)
+        if resize:
+            # each image's probabilities back to its own size; its
+            # camera metadata verbatim
+            masks = []
+            for i, (_, size) in enumerate(loaded):
+                p = (pred[i] if size == (Sx, Sy)
+                     else resize_linear_f32(pred[i], size))
+                out, names = self.channel_masks(labels, p[None])
+                masks.append(out[0].cpu().numpy())
+            offsets = [(0, 0)] * len(loaded)
+        else:
+            out, names = self.channel_masks(labels, pred)
+            masks = out.cpu().numpy()
+            offsets = [off for _, off in loaded]
         outfs = self.output().get()
         with paused_gc():
-            self._write_channels(outfs, list(files), labels, probs, offsets)
+            self._write_channels(outfs, list(files), labels, names, masks,
+                                 offsets)
 
     @staticmethod
     def _shift_principal_point(md, offset):
@@ -328,25 +349,23 @@ class Segmentation2D(Masks):
                     md[key] = dict(cam, camera_model=model)
         return md
 
-    def channel_masks(self, labels, probs):
-        """The written masks of the (N, C, H, W) uint8 probabilities, as
-        (N, C', H, W) uint8 on their device (C' = the labels written): the
-        JAX task's per-file steps, operation for operation, on the stack:
-        / 255 in float32; `1 - p` for an inverted label; `> threshold` in
-        float32 and the disk dilation (binarize); `1 - p` again for an
-        inverted label (1 - (1 - p) is not p in float32); `p * 255`
-        truncated to uint8."""
-        from ..ops.carving import div_f32
+    def channel_masks(self, labels, pred):
+        """The written masks of the (N, C, H, W) float32 probabilities (the
+        net's uint8 output / 255), as (N, C', H, W) uint8 on their device
+        (C' = the labels written) and the written labels: the JAX task's
+        per-file steps, operation for operation, on the stack: `1 - p` for
+        an inverted label; `> threshold` in float32 and the disk dilation
+        (binarize); `1 - p` again for an inverted label (1 - (1 - p) is
+        not p in float32); `p * 255` truncated to uint8."""
         from ..ops.masks import binary_dilation
 
         keep = [c for c, l in enumerate(labels)
                 if not self.single_label or l == self.single_label]
-        N, _, H, W = probs.shape
-        dev = probs.device
+        N, _, H, W = pred.shape
+        dev = pred.device
         inv = torch.tensor([labels[c] in list(self.inverted_labels)
                             for c in keep], device=dev).view(1, -1, 1, 1)
-        pred = div_f32(probs[:, keep].to(torch.float32), 255.0)
-        pred = torch.where(inv, 1.0 - pred, pred)
+        pred = torch.where(inv, 1.0 - pred[:, keep], pred[:, keep])
         if bool(self.binarize):
             m = pred > float(np.float32(self.threshold))
             if int(self.dilation) > 0:
@@ -355,11 +374,9 @@ class Segmentation2D(Masks):
         pred = torch.where(inv, 1.0 - pred, pred)
         return (pred * 255).to(torch.uint8), [labels[c] for c in keep]
 
-    def _write_channels(self, outfs, metas, labels, probs, offsets):
+    def _write_channels(self, outfs, metas, labels, names, out, offsets):
         from concurrent.futures import ThreadPoolExecutor
 
-        out, names = self.channel_masks(labels, probs)
-        out = out.cpu().numpy()
         # the files are created in the JAX task's order (image, then label):
         # downstream tasks read them in fileset order
         jobs = [(outfs.get_file(f"{fin.id}_{label}", create=True), fin, i, c)
@@ -368,7 +385,7 @@ class Segmentation2D(Masks):
 
         def _write(job):
             fout, fin, i, c = job
-            io.write_image(fout, out[i, c], "png")
+            io.write_image(fout, out[i][c], "png")
             md = self._shift_principal_point(fin.get_metadata(), offsets[i])
             md["channel"] = names[c]
             fout.set_metadata(md)

@@ -92,13 +92,19 @@ class PointCloud(RomiTask):
 
 
 class CurveSkeleton(RomiTask):
-    """Point cloud -> curve skeleton {points, lines} JSON, by the Xu
-    distance-to-root-clusters method (method="graph": geodesic level sets
-    over the point cloud, host Dijkstra; reference proc3d.py:392-426).
+    """Point cloud / carved volume -> curve skeleton {points, lines} JSON.
 
-    The JAX package's other methods ("fim" eikonal, "mcf" mesh
-    contraction) are ported in a later slice; their parameters are kept so
-    fileset ids match.
+    - method="graph" (default): the Xu distance-to-root-clusters method
+      (geodesic level sets over the point cloud, host Dijkstra; reference
+      proc3d.py:392-426).
+    - method="fim": the eikonal skeleton on the `Voxels` volume: geodesic
+      distance from the root plane through the occupied voxels
+      (ops/eikonal.py, K14 on the card), one cluster per connected
+      component of each distance bin, 6-adjacency edges between clusters,
+      their minimum spanning tree.
+
+    The JAX package's "mcf" (mesh contraction) is ported in a later slice;
+    its parameters are kept so fileset ids match.
     """
 
     upstream_task = Parameter(default="PointCloud")
@@ -113,21 +119,144 @@ class CurveSkeleton(RomiTask):
     min_branch = Parameter(default=0.0)
 
     def run(self):
-        if str(self.method) != "graph":
+        if str(self.method) == "fim":
+            centers, lines = self._skeleton_fim()
+        elif str(self.method) == "graph":
+            obj = io.read_point_cloud(self.input_file())
+            points = obj.points if hasattr(obj, "points") else obj.vertices
+            if bool(self.stem_axis_inverted):
+                root_index = int(np.argmax(points[:, int(self.stem_axis)]))
+            else:
+                root_index = int(np.argmin(points[:, int(self.stem_axis)]))
+            centers, lines = proc3d.skeleton_from_distance_to_root_clusters(
+                points, root_index, float(self.bin_size), int(self.k))
+        else:
             raise NotImplementedError(
                 f"CurveSkeleton method {self.method!r} is not ported yet "
-                "(only 'graph'); 'fim' and 'mcf' come with a later slice")
-        obj = io.read_point_cloud(self.input_file())
-        points = obj.points if hasattr(obj, "points") else obj.vertices
-        if bool(self.stem_axis_inverted):
-            root_index = int(np.argmax(points[:, int(self.stem_axis)]))
-        else:
-            root_index = int(np.argmin(points[:, int(self.stem_axis)]))
-        centers, lines = proc3d.skeleton_from_distance_to_root_clusters(
-            points, root_index, float(self.bin_size), int(self.k))
+                "('graph' and 'fim' are); 'mcf' comes with the meshes")
         outfile = self.output_file()
         io.write_json(outfile, {"points": centers.tolist(),
                                 "lines": lines.tolist()})
+
+
+    def _skeleton_fim(self):
+        """Eikonal skeleton on the carved volume: seeds on the root plane,
+        the geodesic distance on the run's device, then host clustering
+        (`distance_bin_clusters`) and the clusters' spanning tree."""
+        import torch
+
+        from ..fsdb import handoff
+        from ..ops.eikonal import geodesic_distance
+        from ..runtime.runner import stage
+
+        vfile = self.ctx.get_task("Voxels").output().get(
+            create=False).get_files()[0]
+        vols = handoff.cache_get(vfile)
+        if vols is None:
+            vols = io.read_npz(vfile)
+        vol = vols[list(vols.keys())[0]]
+        origin = np.asarray(vfile.get_metadata("origin"))
+        vs = float(vfile.get_metadata("voxel_size"))
+        dev = self.ctx.device
+
+        with stage("eikonal"):
+            mask = torch.as_tensor(vol).to(dev) > 0.5
+            seeds = root_plane_seeds(mask, int(self.stem_axis),
+                                     bool(self.stem_axis_inverted))
+            dist = geodesic_distance(mask, seeds).cpu().numpy()
+            mask = mask.cpu().numpy()
+        with stage("clusters"):
+            centers, edges = distance_bin_clusters(mask, dist,
+                                                   float(self.bin_size))
+        return proc3d.index2point(centers, origin, vs), edges
+
+
+def root_plane_seeds(mask, axis: int, inverted: bool):
+    """The eikonal solve's seeds: the occupied voxels of the lowest (or,
+    inverted, the highest) occupied plane across `axis` of a bool volume
+    tensor."""
+    import torch
+    planes = torch.nonzero(mask.any(dim=[a for a in range(3) if a != axis]))
+    root = int(planes.max() if inverted else planes.min())
+    seeds = torch.zeros_like(mask)
+    sl = [slice(None)] * 3
+    sl[axis] = root
+    seeds[tuple(sl)] = mask[tuple(sl)]
+    return seeds
+
+
+def distance_bin_clusters(mask, dist, bin_size: float):
+    """The eikonal skeleton's graph (JAX `_skeleton_fim`'s host part): the
+    reached voxels binned by floor(d / bin_size), one cluster per connected
+    component (6-adjacency, scipy's label order) of each bin, numbered by
+    (bin, label); centers the mean voxel index (float64); the sorted set of
+    6-adjacent cluster pairs, reduced to their minimum spanning tree by
+    center distance. Returns (centers (C, 3), edges (E, 2)).
+
+    The JAX code labels the whole grid once per bin, compares it with
+    every label and shifts whole-grid copies for the edges; here each bin
+    is labelled in its own bounding box (the same components in the same
+    raster order), the centers are bincount sums of integer indices (exact
+    in float64) and the edges come from the reached voxels' flat indices,
+    so the result is the same at a cost of the reached voxels, not the
+    grid's."""
+    import scipy.ndimage as ndi
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    reach = mask & (dist < 1e9)
+    idx = np.argwhere(reach)
+    d = dist[reach]
+    bins = np.floor(d / bin_size).astype(np.int64)
+    cluster = np.empty(len(idx), np.int64)
+    centers = []
+    next_id = 0
+    order = np.argsort(bins, kind="stable")
+    starts = np.searchsorted(bins[order], np.arange(bins.max(initial=-1) + 2))
+    for b in range(len(starts) - 1):
+        rows = order[starts[b]:starts[b + 1]]
+        if len(rows) == 0:
+            continue
+        pts = idx[rows]
+        lo = pts.min(axis=0)
+        crop = np.zeros(tuple(pts.max(axis=0) - lo + 1), bool)
+        local = pts - lo
+        crop[tuple(local.T)] = True
+        comp, n = ndi.label(crop)
+        lab = comp[tuple(local.T)] - 1
+        counts = np.bincount(lab, minlength=n)
+        sums = np.stack([np.bincount(lab, weights=pts[:, k], minlength=n)
+                         for k in range(3)], axis=1)
+        centers.append(sums / counts[:, None])
+        cluster[rows] = next_id + lab
+        next_id += n
+    centers = (np.concatenate(centers) if centers
+               else np.zeros((0, 3), np.float64))
+
+    # 6-adjacent pairs of reached voxels in different clusters: each
+    # voxel's +1 neighbour along each axis, found among the reached
+    # voxels' sorted flat indices
+    lin = np.ravel_multi_index(tuple(idx.T), mask.shape)
+    pairs = []
+    for axis in range(3):
+        stride = int(np.prod(mask.shape[axis + 1:]))
+        inside = idx[:, axis] < mask.shape[axis] - 1
+        nb = lin[inside] + stride
+        pos = np.minimum(np.searchsorted(lin, nb), len(lin) - 1)
+        hit = lin[pos] == nb
+        a, b = cluster[inside][hit], cluster[pos[hit]]
+        ok = a != b
+        pairs.append(np.stack([np.minimum(a[ok], b[ok]),
+                               np.maximum(a[ok], b[ok])], axis=1))
+    edges = np.unique(np.concatenate(pairs), axis=0).astype(np.int64)
+    if len(edges):
+        w = np.linalg.norm(centers[edges[:, 0]] - centers[edges[:, 1]],
+                           axis=1)
+        g = sp.coo_matrix((w, (edges[:, 0], edges[:, 1])),
+                          shape=(len(centers), len(centers)))
+        mst = sp.coo_matrix(minimum_spanning_tree(g.maximum(g.T)))
+        edges = np.stack([mst.row, mst.col], axis=1)
+    return centers, edges
 
 
 class SegmentedPointCloud(RomiTask):

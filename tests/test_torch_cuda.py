@@ -472,3 +472,172 @@ def test_harris_kernel_matches_plain(dev, shape):
     uk, sk = sfmlite.harris_keypoints(gray, mask, k=36, border=8)
     up, sp = sfmlite.harris_keypoints(gray.cpu(), mask.cpu(), k=36, border=8)
     assert torch.equal(uk.cpu(), up) and torch.equal(sk.cpu(), sp)
+
+
+# -- K14 (eikonal sweeps), K15 (geodesic tracing), the repeatable BA ----------
+
+def _tube(length, width=1):
+    """A straight tube along z seeded at z = 0: the front moves a voxel a
+    sweep, so the loop stops at sweep `length` (the first with |du| = 0)."""
+    mask = np.zeros((width + 2, width + 2, length), bool)
+    mask[1:-1, 1:-1, :] = True
+    seeds = np.zeros_like(mask)
+    seeds[1:-1, 1:-1, 0] = True
+    return mask, seeds
+
+
+def _blob_mask(rng, shape, n=14):
+    g = np.stack(np.meshgrid(*[np.arange(s) for s in shape], indexing="ij"),
+                 -1).astype(np.float32)
+    mask = np.zeros(shape, bool)
+    for c, r in zip(rng.uniform(0, 1, (n, 3)) * np.array(shape),
+                    rng.uniform(3, 9, n)):
+        mask |= ((g - c) ** 2).sum(-1) < r * r
+    seeds = np.zeros_like(mask)
+    z0 = np.nonzero(mask.any((0, 1)))[0].min()
+    seeds[:, :, z0] = mask[:, :, z0]
+    return mask, seeds
+
+
+def _eikonal_both(dev, mask, seeds, speed=None, **kw):
+    from plant3dvision_tpu_torch.ops.eikonal import (
+        geodesic_distance, geodesic_distance_plain)
+    args = [torch.from_numpy(mask).to(dev), torch.from_numpy(seeds).to(dev),
+            None if speed is None else torch.from_numpy(speed).to(dev)]
+    k, nk = geodesic_distance(*args, return_sweeps=True, **kw)
+    p, np_ = geodesic_distance_plain(*args, return_sweeps=True, **kw)
+    return k, nk, p, np_
+
+
+@pytest.mark.parametrize("speed", [False, True])
+@pytest.mark.parametrize("seed,shape", [(0, (48, 40, 64)), (1, (33, 29, 71))])
+def test_eikonal_kernel_matches_plain(dev, seed, shape, speed):
+    """K14 bit-equal to its plain version on seeded blob masks, with the
+    same sweep count (the stop test on the device)."""
+    rng = np.random.default_rng(seed)
+    mask, seeds = _blob_mask(rng, shape)
+    sp = (rng.uniform(0.3, 2.0, shape).astype(np.float32) if speed
+          else None)
+    k, nk, p, np_ = _eikonal_both(dev, mask, seeds, sp)
+    assert nk == np_ > 5
+    assert torch.equal(k, p)
+    assert (k < 1e9).sum() > 300
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 130])
+def test_eikonal_kernel_stops_at_the_plain_sweep(dev, length):
+    """Stops at sweep 1 (nothing to update), at a batch's last sweep, at
+    the batch size and one past it, and two batches on."""
+    from plant3dvision_tpu_torch.ops.eikonal import SWEEP_BATCH
+    assert SWEEP_BATCH == 64
+    mask, seeds = _tube(length)
+    k, nk, p, np_ = _eikonal_both(dev, mask, seeds)
+    assert nk == np_ == max(length, 1)
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 10, 64, 65])
+def test_eikonal_kernel_max_iters_binds(dev, max_iters):
+    mask, seeds = _tube(150)
+    k, nk, p, np_ = _eikonal_both(dev, mask, seeds, max_iters=max_iters)
+    assert nk == np_ == max_iters
+    assert torch.equal(k, p)
+
+
+def test_eikonal_kernel_refuses_what_it_cannot_take(dev):
+    from plant3dvision_tpu_torch.ops.eikonal import geodesic_distance
+    mask, seeds = _tube(8)
+    m = torch.from_numpy(mask).to(dev)
+    with pytest.raises(ValueError):
+        geodesic_distance(m, torch.from_numpy(seeds))        # two devices
+    with pytest.raises(ValueError):
+        geodesic_distance(m.float(), m)                      # not bool
+    with pytest.raises(ValueError):
+        geodesic_distance(m.transpose(0, 2), m.transpose(0, 2))  # strided
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_trace_kernel_matches_plain(dev, seed):
+    """K15's votes equal its plain version's on the flow of a blob's
+    distance map, from tips at the distance's local maxima (and jittered
+    copies), with extrapolating start points past n - 2."""
+    import scipy.ndimage as ndi
+    from plant3dvision_tpu_torch.ops.eikonal import (geodesic_distance,
+                                                     gradient_flow)
+    from plant3dvision_tpu_torch.ops.geodesics import (trace_geodesics,
+                                                       trace_geodesics_plain)
+    rng = np.random.default_rng(seed)
+    mask, seeds = _blob_mask(rng, (40, 36, 60))
+    m = torch.from_numpy(mask).to(dev)
+    d = geodesic_distance(m, torch.from_numpy(seeds).to(dev))
+    flow = gradient_flow(d, m)
+    values = torch.where(m, d, 0.0)
+    dn = np.where(mask & (d.cpu().numpy() < 1e9), d.cpu().numpy(), -1)
+    tips = np.argwhere((dn == ndi.maximum_filter(dn, size=3)) & (dn > 2))
+    tips = np.concatenate([tips, tips + rng.uniform(-0.4, 0.4, tips.shape),
+                           [[39.5, 35.2, 59.9]]]).astype(np.float32)
+    t = torch.from_numpy(tips).to(dev)
+    vk = trace_geodesics(flow, values, t, step=0.5, n_steps=2000)
+    vp = trace_geodesics_plain(flow, values, t, step=0.5, n_steps=2000)
+    assert vk.dtype == torch.int32
+    assert torch.equal(vk, vp)
+    assert int(vk.sum()) > 100
+
+
+def _ba_scene(V=12, W=320, H=240, seed=3):
+    """A ring of turntable views of random points (the JAX unit test's
+    scene, built with the port's cameras): the matches refine_turntable
+    takes, with 0.3 px noise."""
+    from plant3dvision_tpu_torch.ops.selfcal import cnc_to_cameras
+    rng = np.random.default_rng(seed)
+    ang = 360.0 * np.arange(V) / V
+    poses = np.stack([200 * np.cos(np.deg2rad(ang)),
+                      200 * np.sin(np.deg2rad(ang)), np.full(V, 60.0),
+                      ang + 90.0, np.zeros(V)], 1).astype(np.float32)
+    theta = np.zeros(9, np.float32)
+    theta[[0, 3, 6, 7]] = 260.0, 1.0, 3.0, -2.0
+    true = poses.copy()
+    true[:, 3] += 0.15 * rng.standard_normal(V).astype(np.float32)
+    cams = cnc_to_cameras(torch.from_numpy(true), torch.from_numpy(theta),
+                          W, H).numpy()
+    pts = np.stack([rng.uniform(-30, 30, 300), rng.uniform(-30, 30, 300),
+                    rng.uniform(10, 120, 300)], 1)
+    uv = {}
+    for v in range(V):
+        q = pts @ cams[v, 4:13].reshape(3, 3).T + cams[v, 13:16]
+        uv[v] = (q[:, :2] / q[:, 2:] * cams[v, :2] + cams[v, 2:4]
+                 + 0.3 * rng.standard_normal((len(pts), 2)))
+    cols = {n: [] for n in ("va", "vb", "ua", "ub", "ka", "kb")}
+    for s in (1, 2, 4):
+        for a in range(V):
+            b = (a + s) % V
+            ok = np.nonzero((((uv[a] > 8) & (uv[a] < [W - 8, H - 8]))
+                             & ((uv[b] > 8) & (uv[b] < [W - 8, H - 8])))
+                            .all(1))[0]
+            for n, x in (("va", np.full(len(ok), a)), ("vb", np.full(len(ok), b)),
+                         ("ua", uv[a][ok]), ("ub", uv[b][ok]), ("ka", ok),
+                         ("kb", ok)):
+                cols[n].append(x)
+    m = {n: np.concatenate(v) for n, v in cols.items()}
+    for n in ("va", "vb", "ka", "kb"):
+        m[n] = m[n].astype(np.int32)
+    for n in ("ua", "ub"):
+        m[n] = m[n].astype(np.float32)
+    theta0 = np.zeros(9, np.float32)
+    theta0[0], theta0[3] = 240.0, 0.7
+    return m, poses, theta0, W, H
+
+
+def test_bundle_adjustment_repeats_bit_for_bit(dev):
+    """Two runs of refine_turntable on one set of matches give bit-equal
+    parameters on the card (the track sums take a fixed order; no float
+    atomics), and the BA converges."""
+    from plant3dvision_tpu_torch.ops.sfmlite import refine_turntable
+    m, poses, theta0, W, H = _ba_scene()
+    a = refine_turntable(m, poses, theta0, W, H, device=dev)
+    b = refine_turntable(m, poses, theta0, W, H, device=dev)
+    np.testing.assert_array_equal(a["theta_raw"], b["theta_raw"])
+    for k in ("dpan_view", "dtilt_view", "droll_view"):
+        np.testing.assert_array_equal(a[k], b[k])
+    assert a["k1"] == b["k1"] and a["rms_px"] == b["rms_px"]
+    assert abs(a["theta"]["f"] - 260.0) < 2.6 and a["rms_px"] < 1.0

@@ -20,8 +20,9 @@ def _forbidden(name: str) -> bool:
 
 def test_no_jax_or_jax_package_imports_in_the_port():
     """AST scan of every module of the port (models/, synth_photo.py,
-    evaluation.py, the separate-task ML route's, the real-scan front end's
-    and the calibration's modules included), of chip_smoke.py and of
+    evaluation.py, the separate-task ML route's, the real-scan front end's,
+    the calibration's and the eikonal skeleton's modules included), of
+    chip_smoke.py and of
     tools/frontend_angles.py:
     no import statement and no importlib string names jax, flax,
     scikit-learn or plant3dvision_tpu."""
@@ -32,7 +33,8 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                  "models/checkpoint.py", "ops/reproject.py", "ops/masks.py",
                  "tasks/proc2d.py", "tasks/cl.py", "ops/undistort.py",
                  "ops/carving.py", "utils.py", "ops/selfcal.py",
-                 "ops/sfmlite.py", "tasks/colmap.py"):
+                 "ops/sfmlite.py", "tasks/colmap.py", "ops/eikonal.py",
+                 "ops/geodesics.py", "tasks/proc3d.py"):
         assert PORT / name in paths
     for path in paths + [ROOT / "chip_smoke.py",
                          ROOT / "tools" / "frontend_angles.py"]:

@@ -464,12 +464,19 @@ def test_segmentation2d_binarized_matches_jax(temp_db, monkeypatch):
 
 
 def test_segmentation2d_refuses_resize(temp_db):
-    from plant3dvision_tpu_torch.runtime import RunContext
-    from plant3dvision_tpu_torch.tasks.proc2d import Segmentation2D
-    ctx = RunContext(temp_db, "s", {"Segmentation2D": {"resize": True}},
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        Segmentation2D(ctx).run()
+    """resize=True runs (tests/test_torch_resize.py holds it against the
+    JAX package); what its resamplers refuse is what cv2 would do
+    otherwise than the task needs: a uint16 INTER_AREA input, an INTER_AREA
+    growth, float64 probabilities."""
+    from plant3dvision_tpu_torch.ops.resize import (resize_area_u8,
+                                                    resize_linear_f32)
+    with pytest.raises(ValueError, match="uint8"):
+        resize_area_u8(np.zeros((8, 8, 3), np.uint16), (4, 4))
+    with pytest.raises(ValueError, match="growth"):
+        resize_area_u8(np.zeros((8, 8, 3), np.uint8), (16, 4))
+    with pytest.raises(ValueError, match="float32"):
+        resize_linear_f32(torch.zeros((2, 4, 4), dtype=torch.float64),
+                          (8, 8))
 
 
 # -- the route end to end -----------------------------------------------------

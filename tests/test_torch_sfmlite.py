@@ -13,8 +13,8 @@ Tolerances, and what is exact:
 - patch_descriptors: within 2e-7 (XLA sums the 2x2 pools and the norm in
   another order); match_mutual: equal matches.
 - _residuals / _track_residuals: within 2e-3 px; one _gn_step: the step
-  within 1e-4 of its size. The BA sums in another order (jacfwd, index_add_,
-  the batched 3x3 solves), so over 42 steps refine_turntable agrees within
+  within 1e-4 of its size. The BA sums in another order (jacfwd, the track
+  sums, the batched 3x3 solves), so over 42 steps refine_turntable agrees within
   2e-4 px in f and 2e-4 deg per view; iterative_refine picks the same focal
   start. Both meet the JAX tests' own criteria.
 """
@@ -171,6 +171,26 @@ def test_residuals_and_one_gn_step_match_jax(ring):
     np.testing.assert_allclose(float(rms), float(jrms), rtol=1e-5)
     np.testing.assert_allclose(err.numpy(), np.asarray(jerr), rtol=0,
                                atol=2e-3)
+
+
+def test_track_sums_take_the_observation_order(ring):
+    """track_slots: per-track sums over its rows, in row order, are the
+    CPU index_add_'s sums bit for bit (observation order), with tracks of
+    uneven length and observations not grouped by track; no atomics, so
+    the card repeats them (tests/test_torch_cuda.py)."""
+    rng = np.random.default_rng(3)
+    T, M = 40, 500
+    tr = rng.integers(0, T, M)
+    tr[:T] = np.arange(T)                      # every track observed
+    x = torch.from_numpy(rng.standard_normal((M, 12)).astype(np.float32))
+    ref = torch.zeros((T, 12)).index_add(0, torch.from_numpy(tr), x)
+    slots = P.track_slots(torch.from_numpy(tr), T)
+    assert slots.shape == (np.bincount(tr).max(), T)
+    rows = torch.cat([x, x.new_zeros((1, 12))])
+    got = x.new_zeros((T, 12))
+    for r in range(slots.shape[0]):
+        got = got + rows[slots[r]]
+    assert torch.equal(got, ref)
 
 
 def test_refine_turntable_matches_jax(ring):
