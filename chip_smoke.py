@@ -103,9 +103,9 @@
    AnglesAndInternodes. Prints the eikonal solve's sweep count, its ms in
    total and a sweep, the host clustering seconds, and the angles' count
    and DTW error (no angle bar). Checks (after phase 14) that K14 was
-   launched in the warm pass, that the skeleton is a tree and has the
-   solve's clusters, and, with --time-whole-grid-clusters, that the JAX
-   package's whole-grid clustering gives the same clusters and tree.
+   launched in the warm pass, that its launches are the solve's sweeps
+   rounded up to whole batches, and that the skeleton is a tree and has
+   the solve's clusters.
 14. Holds K14 (the whole solve on phase 13's volume, bit for bit, the same
    sweep count) and K15 (2000 steps of 0.5 from the skeleton's leaf nodes,
    on the solve's flow; votes equal) against their plain versions and
@@ -116,7 +116,7 @@ Prints one JSON object per line; the last line is
 Exits non-zero without that line when there is no CUDA device or any
 phase fails.
 
-Usage: python3 chip_smoke.py [--only 13,14] [--time-whole-grid-clusters]
+Usage: python3 chip_smoke.py [--only 13,14]
 """
 
 from __future__ import annotations
@@ -2220,47 +2220,7 @@ def fim_inputs(scan, report, cfg):
                                   bool(skel.get("stem_axis_inverted")))
 
 
-def whole_grid_clusters(mask, dist, bin_size):
-    """The JAX package's _skeleton_fim clustering as it is written there
-    (tasks/proc3d.py:242-276): one ndi.label of the whole grid per distance
-    bin and one comparison of the whole grid per component. Returns
-    (centers, the spanning tree's edges)."""
-    import numpy as np
-    import scipy.ndimage as ndi
-    import scipy.sparse as sp
-    from scipy.sparse.csgraph import minimum_spanning_tree
-    reach = mask & (dist < 1e9)
-    idx = np.argwhere(reach)
-    bins = np.floor(dist[reach] / bin_size).astype(np.int64)
-    centers = []
-    next_id = 0
-    vol_bins = np.full(mask.shape, -1, dtype=np.int64)
-    vol_bins[tuple(idx.T)] = bins
-    for b in range(int(bins.max()) + 1):
-        comp, n = ndi.label(vol_bins == b)
-        for c in range(1, n + 1):
-            sel = comp == c
-            centers.append(np.argwhere(sel).mean(axis=0))
-            vol_bins[sel] = -1000 - next_id
-            next_id += 1
-    cluster_of = -(vol_bins + 1000)
-    edges = set()
-    for axis in range(3):
-        a = cluster_of.take(range(0, mask.shape[axis] - 1), axis=axis)
-        b = cluster_of.take(range(1, mask.shape[axis]), axis=axis)
-        ok = (a >= 0) & (b >= 0) & (a != b)
-        for u, v in zip(a[ok].ravel(), b[ok].ravel()):
-            edges.add((min(u, v), max(u, v)))
-    centers = np.asarray(centers)
-    edges = np.asarray(sorted(edges), dtype=np.int64)
-    w = np.linalg.norm(centers[edges[:, 0]] - centers[edges[:, 1]], axis=1)
-    g = sp.coo_matrix((w, (edges[:, 0], edges[:, 1])),
-                      shape=(len(centers), len(centers)))
-    mst = sp.coo_matrix(minimum_spanning_tree(g.maximum(g.T)))
-    return centers, np.stack([mst.row, mst.col], axis=1)
-
-
-def run_fim_path(db, device_name, time_whole_grid=False):
+def run_fim_path(db, device_name):
     """Phase 13: the eikonal skeleton (fim_config) on phase 9's 60-view
     1440x1080 distorted scan (written here if phase 9 did not run): one
     cold pass, one warm pass after Clean, one profiled warm pass, each from
@@ -2271,7 +2231,8 @@ def run_fim_path(db, device_name, time_whole_grid=False):
     import numpy as np
     import torch
     from plant3dvision_tpu_torch import kernels
-    from plant3dvision_tpu_torch.ops.eikonal import geodesic_distance
+    from plant3dvision_tpu_torch.ops.eikonal import (SWEEP_BATCH,
+                                                     geodesic_distance)
     from plant3dvision_tpu_torch.runtime import RunContext, run_task
     from plant3dvision_tpu_torch.synth import SyntheticPlant
     from plant3dvision_tpu_torch.tasks.proc3d import distance_bin_clusters
@@ -2319,15 +2280,6 @@ def run_fim_path(db, device_name, time_whole_grid=False):
     t0 = time.perf_counter()
     centers, edges = distance_bin_clusters(mask_np, dist_np, 4.0)
     clusters_s = time.perf_counter() - t0
-    whole = None
-    if time_whole_grid:
-        t0 = time.perf_counter()
-        wc, we = whole_grid_clusters(mask_np, dist_np, 4.0)
-        whole = {"s": time.perf_counter() - t0, "clusters": len(wc),
-                 "centers_within_1e-9": bool(
-                     len(wc) == len(centers) and np.allclose(
-                         centers, wc, rtol=1e-9, atol=0)),
-                 "edges_equal": bool(np.array_equal(edges, we))}
     stages = report["CurveSkeleton"].get("stages", {})
     emit({"fim_path": {
         "device": device_name, "n_views": V, "image": [W, H],
@@ -2340,7 +2292,7 @@ def run_fim_path(db, device_name, time_whole_grid=False):
         "curve_skeleton_stages_s": stages,
         "sweeps": sweeps, "solve_ms": solve_s * 1e3,
         "ms_per_sweep": solve_s * 1e3 / max(sweeps, 1),
-        "host_clusters_s": clusters_s, "whole_grid_clusters": whole,
+        "host_clusters_s": clusters_s,
         "skeleton_nodes": len(skel["points"]),
         "skeleton_edges": len(skel["lines"]),
         "n_angles": int(len(angles)), "angles": angles.tolist(),
@@ -2362,10 +2314,9 @@ def run_fim_path(db, device_name, time_whole_grid=False):
             n_nodes >= 20 and len(skel["lines"]) == n_nodes - 1,
         "the task's skeleton has the solve's clusters": n_nodes == len(
             centers),
-        "the solve's sweeps equal the launches' count": 0 < sweeps <= launches[
-            "eikonal_sweep"],
-        "whole-grid clusters equal (when timed)": whole is None or (
-            whole["centers_within_1e-9"] and whole["edges_equal"]),
+        "the solve's launches are its sweeps' whole batches": 0 < sweeps and
+            launches["eikonal_sweep"] == -(-sweeps // SWEEP_BATCH)
+            * SWEEP_BATCH,
         "finite numbers": bool(np.isfinite(
             [cold_s, warm_s, solve_s, clusters_s, peak_mb,
              prof["device_idle_share"], *np.ravel(skel["points"]),
@@ -2429,13 +2380,15 @@ def check_fim_kernels(scan, report, launches):
     tms = cuda_ms(lambda: trace_geodesics(flow, values, tips, step=0.5,
                                           n_steps=2000))
     votes = int(vk.sum())
-    # bytes: the flow, the values and the tips read once, the votes written
-    # once; operations: ~130 a step taken (4 trilinear samples, the step,
-    # the clip, the tests), votes + one final step per particle
+    # a step is taken for each vote and once more by each particle (the
+    # step that stops it); bytes: the tips read once, the dense votes
+    # written once, and each step's two trilinear samples, 8 corners of
+    # the flow (12 B) and of the values (4 B); operations: ~130 a step
+    # (the samples, the step, the clip, the tests)
+    steps = votes + len(leaves)
     rows.append(kernel_row(
         "trace_geodesics", launches["trace_geodesics"], 0, tms, tplain_ms,
-        16 * nvox + tips.numel() * 4 + 4 * nvox,
-        130 * (votes + len(leaves)),
+        tips.numel() * 4 + 4 * nvox + 8 * 16 * steps, 130 * steps,
         extra={"path": "phase 14 only (no task calls it)",
                "particles": len(leaves), "votes": votes,
                "n_steps": 2000}))
@@ -2460,10 +2413,6 @@ def main(argv=None):
                     help="comma-separated phases to run (2-14; a kernel "
                     "check phase runs with its path, e.g. 13,14); default "
                     "all")
-    ap.add_argument("--time-whole-grid-clusters", action="store_true",
-                    help="phase 13 also times the JAX package's whole-grid "
-                    "clustering on the solve's distances and holds the "
-                    "port's to it")
     args = ap.parse_args(argv)
     groups = ({PHASES[p] for p in args.only.split(",") if p}
               if args.only else set(PHASES.values()))
@@ -2515,7 +2464,7 @@ def main(argv=None):
             assert not failed, f"calibrated path checks failed: {failed}"
         if "fim" in groups:
             fim_scan, fim_report, fim_launches, fim_checks = run_fim_path(
-                db, name, args.time_whole_grid_clusters)
+                db, name)
             rows += check_fim_kernels(fim_scan, fim_report, fim_launches)
             failed = [c for c, ok in fim_checks.items() if not ok]
             assert not failed, f"eikonal skeleton path checks failed: {failed}"

@@ -20,6 +20,7 @@ Tolerances, and what is exact:
 
 import json
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -248,25 +249,60 @@ def test_trace_geodesics_votes_along_the_tube():
     assert votes[2:4, 2:4].sum() == votes.sum()
 
 
+class _VoxelsFile:
+    """The one file of a Voxels fileset as both packages' `_skeleton_fim`
+    read it: a volume in an npz, its origin and voxel size."""
+
+    def __init__(self, folder, volume, origin, voxel_size):
+        self._path = folder / "voxels.npz"
+        np.savez(self._path, volume=volume.astype(np.float32))
+        self._meta = {"origin": list(origin), "voxel_size": voxel_size}
+        self.db = SimpleNamespace(path=lambda: folder)
+        self.scan = SimpleNamespace(id="scan")
+        self.fileset = SimpleNamespace(id="Voxels")
+        self.id = "voxels"
+
+    def path(self):
+        return self._path
+
+    def get_metadata(self, key):
+        return self._meta[key]
+
+
+def _skeleton_task(vfile, bin_size):
+    """What `CurveSkeleton._skeleton_fim` reads of its task: the Voxels
+    task's file, the run's device and the skeleton's parameters."""
+    fileset = SimpleNamespace(get_files=lambda: [vfile])
+    voxels = SimpleNamespace(output=lambda: SimpleNamespace(
+        get=lambda create=True: fileset))
+    ctx = SimpleNamespace(get_task=lambda name: voxels, device="cpu")
+    return SimpleNamespace(ctx=ctx, stem_axis=2, stem_axis_inverted=False,
+                           bin_size=bin_size)
+
+
 @pytest.mark.parametrize("name,bin_size", [("blob0", 2.0), ("blob2", 1.0),
                                            ("cube", 3.0)])
-def test_bin_clusters_equal_the_whole_grid_loop(name, bin_size):
-    """distance_bin_clusters (each bin labelled in its bounding box, centers
-    from bincount sums, edges from the reached voxels' flat indices) gives
-    the JAX package's whole-grid loop's clusters (chip_smoke.py's copy of
-    it, which phase 13 times): centers within 1e-9 relative in (bin,
-    label) order and the same spanning tree."""
-    import chip_smoke
-    from plant3dvision_tpu_torch.tasks.proc3d import distance_bin_clusters
-    mask, seeds = _scene(name)
-    dist = _jax(mask, seeds)
-    ref_centers, ref_edges = chip_smoke.whole_grid_clusters(mask, dist,
-                                                            bin_size)
-    centers, edges = distance_bin_clusters(mask, dist, bin_size)
+def test_bin_clusters_equal_the_whole_grid_loop(name, bin_size, tmp_path):
+    """The port's `_skeleton_fim` (each bin labelled in its bounding box,
+    centers from bincount sums, edges from the reached voxels' flat
+    indices) gives the JAX package's `_skeleton_fim` (one label of the
+    whole grid per bin, one whole-grid comparison per component) on the
+    same volume: centers within 1e-9 relative in (bin, label) order and
+    the same spanning tree, one for each reached component."""
+    from plant3dvision_tpu.tasks.proc3d import CurveSkeleton as JaxSkeleton
+    from plant3dvision_tpu_torch.tasks.proc3d import (CurveSkeleton,
+                                                      root_plane_seeds)
+    mask, _ = _scene(name)
+    vfile = _VoxelsFile(tmp_path, mask, (-3.5, 2.25, 10.0), 0.5)
+    task = _skeleton_task(vfile, bin_size)
+    ref_centers, ref_edges = JaxSkeleton._skeleton_fim(task)
+    centers, edges = CurveSkeleton._skeleton_fim(task)
     np.testing.assert_allclose(centers, ref_centers, rtol=1e-9, atol=0)
     np.testing.assert_array_equal(edges, ref_edges)
     assert len(centers) > 5
-    assert len(edges) == len(centers) - ndi.label(mask & (dist < 1e9))[1]
+    seeds = root_plane_seeds(torch.from_numpy(mask), 2, False).numpy()
+    reach = mask & (_jax(mask, seeds) < 1e9)
+    assert len(edges) == len(centers) - ndi.label(reach)[1]
 
 
 def _skeleton_and_angles(scan, report):
