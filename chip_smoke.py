@@ -110,6 +110,23 @@
    sweep count) and K15 (2000 steps of 0.5 from the skeleton's leaf nodes,
    on the solve's flow; votes equal) against their plain versions and
    times both (none has a library call).
+15. Live carving: replays phase 2's scan (written here if phase 2 did not
+   run) into a fresh scan directory, a copy thread writing the views in
+   file order while `python -m plant3dvision_tpu_torch.live_carve` watches
+   it in a subprocess (previews every 50 views). Checks that the final
+   volume is K1's batch carve of the same 300 masks and carve_plain's, that
+   K1 ran once a preview and K10 once a view, and prints the seconds per
+   preview, the views ingested per second and the device's idle share.
+16. The int8 serving lane: phase 7's route with
+   Segmentation2D(conv_mode="int8") on phase 5's scan (needs phase 5), one
+   pass to the angles beside phase 7's bf16 pass, both lanes' inference
+   seconds and argmax agreement over the 126 views; then K16 (the
+   quantise and conv launches) against its plain version, bit for bit, at
+   every conv shape of unet_seg (the pass's batch of 32) and tpusegnet_seg
+   (one image) at 896x896, timed beside the plain version, im2col +
+   torch._int_mm (cuBLASLt int8) and the bf16 cuDNN conv.
+17. The gather probes K17-K19 at exp_pallas_gather.py:main's sizes, each
+   equal to its plain version; M lookups/s and bounds.
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -171,6 +188,16 @@ KERNEL_INFO = {
                       "plant3dvision_tpu/ops/eikonal.py:59"),
     "trace_geodesics": ("plant3dvision_tpu_torch/kernels/csrc/geodesics.cu",
                         "plant3dvision_tpu/ops/geodesics.py:42"),
+    "int8_quantize": ("plant3dvision_tpu_torch/kernels/csrc/int8conv.cu",
+                      "plant3dvision_tpu/models/quant.py:49"),
+    "int8_conv": ("plant3dvision_tpu_torch/kernels/csrc/int8conv.cu",
+                  "plant3dvision_tpu/models/quant.py:49"),
+    "gather_axis1": ("plant3dvision_tpu_torch/kernels/csrc/gather.cu",
+                     "exp_pallas_gather.py:66"),
+    "gather_rows": ("plant3dvision_tpu_torch/kernels/csrc/gather.cu",
+                    "exp_pallas_gather.py:96"),
+    "gather_select32": ("plant3dvision_tpu_torch/kernels/csrc/gather.cu",
+                        "exp_pallas_gather.py:132"),
 }
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
@@ -1237,7 +1264,7 @@ def run_ml_separate_path(db, device_name):
     # K8's launches are the binarised run's (the route itself does not
     # binarise)
     return scan, report, dict(launches, dilate_disk=bin_launches[
-        "dilate_disk"])
+        "dilate_disk"]), warm[0]
 
 
 def _library_reproject(points, masks, cams, label_idx, L):
@@ -2397,10 +2424,478 @@ def check_fim_kernels(scan, report, launches):
     return rows
 
 
+#: phase 15: live_carve's arguments for phase 2's scan (its masks as
+#: FusedCarving reads them in geom_pipe_fast.toml: the first channel above
+#: 0.3), previews every 50 views; the copy thread's pause between views
+LIVE_ARGS = ("--voxel-size", "1.0", "--filter", "linear", "--coefs", "1,0,0",
+             "--threshold", "0.3", "--every", "50", "--idle-stop", "3",
+             "--poll", "0.2")
+LIVE_PACE_S = 0.02
+
+
+def run_live_path(db, device_name):
+    """Phase 15: live carving. Replays phase 2's 300-view 1440x1080 scan
+    (written here if phase 2 did not run) into a fresh scan directory, a
+    copy thread writing each view's metadata and then its image (renamed
+    into place whole) in file order, while `python -m
+    plant3dvision_tpu_torch.live_carve` watches it in a subprocess (previews
+    every 50 views, a 3 s idle stop, --report). Checks that the final volume
+    is K1's batch carve of the same 300 masks and carve_plain's on the card,
+    and prints the seconds per preview, the K1 and K10 launches, the views
+    ingested per second and the device's idle share (the tool's report)."""
+    import os
+    import threading
+
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.live_carve import read_rgb
+    from plant3dvision_tpu_torch.ops.carving import (camera_from_metadata,
+                                                     carve, carve_plain)
+    from plant3dvision_tpu_torch.ops.masks import compute_masks_batch
+    from plant3dvision_tpu_torch.ops.streaming import pack_mask_row
+    from plant3dvision_tpu_torch.synth import SyntheticPlant, generate_scan
+
+    gen_s = 0.0
+    if db.get_scan("northstar") is None:
+        t0 = time.perf_counter()
+        generate_scan(db, "northstar", n_views=300, width=1440, height=1080,
+                      f=1400.0, plant=SyntheticPlant(**NORTHSTAR_PLANT),
+                      render_step=0.5)
+        gen_s = time.perf_counter() - t0
+    src = db.get_scan("northstar")
+    files = src.get_fileset("images").get_files()
+    bbox = src.get_metadata("bounding_box")
+    live = ROOT / ".smoke" / "live"
+    shutil.rmtree(live, ignore_errors=True)
+    scan_dir = live / "replay"
+    (scan_dir / "images").mkdir(parents=True)
+    (scan_dir / "metadata" / "images").mkdir(parents=True)
+    (live / "romidb").touch()
+    out, rep_path = live / "live_volume.npz", live / "report.json"
+    bbox_arg = ",".join(str(v) for ax in "xyz" for v in bbox[ax])
+    cmd = [sys.executable, "-m", "plant3dvision_tpu_torch.live_carve",
+           str(scan_dir), f"--bbox={bbox_arg}", *LIVE_ARGS, "--out", str(out),
+           "--device", "cuda", "--report", str(rep_path)]
+
+    def writer():
+        for f in files:
+            name = f.path().name
+            shutil.copy(src.path() / "metadata" / "images" / f"{f.id}.json",
+                        scan_dir / "metadata" / "images" / f"{f.id}.json")
+            tmp = scan_dir / "images" / (name + ".part")
+            shutil.copy(f.path(), tmp)
+            os.replace(tmp, scan_dir / "images" / name)
+            time.sleep(LIVE_PACE_S)
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:             # the tool is up and watching
+            lines.append(line.rstrip())
+            if line.startswith("live_carve: grid"):
+                break
+        th = threading.Thread(target=writer)
+        th.start()
+        th.join()
+        rest, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    tool_s = time.perf_counter() - t0
+    lines += rest.splitlines()
+    assert proc.returncode == 0, "live_carve failed:\n" + "\n".join(
+        lines[-40:])
+    rep = json.loads(rep_path.read_text())
+    meta = json.loads(out.with_suffix(".json").read_text())
+    volume = np.load(out)["volume"]
+
+    # the batch oracle: the same 300 masks, K1 and carve_plain on the card
+    dev = torch.device("cuda")
+    rows, cams, hw = [], [], None
+    for f in files:
+        img = torch.from_numpy(read_rgb(f.path())).to(dev)
+        m = compute_masks_batch(img[None], filter_type="linear",
+                                coefs=(1.0, 0.0, 0.0), threshold=0.3)[0]
+        hw = tuple(m.shape)
+        rows.append(pack_mask_row(m))
+        cams.append(camera_from_metadata(f.get_metadata("camera")))
+    packed = torch.stack(rows)
+    cams_t = torch.from_numpy(np.stack(cams)).to(dev)
+    valid = torch.ones(len(files), dtype=torch.bool, device=dev)
+    origin, shape = grid_of(bbox, 1.0)
+    vol_k = carve(packed, cams_t, valid, origin, 1.0, shape, hw)
+    vol_p = carve_plain(packed, cams_t, valid, origin, 1.0, shape, hw)
+    torch.cuda.synchronize()
+    equal_k1 = bool(np.array_equal(volume, (vol_k == 1).cpu().numpy()))
+    equal_plain = bool(torch.equal(vol_k, vol_p))
+    launches = rep["launches"]
+    previews = rep["previews"]
+    emit({"live_path": {
+        "device": device_name, "n_views": meta["n_views"],
+        "image": [1440, 1080], "voxel_mm": 1.0, "grid": list(shape),
+        "scan_generation_s": gen_s, "pace_s": LIVE_PACE_S,
+        "state": meta["state"],
+        "previews": previews, "s_per_preview": [p["s"] for p in previews],
+        "views_per_s": rep["views_per_s"], "ingest_s": rep["ingest_s"],
+        "tool_wall_s": rep["wall_s"], "subprocess_s": tool_s,
+        "launches": {k: launches[k] for k in ("carve", "mask_filter",
+                                              "dilate_disk")},
+        "device_busy_s": rep["device_busy_s"],
+        "device_idle_share": rep["device_idle_share"],
+        "alive_voxels": int(volume.sum()),
+        "final_equals_batch_k1": equal_k1,
+        "k1_equals_carve_plain": equal_plain}})
+    assert meta["n_views"] == len(files) == 300 and meta["state"] == "final"
+    assert equal_k1, "the live volume is not the batch carve"
+    assert equal_plain, "K1 differs from carve_plain on the 300 views"
+    assert launches["carve"] == len(previews) >= 2, launches
+    assert launches["mask_filter"] == 300, launches
+    assert volume.sum() > 1000, "no plant carved"
+
+
+#: H100 SXM dense int8 tensor-core peak (NVIDIA data sheet)
+INT8_OPS_PER_S = 1979e12
+
+
+def int8_bound_ms(n_bytes, macs):
+    """K16's bound: the bytes over the memory rate or 2 operations a MAC
+    over the int8 tensor-core peak, the larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _int_mm_conv(xq, qw, stride, out_hw):
+    """The library chain for K16's conv launch: im2col of the padded int8
+    activation (a strided view copied into (B*OH*OW, kh*kw*Cp), the depth
+    padded to a multiple of 8) and one torch._int_mm (cuBLASLt int8) against
+    the weights (N padded to a multiple of 8): the int32 sums, (M, N)."""
+    import torch
+    import torch.nn.functional as F
+    B, Hp, Wp, Cp = xq.shape
+    K, kh, kw = qw.q.shape[:3]
+    OH, OW = out_hw
+    s = int(stride)
+    cols = xq.as_strided((B, OH, OW, kh, kw, Cp),
+                         (Hp * Wp * Cp, s * Wp * Cp, s * Cp, Wp * Cp, Cp, 1))
+    depth = kh * kw * Cp
+    pad_k, pad_n = (-depth) % 8, (-K) % 8
+    a = F.pad(cols.reshape(B * OH * OW, depth), (0, pad_k))
+    b = F.pad(qw.q.reshape(K, depth), (0, pad_k, 0, 0))
+    b = F.pad(b, (0, 0, 0, pad_n)).t()
+    return torch._int_mm(a, b)
+
+
+def _dequantized(acc, xmax, qw, bias, B, out_hw):
+    """The kernel's epilogue on the library's int32 sums (to compare)."""
+    import torch
+    from plant3dvision_tpu_torch.models import quant
+    from plant3dvision_tpu_torch.ops.carving import fma_f32
+    K = qw.q.shape[0]
+    sx = torch.clamp(xmax, min=quant.X_FLOOR) * quant.INV127_SQ
+    scale = torch.clamp(qw.amax, min=quant.W_FLOOR) * sx
+    a = acc[:, :K].to(torch.float32)
+    y = fma_f32(a, scale, bias.float()) if bias is not None else a * scale
+    return y.view(B, *out_hw, K).permute(0, 3, 1, 2)
+
+
+def _conv_inputs(model, batch):
+    """One int8-lane forward of `batch` (uint8 NHWC on the card) with a
+    hook on every compute conv: {shape key: [input in the conv's dtype,
+    conv, count]} per distinct (cin, cout, k, stride, H, W)."""
+    import torch
+    from plant3dvision_tpu_torch.models import quant
+    from plant3dvision_tpu_torch.models.unet import forward_probs
+    caps, hooks = {}, []
+
+    def hook(conv, args):
+        x = args[0]
+        key = (x.shape[1], conv.weight.shape[0], conv.k, conv.stride,
+               x.shape[2], x.shape[3])
+        if key in caps:
+            caps[key][2] += 1
+        else:
+            caps[key] = [x.detach().to(model.dtype).contiguous(), conv, 1]
+
+    for c in quant.compute_convs(model):
+        hooks.append(c.register_forward_pre_hook(hook))
+    try:
+        with quant.int8_lane(model), torch.no_grad():
+            forward_probs(model, batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return caps
+
+
+def check_int8_shapes(net, model, batch, batches_in_pass):
+    """Phase 16's K16 checks on one net: every distinct conv shape of a
+    forward of `batch`, kernel against plain (bit for bit; and the weight
+    quantisation), each timed beside the plain version, the im2col +
+    torch._int_mm chain and the bf16 cuDNN conv. Returns (per-shape
+    entries, the net's two kernel rows summed over one forward)."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.models import quant
+    from plant3dvision_tpu_torch.models.segnet import _same_pads
+    caps = _conv_inputs(model, batch)
+    shapes, tot = [], {}
+    for key, (x, conv, n) in sorted(caps.items()):
+        cin, cout, k, s, H, W = key
+        pads = (_same_pads(H, k, s), _same_pads(W, k, s))
+        out_hw = (quant.out_size(H, k, s, *pads[0]),
+                  quant.out_size(W, k, s, *pads[1]))
+        w = conv.weight.detach().to(model.dtype)
+        b = conv.bias.detach().to(model.dtype)
+        qw, pw = quant.quantize_weight(w), quant.quantize_weight_plain(w)
+        got = quant.int8_conv(x, qw, b, s, pads)
+        want = quant.int8_conv_plain(x, qw, b, s, pads)
+        xq, xmax = quant.quantize_activation(x, pads)
+        b32 = b.float()
+        lib_acc = _int_mm_conv(xq, qw, s, out_hw)
+        lib_equal = bool(torch.equal(
+            _dequantized(lib_acc, xmax, qw, b32, x.shape[0], out_hw), got))
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        w_equal = bool(torch.equal(qw.q, pw.q) and torch.equal(qw.amax,
+                                                                 pw.amax))
+        del got, want, lib_acc
+        q_ms = cuda_ms(lambda: quant.quantize_activation(x, pads))
+        c_ms = cuda_ms(lambda: quant.conv_quantized(xq, xmax, qw, b32, s,
+                                                    out_hw))
+        plain_ms = cuda_ms(lambda: quant.int8_conv_plain(x, qw, b, s, pads),
+                           reps=3, warmup=1)
+        lib_ms = cuda_ms(lambda: _int_mm_conv(xq, qw, s, out_hw), reps=3,
+                         warmup=1)
+        wb = conv.weight.detach().to(torch.bfloat16)
+        xb = F.pad(x.to(torch.bfloat16), (pads[1][0], pads[1][1],
+                                          pads[0][0], pads[0][1]))
+        bf16_ms = cuda_ms(lambda: F.conv2d(xb, wb, stride=s), reps=3,
+                          warmup=1)
+        B = x.shape[0]
+        macs = B * out_hw[0] * out_hw[1] * cout * cin * k * k
+        q_bytes = x.numel() * x.element_size() + xq.numel()
+        c_bytes = xq.numel() + qw.q.numel() + B * cout * out_hw[0] * \
+            out_hw[1] * 4 + cout * 8
+        qb, _ = bound_ms(q_bytes, 0)
+        cb, cby = int8_bound_ms(c_bytes, macs)
+        e = {"net": net, "cin": cin, "cout": cout, "k": k, "stride": s,
+             "in_hw": [H, W], "batch": B, "convs": n,
+             "launches_in_pass": n * batches_in_pass,
+             "bit_equal": equal, "weights_equal": w_equal,
+             "int_mm_equal": lib_equal, "quantize_ms": q_ms,
+             "quantize_bound_ms": qb, "conv_ms": c_ms, "conv_bound_ms": cb,
+             "conv_bound_by": cby, "plain_ms": plain_ms,
+             "int_mm_ms": lib_ms, "bf16_cudnn_ms": bf16_ms, "gmac": macs / 1e9}
+        shapes.append(e)
+        # the forward's sums: each shape as often as the net has it
+        for name, val in (("q", q_ms), ("qb", qb), ("c", c_ms), ("cb", cb),
+                          ("plain", plain_ms), ("lib", lib_ms),
+                          ("bf16", bf16_ms), ("bytes", c_bytes),
+                          ("macs", macs), ("convs", 1),
+                          ("launches", batches_in_pass)):
+            tot[name] = tot.get(name, 0) + n * val
+        del xq, xmax, x
+    return shapes, tot
+
+
+def run_int8_path(db, device_name, bf16_pass):
+    """Phase 16: the int8 serving lane. Phase 7's separate-task route on
+    phase 5's scan with Segmentation2D(conv_mode="int8") (batches of 32, as
+    phase 7's): one pass after Clean, to the angles (no angle bar). Prints
+    the pass and Segmentation2D seconds beside phase 7's bf16 pass
+    (`bf16_pass`: its seconds and report, None if phase 7 did not run), both
+    lanes' segmentation_inference seconds over the 126 views and their
+    argmax agreement. Then K16 at every conv shape of unet_seg (the pass's
+    batch of 32) and tpusegnet_seg (one image) at 896x896: kernel against
+    plain, bit for bit, with ms, plain ms, library ms, launches in the pass
+    and the bound. Returns the kernel rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.evaluation import align_sequences
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.models import checkpoint, quant
+    from plant3dvision_tpu_torch.models.unet import segmentation_inference
+    from plant3dvision_tpu_torch.models.zoo import (DEFAULT_CHECKPOINT,
+                                                    TPUSEGNET_CHECKPOINT)
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.synth_photo import ProceduralArabidopsis
+
+    plant = ProceduralArabidopsis(seed=1)
+    cfg = separate_config(conv_mode="int8")
+    run_task(RunContext(db, "ml_northstar", cfg, device="cuda"), "Clean",
+             report=False)
+    ctx = RunContext(db, "ml_northstar", cfg, device="cuda")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    report = run_task(ctx, "AnglesAndInternodes", report=False)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    scan = ctx.scan
+    out = json.loads(scan.get_fileset(report["AnglesAndInternodes"][
+        "fileset"]).get_file("AnglesAndInternodes").read_raw())
+    angles = np.asarray(out["angles"], float)
+    dtw = align_sequences(angles.tolist(), out["internodes"],
+                          np.degrees(plant.gt_angles).tolist(),
+                          np.asarray(plant.gt_internodes, float).tolist())
+
+    # both lanes over the 126 views, as Segmentation2D runs them
+    dev = torch.device("cuda")
+    files = scan.get_fileset("images").get_files()
+    with ThreadPoolExecutor(8) as ex:
+        imgs = np.stack(list(ex.map(lambda f: io.read_image(f)[..., :3],
+                                    files)))
+
+    def load(path):
+        params, config = checkpoint.params_from_npz_bytes(path.read_bytes())
+        m = checkpoint.model_from_config(config)
+        m.load_state_dict(checkpoint.state_dict_from_flax(
+            checkpoint._upcast_f16(params)))
+        return m.to(dev, torch.bfloat16).eval()
+
+    unet = load(DEFAULT_CHECKPOINT)
+    lanes = {}
+    for mode in ("bf16", "int8"):
+        segmentation_inference(unet, imgs[:ML_BATCH], batch_size=ML_BATCH,
+                               conv_mode=mode, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = segmentation_inference(unet, imgs, batch_size=ML_BATCH,
+                                   conv_mode=mode, device=dev)
+        torch.cuda.synchronize()
+        lanes[mode] = (time.perf_counter() - t0, p.argmax(1))
+        del p
+    agree = float((lanes["int8"][1] == lanes["bf16"][1]).float().mean())
+    n_batches = -(-len(files) // ML_BATCH)
+
+    shapes_u, tot_u = check_int8_shapes(
+        "unet_seg", unet, torch.from_numpy(imgs[:ML_BATCH]).to(dev),
+        n_batches)
+    seg = load(TPUSEGNET_CHECKPOINT)
+    shapes_s, tot_s = check_int8_shapes(
+        "tpusegnet_seg", seg, torch.from_numpy(imgs[:1]).to(dev), 0)
+    emit({"int8_conv_shapes": shapes_u + shapes_s,
+          "int8_ops_per_s": INT8_OPS_PER_S})
+
+    seg_task = report["Segmentation2D"]["seconds"]
+    res = {"device": device_name, "n_views": len(files),
+           "image": [ML_SIZE, ML_SIZE], "batch": ML_BATCH,
+           "model": "unet_seg", "pass_s": pass_s,
+           "task_s": {k: v["seconds"] for k, v in report.items()},
+           "segmentation2d_s": seg_task,
+           "bf16_pass_s": bf16_pass[0] if bf16_pass else None,
+           "bf16_segmentation2d_s": (bf16_pass[1]["Segmentation2D"]["seconds"]
+                                     if bf16_pass else None),
+           "inference_s": {m: v[0] for m, v in lanes.items()},
+           "argmax_agreement_int8_vs_bf16": agree,
+           "n_angles": int(len(angles)), "n_gt": int(len(plant.gt_angles)),
+           "mean_angle_error_deg": dtw["mean_angle_error"],
+           "launches_in_pass": {k: launches[k] for k in ("int8_quantize",
+                                                         "int8_conv")},
+           "forward_ms": {net: {"quantize": t["q"], "conv": t["c"],
+                                "plain": t["plain"], "int_mm": t["lib"],
+                                "bf16_cudnn": t["bf16"],
+                                "conv_bound": t["cb"]}
+                          for net, t in (("unet_seg", tot_u),
+                                         ("tpusegnet_seg", tot_s))}}
+    emit({"int8_path": res})
+    bad = [(e["net"], e["cin"], e["cout"], e["k"], e["stride"], e["in_hw"])
+           for e in shapes_u + shapes_s
+           if not (e["bit_equal"] and e["weights_equal"])]
+    assert not bad, f"K16 differs from its plain version at {bad}"
+    assert launches["int8_conv"] == tot_u["launches"] > 0, launches
+    assert launches["int8_quantize"] == tot_u["launches"] + tot_u[
+        "convs"], launches
+    assert len(angles) > 0, "the int8 pass reached no angle"
+    nums = [pass_s, agree, dtw["mean_angle_error"], *angles,
+            *out["internodes"]]
+    assert np.isfinite(nums).all(), "a number of the int8 pass is not finite"
+
+    rows = []
+    for net, t, launched in (("unet_seg", tot_u, launches),
+                             ("tpusegnet_seg", tot_s, None)):
+        path = ("phase 16's Segmentation2D pass" if launched
+                else "phase 16 check only (no pass runs it)")
+        unit = (f"one forward of {net} at {ML_SIZE}x{ML_SIZE}, batch "
+                f"{ML_BATCH if launched else 1}: the sum over its "
+                f"{t['convs']} compute convs")
+        for name, ms, b, by, lib in (
+                ("int8_quantize", t["q"], t["qb"], "bytes", None),
+                ("int8_conv", t["c"], t["cb"],
+                 "bytes" if t["bytes"] / HBM_BYTES_PER_S >=
+                 2 * t["macs"] / INT8_OPS_PER_S else "operations",
+                 t["lib"])):
+            src, rep = KERNEL_INFO[name]
+            rows.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": rep,
+                "launches": launched[name] if launched else 0,
+                "max_abs_err": 0.0, "match": True, "ms": ms,
+                "kernel_ms": ms, "plain_ms": t["plain"], "bound_ms": b,
+                "bound_by": by, "library_ms": lib, "path": path,
+                "unit": unit, "bf16_cudnn_ms": t["bf16"]})
+    return rows
+
+
+def run_gather_probes(device_name):
+    """Phase 17: K17-K19 at exp_pallas_gather.py:main's sizes (axis1 at L =
+    8K, 32K, 128K; rows at R = 4K, 32K; select32), each through its probe's
+    wrapper once with the counts set to 0 (the probe's own run), then equal
+    to its plain version on the same inputs, timed beside it. Prints M
+    lookups/s and the bounds."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.tools import gather_probe as gp
+
+    plain = {"gather_axis1": gp.axis1_gather_plain,
+             "gather_rows": gp.rows_gather_plain,
+             "gather_select32": gp.select32_plain}
+    names = {gp.axis1_gather: "gather_axis1", gp.rows_gather: "gather_rows",
+             gp.select32: "gather_select32"}
+    rows, probes = [], []
+    for i, (label, make, fn, size, lookups) in enumerate(gp.PROBES):
+        name = names[fn]
+        np.random.seed(i)
+        args = make(size, device="cuda")
+        kernels.reset_launches()
+        got = fn(*args, 64)
+        launched = kernels.LAUNCHES[name]
+        want = plain[name](*args, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{name} ({label}) differs from plain"
+        # both timed as calls replayed from a CUDA graph: a probe's launch
+        # is shorter than the host's time to issue it
+        ms = gp.timed(lambda: fn(*args, 64)) * 1e3
+        plain_ms = gp.timed(lambda: plain[name](*args, 64)) * 1e3
+        n_bytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
+        b, by = bound_ms(n_bytes, 4 * lookups)
+        where = ("registers (warp shuffle)" if name == "gather_select32"
+                 else "shared memory" if name == "gather_axis1"
+                 and gp.axis1_staged(size) else "L1/L2")
+        probes.append({"probe": label, "M_lookups_per_s": lookups / ms / 1e3,
+                       "ms": ms, "bound_ms": b, "table_in": where})
+        rows.append(kernel_row(name, launched, 0.0, ms, plain_ms, n_bytes,
+                               4 * lookups, extra={
+                                   "path": "phase 17 (gather_probe's run)",
+                                   "probe": label, "table_in": where,
+                                   "M_lookups_per_s": lookups / ms / 1e3}))
+    emit({"gather_probes": {"device": device_name, "probes": probes}})
+    return rows
+
+
 PHASES = {"2": "main", "3": "main", "4": "real_grid", "5": "ml", "6": "ml",
           "7": "separate", "8": "separate", "9": "frontend",
           "10": "frontend", "11": "selfcal", "12": "selfcal", "13": "fim",
-          "14": "fim"}
+          "14": "fim", "15": "live", "16": "int8", "17": "gather"}
 
 
 def main(argv=None):
@@ -2408,9 +2903,9 @@ def main(argv=None):
 
     import torch
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                 "GPU (phases 1-14, see the docstring)")
+                                 "GPU (phases 1-17, see the docstring)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (2-14; a kernel "
+                    help="comma-separated phases to run (2-17; a kernel "
                     "check phase runs with its path, e.g. 13,14); default "
                     "all")
     args = ap.parse_args(argv)
@@ -2441,14 +2936,17 @@ def main(argv=None):
         if "ml" in groups:
             ml_scan, ml_vfile, ml_launches = run_ml_path(db, name)
             rows += check_ml_kernels(ml_scan, ml_vfile, ml_launches)
+        if ("separate" in groups or "int8" in groups) and \
+                "ml" not in groups:
+            raise SystemExit("phases 7-8 and 16 run on phase 5's scan: "
+                             "--only 5,7 or 5,16")
+        bf16_pass = None
         if "separate" in groups:
-            if "ml" not in groups:
-                raise SystemExit("phases 7-8 run on phase 5's scan: "
-                                 "--only 5,7")
-            sep_scan, sep_report, sep_launches = run_ml_separate_path(db,
-                                                                      name)
+            sep_scan, sep_report, sep_launches, sep_s = run_ml_separate_path(
+                db, name)
             rows += check_separate_kernels(sep_scan, sep_report,
                                            sep_launches)
+            bf16_pass = (sep_s, sep_report)
         if "frontend" in groups:
             fe_scan, fe_report, fe_launches, fe_checks = run_frontend_path(
                 db, name)
@@ -2468,6 +2966,12 @@ def main(argv=None):
             rows += check_fim_kernels(fim_scan, fim_report, fim_launches)
             failed = [c for c, ok in fim_checks.items() if not ok]
             assert not failed, f"eikonal skeleton path checks failed: {failed}"
+        if "live" in groups:
+            run_live_path(db, name)
+        if "int8" in groups:
+            rows += run_int8_path(db, name, bf16_pass)
+        if "gather" in groups:
+            rows += run_gather_probes(name)
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

@@ -8,7 +8,8 @@ flags, so an edit rebuilds), loaded with `ctypes`. Nothing here runs at import: 
 of the package on a machine without nvcc or a card.
 
 `LAUNCHES` counts kernel launches, one per launch, bumped by the wrappers
-in `ops/` and `proc3d.py` right where they launch, and nowhere else.
+in `ops/`, `proc3d.py`, `models/quant.py` and `tools/gather_probe.py`
+right where they launch, and nowhere else.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
 #: kernel name -> source file under csrc/ (K5-avg, "average", is a mode of
 #: the accumulate kernel, and K11, "count_kills", and K11b,
-#: "carve_candidates", kernels of carve.cu: one source each, their own
-#: launch counts)
+#: "carve_candidates", kernels of carve.cu; K16's two entry points share
+#: int8conv.cu and K17-K19 gather.cu: one source each, their own launch
+#: counts)
 SOURCES = {
     "carve": "carve.cu",
     "signed_distance": "edt.cu",
@@ -49,6 +51,11 @@ SOURCES = {
     "harris_response": "harris.cu",
     "eikonal_sweep": "eikonal.cu",
     "trace_geodesics": "geodesics.cu",
+    "int8_quantize": "int8conv.cu",
+    "int8_conv": "int8conv.cu",
+    "gather_axis1": "gather.cu",
+    "gather_rows": "gather.cu",
+    "gather_select32": "gather.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -122,6 +129,22 @@ _ARGTYPES = {
     # stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
                             _P, _P],
+    # x, dtype, G, C, H, W, pt, pb, pl, pr, Cp, per_group, eps, maxbits,
+    # out, stream
+    "p3d_int8_quantize": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                          _P, _P, _P],
+    # xq, wq, xmax, wmax, bias (or null), out, B, Hp, Wp, Cp, K, kh, kw,
+    # stride, OH, OW, xfloor, wfloor, stream
+    "p3d_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _F, _F, _P],
+    # tab, idx, out, R, L, N, reps, stream
+    "p3d_gather_axis1": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # L -> 1 when the row is staged in shared memory
+    "p3d_gather_axis1_staged": [_I],
+    # tab, rows, out, R, P, reps, stream
+    "p3d_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
+    # T, dy, out, P, reps, stream
+    "p3d_gather_select32": [_P, _P, _P, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,240 @@
+"""The dynamic int8 serving lane (port of plant3dvision_tpu/models/quant.py:
+`int8_conv_general_dilated`, the flax conv hook behind
+`segmentation_inference(conv_mode="int8")` and Segmentation2D's conv_mode).
+
+Post-training and dynamic, as in the JAX package: each compute convolution
+quantises its weights per output channel (scale absmax / 127 over (kh, kw,
+cin)) and its activation per tensor (absmax / 127, taken on the fly), rounds
+half to even and clips to +-127, convolves int8 x int8 into int32 sums and
+dequantises to float32 before flax's bias add; the parameter tree is the
+float lane's. The weights are constants of a call, so `int8_lane`
+quantises them once per `segmentation_inference` call, not once per batch:
+the result is the same.
+
+XLA's arithmetic, read off its optimized HLO and x86 code on the CPU (the
+kernel and the plain version repeat it):
+- `/ 127.0` is a product by f32(1/127): sx = max(absmax(x), 1e-8) * f32(1/127),
+  sw[k] = max(absmax(w[k]), 1e-12) * f32(1/127);
+- x / sx is an IEEE division, then round-half-even and the clip;
+- the dequantisation scale sx * sw[k] is reassociated: it is
+  max_w[k] * (max_x * f32(1/127^2)), then y = float32(acc) * scale;
+- inside the model flax's bias add is contracted with that product into
+  one fused multiply-add: y = fma(float32(acc), scale, bias[k]) (with no bias,
+  the product alone: the JAX hook's own output).
+
+`int8_conv` is K16 on a CUDA tensor (kernels/csrc/int8conv.cu: the
+"int8_quantize" launch quantises, the "int8_conv" launch convolves and
+dequantises) and `int8_conv_plain` on a CPU tensor. The plain version runs
+the integer convolution exactly: F.conv2d in float64 on the int8 values
+(every partial sum is an integer below 2^53; float32 would not be exact,
+127^2 * 9 * 512 > 2^24), cuDNN off on the card (its FFT and Winograd
+algorithms do not keep integers), then a cast to int32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .. import kernels
+from ..ops.carving import fma_f32
+
+#: f32(1/127) and f32(1/127^2), XLA's constants
+INV127 = float(np.float32(1.0 / 127.0))
+INV127_SQ = float(np.float32(1.0 / 16129.0))
+#: the scales' floors (the activation's, the weights')
+X_FLOOR = 1e-8
+W_FLOOR = 1e-12
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass
+class QuantizedWeight:
+    """A convolution's weight in the lane's form: `q` (K, kh, kw, Cp) int8,
+    the input channels zero-padded to Cp (a multiple of 4), and `amax` (K,)
+    float32, each output channel's absmax before its 1e-12 floor."""
+
+    q: torch.Tensor
+    amax: torch.Tensor
+    cin: int
+
+
+def _cp(c: int) -> int:
+    return -(-int(c) // 4) * 4
+
+
+def _f32(t):
+    return t.to(torch.float32)
+
+
+# -- plain versions --------------------------------------------------------------
+
+def _quantize_plain(x, floor, per_group):
+    """x (G, ...) float -> (q as float32 of the int8 values, absmax): the
+    absmax over everything (per_group False, a 0-dim tensor) or over each
+    x[g] (per_group True, (G,))."""
+    xf = _f32(x)
+    a = xf.abs()
+    amax = a.flatten(1).amax(1) if per_group else a.amax()
+    s = torch.clamp(amax, min=floor) * INV127
+    s = s.view(-1, *([1] * (xf.ndim - 1))) if per_group else s
+    q = torch.round(xf / s).clamp(-127.0, 127.0)
+    return q, amax
+
+
+def quantize_weight_plain(w) -> QuantizedWeight:
+    """Plain version of the weight quantisation (w (K, Cin, kh, kw))."""
+    q, amax = _quantize_plain(w, W_FLOOR, per_group=True)
+    K, C = w.shape[:2]
+    q = F.pad(q.permute(0, 2, 3, 1), (0, _cp(C) - C)).to(torch.int8)
+    return QuantizedWeight(q.contiguous(), amax, int(C))
+
+
+def int8_conv_plain(x, w, bias, stride, pads):
+    """Plain PyTorch version of `int8_conv` (same arguments, same result,
+    bit for bit)."""
+    qw = w if isinstance(w, QuantizedWeight) else quantize_weight_plain(w)
+    (pt, pb), (pl, pr) = pads
+    xq, xmax = _quantize_plain(x, X_FLOOR, per_group=False)
+    wq = qw.q[..., :qw.cin].permute(0, 3, 1, 2).to(torch.float64)
+    xq = F.pad(xq.to(torch.float64), (pl, pr, pt, pb))
+    cud = torch.backends.cudnn
+    with cud.flags(enabled=False, benchmark=cud.benchmark,
+                   deterministic=cud.deterministic,
+                   allow_tf32=cud.allow_tf32):
+        acc = F.conv2d(xq, wq, stride=int(stride)).to(torch.int32)
+    sx = torch.clamp(xmax, min=X_FLOOR) * INV127_SQ
+    scale = (torch.clamp(qw.amax, min=W_FLOOR) * sx).view(1, -1, 1, 1)
+    a = acc.to(torch.float32)
+    if bias is None:
+        return a * scale
+    return fma_f32(a, scale, _f32(bias).view(1, -1, 1, 1))
+
+
+# -- kernels -------------------------------------------------------------------
+
+def _dtype_code(name, t):
+    if t.dtype not in _DTYPE_CODE:
+        raise ValueError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
+                         f"got {t.dtype}")
+    return _DTYPE_CODE[t.dtype]
+
+
+def _quantize(x, per_group, floor, pads=((0, 0), (0, 0))):
+    """K16's quantise launch: x (G, C, H, W) on the card -> (q (G, H + pt +
+    pb, W + pl + pr, Cp) int8, absmax float32 (G,) or (1,))."""
+    kernels.require_cuda("int8_quantize", x)
+    code = _dtype_code("int8_quantize", x)
+    G, C, H, W = (int(s) for s in x.shape)
+    (pt, pb), (pl, pr) = pads
+    Cp = _cp(C)
+    q = torch.empty((G, H + pt + pb, W + pl + pr, Cp), dtype=torch.int8,
+                    device=x.device)
+    amax = torch.empty((G if per_group else 1,), dtype=torch.float32,
+                       device=x.device)
+    rc = kernels.lib().p3d_int8_quantize(
+        x.data_ptr(), code, G, C, H, W, pt, pb, pl, pr, Cp, int(per_group),
+        float(floor), amax.data_ptr(), q.data_ptr(),
+        kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["int8_quantize"] += 1
+    kernels.check("int8_quantize", rc)
+    return q, amax
+
+
+def quantize_weight(w) -> QuantizedWeight:
+    """A conv weight (K, Cin, kh, kw) in the lane's form: K16's quantise
+    launch on a CUDA tensor, the plain version on a CPU tensor."""
+    if w.ndim != 4:
+        raise ValueError("weight must be (K, Cin, kh, kw)")
+    if w.device.type == "cpu":
+        return quantize_weight_plain(w)
+    w = w.contiguous()
+    q, amax = _quantize(w, per_group=True, floor=W_FLOOR)
+    return QuantizedWeight(q, amax, int(w.shape[1]))
+
+
+def out_size(size, k, stride, lo, hi):
+    return (int(size) + lo + hi - k) // int(stride) + 1
+
+
+def quantize_activation(x, pads):
+    """K16's quantise launch for an activation x (B, Cin, H, W) on the card:
+    (xq (B, H + pt + pb, W + pl + pr, Cp) int8 with the conv's pads as
+    zeros, its absmax (1,) float32)."""
+    return _quantize(x.contiguous(), per_group=False, floor=X_FLOOR,
+                     pads=pads)
+
+
+def conv_quantized(xq, xmax, qw, bias, stride, out_hw):
+    """K16's conv launch: the padded int8 activation `xq` and its absmax
+    (`quantize_activation`), a `QuantizedWeight`, a float32 bias (K,) or
+    None -> (B, K, OH, OW) float32, out_hw = (OH, OW)."""
+    kernels.require_cuda("int8_conv", xq, xmax, qw.q, qw.amax,
+                         *([] if bias is None else [bias]))
+    B, Hp, Wp, Cp = (int(s) for s in xq.shape)
+    K, kh, kw = (int(s) for s in qw.q.shape[:3])
+    OH, OW = (int(s) for s in out_hw)
+    out = torch.empty((B, K, OH, OW), dtype=torch.float32, device=xq.device)
+    rc = kernels.lib().p3d_int8_conv(
+        xq.data_ptr(), qw.q.data_ptr(), xmax.data_ptr(), qw.amax.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, Hp,
+        Wp, Cp, K, kh, kw, int(stride), OH, OW, X_FLOOR, W_FLOOR,
+        kernels.stream_ptr(xq.device))
+    kernels.LAUNCHES["int8_conv"] += 1
+    kernels.check("int8_conv", rc)
+    return out
+
+
+def int8_conv(x, w, bias, stride, pads):
+    """The int8 lane's convolution of x (B, Cin, H, W) (float32 or bfloat16)
+    with w (K, Cin, kh, kw) (float, or a `QuantizedWeight`), stride `stride`
+    and pads ((top, bottom), (left, right)); then + bias (K,) (float; None:
+    no bias). Returns (B, K, OH, OW) float32.
+
+    A CUDA tensor goes to K16 (one "int8_quantize" launch for the activation,
+    one "int8_conv" launch), a CPU tensor to `int8_conv_plain`."""
+    if x.ndim != 4:
+        raise ValueError("x must be (B, Cin, H, W)")
+    if x.device.type == "cpu":
+        return int8_conv_plain(x, w, bias, stride, pads)
+    qw = w if isinstance(w, QuantizedWeight) else quantize_weight(w)
+    if qw.cin != x.shape[1]:
+        raise ValueError(f"int8_conv: weight takes {qw.cin} channels, x has "
+                         f"{x.shape[1]}")
+    (pt, pb), (pl, pr) = pads
+    kh, kw = (int(s) for s in qw.q.shape[1:3])
+    out_hw = (out_size(x.shape[2], kh, stride, pt, pb),
+              out_size(x.shape[3], kw, stride, pl, pr))
+    xq, xmax = quantize_activation(x, pads)
+    b = None if bias is None else _f32(bias).contiguous()
+    return conv_quantized(xq, xmax, qw, b, stride, out_hw)
+
+
+# -- the lane in a model -------------------------------------------------------
+
+def compute_convs(model):
+    """The convolutions the JAX models give `conv_impl`: every `Conv` but
+    the model's float32 logits head (`Conv_1`)."""
+    from .segnet import Conv
+    head = getattr(model, "Conv_1", None)
+    return [m for m in model.modules() if isinstance(m, Conv) and m is not head]
+
+
+@contextlib.contextmanager
+def int8_lane(model, on=True):
+    """Runs `model`'s compute convolutions in the int8 lane inside the
+    block: each one's weight, cast to the model's dtype as flax promotes it,
+    is quantised once on entry and dropped on exit."""
+    convs = compute_convs(model) if on else []
+    try:
+        for c in convs:
+            c.int8 = quantize_weight(c.weight.detach().to(model.dtype))
+        yield model
+    finally:
+        for c in convs:
+            c.int8 = None

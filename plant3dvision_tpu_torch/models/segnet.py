@@ -13,7 +13,10 @@ Same architecture and the same numbers as the flax model, in NCHW:
   shift the sampling grid), so the padding is computed per convolution and
   applied with `F.pad`;
 - convolutions compute in the model's `dtype` (inputs, kernel and bias cast
-  to it; the bias is added after the convolution, in that dtype); GroupNorm
+  to it; the bias is added after the convolution, in that dtype), or, in
+  the int8 serving lane (models/quant.py:int8_lane), as int8 convolutions
+  of the dtype-cast input and kernel dequantised to float32 with the bias
+  added in float32 (the JAX models' `conv_impl`); GroupNorm
   computes in float32 with flax's statistics (E[x^2] - E[x]^2 clipped at 0,
   epsilon 1e-6, num_groups = gcd(features, 32)); the head computes in
   float32, with TF32 off on the card.
@@ -30,6 +33,8 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .quant import int8_conv
 
 #: plant3dvision_tpu/models/unet.py:SEGMENTATION_LABELS (models/unet.py
 #: exports it too; it lives here so that unet.py can build on this module)
@@ -61,18 +66,26 @@ def depth_to_space(x, p: int):
 
 
 class Conv(nn.Module):
-    """flax `nn.Conv` with SAME padding: weight (out, in, k, k), bias (out,)."""
+    """flax `nn.Conv` with SAME padding: weight (out, in, k, k), bias (out,).
+
+    `int8` holds the quantised weight while the int8 lane is on
+    (models/quant.py:int8_lane); the convolution is then `int8_conv` and
+    its float32 output gets the bias in float32."""
 
     def __init__(self, cin, cout, k, stride=1):
         super().__init__()
         self.k, self.stride = k, stride
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
+        self.int8 = None
 
     def forward(self, x, dtype):
         ph = _same_pads(x.shape[2], self.k, self.stride)
         pw = _same_pads(x.shape[3], self.k, self.stride)
         x = x.to(dtype)
+        if self.int8 is not None:
+            return int8_conv(x, self.int8, self.bias.to(dtype), self.stride,
+                             (ph, pw))
         if any(ph + pw):
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         y = F.conv2d(x, self.weight.to(dtype), stride=self.stride)

@@ -29,8 +29,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.carving import div_f32
+from .quant import int8_lane
 from .segnet import SEGMENTATION_LABELS, Conv, GroupNorm, _f32_head
+
+
+#: float32(1/255): XLA turns `x / 255` into a product by it
+INV255 = float(np.float32(1.0 / 255.0))
 
 
 class ChannelAffine(nn.Module):
@@ -150,7 +154,10 @@ class ResUNet(nn.Module):
 def forward_probs(model, batch, tta=False, dtype=None):
     """Softmax label probabilities of a (B, H, W, 3) uint8 image batch, as
     (B, C, H, W) float32 — the JAX package's `_fwd_program` step by step:
-    uint8 -> `dtype` (the model's by default), then / 255 in that dtype;
+    uint8 -> `dtype` (the model's by default), then / 255 in that dtype as
+    XLA compiles it on the CPU: a float32 product by float32(1/255),
+    rounded to the dtype (a true division differs in float32 on 126 of the
+    256 levels; in bfloat16 the two agree);
     zero-pad bottom and right to a multiple of 32; the model (NCHW logits,
     float32); softmax in float32; crop to (H, W). With `tta` the same for
     the horizontally flipped batch, cropped, flipped back, and averaged as
@@ -162,7 +169,7 @@ def forward_probs(model, batch, tta=False, dtype=None):
         raise ValueError("batch must be (B, H, W, 3) uint8")
     B, H, W, _ = batch.shape
     dt = dtype or model.dtype
-    x = div_f32(batch.to(dt), 255.0)    # rounded to dt
+    x = (batch.to(dt).to(torch.float32) * INV255).to(dt)
     x = x.permute(0, 3, 1, 2)                          # (B, 3, H, W)
     ph, pw = (-H) % 32, (-W) % 32
 
@@ -200,16 +207,13 @@ def segmentation_inference(model, images, batch_size=8,
     the head included, as the JAX package casts its parameter tree); each
     layer then computes in its stated dtype. `data_parallel` shards batches
     over devices in the JAX package; the port runs on the one device.
-    `conv_mode` "bf16" and "float" run the model as it is; "int8", the
-    quantised serving lane, is not ported yet.
+    `conv_mode` "bf16" and "float" run the model as it is; "int8" runs every
+    compute convolution (all but the float32 head) in the dynamic int8
+    serving lane (models/quant.py; K16 on the card), its weights quantised
+    once for the call.
     """
     if conv_mode not in ("bf16", "float", "int8"):
         raise ValueError(f"conv_mode must be bf16|float|int8, got {conv_mode!r}")
-    if conv_mode == "int8":
-        raise NotImplementedError(
-            "conv_mode='int8' (the dynamic int8 serving lane, "
-            "plant3dvision_tpu/models/quant.py) is not ported yet: ROADMAP "
-            "Queue A item 9")
     if output_dtype not in ("uint8", "float32"):
         raise ValueError(f"output_dtype must be uint8|float32, got "
                          f"{output_dtype!r}")
@@ -222,13 +226,14 @@ def segmentation_inference(model, images, batch_size=8,
     model = model.to(device=device, dtype=cdt).eval()
     N, H, W, _ = imgs.shape
     out = None
-    for i in range(0, N, int(batch_size)):
-        batch = torch.from_numpy(imgs[i:i + int(batch_size)]).to(device)
-        probs = forward_probs(model, batch, tta=tta, dtype=cdt)
-        if out is None:
-            out = torch.empty((N, probs.shape[1], H, W),
-                              dtype=getattr(torch, output_dtype),
-                              device=device)
-        out[i:i + len(batch)] = (quantize_probs(probs)
-                                 if output_dtype == "uint8" else probs)
+    with int8_lane(model, on=conv_mode == "int8"):
+        for i in range(0, N, int(batch_size)):
+            batch = torch.from_numpy(imgs[i:i + int(batch_size)]).to(device)
+            probs = forward_probs(model, batch, tta=tta, dtype=cdt)
+            if out is None:
+                out = torch.empty((N, probs.shape[1], H, W),
+                                  dtype=getattr(torch, output_dtype),
+                                  device=device)
+            out[i:i + len(batch)] = (quantize_probs(probs)
+                                     if output_dtype == "uint8" else probs)
     return out

@@ -247,7 +247,8 @@ class Segmentation2D(Masks):
     #: flip-averaged test-time augmentation (models/unet.py:forward_probs)
     tta = Parameter(default=False)
     batch_size = Parameter(default=8, significant=False)
-    #: "bf16" or "float"; "int8" is not ported yet
+    #: "bf16", "float", or "int8": the dynamic int8 serving lane
+    #: (models/quant.py; K16 on the card)
     conv_mode = Parameter(default="bf16", significant=False)
     #: the JAX package's multi-device sharding switch; the port runs on
     #: the run's one device whatever it says

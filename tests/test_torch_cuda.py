@@ -641,3 +641,148 @@ def test_bundle_adjustment_repeats_bit_for_bit(dev):
         np.testing.assert_array_equal(a[k], b[k])
     assert a["k1"] == b["k1"] and a["rms_px"] == b["rms_px"]
     assert abs(a["theta"]["f"] - 260.0) < 2.6 and a["rms_px"] < 1.0
+
+
+# -- K16: the int8 serving lane's convolution ---------------------------------------
+
+#: (kernel, stride, cin, cout): the committed nets' kinds, and a Cin that
+#: needs more than 48 KB of shared memory for its filters
+INT8_KINDS = [(7, 2, 3, 24), (3, 1, 24, 24), (3, 2, 48, 96), (1, 2, 24, 48),
+              (3, 1, 512, 20), (3, 1, 1024, 16)]
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw", [(33, 30), (16, 18)])
+@pytest.mark.parametrize("kind", INT8_KINDS, ids=lambda k: "k%ds%dc%d" % k[:3])
+def test_int8_conv_kernel_matches_plain(dev, kind, hw, dtype, bias):
+    """K16 (quantise + conv) against the plain version on the card: bit for
+    bit (exact int32 sums, the same f32 scale and fma)."""
+    from plant3dvision_tpu_torch.models import quant
+    from plant3dvision_tpu_torch.models.segnet import _same_pads
+    k, s, cin, cout = kind
+    rng = np.random.default_rng(k * 7 + cin)
+    x = torch.from_numpy(rng.standard_normal((2, cin, *hw)).astype(
+        np.float32)).to(dev, dtype)
+    w = torch.from_numpy((0.1 * rng.standard_normal((cout, cin, k, k)))
+                         .astype(np.float32)).to(dev, dtype)
+    b = (torch.from_numpy(rng.standard_normal(cout).astype(np.float32))
+         .to(dev, dtype) if bias else None)
+    pads = (_same_pads(hw[0], k, s), _same_pads(hw[1], k, s))
+    got = quant.int8_conv(x, w, b, s, pads)
+    want = quant.int8_conv_plain(x, w, b, s, pads)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    # the weight quantised once (as the lane does) gives the same
+    qw = quant.quantize_weight(w)
+    pw = quant.quantize_weight_plain(w)
+    assert torch.equal(qw.q, pw.q) and torch.equal(qw.amax, pw.amax)
+    assert torch.equal(quant.int8_conv(x, qw, b, s, pads), want)
+
+
+def test_int8_conv_kernel_floors_and_counts(dev):
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import quant
+    x = torch.zeros((1, 5, 9, 8), device=dev)
+    w = torch.ones((4, 5, 3, 3), device=dev)
+    w[2] = 0
+    kernels.reset_launches()
+    got = quant.int8_conv(x, w, None, 1, ((1, 1), (1, 1)))
+    assert kernels.LAUNCHES["int8_quantize"] == 2      # weight, activation
+    assert kernels.LAUNCHES["int8_conv"] == 1
+    assert torch.equal(got, quant.int8_conv_plain(x, w, None, 1,
+                                                  ((1, 1), (1, 1))))
+    assert not got.any()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quant.int8_conv(x.half(), w.half(), None, 1, ((1, 1), (1, 1)))
+
+
+def test_int8_segmentation_runs_the_lane_on_the_card(dev):
+    """segmentation_inference(conv_mode="int8") with the committed ResUNet:
+    every compute conv through K16 (one activation quantisation and one
+    conv a layer and batch, the weights once), and probabilities close to
+    the bf16 lane's."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import checkpoint, quant
+    from plant3dvision_tpu_torch.models.unet import segmentation_inference
+    from plant3dvision_tpu_torch.models.zoo import DEFAULT_CHECKPOINT
+    params, config = checkpoint.params_from_npz_bytes(
+        DEFAULT_CHECKPOINT.read_bytes())
+    model = checkpoint.model_from_config(config)
+    model.load_state_dict(checkpoint.state_dict_from_flax(
+        checkpoint._upcast_f16(params)))
+    img = (np.random.RandomState(0).rand(3, 192, 192, 3) * 255).astype(
+        np.uint8)
+    n_conv = len(quant.compute_convs(model))
+    kernels.reset_launches()
+    pi = segmentation_inference(model, img, batch_size=2, conv_mode="int8",
+                                output_dtype="float32", device=dev)
+    assert kernels.LAUNCHES["int8_conv"] == 2 * n_conv
+    assert kernels.LAUNCHES["int8_quantize"] == 3 * n_conv
+    pf = segmentation_inference(model, img, batch_size=2, conv_mode="bf16",
+                                output_dtype="float32", device=dev)
+    agree = (pi.argmax(1) == pf.argmax(1)).float().mean().item()
+    assert agree > 0.95 and (pi - pf).abs().mean().item() < 0.02
+
+
+# -- K17-K19: the gather probes -----------------------------------------------------
+
+@pytest.mark.parametrize("L,N,reps", [(64, 1000, 5), (8192, 8192, 64),
+                                      (60000, 3000, 64), (131072, 8192, 64)])
+def test_gather_axis1_kernel_matches_plain(dev, L, N, reps):
+    from plant3dvision_tpu_torch.tools import gather_probe as gp
+    np.random.seed(L)
+    tab, idx = gp.axis1_inputs(L, N, dev)
+    assert gp.axis1_staged(L) == (L * 4 <= 232448)
+    assert torch.equal(gp.axis1_gather(tab, idx, reps),
+                       gp.axis1_gather_plain(tab, idx, reps))
+
+
+@pytest.mark.parametrize("R,P,reps", [(48, 100, 9), (4096, 4096, 64),
+                                      (32768, 4096, 64)])
+def test_gather_rows_kernel_matches_plain(dev, R, P, reps):
+    from plant3dvision_tpu_torch.tools import gather_probe as gp
+    np.random.seed(R)
+    tab, rows = gp.rows_inputs(R, P, dev)
+    assert torch.equal(gp.rows_gather(tab, rows, reps),
+                       gp.rows_gather_plain(tab, rows, reps))
+
+
+@pytest.mark.parametrize("P,reps", [(1, 3), (1000, 40), (4096, 64)])
+def test_gather_select32_kernel_matches_plain(dev, P, reps):
+    from plant3dvision_tpu_torch.tools import gather_probe as gp
+    np.random.seed(P)
+    T, dy = gp.select32_inputs(P, dev)
+    T[0, :] = 2 ** 30                            # a row whose sum wraps
+    assert torch.equal(gp.select32(T, dy, reps),
+                       gp.select32_plain(T, dy, reps))
+
+
+# -- StreamingCarver on the card (K1) ----------------------------------------------
+
+def test_streaming_carver_on_the_card_matches_carve_plain(dev):
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.carving import carve_plain
+    from plant3dvision_tpu_torch.ops.streaming import StreamingCarver
+    rng = np.random.default_rng(5)
+    packed, cams, hw = _scene(rng, V=20)
+    shape, vs = (40, 37, 45), 0.5
+    origin = -(np.array(shape) - 1) * vs / 2 + 0.3
+    sc = StreamingCarver(shape, origin, vs, hw=hw, device=dev)
+    masks = np.unpackbits(packed, axis=1)[:, :hw[0] * hw[1]].reshape(-1, *hw)
+    kernels.reset_launches()
+    for k in range(20):
+        m = torch.from_numpy(masks[k]).to(dev) if k % 2 else packed[k]
+        sc.add_view(m, cams[k])
+        if k + 1 in (1, 5, 12, 20):
+            got = sc.preview(out="int8")
+            want = carve_plain(torch.from_numpy(packed[:k + 1]).to(dev),
+                               torch.from_numpy(cams[:k + 1]).to(dev),
+                               torch.ones(k + 1, dtype=torch.bool,
+                                          device=dev),
+                               origin, vs, shape, hw)
+            assert torch.equal(got, want)
+            assert torch.equal(sc.preview(), want == 1)
+    assert kernels.LAUNCHES["carve"] == 8
+    assert len(sc._packed) == 32 and sc._packed.device.type == "cuda"

@@ -1,0 +1,296 @@
+"""The port's int8 serving lane (models/quant.py; Segmentation2D's
+conv_mode="int8") against the JAX package's (plant3dvision_tpu/models/
+quant.py), on the CPU.
+
+Tolerances:
+- one convolution: `int8_conv_plain` is bit-equal to the jitted JAX hook
+  `int8_conv_general_dilated` (the int32 sums are exact; the scales,
+  rounding and dequantisation repeat XLA's arithmetic, module docstring of
+  models/quant.py). The hook run eagerly, op by op, forms sx * sw[k]
+  without XLA's reassociation and differs by an ulp on most outputs: the
+  reference is the program the model compiles.
+- a convolution with its bias (flax `nn.Conv` with the hook, jitted):
+  bit-equal (XLA contracts the bias add into an fma; so does the port).
+- the whole net (`segmentation_inference(conv_mode="int8")`, the JAX
+  test's 192x192 noise image, tests/unit/test_models.py:136): the dynamic
+  per-tensor scale turns each ulp the two frameworks' GroupNorm and
+  resize sums differ by into a quantisation step for every value near a
+  rounding edge, and the steps compound over the net's ~30 convolutions
+  (layer by layer: the stem bit-equal, the next conv within 1.6e-3 of its
+  largest output, the logits within 0.19). Measured on the committed
+  checkpoints, port against JAX, argmax agreement / mean |dp|:
+  unet_seg 0.9786 / 0.0073 (bfloat16 parameters), 0.9899 / 0.0034
+  (compute_dtype float32); tpusegnet_seg 0.9991 / 0.00037 and
+  0.9983 / 0.00066. Held to argmax >= 0.97 and mean < 0.01 (unet_seg),
+  >= 0.995 and < 0.002 (tpusegnet_seg): tighter than the JAX test's own
+  bar (> 0.95, < 0.02), which the port's int8 lane against its own bf16
+  lane meets as the JAX package's does (unet_seg 0.9832 / 0.0056 in both).
+- Segmentation2D(conv_mode="int8") with the committed ResUNet on a 3-view
+  photo scan: the same fileset, PNG ids and metadata; the PNG levels
+  (probability x 255) held to unet_seg's bars (measured in the test's
+  docstring).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import flax.linen as nn
+import jax
+import jax.numpy as jnp
+
+from plant3dvision_tpu.models.quant import int8_conv_general_dilated
+
+from plant3dvision_tpu_torch.models import checkpoint, quant
+from plant3dvision_tpu_torch.models.segnet import Conv, _same_pads
+from plant3dvision_tpu_torch.models.unet import segmentation_inference
+from plant3dvision_tpu_torch.models.zoo import (DEFAULT_CHECKPOINT,
+                                                TPUSEGNET_CHECKPOINT)
+
+torch.set_num_threads(1)
+
+DN = ("NHWC", "HWIO", "NHWC")
+
+
+def _jax_conv(x, w, stride):
+    """The JAX hook as flax calls it inside a jitted model (SAME pads)."""
+    f = jax.jit(lambda a, b: int8_conv_general_dilated(
+        a, b, (stride, stride), "SAME", dimension_numbers=DN))
+    return np.asarray(f(x, w)).transpose(0, 3, 1, 2)
+
+
+def _both(x, w, dtype):
+    """numpy NHWC x and HWIO w -> (JAX arrays, port NCHW/OIHW tensors) in
+    `dtype` ("float32" or "bfloat16")."""
+    xj, wj = jnp.asarray(x).astype(dtype), jnp.asarray(w).astype(dtype)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(np.ascontiguousarray(x)).permute(0, 3, 1, 2)
+    wt = torch.from_numpy(np.ascontiguousarray(w)).permute(3, 2, 0, 1)
+    return xj, wj, xt.to(tdt), wt.to(tdt)
+
+
+def _port_conv(xt, w, stride, k, bias=None):
+    pads = (_same_pads(xt.shape[2], k, stride), _same_pads(xt.shape[3], k,
+                                                           stride))
+    return quant.int8_conv_plain(xt, w, bias, stride, pads)
+
+
+#: the nets' convolution kinds: (kernel, stride, cin, cout)
+KINDS = [(7, 2, 3, 24), (3, 1, 24, 24), (3, 2, 24, 48), (1, 2, 24, 48)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hw", [(17, 15), (16, 18)])
+@pytest.mark.parametrize("kind", KINDS, ids=lambda k: "k%ds%dc%d" % k[:3])
+def test_int8_conv_plain_is_bit_equal_to_jax(kind, hw, dtype):
+    k, s, cin, cout = kind
+    rng = np.random.default_rng(k * 100 + s * 10 + hw[0])
+    x = rng.standard_normal((2, *hw, cin)).astype(np.float32)
+    w = (rng.standard_normal((k, k, cin, cout)) * 0.2).astype(np.float32)
+    xj, wj, xt, wt = _both(x, w, dtype)
+    ref = _jax_conv(xj, wj, s)
+    got = _port_conv(xt, wt, s, k).numpy()
+    assert got.dtype == np.float32 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    # the wrapper on a CPU tensor is the plain version
+    pads = (_same_pads(hw[0], k, s), _same_pads(hw[1], k, s))
+    np.testing.assert_array_equal(quant.int8_conv(xt, wt, None, s, pads),
+                                  got)
+
+
+def test_int8_conv_rounds_half_to_even():
+    """max |x| = 127 makes sx = max * f32(1/127) exactly 1, so x/sx lands on
+    k + 0.5: round half to even (2.5 -> 2, -3.5 -> -4, 0.5 -> 0), as JAX."""
+    x = np.zeros((1, 3, 4, 4), np.float32)
+    x[0, 0, 0] = [127.0, 2.5, -3.5, 0.5]
+    x[0, 1, 1] = [1.5, -0.5, 126.5, -126.5]
+    w = np.zeros((1, 1, 4, 4), np.float32)
+    np.fill_diagonal(w[0, 0], 1.0)                # a 1x1 identity
+    xj, wj, xt, wt = _both(x, w, "float32")
+    got = _port_conv(xt, wt, 1, 1).numpy()
+    np.testing.assert_array_equal(got, _jax_conv(xj, wj, 1))
+    q, amax = quant._quantize_plain(xt, quant.X_FLOOR, per_group=False)
+    assert float(amax) == 127.0
+    np.testing.assert_array_equal(q[0, :, 0, 0], [127, 2, -4, 0])
+    np.testing.assert_array_equal(q[0, :, 1, 1], [2, -0, 126, -126])
+
+
+def test_int8_conv_floors_its_scales():
+    """An all-zero activation (the 1e-8 floor) and a weight with an all-zero
+    output channel (the 1e-12 floor): zeros where JAX gives zeros."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((3, 3, 5, 4)).astype(np.float32)
+    w[..., 2] = 0.0
+    x = np.zeros((1, 9, 8, 5), np.float32)
+    xj, wj, xt, wt = _both(x, w, "bfloat16")
+    got = _port_conv(xt, wt, 1, 3).numpy()
+    np.testing.assert_array_equal(got, _jax_conv(xj, wj, 1))
+    assert not got.any()
+    x = rng.standard_normal((1, 9, 8, 5)).astype(np.float32)
+    xj, wj, xt, wt = _both(x, w, "bfloat16")
+    got = _port_conv(xt, wt, 1, 3).numpy()
+    np.testing.assert_array_equal(got, _jax_conv(xj, wj, 1))
+    assert not got[:, 2].any() and got[:, [0, 1, 3]].any()
+    qw = quant.quantize_weight(wt)
+    assert float(qw.amax[2]) == 0.0 and not qw.q[2].any()
+    assert qw.q.shape == (4, 3, 3, 8) and not qw.q[..., 5:].any()
+
+
+@pytest.mark.parametrize("kind", KINDS, ids=lambda k: "k%ds%dc%d" % k[:3])
+def test_int8_conv_with_bias_is_bit_equal_to_flax_conv(kind):
+    """flax `nn.Conv(dtype=bfloat16, conv_general_dilated=hook)` with
+    bfloat16 parameters, jitted, against the port's Conv in the int8 lane:
+    the bias add fused into the dequantisation (an fma) in both."""
+    k, s, cin, cout = kind
+    rng = np.random.default_rng(k + s)
+    x = rng.standard_normal((2, 16, 13, cin)).astype(np.float32)
+    layer = nn.Conv(cout, (k, k), strides=(s, s), padding="SAME",
+                    dtype=jnp.bfloat16,
+                    conv_general_dilated=int8_conv_general_dilated)
+    params = layer.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree.map(lambda a: (a + 0.05).astype(jnp.bfloat16), params)
+    ref = np.asarray(jax.jit(layer.apply)(params, jnp.asarray(x)))
+    conv = Conv(cin, cout, k, s)
+    p = params["params"]
+    conv.weight.data = torch.from_numpy(
+        np.array(p["kernel"].astype(jnp.float32))).permute(3, 2, 0, 1)
+    conv.bias.data = torch.from_numpy(np.array(p["bias"].astype(
+        jnp.float32)))
+    conv = conv.to(torch.bfloat16)
+    conv.int8 = quant.quantize_weight(conv.weight.detach())
+    with torch.no_grad():
+        got = conv(torch.from_numpy(x).permute(0, 3, 1, 2), torch.bfloat16)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(), ref)
+
+
+# -- the whole net ----------------------------------------------------------------
+
+NOISE = (np.random.RandomState(0).rand(192, 192, 3) * 255).astype(np.uint8)
+#: (argmax agreement >=, mean |dp| <) of the port against JAX (docstring)
+NET_BARS = {"unet_seg": (0.97, 0.01), "tpusegnet_seg": (0.995, 0.002)}
+
+
+@pytest.fixture(scope="module", params=[DEFAULT_CHECKPOINT,
+                                        TPUSEGNET_CHECKPOINT],
+                ids=["unet_seg", "tpusegnet_seg"])
+def net(request):
+    """(name, JAX model, JAX params, port model) of a committed checkpoint,
+    each upcast to float32 by its own loader."""
+    from plant3dvision_tpu.models.checkpoint import (_upcast_f16,
+                                                     model_from_config,
+                                                     params_from_npz_bytes)
+    data = request.param.read_bytes()
+    jparams, config = params_from_npz_bytes(data)
+    pparams, _ = checkpoint.params_from_npz_bytes(data)
+    pm = checkpoint.model_from_config(config)
+    pm.load_state_dict(checkpoint.state_dict_from_flax(
+        checkpoint._upcast_f16(pparams)))
+    return (request.param.stem, model_from_config(config),
+            _upcast_f16(jparams), pm)
+
+
+def _agreement(a, b):
+    return float((a.argmax(1) == b.argmax(1)).mean()), float(
+        np.abs(a - b).mean())
+
+
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "float32"])
+def test_segmentation_inference_int8_matches_jax(net, compute_dtype):
+    from plant3dvision_tpu.models.unet import segmentation_inference as jsi
+    name, jmodel, jparams, pmodel = net
+    kw = dict(batch_size=1, output_dtype="float32",
+              compute_dtype=compute_dtype)
+    ref = jsi(jmodel, jparams, NOISE[None], conv_mode="int8",
+              data_parallel=False, **kw)
+    got = segmentation_inference(pmodel, NOISE[None], conv_mode="int8",
+                                 device="cpu", **kw).numpy()
+    assert got.shape == ref.shape == (1, 6, 192, 192)
+    np.testing.assert_allclose(got.sum(axis=1), 1.0, atol=1e-4)
+    agree, mean = _agreement(got, ref)
+    bar_agree, bar_mean = NET_BARS[name]
+    assert agree >= bar_agree and mean < bar_mean, (agree, mean)
+    # the lane leaves the model as it found it
+    assert all(c.int8 is None for c in quant.compute_convs(pmodel))
+
+
+def test_int8_lane_against_the_bf16_lane(net):
+    """The JAX package's own guard (tests/unit/test_models.py:136), on the
+    port alone: int8 against bf16 on out-of-domain noise."""
+    name, _, _, pmodel = net
+    kw = dict(batch_size=1, output_dtype="float32", device="cpu")
+    pf = segmentation_inference(pmodel, NOISE[None], conv_mode="bf16",
+                                **kw).numpy()
+    pi = segmentation_inference(pmodel, NOISE[None], conv_mode="int8",
+                                **kw).numpy()
+    agree, mean = _agreement(pi, pf)
+    assert agree > 0.95, f"int8 argmax agreement {agree:.4f}"
+    assert mean < 0.02
+    assert not np.array_equal(pi, pf)            # the lane really ran
+
+
+def test_int8_lane_quantises_every_conv_but_the_head(net):
+    _, _, _, pmodel = net
+    convs = quant.compute_convs(pmodel)
+    assert pmodel.Conv_1 not in convs
+    assert len(convs) == sum(isinstance(m, Conv) for m in pmodel.modules()) - 1
+    with quant.int8_lane(pmodel):
+        assert all(isinstance(c.int8, quant.QuantizedWeight) for c in convs)
+        assert pmodel.Conv_1.int8 is None
+    assert all(c.int8 is None for c in convs)
+
+
+# -- Segmentation2D ----------------------------------------------------------------
+
+SEG_CFG = {
+    "ModelFilesetExists": {"scan_id": "models"},
+    "Segmentation2D": {"upstream_task": "ImagesFilesetExists",
+                       "query": {"channel": "rgb"}, "Sx": 96, "Sy": 96,
+                       "binarize": False, "dilation": 0, "batch_size": 2,
+                       "conv_mode": "int8"},
+}
+
+
+def _seg_outputs(scan, report):
+    from plant3dvision_tpu.fsdb import io as jio
+    fs = scan.get_fileset(report["Segmentation2D"]["fileset"])
+    return fs.id, [(f.id, jio.read_image(f), f.get_metadata())
+                   for f in fs.get_files()]
+
+
+def test_segmentation2d_int8_matches_jax(temp_db):
+    """Segmentation2D(conv_mode="int8") with the committed ResUNet on a
+    3-view 120x110 photo scan cropped to 96x96, through both packages: the
+    same fileset, PNG ids and metadata; the per-label probability PNGs
+    agree as the net's probabilities do (argmax over the labels >= 0.97,
+    mean |level| / 255 < 0.01; measured 0.9986 / 0.00041: the photos are
+    in the nets' domain, the noise image is not)."""
+    from plant3dvision_tpu.models.zoo import install_checkpoint as jinstall
+    from plant3dvision_tpu.runtime import RunContext as JaxRunContext
+    from plant3dvision_tpu.runtime import run_task as jax_run_task
+    from plant3dvision_tpu.synth_photo import (ProceduralArabidopsis,
+                                               generate_photo_scan)
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+
+    generate_photo_scan(temp_db, "s", n_views=3, width=120, height=110,
+                        plant=ProceduralArabidopsis(n_fruits=4, seed=2),
+                        with_gt_masks=False)
+    jinstall(temp_db)
+    jctx = JaxRunContext(temp_db, "s", SEG_CFG)
+    jid, jout = _seg_outputs(jctx.scan, jax_run_task(jctx, "Segmentation2D",
+                                                     report=False))
+    jctx.scan.delete_fileset(jid)
+    ctx = RunContext(temp_db, "s", SEG_CFG, device="cpu")
+    pid, out = _seg_outputs(ctx.scan, run_task(ctx, "Segmentation2D",
+                                               report=False))
+    assert pid == jid
+    assert [o[0] for o in out] == [o[0] for o in jout]
+    assert len(out) == 3 * 6
+    for (fid, _, md), (_, _, jmd) in zip(out, jout):
+        assert md == jmd, fid
+    got = np.stack([o[1] for o in out]).astype(np.float32).reshape(
+        3, 6, 96, 96) / 255
+    ref = np.stack([o[1] for o in jout]).astype(np.float32).reshape(
+        3, 6, 96, 96) / 255
+    agree, mean = _agreement(got, ref)
+    assert agree >= 0.97 and mean < 0.01, (agree, mean)

@@ -196,11 +196,17 @@ def test_segmentation_inference_uint8_matches_jax(committed, tta):
 
 
 def test_segmentation_inference_refuses_int8(committed):
+    """conv_mode takes bf16, float and int8 (the int8 lane runs now,
+    tests/test_torch_quant.py holds it to the JAX package's) and refuses
+    anything else."""
     _, _, pparams, config = committed
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        unet.segmentation_inference(_port(pparams, config),
-                                    np.zeros((1, 32, 32, 3), np.uint8),
+    img = np.zeros((1, 32, 32, 3), np.uint8)
+    with pytest.raises(ValueError, match="conv_mode"):
+        unet.segmentation_inference(_port(pparams, config), img,
+                                    conv_mode="int4", device="cpu")
+    p = unet.segmentation_inference(_port(pparams, config), img,
                                     conv_mode="int8", device="cpu")
+    assert p.shape == (1, 6, 32, 32) and p.dtype == torch.uint8
 
 
 def test_model_from_config_builds_both_architectures():
