@@ -25,8 +25,10 @@
    launched in the warm pass, that at least 10 angles come out and that
    their mean error (DTW-aligned against the generator's ground truth) is
    below 20 degrees.
-6. Holds K5 (accumulate; bilinear, box and log modes, through the 3-slab
-   lane) on one real batch of 32 CNN outputs of that scan, K6 (select) on
+6. Holds K5 (accumulate; bilinear, box and log modes, over the whole grid
+   in one launch as the pass runs it, and through the 3-slab lane, bit for
+   bit) on one real batch of 32 CNN outputs of that scan, with the
+   distribution of its tiles' pixel windows, K6 (select) on
    the warm pass's label volumes and K2-K4 on its fruit selection, against
    their plain versions, and times them beside a PyTorch library chain
    computing the same function. Each kernel row names the path (geometric,
@@ -42,7 +44,8 @@
    Checks that K2-K4, K5-avg, K6 and K7 were launched in the warm pass and
    K8 in the binarised run, that at least 10 angles come out and that their
    mean error is below 25 degrees.
-8. Holds K5-avg (one label's 126 masks, plain and log'd), K7 (the warm
+8. Holds K5-avg (one label's 126 masks, plain and log'd; with its tiles'
+   windows), K7 (the warm
    pass's points and 630 masks) and K8 (the pass's 756 masks thresholded at
    0.01, radius 1 and 3) against their plain versions at that route's
    shapes, and times them beside a PyTorch library chain.
@@ -121,12 +124,15 @@
    Segmentation2D(conv_mode="int8") on phase 5's scan (needs phase 5), one
    pass to the angles beside phase 7's bf16 pass, both lanes' inference
    seconds and argmax agreement over the 126 views; then K16 (the
-   quantise and conv launches) against its plain version, bit for bit, at
-   every conv shape of unet_seg (the pass's batch of 32) and tpusegnet_seg
-   (one image) at 896x896, timed beside the plain version, im2col +
-   torch._int_mm (cuBLASLt int8) and the bf16 cuDNN conv.
+   weight quantise, the activation absmax and the conv, which quantises as
+   it stages) against its plain version, bit for bit, at every conv shape
+   of unet_seg (the pass's batch of 32) and tpusegnet_seg (one image) at
+   896x896, timed beside the plain version, the library chain (absmax,
+   round, pad, im2col, torch._int_mm (cuBLASLt int8), epilogue) and the
+   bf16 cuDNN conv.
 17. The gather probes K17-K19 at exp_pallas_gather.py:main's sizes, each
-   equal to its plain version; M lookups/s and bounds.
+   equal to its plain version and to a torch.gather / index_select chain;
+   M lookups/s, bounds, and the three versions' times.
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -190,6 +196,8 @@ KERNEL_INFO = {
                         "plant3dvision_tpu/ops/geodesics.py:42"),
     "int8_quantize": ("plant3dvision_tpu_torch/kernels/csrc/int8conv.cu",
                       "plant3dvision_tpu/models/quant.py:49"),
+    "int8_absmax": ("plant3dvision_tpu_torch/kernels/csrc/int8conv.cu",
+                    "plant3dvision_tpu/models/quant.py:49"),
     "int8_conv": ("plant3dvision_tpu_torch/kernels/csrc/int8conv.cu",
                   "plant3dvision_tpu/models/quant.py:49"),
     "gather_axis1": ("plant3dvision_tpu_torch/kernels/csrc/gather.cu",
@@ -1004,10 +1012,45 @@ def _library_accumulate(probs, cams, origin, vs, shape, sample):
     return acc
 
 
+def window_stats(cams, valid, origin, vs, shape, hw, C, box, grid_fma):
+    """The tiled accumulate's footprints on one launch's inputs
+    (ml_fused.tile_windows, the kernel's rule): tile-views staged, read
+    from global memory (a window over the budget, or a corner behind the
+    camera) and skipped, the staged windows' pixel percentiles, and the
+    in-frame voxels whose taps fell outside their staged window."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.ops import ml_fused
+    counts = np.zeros(3, np.int64)
+    pix, outside = [], 0
+    for b in range(len(cams)):
+        if not bool(valid[b]):
+            continue
+        st, px, out = ml_fused.tile_windows(cams[b], origin, vs, 0, shape,
+                                            hw, C, box, grid_fma=grid_fma)
+        counts += np.bincount(st.cpu().numpy(), minlength=3)
+        pix.append(px[st == ml_fused.STAGED].cpu())
+        outside += out
+    pix = torch.cat(pix).double().numpy() if pix else np.zeros(1)
+    n = int(counts.sum())
+    q = np.percentile(pix, [50, 90, 99, 100]) if pix.size else [0] * 4
+    return {"tile": list(ml_fused.TILE), "region_floats": ml_fused.REGION,
+            "labels": C, "tile_views": n,
+            "staged": int(counts[ml_fused.STAGED]),
+            "global": int(counts[ml_fused.GLOBAL]),
+            "skipped": int(counts[ml_fused.SKIP]),
+            "global_share": float(counts[ml_fused.GLOBAL] / max(n, 1)),
+            "window_px_p50_p90_p99_max": [float(v) for v in q],
+            "window_floats_max": float(q[-1]) * C,
+            "taps_outside_window": int(outside)}
+
+
 def check_ml_kernels(scan, vfile, launches):
-    """Phase 6: K5 on one real batch of the ML scan (every mode, through the
-    3-slab lane), K6 on the warm pass's label volumes and K2-K4 on its
-    fruit selection, against their plain versions, at the ML path's own
+    """Phase 6: K5 on one real batch of the ML scan (every mode; the whole
+    grid in one launch, as the pass runs it on the card, and the 3-slab
+    lane, which must give the same volume), with the tiles' window
+    footprints, K6 on the warm pass's label volumes and K2-K4 on its fruit
+    selection, against their plain versions, at the ML path's own
     shapes."""
     import numpy as np
     import torch
@@ -1039,14 +1082,18 @@ def check_ml_kernels(scan, vfile, launches):
     nx_pad = -(-shape[0] // slab_nx) * slab_nx
     assert nx_pad // slab_nx == 3, (shape, slab_nx)
 
-    def k5(vol, fn, log_mode, sample):
+    def k5_slabs(vol, log_mode, sample):
         for xs in range(0, nx_pad, slab_nx):
-            fn(vol, probs, cams, valid, origin, ML_VOXEL, xs, slab_nx,
-               log_mode, sample)
+            ml_fused.accumulate(vol, probs, cams, valid, origin, ML_VOXEL,
+                                xs, slab_nx, log_mode, sample)
         return vol
 
-    def fresh():
-        return torch.zeros((C, nx_pad, *shape[1:]), device=dev)
+    def whole(fn, vol, log_mode, sample):
+        return fn(vol, probs, cams, valid, origin, ML_VOXEL, 0, shape[0],
+                  log_mode, sample)
+
+    def fresh(nx=shape[0]):
+        return torch.zeros((C, nx, *shape[1:]), device=dev)
 
     # the data-dependent work: voxel-view pairs, and those in frame
     in_frame = sum(int(ml_fused.project(cams[b], origin, ML_VOXEL, 0, shape,
@@ -1057,18 +1104,24 @@ def check_ml_kernels(scan, vfile, launches):
     for mode, log_mode, sample in (("bilinear", False, "bilinear"),
                                    ("box", False, "box"),
                                    ("log", True, "bilinear")):
-        got = k5(fresh(), ml_fused.accumulate, log_mode, sample)
-        want = k5(fresh(), ml_fused.accumulate_plain, log_mode, sample)
+        got = whole(ml_fused.accumulate, fresh(), log_mode, sample)
+        want = whole(ml_fused.accumulate_plain, fresh(), log_mode, sample)
+        slabs = k5_slabs(fresh(nx_pad), log_mode, sample)[:, :shape[0]]
         torch.cuda.synchronize()
-        diff = (got - want).abs()
-        err = float(diff.max())
-        rel = float((diff / want.abs().clamp(min=1.0)).max())
+        err = float((got - want).abs().max())
         n_diff = int((got != want).sum())
-        assert rel <= 1e-6, f"accumulate ({mode}) kernel vs plain: {rel}"
+        assert torch.equal(got, want), \
+            f"accumulate ({mode}) kernel != plain ({n_diff} voxels)"
+        assert torch.equal(slabs, got), f"accumulate ({mode}) slabs != whole"
+        del got, want, slabs
         vol = fresh()
-        ms = cuda_ms(lambda: k5(vol, ml_fused.accumulate, log_mode, sample))
-        plain = cuda_ms(lambda: k5(fresh(), ml_fused.accumulate_plain,
-                                   log_mode, sample), reps=3, warmup=1)
+        ms = cuda_ms(lambda: whole(ml_fused.accumulate, vol, log_mode,
+                                   sample))
+        vol = fresh(nx_pad)
+        slab_ms = cuda_ms(lambda: k5_slabs(vol, log_mode, sample))
+        del vol
+        plain = cuda_ms(lambda: whole(ml_fused.accumulate_plain, fresh(),
+                                      log_mode, sample), reps=3, warmup=1)
         lib = cuda_ms(lambda: _library_accumulate(probs, cams, origin,
                                                   ML_VOXEL, shape, sample),
                       reps=3, warmup=1)
@@ -1083,21 +1136,27 @@ def check_ml_kernels(scan, vfile, launches):
                 * probs.numel()
                 + ((16 + 8 * C) if sample == "bilinear" else (10 + C))
                 * in_frame)
-        # the batch read once, the volume (its shape[0] rows, not the slab
-        # padding) read and written once
+        # the batch read once, the volume read and written once
         nbytes = probs.numel() * 4 + 2 * C * nvox * 4 + cams.numel() * 4 \
             + valid.numel()
         modes[mode] = kernel_row(
             "accumulate_labels", launches["accumulate_labels"], err, ms,
             plain, nbytes, nops, library=lib,
-            extra={"path": "ml", "mode": mode, "max_rel_err": rel,
-                   "n_differ": n_diff, "tolerance_rel": 1e-6, "batch": len(files),
-                   "slabs": nx_pad // slab_nx, "slab_nx": slab_nx,
-                   "voxel_view_pairs": pairs, "in_frame_pairs": in_frame})
+            extra={"path": "ml", "mode": mode, "n_differ": n_diff,
+                   "tolerance": "bit-equal", "batch": len(files),
+                   "unit": "one batch, the whole grid in one launch",
+                   "slab_lane_ms": slab_ms, "slabs": nx_pad // slab_nx,
+                   "slab_nx": slab_nx, "voxel_view_pairs": pairs,
+                   "in_frame_pairs": in_frame,
+                   "windows": window_stats(cams, valid, origin, ML_VOXEL,
+                                           shape, probs.shape[2:], C,
+                                           sample == "box", True)})
     rows.append(dict(modes["bilinear"], modes={
-        m: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "max_abs_err", "n_differ")}
+        m: {k: r[k] for k in ("ms", "slab_lane_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by", "max_abs_err",
+                              "n_differ", "windows")}
         for m, r in modes.items()}))
+    emit({"ml_k5_windows": {m: r["windows"] for m, r in modes.items()}})
     del probs
 
     # K6 on the warm pass's label volumes (in the handoff cache, else the NPZ)
@@ -1321,6 +1380,9 @@ def check_separate_kernels(scan, report, launches):
                                        (H, W), grid_fma=False)[2].sum())
                    for v in range(len(sel)))
     pairs = len(sel) * nvox
+    windows = window_stats(cm, va, origin, ML_VOXEL, shape, (H, W), 1,
+                           False, False)
+    emit({"ml_separate_k5avg_windows": windows})
     modes = {}
     for mode, m in (("plain", fm), ("log", np.log(carving.EPS + fm))):
         mt = torch.from_numpy(m).to(dev)
@@ -1344,7 +1406,7 @@ def check_separate_kernels(scan, report, launches):
             30 * pairs + 24 * in_frame, library=lib,
             extra={"path": "ml_separate", "mode": mode, "shape": list(shape),
                    "views": len(sel), "voxel_view_pairs": pairs,
-                   "in_frame_pairs": in_frame})
+                   "in_frame_pairs": in_frame, "windows": windows})
         del mt, got, want
     rows.append(dict(modes["plain"], modes={
         m: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
@@ -2568,38 +2630,39 @@ def int8_bound_ms(n_bytes, macs):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _int_mm_conv(xq, qw, stride, out_hw):
-    """The library chain for K16's conv launch: im2col of the padded int8
-    activation (a strided view copied into (B*OH*OW, kh*kw*Cp), the depth
-    padded to a multiple of 8) and one torch._int_mm (cuBLASLt int8) against
-    the weights (N padded to a multiple of 8): the int32 sums, (M, N)."""
+def _library_int8_conv(x, qw, bias, stride, pads):
+    """The library chain for K16's whole function, in PyTorch calls: the
+    activation's absmax, division, round and clamp to int8, the SAME pads,
+    im2col (a strided view copied into (B*OH*OW, kh*kw*Cp), the depth
+    padded to a multiple of 8), one torch._int_mm (cuBLASLt int8) against
+    the weights (N padded to a multiple of 8), then the epilogue."""
     import torch
     import torch.nn.functional as F
-    B, Hp, Wp, Cp = xq.shape
-    K, kh, kw = qw.q.shape[:3]
-    OH, OW = out_hw
+    from plant3dvision_tpu_torch.models import quant
+    from plant3dvision_tpu_torch.ops.carving import fma_f32
+    B, C, H, W = x.shape
+    K, kh, kw, Cp = qw.q.shape
+    (pt, pb), (pl, pr) = pads
     s = int(stride)
-    cols = xq.as_strided((B, OH, OW, kh, kw, Cp),
-                         (Hp * Wp * Cp, s * Wp * Cp, s * Cp, Wp * Cp, Cp, 1))
+    xf = x.float()
+    xmax = xf.abs().amax()
+    sx = torch.clamp(xmax, min=quant.X_FLOOR) * quant.INV127
+    xq = torch.round(xf / sx).clamp(-127, 127).to(torch.int8)
+    xq = F.pad(xq.permute(0, 2, 3, 1), (0, Cp - C, pl, pr, pt, pb))
+    Hp, Wp = H + pt + pb, W + pl + pr
+    OH, OW = (Hp - kh) // s + 1, (Wp - kw) // s + 1
+    cols = xq.contiguous().as_strided(
+        (B, OH, OW, kh, kw, Cp),
+        (Hp * Wp * Cp, s * Wp * Cp, s * Cp, Wp * Cp, Cp, 1))
     depth = kh * kw * Cp
     pad_k, pad_n = (-depth) % 8, (-K) % 8
     a = F.pad(cols.reshape(B * OH * OW, depth), (0, pad_k))
-    b = F.pad(qw.q.reshape(K, depth), (0, pad_k, 0, 0))
-    b = F.pad(b, (0, 0, 0, pad_n)).t()
-    return torch._int_mm(a, b)
-
-
-def _dequantized(acc, xmax, qw, bias, B, out_hw):
-    """The kernel's epilogue on the library's int32 sums (to compare)."""
-    import torch
-    from plant3dvision_tpu_torch.models import quant
-    from plant3dvision_tpu_torch.ops.carving import fma_f32
-    K = qw.q.shape[0]
-    sx = torch.clamp(xmax, min=quant.X_FLOOR) * quant.INV127_SQ
-    scale = torch.clamp(qw.amax, min=quant.W_FLOOR) * sx
-    a = acc[:, :K].to(torch.float32)
-    y = fma_f32(a, scale, bias.float()) if bias is not None else a * scale
-    return y.view(B, *out_hw, K).permute(0, 3, 1, 2)
+    b = F.pad(qw.q.reshape(K, depth), (0, pad_k, 0, pad_n)).t()
+    acc = torch._int_mm(a, b)[:, :K].to(torch.float32)
+    scale = torch.clamp(qw.amax, min=quant.W_FLOOR) * (
+        torch.clamp(xmax, min=quant.X_FLOOR) * quant.INV127_SQ)
+    y = fma_f32(acc, scale, bias.float()) if bias is not None else acc * scale
+    return y.view(B, OH, OW, K).permute(0, 3, 1, 2)
 
 
 def _conv_inputs(model, batch):
@@ -2634,9 +2697,10 @@ def _conv_inputs(model, batch):
 def check_int8_shapes(net, model, batch, batches_in_pass):
     """Phase 16's K16 checks on one net: every distinct conv shape of a
     forward of `batch`, kernel against plain (bit for bit; and the weight
-    quantisation), each timed beside the plain version, the im2col +
-    torch._int_mm chain and the bf16 cuDNN conv. Returns (per-shape
-    entries, the net's two kernel rows summed over one forward)."""
+    quantisation), each timed beside the plain version, the library chain
+    (`_library_int8_conv`) and the bf16 cuDNN conv: the whole function
+    (absmax + conv launch), each launch alone, and the weight quantisation.
+    Returns (per-shape entries, the net's sums over one forward)."""
     import torch
     import torch.nn.functional as F
     from plant3dvision_tpu_torch.models import quant
@@ -2653,23 +2717,27 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
         qw, pw = quant.quantize_weight(w), quant.quantize_weight_plain(w)
         got = quant.int8_conv(x, qw, b, s, pads)
         want = quant.int8_conv_plain(x, qw, b, s, pads)
-        xq, xmax = quant.quantize_activation(x, pads)
-        b32 = b.float()
-        lib_acc = _int_mm_conv(xq, qw, s, out_hw)
         lib_equal = bool(torch.equal(
-            _dequantized(lib_acc, xmax, qw, b32, x.shape[0], out_hw), got))
+            _library_int8_conv(x, qw, b, s, pads), got))
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
         w_equal = bool(torch.equal(qw.q, pw.q) and torch.equal(qw.amax,
                                                                  pw.amax))
-        del got, want, lib_acc
-        q_ms = cuda_ms(lambda: quant.quantize_activation(x, pads))
-        c_ms = cuda_ms(lambda: quant.conv_quantized(xq, xmax, qw, b32, s,
-                                                    out_hw))
+        del got, want
+        b32 = b.float()
+        xmax = quant.activation_absmax(x)
+        fn_ms = cuda_ms(lambda: quant.int8_conv(x, qw, b, s, pads))
+        a_ms = cuda_ms(lambda: quant.activation_absmax(x))
+        c_ms = cuda_ms(lambda: quant.conv_fused(x, xmax, qw, b32, s, pads))
+        wq_ms = cuda_ms(lambda: quant.quantize_weight(w))
+        wq_plain = cuda_ms(lambda: quant.quantize_weight_plain(w))
+        a_plain = cuda_ms(lambda: quant._quantize_plain(
+            x, quant.X_FLOOR, per_group=False)[1])
+        a_lib = cuda_ms(lambda: torch.linalg.vector_norm(x, float("inf")))
         plain_ms = cuda_ms(lambda: quant.int8_conv_plain(x, qw, b, s, pads),
                            reps=3, warmup=1)
-        lib_ms = cuda_ms(lambda: _int_mm_conv(xq, qw, s, out_hw), reps=3,
-                         warmup=1)
+        lib_ms = cuda_ms(lambda: _library_int8_conv(x, qw, b, s, pads),
+                         reps=3, warmup=1)
         wb = conv.weight.detach().to(torch.bfloat16)
         xb = F.pad(x.to(torch.bfloat16), (pads[1][0], pads[1][1],
                                           pads[0][0], pads[0][1]))
@@ -2677,28 +2745,38 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
                           warmup=1)
         B = x.shape[0]
         macs = B * out_hw[0] * out_hw[1] * cout * cin * k * k
-        q_bytes = x.numel() * x.element_size() + xq.numel()
-        c_bytes = xq.numel() + qw.q.numel() + B * cout * out_hw[0] * \
-            out_hw[1] * 4 + cout * 8
-        qb, _ = bound_ms(q_bytes, 0)
-        cb, cby = int8_bound_ms(c_bytes, macs)
+        x_bytes = x.numel() * x.element_size()
+        # the function: the activation read once, the int8 weights and
+        # their scales, the bias, the float32 output written once
+        fn_bytes = x_bytes + cout * cin * k * k + cout * 8 + \
+            B * cout * out_hw[0] * out_hw[1] * 4
+        fb, fby = int8_bound_ms(fn_bytes, macs)
+        ab, _ = bound_ms(x_bytes, x.numel())
+        wqb, wqby = bound_ms(w.numel() * (w.element_size() + 1) + cout * 4,
+                             4 * w.numel())
+        p = qw.plan
         e = {"net": net, "cin": cin, "cout": cout, "k": k, "stride": s,
              "in_hw": [H, W], "batch": B, "convs": n,
              "launches_in_pass": n * batches_in_pass,
+             "plan": {"nt": p.nt, "cc": p.cc, "chunks": p.nch, "dc": p.dc},
              "bit_equal": equal, "weights_equal": w_equal,
-             "int_mm_equal": lib_equal, "quantize_ms": q_ms,
-             "quantize_bound_ms": qb, "conv_ms": c_ms, "conv_bound_ms": cb,
-             "conv_bound_by": cby, "plain_ms": plain_ms,
-             "int_mm_ms": lib_ms, "bf16_cudnn_ms": bf16_ms, "gmac": macs / 1e9}
+             "library_equal": lib_equal, "function_ms": fn_ms,
+             "function_bound_ms": fb, "function_bound_by": fby,
+             "absmax_ms": a_ms, "conv_launch_ms": c_ms,
+             "weight_quantize_ms": wq_ms, "plain_ms": plain_ms,
+             "library_ms": lib_ms, "bf16_cudnn_ms": bf16_ms,
+             "gmac": macs / 1e9, "tmac_per_s": macs / fn_ms / 1e9}
         shapes.append(e)
         # the forward's sums: each shape as often as the net has it
-        for name, val in (("q", q_ms), ("qb", qb), ("c", c_ms), ("cb", cb),
-                          ("plain", plain_ms), ("lib", lib_ms),
-                          ("bf16", bf16_ms), ("bytes", c_bytes),
-                          ("macs", macs), ("convs", 1),
-                          ("launches", batches_in_pass)):
+        for name, val in (("fn", fn_ms), ("fb", fb), ("a", a_ms), ("ab", ab),
+                          ("a_plain", a_plain), ("a_lib", a_lib),
+                          ("c", c_ms), ("wq", wq_ms), ("wqb", wqb),
+                          ("wq_plain", wq_plain), ("plain", plain_ms),
+                          ("lib", lib_ms), ("bf16", bf16_ms),
+                          ("bytes", fn_bytes), ("macs", macs),
+                          ("convs", 1), ("launches", batches_in_pass)):
             tot[name] = tot.get(name, 0) + n * val
-        del xq, xmax, x
+        del xmax, x
     return shapes, tot
 
 
@@ -2798,12 +2876,16 @@ def run_int8_path(db, device_name, bf16_pass):
            "argmax_agreement_int8_vs_bf16": agree,
            "n_angles": int(len(angles)), "n_gt": int(len(plant.gt_angles)),
            "mean_angle_error_deg": dtw["mean_angle_error"],
-           "launches_in_pass": {k: launches[k] for k in ("int8_quantize",
-                                                         "int8_conv")},
-           "forward_ms": {net: {"quantize": t["q"], "conv": t["c"],
-                                "plain": t["plain"], "int_mm": t["lib"],
+           "launches_in_pass": {k: launches[k] for k in (
+               "int8_quantize", "int8_absmax", "int8_conv")},
+           "forward_ms": {net: {"function": t["fn"], "absmax": t["a"],
+                                "conv_launch": t["c"],
+                                "weight_quantize": t["wq"],
+                                "plain": t["plain"],
+                                "library_int_mm": t["lib"],
                                 "bf16_cudnn": t["bf16"],
-                                "conv_bound": t["cb"]}
+                                "function_bound": t["fb"],
+                                "tmac_per_s": t["macs"] / t["fn"] / 1e9}
                           for net, t in (("unet_seg", tot_u),
                                          ("tpusegnet_seg", tot_s))}}
     emit({"int8_path": res})
@@ -2812,8 +2894,8 @@ def run_int8_path(db, device_name, bf16_pass):
            if not (e["bit_equal"] and e["weights_equal"])]
     assert not bad, f"K16 differs from its plain version at {bad}"
     assert launches["int8_conv"] == tot_u["launches"] > 0, launches
-    assert launches["int8_quantize"] == tot_u["launches"] + tot_u[
-        "convs"], launches
+    assert launches["int8_absmax"] == tot_u["launches"], launches
+    assert launches["int8_quantize"] == tot_u["convs"], launches
     assert len(angles) > 0, "the int8 pass reached no angle"
     nums = [pass_s, agree, dtw["mean_angle_error"], *angles,
             *out["internodes"]]
@@ -2827,22 +2909,57 @@ def run_int8_path(db, device_name, bf16_pass):
         unit = (f"one forward of {net} at {ML_SIZE}x{ML_SIZE}, batch "
                 f"{ML_BATCH if launched else 1}: the sum over its "
                 f"{t['convs']} compute convs")
-        for name, ms, b, by, lib in (
-                ("int8_quantize", t["q"], t["qb"], "bytes", None),
-                ("int8_conv", t["c"], t["cb"],
-                 "bytes" if t["bytes"] / HBM_BYTES_PER_S >=
-                 2 * t["macs"] / INT8_OPS_PER_S else "operations",
-                 t["lib"])):
+        fby = ("bytes" if t["bytes"] / HBM_BYTES_PER_S >=
+               2 * t["macs"] / INT8_OPS_PER_S else "operations")
+        for name, ms, plain, b, by, lib, extra in (
+                ("int8_conv", t["fn"], t["plain"], t["fb"], fby, t["lib"],
+                 {"what": "the whole function: the absmax launch and the "
+                          "conv launch, which quantises as it stages",
+                  "conv_launch_ms": t["c"], "absmax_ms": t["a"],
+                  "bf16_cudnn_ms": t["bf16"],
+                  "tmac_per_s": t["macs"] / t["fn"] / 1e9}),
+                ("int8_absmax", t["a"], t["a_plain"], t["ab"], "bytes",
+                 t["a_lib"], {"library": "torch.linalg.vector_norm(x, inf)"}),
+                ("int8_quantize", t["wq"], t["wq_plain"], t["wqb"], "bytes",
+                 None, {"what": "the weights, once a call, with the "
+                                "conv's packing"})):
             src, rep = KERNEL_INFO[name]
-            rows.append({
+            rows.append(dict({
                 "name": name, "route": "cuda", "source": src,
                 "replaces": rep,
                 "launches": launched[name] if launched else 0,
                 "max_abs_err": 0.0, "match": True, "ms": ms,
-                "kernel_ms": ms, "plain_ms": t["plain"], "bound_ms": b,
+                "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
                 "bound_by": by, "library_ms": lib, "path": path,
-                "unit": unit, "bf16_cudnn_ms": t["bf16"]})
+                "unit": unit}, **extra))
     return rows
+
+
+def _library_gathers():
+    """One PyTorch chain per probe (the library yardstick; the port never
+    calls them): the rolled indices, one torch.gather or index_select, the
+    sum over the reps in int32."""
+    import torch
+
+    def rolled(i, reps, n):
+        return (i.long()[..., None] + torch.arange(reps, device=i.device)) % n
+
+    def axis1(tab, idx, reps):
+        k = rolled(idx, reps, tab.shape[1])
+        return torch.gather(tab, 1, k.flatten(1)).view(k.shape).sum(
+            -1, dtype=torch.int32)
+
+    def rows(tab, r, reps):
+        k = rolled(r, reps, tab.shape[0])
+        return torch.index_select(tab, 0, k.flatten()).view(
+            *k.shape, 32).sum(1, dtype=torch.int32)
+
+    def select32(T, dy, reps):
+        return torch.gather(T, 1, rolled(dy, reps, 32)).sum(
+            1, dtype=torch.int32)
+
+    return {"gather_axis1": axis1, "gather_rows": rows,
+            "gather_select32": select32}
 
 
 def run_gather_probes(device_name):
@@ -2861,6 +2978,7 @@ def run_gather_probes(device_name):
              "gather_select32": gp.select32_plain}
     names = {gp.axis1_gather: "gather_axis1", gp.rows_gather: "gather_rows",
              gp.select32: "gather_select32"}
+    library = _library_gathers()
     rows, probes = [], []
     for i, (label, make, fn, size, lookups) in enumerate(gp.PROBES):
         name = names[fn]
@@ -2871,11 +2989,15 @@ def run_gather_probes(device_name):
         launched = kernels.LAUNCHES[name]
         want = plain[name](*args, 64)
         torch.cuda.synchronize()
+        lib_out = library[name](*args, 64)
+        torch.cuda.synchronize()
         assert torch.equal(got, want), f"{name} ({label}) differs from plain"
-        # both timed as calls replayed from a CUDA graph: a probe's launch
+        assert torch.equal(lib_out, got), f"{name} ({label}): library differs"
+        # all timed as calls replayed from a CUDA graph: a probe's launch
         # is shorter than the host's time to issue it
         ms = gp.timed(lambda: fn(*args, 64)) * 1e3
         plain_ms = gp.timed(lambda: plain[name](*args, 64)) * 1e3
+        lib_ms = gp.timed(lambda: library[name](*args, 64)) * 1e3
         n_bytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
         b, by = bound_ms(n_bytes, 4 * lookups)
         where = ("registers (warp shuffle)" if name == "gather_select32"
@@ -2884,7 +3006,7 @@ def run_gather_probes(device_name):
         probes.append({"probe": label, "M_lookups_per_s": lookups / ms / 1e3,
                        "ms": ms, "bound_ms": b, "table_in": where})
         rows.append(kernel_row(name, launched, 0.0, ms, plain_ms, n_bytes,
-                               4 * lookups, extra={
+                               4 * lookups, library=lib_ms, extra={
                                    "path": "phase 17 (gather_probe's run)",
                                    "probe": label, "table_in": where,
                                    "M_lookups_per_s": lookups / ms / 1e3}))

@@ -30,7 +30,7 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 
 #: kernel name -> source file under csrc/ (K5-avg, "average", is a mode of
 #: the accumulate kernel, and K11, "count_kills", and K11b,
-#: "carve_candidates", kernels of carve.cu; K16's two entry points share
+#: "carve_candidates", kernels of carve.cu; K16's three entry points share
 #: int8conv.cu and K17-K19 gather.cu: one source each, their own launch
 #: counts)
 SOURCES = {
@@ -52,6 +52,7 @@ SOURCES = {
     "eikonal_sweep": "eikonal.cu",
     "trace_geodesics": "geodesics.cu",
     "int8_quantize": "int8conv.cu",
+    "int8_absmax": "int8conv.cu",
     "int8_conv": "int8conv.cu",
     "gather_axis1": "gather.cu",
     "gather_rows": "gather.cu",
@@ -129,14 +130,15 @@ _ARGTYPES = {
     # stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
                             _P, _P],
-    # x, dtype, G, C, H, W, pt, pb, pl, pr, Cp, per_group, eps, maxbits,
-    # out, stream
-    "p3d_int8_quantize": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                          _P, _P, _P],
-    # xq, wq, xmax, wmax, bias (or null), out, B, Hp, Wp, Cp, K, kh, kw,
-    # stride, OH, OW, xfloor, wfloor, stream
-    "p3d_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _F, _F, _P],
+    # w, dtype, K, C, taps, Cp, eps, maxbits, out, stream
+    "p3d_int8_quantize_weight": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # x, dtype, n, maxbits, stream
+    "p3d_int8_absmax": [_P, _I, _L, _P, _P],
+    # x, dtype, wp, xmax, wmax, bias (or null), out, B, C, H, W, K, kh, kw,
+    # stride, pt, pl, OH, OW, cfg, CC, nch, DC, n_blocks_n, xfloor, wfloor,
+    # stream
+    "p3d_int8_conv": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # tab, idx, out, R, L, N, reps, stream
     "p3d_gather_axis1": [_P, _P, _P, _I, _I, _I, _I, _P],
     # L -> 1 when the row is staged in shared memory

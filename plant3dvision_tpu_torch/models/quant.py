@@ -23,8 +23,10 @@ kernel and the plain version repeat it):
   the product alone: the JAX hook's own output).
 
 `int8_conv` is K16 on a CUDA tensor (kernels/csrc/int8conv.cu: the
-"int8_quantize" launch quantises, the "int8_conv" launch convolves and
-dequantises) and `int8_conv_plain` on a CPU tensor. The plain version runs
+"int8_absmax" launch takes the activation's absmax, the "int8_conv" launch
+quantises the activation as it stages it, convolves on the int8 tensor
+cores and dequantises; `quantize_weight`'s "int8_quantize" launch quantises
+a weight) and `int8_conv_plain` on a CPU tensor. The plain version runs
 the integer convolution exactly: F.conv2d in float64 on the int8 values
 (every partial sum is an integer below 2^53; float32 would not be exact,
 127^2 * 9 * 512 > 2^24), cuDNN off on the card (its FFT and Winograd
@@ -57,11 +59,15 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 class QuantizedWeight:
     """A convolution's weight in the lane's form: `q` (K, kh, kw, Cp) int8,
     the input channels zero-padded to Cp (a multiple of 4), and `amax` (K,)
-    float32, each output channel's absmax before its 1e-12 floor."""
+    float32, each output channel's absmax before its 1e-12 floor. On the
+    card also `plan` and `packed`: `q` in the conv kernel's layout
+    (`conv_plan`, `pack_weight`)."""
 
     q: torch.Tensor
     amax: torch.Tensor
     cin: int
+    plan: "ConvPlan | None" = None
+    packed: "torch.Tensor | None" = None
 
 
 def _cp(c: int) -> int:
@@ -118,6 +124,65 @@ def int8_conv_plain(x, w, bias, stride, pads):
 
 # -- kernels -------------------------------------------------------------------
 
+#: K16's conv tile configurations (int8conv.cu:conv_kernel): output
+#: channels a block (NT), one per template instance, cfg 0..4
+CONV_NT = (16, 32, 64, 128, 256)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How K16's conv cuts a weight (K, kh, kw, Cp): `cfg` the tile
+    configuration (NT output channels a block), the depth in `nch` chunks of
+    `cc` input channels x kh*kw taps, each chunk `dc` bytes deep (a multiple
+    of 32, the fragment's depth; the depth order within a chunk is tap-major,
+    then channel)."""
+
+    cfg: int
+    nt: int
+    cc: int
+    nch: int
+    dc: int
+    n_blocks: int
+
+
+def conv_plan(K, kh, kw, cp) -> ConvPlan:
+    """The conv kernel's cut of a (K, kh, kw, Cp) weight: a function of the
+    weight's shape alone, so a weight is packed once."""
+    K, taps, cp = int(K), int(kh) * int(kw), int(cp)
+    cfg = next(i for i, nt in enumerate(CONV_NT)
+               if nt >= min(K, CONV_NT[-1]))
+    nt = CONV_NT[cfg]
+    # shared memory for the two weight buffers of a block: 64 KB (96 KB at
+    # NT = 256, whose chunks are otherwise too shallow), so that two blocks
+    # fit on an SM
+    w_smem = (96 if nt == 256 else 64) << 10
+    dmax = min(1024, (w_smem // (2 * nt) - 16) // 32 * 32)
+    # at most 64 channels a chunk: the staged rows hold them too
+    cc_max = min(64, max(4, dmax // taps // 4 * 4))
+    nch = -(-cp // cc_max)
+    cc = -(-(-(-cp // nch)) // 4) * 4
+    dc = -(-taps * cc // 32) * 32
+    return ConvPlan(cfg, nt, cc, nch, dc, -(-K // nt))
+
+
+def pack_weight(q, plan: ConvPlan):
+    """q (K, kh, kw, Cp) int8 -> the conv kernel's weight layout
+    (n_blocks, nch, NT, DC) int8: block nb's output channels nb*NT ..., chunk
+    ch's input channels ch*CC ..., depth d = tap * CC + c within a chunk;
+    zeros in every pad (channels past Cp, depth past kh*kw*CC, output
+    channels past K)."""
+    K, kh, kw, cp = (int(s) for s in q.shape)
+    taps = kh * kw
+    p = plan
+    w = F.pad(q.reshape(K, taps, cp).to(torch.int16),
+              (0, p.nch * p.cc - cp))                 # (K, taps, nch*CC)
+    w = w.reshape(K, taps, p.nch, p.cc).permute(2, 0, 1, 3)
+    w = F.pad(w.reshape(p.nch, K, taps * p.cc),
+              (0, p.dc - taps * p.cc, 0, p.n_blocks * p.nt - K))
+    w = w.reshape(p.nch, p.n_blocks, p.nt, p.dc).permute(1, 0, 2, 3)
+    return w.to(torch.int8).contiguous()
+
+
 def _dtype_code(name, t):
     if t.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: the CUDA kernel takes float32 or bfloat16, "
@@ -125,66 +190,74 @@ def _dtype_code(name, t):
     return _DTYPE_CODE[t.dtype]
 
 
-def _quantize(x, per_group, floor, pads=((0, 0), (0, 0))):
-    """K16's quantise launch: x (G, C, H, W) on the card -> (q (G, H + pt +
-    pb, W + pl + pr, Cp) int8, absmax float32 (G,) or (1,))."""
-    kernels.require_cuda("int8_quantize", x)
-    code = _dtype_code("int8_quantize", x)
-    G, C, H, W = (int(s) for s in x.shape)
-    (pt, pb), (pl, pr) = pads
-    Cp = _cp(C)
-    q = torch.empty((G, H + pt + pb, W + pl + pr, Cp), dtype=torch.int8,
-                    device=x.device)
-    amax = torch.empty((G if per_group else 1,), dtype=torch.float32,
-                       device=x.device)
-    rc = kernels.lib().p3d_int8_quantize(
-        x.data_ptr(), code, G, C, H, W, pt, pb, pl, pr, Cp, int(per_group),
-        float(floor), amax.data_ptr(), q.data_ptr(),
-        kernels.stream_ptr(x.device))
-    kernels.LAUNCHES["int8_quantize"] += 1
-    kernels.check("int8_quantize", rc)
-    return q, amax
-
-
 def quantize_weight(w) -> QuantizedWeight:
-    """A conv weight (K, Cin, kh, kw) in the lane's form: K16's quantise
-    launch on a CUDA tensor, the plain version on a CPU tensor."""
+    """A conv weight (K, Cin, kh, kw) in the lane's form: K16's weight
+    quantise launch ("int8_quantize") on a CUDA tensor, then the conv's
+    packing; the plain version on a CPU tensor."""
     if w.ndim != 4:
         raise ValueError("weight must be (K, Cin, kh, kw)")
     if w.device.type == "cpu":
         return quantize_weight_plain(w)
     w = w.contiguous()
-    q, amax = _quantize(w, per_group=True, floor=W_FLOOR)
-    return QuantizedWeight(q, amax, int(w.shape[1]))
+    kernels.require_cuda("int8_quantize", w)
+    code = _dtype_code("int8_quantize", w)
+    K, C, kh, kw = (int(s) for s in w.shape)
+    Cp = _cp(C)
+    q = torch.empty((K, kh, kw, Cp), dtype=torch.int8, device=w.device)
+    amax = torch.empty((K,), dtype=torch.float32, device=w.device)
+    rc = kernels.lib().p3d_int8_quantize_weight(
+        w.data_ptr(), code, K, C, kh * kw, Cp, W_FLOOR, amax.data_ptr(),
+        q.data_ptr(), kernels.stream_ptr(w.device))
+    kernels.LAUNCHES["int8_quantize"] += 1
+    kernels.check("int8_quantize", rc)
+    plan = conv_plan(K, kh, kw, Cp)
+    return QuantizedWeight(q, amax, C, plan, pack_weight(q, plan))
 
 
 def out_size(size, k, stride, lo, hi):
     return (int(size) + lo + hi - k) // int(stride) + 1
 
 
-def quantize_activation(x, pads):
-    """K16's quantise launch for an activation x (B, Cin, H, W) on the card:
-    (xq (B, H + pt + pb, W + pl + pr, Cp) int8 with the conv's pads as
-    zeros, its absmax (1,) float32)."""
-    return _quantize(x.contiguous(), per_group=False, floor=X_FLOOR,
-                     pads=pads)
+def activation_absmax(x):
+    """K16's absmax launch ("int8_absmax"): the per-tensor absmax of x (any
+    shape, float32 or bfloat16, on the card) as a (1,) float32 tensor."""
+    kernels.require_cuda("int8_absmax", x)
+    code = _dtype_code("int8_absmax", x)
+    amax = torch.empty((1,), dtype=torch.float32, device=x.device)
+    rc = kernels.lib().p3d_int8_absmax(x.data_ptr(), code, x.numel(),
+                                       amax.data_ptr(),
+                                       kernels.stream_ptr(x.device))
+    kernels.LAUNCHES["int8_absmax"] += 1
+    kernels.check("int8_absmax", rc)
+    return amax
 
 
-def conv_quantized(xq, xmax, qw, bias, stride, out_hw):
-    """K16's conv launch: the padded int8 activation `xq` and its absmax
-    (`quantize_activation`), a `QuantizedWeight`, a float32 bias (K,) or
-    None -> (B, K, OH, OW) float32, out_hw = (OH, OW)."""
-    kernels.require_cuda("int8_conv", xq, xmax, qw.q, qw.amax,
+def conv_fused(x, xmax, qw, bias, stride, pads):
+    """K16's conv launch ("int8_conv"): x (B, Cin, H, W) float32 or
+    bfloat16 and its absmax (`activation_absmax`), a `QuantizedWeight`, a
+    float32 bias (K,) or None, SAME pads ((top, bottom), (left, right)) ->
+    (B, K, OH, OW) float32. The kernel quantises x as it stages it."""
+    if qw.packed is None:
+        raise ValueError("int8_conv: the weight must be quantised on the card "
+                         "(quantize_weight of a CUDA tensor)")
+    kernels.require_cuda("int8_conv", x, xmax, qw.amax, qw.packed,
                          *([] if bias is None else [bias]))
-    B, Hp, Wp, Cp = (int(s) for s in xq.shape)
+    code = _dtype_code("int8_conv", x)
+    B, C, H, W = (int(s) for s in x.shape)
+    if qw.cin != C:
+        raise ValueError(f"int8_conv: weight takes {qw.cin} channels, x has "
+                         f"{C}")
     K, kh, kw = (int(s) for s in qw.q.shape[:3])
-    OH, OW = (int(s) for s in out_hw)
-    out = torch.empty((B, K, OH, OW), dtype=torch.float32, device=xq.device)
+    (pt, pb), (pl, pr) = pads
+    OH, OW = out_size(H, kh, stride, pt, pb), out_size(W, kw, stride, pl, pr)
+    p = qw.plan
+    out = torch.empty((B, K, OH, OW), dtype=torch.float32, device=x.device)
     rc = kernels.lib().p3d_int8_conv(
-        xq.data_ptr(), qw.q.data_ptr(), xmax.data_ptr(), qw.amax.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), B, Hp,
-        Wp, Cp, K, kh, kw, int(stride), OH, OW, X_FLOOR, W_FLOOR,
-        kernels.stream_ptr(xq.device))
+        x.data_ptr(), code, qw.packed.data_ptr(), xmax.data_ptr(),
+        qw.amax.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), B, C, H, W, K, kh, kw, int(stride), int(pt), int(pl),
+        OH, OW, p.cfg, p.cc, p.nch, p.dc, p.n_blocks, X_FLOOR, W_FLOOR,
+        kernels.stream_ptr(x.device))
     kernels.LAUNCHES["int8_conv"] += 1
     kernels.check("int8_conv", rc)
     return out
@@ -196,23 +269,17 @@ def int8_conv(x, w, bias, stride, pads):
     and pads ((top, bottom), (left, right)); then + bias (K,) (float; None:
     no bias). Returns (B, K, OH, OW) float32.
 
-    A CUDA tensor goes to K16 (one "int8_quantize" launch for the activation,
-    one "int8_conv" launch), a CPU tensor to `int8_conv_plain`."""
+    A CUDA tensor goes to K16 (one "int8_absmax" launch and one "int8_conv"
+    launch, which quantises x as it reads it), a CPU tensor to
+    `int8_conv_plain`."""
     if x.ndim != 4:
         raise ValueError("x must be (B, Cin, H, W)")
     if x.device.type == "cpu":
         return int8_conv_plain(x, w, bias, stride, pads)
     qw = w if isinstance(w, QuantizedWeight) else quantize_weight(w)
-    if qw.cin != x.shape[1]:
-        raise ValueError(f"int8_conv: weight takes {qw.cin} channels, x has "
-                         f"{x.shape[1]}")
-    (pt, pb), (pl, pr) = pads
-    kh, kw = (int(s) for s in qw.q.shape[1:3])
-    out_hw = (out_size(x.shape[2], kh, stride, pt, pb),
-              out_size(x.shape[3], kw, stride, pl, pr))
-    xq, xmax = quantize_activation(x, pads)
+    x = x.contiguous()
     b = None if bias is None else _f32(bias).contiguous()
-    return conv_quantized(xq, xmax, qw, b, stride, out_hw)
+    return conv_fused(x, activation_absmax(x), qw, b, stride, pads)
 
 
 # -- the lane in a model -------------------------------------------------------

@@ -145,6 +145,20 @@ def _dot3_add(a, b, c, x, y, z, t):
     return fma_f32(c, z, fma_f32(b, y, a * x)) + t
 
 
+def grid_axes(origin, voxel_size, x_start, shape, device, grid_fma=True):
+    """The voxel centres' x, y, z coordinates of the x rows [x_start,
+    x_start + shape[0]) of a grid, as three broadcastable float32 axes:
+    fma(vs, i, origin) (`grid_fma`) or origin + vs*i (see `project`)."""
+    o = torch.as_tensor(np.asarray(origin, np.float32), device=device)
+    vs = torch.tensor(np.float32(voxel_size), device=device)
+    ax = []
+    for a, (n, off) in enumerate(zip(shape, (x_start, 0, 0))):
+        i = torch.arange(off, off + n, dtype=torch.float32, device=device)
+        g = fma_f32(vs, i, o[a]) if grid_fma else o[a] + vs * i
+        ax.append(g.view([-1 if b == a else 1 for b in range(3)]))
+    return ax
+
+
 def project(cam, origin, voxel_size, x_start, shape, hw, grid_fma=True):
     """(px, py, in_img) of the voxel centres of the x rows [x_start,
     x_start + shape[0]) of a grid, for one packed camera row, in the f32
@@ -153,16 +167,8 @@ def project(cam, origin, voxel_size, x_start, shape, hw, grid_fma=True):
     (`grid_fma`) and origin + vs*i in `average` (see
     kernels/csrc/accumulate.cu); the dot products and pixels as carve.cu."""
     H, W = hw
-    dev = cam.device
-    f32 = torch.float32
-    o = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
-    vs = torch.tensor(np.float32(voxel_size), device=dev)
-    ax = []
-    for a, (n, off) in enumerate(zip(shape, (x_start, 0, 0))):
-        i = torch.arange(off, off + n, dtype=f32, device=dev)
-        g = fma_f32(vs, i, o[a]) if grid_fma else o[a] + vs * i
-        ax.append(g.view([-1 if b == a else 1 for b in range(3)]))
-    x, y, z = ax
+    x, y, z = grid_axes(origin, voxel_size, x_start, shape, cam.device,
+                        grid_fma)
     c = cam
     pz = _dot3_add(c[10], c[11], c[12], x, y, z, c[15])
     px = fma_f32(_dot3_add(c[4], c[5], c[6], x, y, z, c[13]) / pz, c[0], c[2])
@@ -384,10 +390,12 @@ def carve_candidates_plain(packed, cameras, origin, voxel_size, shape, hw,
 
 
 #: averaging volumes with more voxel-labels than this go through the grid-slab
-#: lane (FusedSegmentationCarving); the JAX package's default and variable
-#: (plant3dvision_tpu/ops/carving.py:_avg_chunk_voxels). The port's kernel
-#: holds no per-view temporaries, so on the card the slabs bound only the
-#: plain version's memory. Override with P3D_AVG_CHUNK_VOXELS.
+#: lane (FusedSegmentationCarving, Backprojection) on the CPU; the JAX
+#: package's default and variable (plant3dvision_tpu/ops/carving.py:
+#: _avg_chunk_voxels). The slabs bound the plain version's memory; the
+#: card's kernel holds no per-view temporaries, so on the card both callers
+#: launch it over the whole grid and this governs nothing there. Override
+#: with P3D_AVG_CHUNK_VOXELS.
 def _avg_chunk_voxels() -> int:
     import os
     return int(os.environ.get("P3D_AVG_CHUNK_VOXELS", str(24 << 20)))
@@ -499,17 +507,19 @@ class Backprojection:
     across flushes, the tolerance applied to the merged counts (never per
     flush); `type="averaging"` sums the
     views' sampled mask values (uint8 masks / 255, log(EPS + m) in `log`
-    mode, in numpy float32 as the JAX package) with K5-avg, through the
-    grid-slab lane above `_avg_chunk_voxels()` voxels. The JAX package
+    mode, in numpy float32 as the JAX package) with K5-avg over the whole
+    grid on the card, and on the CPU through the grid-slab lane above
+    `_avg_chunk_voxels()` voxels. The JAX package
     sends two-valued masks to its tile engine (ops/averaging_tiled.py),
     which computes the same function; here they take the same call.
 
     `engine` ("auto" or "sharded", the JAX package's multi-chip lane) runs
-    on the one device. Values are tensors on `device`."""
+    on the one device. Values are tensors on `device` (the card by default;
+    "cpu" runs the plain versions)."""
 
     def __init__(self, shape, origin, voxel_size, type="carving",
                  default_value=0, labels=None, log=False,
-                 kill_tolerance=0, engine="auto", device="cpu"):
+                 kill_tolerance=0, engine="auto", device="cuda"):
         self.shape = tuple(int(s) for s in shape)
         self.origin = np.asarray(origin, dtype=np.float32)
         self.voxel_size = float(voxel_size)
@@ -570,7 +580,8 @@ class Backprojection:
             if self.log:
                 fmasks = np.log(EPS + fmasks)
             fm = torch.from_numpy(fmasks).to(dev)
-            if int(np.prod(self.shape)) > _avg_chunk_voxels():
+            if dev.type != "cuda" and \
+                    int(np.prod(self.shape)) > _avg_chunk_voxels():
                 vol = average_chunked(fm, cams, valid, self.origin,
                                       self.voxel_size, self.shape)
             else:

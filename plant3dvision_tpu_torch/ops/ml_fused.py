@@ -11,10 +11,12 @@ LINEAR read at integer coordinates. `log_mode` accumulates log(EPS + p)
 
 `accumulate_label_views` (whole grid) and `accumulate_label_views_slab` (one
 x-slab, projected with its global x offset) dispatch on the tensors' device:
-CUDA goes to the hand-written kernel (kernels/csrc/accumulate.cu), CPU to
+CUDA goes to the hand-written kernel (kernels/csrc/accumulate.cu: a block
+per voxel tile stages each view's pixel window in shared memory), CPU to
 `accumulate_plain`. Both update `vol` in place and return it (the JAX
 package donates the slab program's accumulator; its whole-grid program
-returns a new one).
+returns a new one). `tile_windows` repeats the kernel's per-tile window
+rule, to measure its footprints.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .carving import EPS, fma_f32, project
+from .carving import EPS, _dot3_add, fma_f32, grid_axes, project
 
 SAMPLES = ("bilinear", "box")
 
@@ -121,6 +123,80 @@ def accumulate_plain(vol, probs, cams, valid, origin, voxel_size, x_start,
                                   fma_f32(g(i00), w00, g(i00 + 1) * w01)))
         acc += torch.where(in_img, val, 0.0)
     return vol
+
+
+#: the kernel's voxel tile (x, y, z), window margin in pixels and staged
+#: floats a window (accumulate.cu: kTX/kTY/kTZ, kMargin, kRegion)
+TILE, MARGIN, REGION = (8, 8, 16), 2, 2048
+#: tile-view statuses: skipped, read from global memory, staged
+SKIP, GLOBAL, STAGED = 0, 1, 2
+
+
+def tile_windows(cam, origin, voxel_size, x_start, shape, hw, C, box,
+                 grid_fma=True):
+    """The accumulate kernel's decision for one view and every voxel tile
+    of the x rows [x_start, x_start + shape[0]) of a grid (`shape` = (slab
+    nx, ny, nz)): (status (tiles,) int8, window pixels (tiles,) int64 (0
+    unless staged), in-frame voxels of staged tiles whose taps fall outside
+    their window). The window is the bounding box of the tile's 8 projected
+    corner voxels widened by MARGIN pixels and clipped to the frame; a tile
+    is skipped when that box misses the frame by more than the margin, read
+    from global memory when a corner is behind the camera or its C-label
+    window (plus a row and a column in box mode, its rows widened to whole
+    runs of 4 floats when W is a multiple of 4) exceeds REGION floats."""
+    H, W = hw
+    px, py, in_img = project(cam, origin, voxel_size, x_start, shape, hw,
+                             grid_fma=grid_fma)
+    dev = cam.device
+    ax = grid_axes(origin, voxel_size, x_start, shape, dev, grid_fma)
+    pz = _dot3_add(cam[10], cam[11], cam[12], *ax, cam[15]).expand(px.shape)
+    lo = [torch.arange(0, n, t, device=dev) for n, t in zip(shape, TILE)]
+    hi = [torch.clamp(l + t - 1, max=n - 1) for l, t, n in
+          zip(lo, TILE, shape)]
+    idx = []                       # the 8 corner voxels of every tile
+    for k in range(8):
+        ii = [(hi if (k >> a) & 1 else lo)[a] for a in range(3)]
+        idx.append((ii[0].view(-1, 1, 1), ii[1].view(1, -1, 1),
+                    ii[2].view(1, 1, -1)))
+    cpx = torch.stack([px[i] for i in idx]).flatten(1)
+    cpy = torch.stack([py[i] for i in idx]).flatten(1)
+    front = torch.stack([pz[i] > 0 for i in idx]).flatten(1).all(0)
+    lx, hx = cpx.amin(0), cpx.amax(0)
+    ly, hy = cpy.amin(0), cpy.amax(0)
+    meets = ((hx >= -1 - MARGIN) & (lx <= W + MARGIN) & (hy >= -1 - MARGIN)
+             & (ly <= H + MARGIN))
+    x0 = torch.clamp(torch.floor(lx.clamp(min=-8.0)) - MARGIN, min=0)
+    x1 = torch.clamp(torch.floor(hx.clamp(max=W + 8.0)) + MARGIN + 1,
+                     max=W - 1)
+    y0 = torch.clamp(torch.floor(ly.clamp(min=-8.0)) - MARGIN, min=0)
+    y1 = torch.clamp(torch.floor(hy.clamp(max=H + 8.0)) + MARGIN + 1,
+                     max=H - 1)
+    rx0 = torch.clamp(x0 - 1, min=0) if box else x0
+    ry0 = torch.clamp(y0 - 1, min=0) if box else y0
+    rend = x1 + 1
+    if W % 4 == 0:                   # rows copied 4 floats at a time
+        rx0 = torch.div(rx0, 4, rounding_mode="floor") * 4
+        rend = torch.div(rend + 3, 4, rounding_mode="floor") * 4
+    region = C * (y1 - ry0 + 1) * (rend - rx0)
+    status = torch.full(lx.shape, SKIP, dtype=torch.int8, device=dev)
+    status[~front] = GLOBAL
+    ok = front & meets & (x1 >= x0) & (y1 >= y0)
+    status[ok & (region > REGION)] = GLOBAL
+    staged = ok & (region <= REGION)
+    status[staged] = STAGED
+    pixels = torch.where(staged, (x1 - x0 + 1) * (y1 - y0 + 1), 0).long()
+    # the taps of each in-frame voxel against its tile's window
+    fx0 = torch.floor(px).clamp(0, W - 2)
+    fy0 = torch.floor(py).clamp(0, H - 2)
+    tiles = [torch.arange(n, device=dev) // t for n, t in zip(shape, TILE)]
+    nt = [len(l) for l in lo]
+    tid = ((tiles[0].view(-1, 1, 1) * nt[1] + tiles[1].view(1, -1, 1))
+           * nt[2] + tiles[2].view(1, 1, -1))
+    need = 0 if box else 1
+    inside = ((fx0 >= x0[tid]) & (fx0 + need <= x1[tid]) & (fy0 >= y0[tid])
+              & (fy0 + need <= y1[tid]))
+    outside = int((in_img & staged[tid] & ~inside).sum())
+    return status, pixels, outside
 
 
 def accumulate_label_views(vol, probs, cams, valid, origin, voxel_size,

@@ -97,10 +97,11 @@ class FusedSegmentationCarving(RomiTask):
 
         B = int(self.batch_size)
         # the JAX package slabs the x axis above this many voxel-labels;
-        # the port keeps the lane and its x offsets (on the card only the
-        # plain version needs it)
+        # the port keeps the lane and its x offsets for the plain version's
+        # memory on the CPU: the card's kernel holds no per-view
+        # temporaries and takes the whole grid in one launch a batch
         budget = _avg_chunk_voxels()
-        if C * int(np.prod(shape)) > budget:
+        if dev.type != "cuda" and C * int(np.prod(shape)) > budget:
             slab_nx = max(1, budget // (C * shape[1] * shape[2]))
             slab_nx = min(slab_nx, shape[0])
             nx_pad = -(-shape[0] // slab_nx) * slab_nx

@@ -118,8 +118,10 @@ def test_vol2pcd_cuda_matches_cpu(dev):
 def test_entry_points_default_to_cuda(dev):
     from plant3dvision_tpu_torch.fsdb.testing import TemporaryDB
     from plant3dvision_tpu_torch.runtime import RunContext
+    from plant3dvision_tpu_torch.ops.carving import Backprojection
     with TemporaryDB() as db:
         assert RunContext(db, "s").device.type == "cuda"
+    assert Backprojection((4, 4, 4), (0, 0, 0), 1.0).device.type == "cuda"
 
 
 def _label_views(rng, B, C, H, W):
@@ -181,6 +183,96 @@ def test_accumulate_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="CUDA"):
         ml_fused.accumulate(vol[:2], probs[:, :2].cpu(), cams, valid,
                             np.zeros(3), 1.0, 0, 4, False)
+
+
+def _staging_views(rng, C, H, W):
+    """Views of the (-8, 8)^3 box that the tiled kernel takes every way:
+    far (windows staged), near (windows over the shared-memory budget),
+    one camera inside the grid (tiles with corners behind it), one grazing
+    the grid's top face, one invalid."""
+    from plant3dvision_tpu_torch.camera import pose_to_extrinsics
+    from plant3dvision_tpu_torch.ops.carving import pack_camera
+    eyes = [(60, 5, 4), (-5, 70, -3), (0, -55, 20), (14, 3, 2), (9, -10, 1),
+            (2.0, 1.0, 0.5), (40, 0, 8.2), (-50, -30, 0)]
+    looks = [(0, 0, 0)] * 5 + [(9, 4, 0), (-40, 0, 8.0), (0, 0, 0)]
+    cams = np.stack([pack_camera([60.0 + 10 * v, 58.0 + 9 * v,
+                                  W / 2 + 0.4, H / 2 - 0.3],
+                                 *pose_to_extrinsics(np.add(e, rng.uniform(
+                                     -0.2, 0.2, 3)), t))
+                     for v, (e, t) in enumerate(zip(eyes, looks))])
+    probs = rng.random((len(eyes), C, H, W)).astype(np.float32)
+    probs[:, :, 10:14, 20:31] = 0.0                   # log(EPS) taps
+    valid = np.ones(len(eyes), bool)
+    valid[-1] = False
+    return probs, cams.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("sample,log_mode", [("bilinear", False),
+                                             ("bilinear", True),
+                                             ("box", False), ("box", True)])
+@pytest.mark.parametrize("C", range(1, 9))
+def test_accumulate_kernel_stages_every_way_bit_equal(dev, sample, log_mode,
+                                                      C):
+    """The tiled kernel on views that it stages, reads from global memory
+    (windows over its budget; tiles behind a camera inside the grid), skips
+    and grazes, over 2 + C labels' worth of odd tiles (37 x 21 x 45
+    voxels): bit-equal to the plain version, whole grid and x slabs of 5
+    (offsets 0, 5, ...); every tile-view status occurs."""
+    from plant3dvision_tpu_torch.ops import ml_fused
+    rng = np.random.default_rng(100 + C)
+    H, W = 96, 128
+    probs, cams, valid = _staging_views(rng, C, H, W)
+    origin = np.array([-8.0, -8.0, -8.0], np.float32)
+    shape, vs = (37, 21, 45), 0.37
+    seen = set()
+    for v in range(len(cams) - 1):
+        st, _, _ = ml_fused.tile_windows(torch.from_numpy(cams[v]), origin,
+                                         vs, 0, shape, (H, W), C,
+                                         sample == "box")
+        seen |= set(st.unique().tolist())
+    assert seen == {ml_fused.SKIP, ml_fused.GLOBAL, ml_fused.STAGED}
+    vol0 = rng.random((C, *shape)).astype(np.float32)
+    t = [torch.from_numpy(a).to(dev) for a in (probs, cams, valid)]
+    k = ml_fused.accumulate_label_views(torch.from_numpy(vol0).to(dev), *t,
+                                        origin, vs, shape, log_mode, sample)
+    p = ml_fused.accumulate_plain(torch.from_numpy(vol0).to(dev), *t, origin,
+                                  vs, 0, shape[0], log_mode, sample)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    nx_pad = -(-shape[0] // 5) * 5
+    slab = torch.zeros((C, nx_pad, *shape[1:]), device=dev)
+    slab[:, :shape[0]] = torch.from_numpy(vol0).to(dev)
+    for xs in range(0, nx_pad, 5):
+        ml_fused.accumulate_label_views_slab(slab, *t, origin, vs, xs, 5,
+                                             log_mode, sample)
+    assert torch.equal(slab[:, :shape[0]], k)
+
+
+@pytest.mark.parametrize("log_masks", [False, True])
+def test_average_kernel_stages_every_way_bit_equal(dev, log_masks):
+    """K5-avg (the same tiled kernel at C = 1, `average`'s coordinates and
+    association) on the staging scene, whole grid and slabs with their
+    global x offsets: bit-equal to its plain version."""
+    from plant3dvision_tpu_torch.ops import carving
+    rng = np.random.default_rng(7)
+    H, W = 96, 128
+    probs, cams, valid = _staging_views(rng, 1, H, W)
+    masks = probs[:, 0]
+    if log_masks:
+        masks = np.log(np.float32(1e-9) + masks)
+    origin = np.array([-8.0, -8.0, -8.0], np.float32)
+    shape, vs = (37, 21, 45), 0.37
+    t = [torch.from_numpy(a).to(dev) for a in (masks, cams, valid)]
+    for xo in (0, 3, 16):
+        k = carving.average(*t, origin, vs, shape, x_off=xo)
+        p = carving.average_plain(*t, origin, vs, shape, x_off=xo)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p)
+        assert (k != 0).any()
+    whole = carving.average(*t, origin, vs, shape)
+    sx = shape[1] * shape[2] * 6                  # slabs of 6 x-rows
+    assert torch.equal(carving.average_chunked(*t, origin, vs, shape,
+                                               max_slab_voxels=sx), whole)
 
 
 @pytest.mark.parametrize("bg", [0, 5, None])
@@ -645,19 +737,27 @@ def test_bundle_adjustment_repeats_bit_for_bit(dev):
 
 # -- K16: the int8 serving lane's convolution ---------------------------------------
 
-#: (kernel, stride, cin, cout): the committed nets' kinds, and a Cin that
-#: needs more than 48 KB of shared memory for its filters
+#: (kernel, stride, cin, cout): the committed nets' kinds (the 7x7 stem
+#: from 3 channels, 1x1 and 3x3 at stride 2, Cout 12, Cin not a multiple of
+#: 32), every tile configuration of the conv (16 to 256 output channels a
+#: block, and Cout above 256), and Cins of 16 to 113 depth chunks
 INT8_KINDS = [(7, 2, 3, 24), (3, 1, 24, 24), (3, 2, 48, 96), (1, 2, 24, 48),
-              (3, 1, 512, 20), (3, 1, 1024, 16)]
+              (3, 1, 512, 20), (3, 1, 1024, 16), (3, 1, 12, 12),
+              (3, 1, 72, 24), (3, 1, 144, 48), (3, 1, 288, 96),
+              (3, 1, 128, 256), (1, 2, 256, 256), (3, 2, 128, 256),
+              (1, 1, 96, 300)]
 
 
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hw", [(33, 30), (16, 18)])
-@pytest.mark.parametrize("kind", INT8_KINDS, ids=lambda k: "k%ds%dc%d" % k[:3])
+@pytest.mark.parametrize("hw", [(33, 30), (16, 18), (5, 301)])
+@pytest.mark.parametrize("kind", INT8_KINDS,
+                         ids=lambda k: "k%ds%dc%dk%d" % k)
 def test_int8_conv_kernel_matches_plain(dev, kind, hw, dtype, bias):
-    """K16 (quantise + conv) against the plain version on the card: bit for
-    bit (exact int32 sums, the same f32 scale and fma)."""
+    """K16 (absmax + the conv that quantises as it stages) against the
+    plain version on the card: bit for bit (exact int32 sums, the same f32
+    quantisation, scale and fma), with ragged pixel tiles at every edge
+    (rows of 30, 18 and 301 pixels against tiles of 64-256)."""
     from plant3dvision_tpu_torch.models import quant
     from plant3dvision_tpu_torch.models.segnet import _same_pads
     k, s, cin, cout = kind
@@ -681,6 +781,30 @@ def test_int8_conv_kernel_matches_plain(dev, kind, hw, dtype, bias):
     assert torch.equal(quant.int8_conv(x, qw, b, s, pads), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int8_conv_kernel_quantises_every_bf16_value(dev, dtype):
+    """Every finite bf16 value (65,280, also as float32) through a 1x1
+    conv that passes one channel on, under 12 absmaxes from 1e-30 to
+    bf16's largest: the conv's division-free quantisation gives the plain
+    version's output bit for bit. Rows of 63 values in an odd count: a
+    bf16 tensor of odd size, copied 4 bytes at a time, ends mid-unit."""
+    from plant3dvision_tpu_torch.models import quant
+    bf = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    bf = bf[torch.isfinite(bf.float())].to(dev)
+    w = torch.ones((1, 1, 1, 1), device=dev, dtype=dtype)
+    for amax in [1e-30, 1e-8, 3e-6, 0.01, 0.7, 1.0, 127.0, 1000.0, 6.1e4,
+                 1e20, 1e30, 3.3895314e38]:
+        v = bf[bf.float().abs() <= amax]
+        x = torch.cat([v, torch.tensor([amax], device=dev).to(
+            torch.bfloat16)]).to(dtype)
+        rows = x.numel() // 63 - (1 - x.numel() // 63 % 2)
+        x = x[:rows * 63].view(1, 1, rows, 63).contiguous()
+        got = quant.int8_conv(x, w, None, 1, ((0, 0), (0, 0)))
+        want = quant.int8_conv_plain(x, w, None, 1, ((0, 0), (0, 0)))
+        assert torch.equal(got, want), amax
+
+
 def test_int8_conv_kernel_floors_and_counts(dev):
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.models import quant
@@ -689,7 +813,8 @@ def test_int8_conv_kernel_floors_and_counts(dev):
     w[2] = 0
     kernels.reset_launches()
     got = quant.int8_conv(x, w, None, 1, ((1, 1), (1, 1)))
-    assert kernels.LAUNCHES["int8_quantize"] == 2      # weight, activation
+    assert kernels.LAUNCHES["int8_quantize"] == 1      # the weight
+    assert kernels.LAUNCHES["int8_absmax"] == 1        # the activation
     assert kernels.LAUNCHES["int8_conv"] == 1
     assert torch.equal(got, quant.int8_conv_plain(x, w, None, 1,
                                                   ((1, 1), (1, 1))))
@@ -700,9 +825,9 @@ def test_int8_conv_kernel_floors_and_counts(dev):
 
 def test_int8_segmentation_runs_the_lane_on_the_card(dev):
     """segmentation_inference(conv_mode="int8") with the committed ResUNet:
-    every compute conv through K16 (one activation quantisation and one
-    conv a layer and batch, the weights once), and probabilities close to
-    the bf16 lane's."""
+    every compute conv through K16 (one activation absmax and one conv a
+    layer and batch, the weights quantised once), and probabilities close
+    to the bf16 lane's."""
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.models import checkpoint, quant
     from plant3dvision_tpu_torch.models.unet import segmentation_inference
@@ -719,7 +844,8 @@ def test_int8_segmentation_runs_the_lane_on_the_card(dev):
     pi = segmentation_inference(model, img, batch_size=2, conv_mode="int8",
                                 output_dtype="float32", device=dev)
     assert kernels.LAUNCHES["int8_conv"] == 2 * n_conv
-    assert kernels.LAUNCHES["int8_quantize"] == 3 * n_conv
+    assert kernels.LAUNCHES["int8_absmax"] == 2 * n_conv
+    assert kernels.LAUNCHES["int8_quantize"] == n_conv
     pf = segmentation_inference(model, img, batch_size=2, conv_mode="bf16",
                                 output_dtype="float32", device=dev)
     agree = (pi.argmax(1) == pf.argmax(1)).float().mean().item()

@@ -377,7 +377,8 @@ def test_backprojection_tolerance_spans_flushes():
         return np.asarray(bp.get_values())
 
     got = two_flushes(carving.Backprojection(shape, origin, vs,
-                                             kill_tolerance=tol))
+                                             kill_tolerance=tol,
+                                             device="cpu"))
     ref = two_flushes(JaxBP(shape, origin, vs, kill_tolerance=tol))
     assert got.dtype == ref.dtype == np.int32
     np.testing.assert_array_equal(got, ref)

@@ -294,3 +294,176 @@ def test_segmentation2d_int8_matches_jax(temp_db):
         3, 6, 96, 96) / 255
     agree, mean = _agreement(got, ref)
     assert agree >= 0.97 and mean < 0.01, (agree, mean)
+
+
+# -- K16's conv plan: the packed weights and the kernel's depth order ----------
+
+#: the conv kernel's output pixels a block for each tile configuration
+#: (int8conv.cu: TM = (4 / WN) * MF * 16 of launch_conv<MF, NF, WN>)
+CONV_TM = (256, 128, 128, 64, 64)
+
+
+def _pixel_tile(tm, oh):
+    """int8conv.cu:launch_conv's TR x TC pixel tile of TM pixels."""
+    tr = 4 if tm >= 128 else tm // 32
+    if tr > oh:
+        tr = 1 if oh < 2 else (2 if oh < 4 else tr)
+    return tr, tm // tr
+
+
+def _staged_pixel_stride(cc, stride):
+    """int8conv.cu:launch_conv's CS: CC, or a little more so that the 8
+    pixels of a fragment's rows spread over the banks."""
+    for cs in range(cc, cc + 16, 4):
+        w = stride * (cs // 4)
+        if w % 2 == 1 or w % 8 == 4:
+            return cs
+    return cc
+
+
+def _emulate_k16(xt, qw, stride, pads):
+    """K16's conv as the kernel computes it, in numpy: tiles of TR x TC
+    output pixels, the activation quantised per staged chunk of CC channels
+    into (SR, TW, CS) rows with its pads as zeros, each A word read at the
+    pixel's offset (row * stride * TW + column * stride) * CS plus the depth
+    word's (tap row, tap column, channel) offset, the products against
+    `pack_weight`'s (n_blocks, nch, NT, DC) slices summed over the chunks,
+    then the kernel's epilogue (no bias). Returns (B, K, OH, OW) float32."""
+    K, kh, kw, cp = qw.q.shape
+    plan = quant.conv_plan(K, kh, kw, cp)
+    packed = quant.pack_weight(qw.q, plan).numpy().astype(np.int64)
+    assert packed.shape == (plan.n_blocks, plan.nch, plan.nt, plan.dc)
+    xq, xmax = quant._quantize_plain(xt, quant.X_FLOOR, per_group=False)
+    xq = xq.numpy().astype(np.int64)
+    B, C, H, W = xq.shape
+    (pt, pb), (pl, pr) = pads
+    OH = quant.out_size(H, kh, stride, pt, pb)
+    OW = quant.out_size(W, kw, stride, pl, pr)
+    TM, CC, taps = CONV_TM[plan.cfg], plan.cc, kh * kw
+    TR, TC = _pixel_tile(TM, OH)
+    SR, TW = (TR - 1) * stride + kh, (TC - 1) * stride + kw
+    CS = _staged_pixel_stride(CC, stride)
+    d = np.arange(plan.dc)
+    tap, c = d // CC, d % CC
+    doff = np.where(tap < taps, ((tap // kw) * TW + tap % kw) * CS + c, d % 4)
+    m = np.arange(TM)
+    base = ((m // TC) * stride * TW + (m % TC) * stride) * CS
+    rows = base[:, None] + doff[None]                           # (TM, DC)
+    acc = np.zeros((B, plan.n_blocks * plan.nt, OH + TR, OW + TC), np.int64)
+    for b in range(B):
+        for oy0 in range(0, OH, TR):
+            for ox0 in range(0, OW, TC):
+                for ch in range(plan.nch):
+                    tile = np.zeros((SR, TW, CS), np.int64)
+                    for sy in range(SR):
+                        y = oy0 * stride - pt + sy
+                        if not 0 <= y < H:
+                            continue
+                        xs = ox0 * stride - pl + np.arange(TW)
+                        ok = (xs >= 0) & (xs < W)
+                        cs = ch * CC + np.arange(CC)
+                        okc = cs < C
+                        sub = xq[b][cs[okc]][:, y, xs[ok]]
+                        tile[sy, np.nonzero(ok)[0][:, None],
+                             np.nonzero(okc)[0][None]] = sub.T
+                    A = tile.reshape(-1)[rows]                  # (TM, DC)
+                    for nb in range(plan.n_blocks):
+                        part = A @ packed[nb, ch].T             # (TM, NT)
+                        sl = slice(nb * plan.nt, (nb + 1) * plan.nt)
+                        acc[b, sl, oy0:oy0 + TR, ox0:ox0 + TC] += \
+                            part.T.reshape(-1, TR, TC)
+    acc = acc[:, :, :OH, :OW]
+    acc = torch.from_numpy(acc[:, :K].astype(np.int32))
+    sx = torch.clamp(xmax, min=quant.X_FLOOR) * quant.INV127_SQ
+    scale = (torch.clamp(qw.amax, min=quant.W_FLOOR) * sx).view(1, -1, 1, 1)
+    return acc.to(torch.float32) * scale
+
+
+#: (kernel, stride, cin, cout, hw): the stem from 3 channels, 1x1 stride
+#: 2, Cout 12, a Cin that takes two chunks, 512 channels (32 chunks at NT
+#: 256), Cout above 256 (two blocks of output channels), ragged tiles
+K16_PLANS = [(7, 2, 3, 24, (19, 23)), (1, 2, 24, 48, (9, 14)),
+             (3, 1, 12, 12, (7, 9)), (3, 2, 48, 96, (8, 11)),
+             (3, 1, 144, 20, (5, 6)), (3, 1, 512, 256, (4, 5)),
+             (1, 1, 72, 300, (3, 7))]
+
+
+@pytest.mark.parametrize("kind", K16_PLANS,
+                         ids=lambda k: "k%ds%dc%dk%d" % k[:4])
+def test_k16_packed_weights_hold_the_jax_conv(kind):
+    """`pack_weight`'s layout and the kernel's depth order (chunks of CC
+    channels x kh*kw taps, pixel offsets into the staged rows), emulated in
+    numpy, give the JAX hook's output bit for bit: the plan loses, repeats
+    and misplaces no product."""
+    k, s, cin, cout, hw = kind
+    rng = np.random.default_rng(cin + cout)
+    x = rng.standard_normal((2, *hw, cin)).astype(np.float32)
+    w = (rng.standard_normal((k, k, cin, cout)) * 0.2).astype(np.float32)
+    xj, wj, xt, wt = _both(x, w, "bfloat16")
+    pads = (_same_pads(hw[0], k, s), _same_pads(hw[1], k, s))
+    qw = quant.quantize_weight_plain(wt)
+    got = _emulate_k16(xt, qw, s, pads).numpy()
+    np.testing.assert_array_equal(got, _jax_conv(xj, wj, s))
+
+
+def test_k16_plan_fits_the_kernel():
+    """Every compute conv of the committed nets and the on-card tests'
+    kinds: the chunks cover Cp, each chunk's depth is a multiple of 32 that
+    holds kh*kw*CC, and the weight buffers stay within the budget."""
+    kinds = {(k, cin, cout) for k, _, cin, cout, _ in K16_PLANS}
+    for path in (DEFAULT_CHECKPOINT, TPUSEGNET_CHECKPOINT):
+        params, config = checkpoint.params_from_npz_bytes(path.read_bytes())
+        m = checkpoint.model_from_config(config)
+        kinds |= {(c.k, c.weight.shape[1], c.weight.shape[0])
+                  for c in quant.compute_convs(m)}
+    kinds |= {(3, 1024, 16), (3, 512, 20)}
+    for k, cin, cout in sorted(kinds):
+        cp = quant._cp(cin)
+        p = quant.conv_plan(cout, k, k, cp)
+        assert p.nt >= min(cout, 256) and p.n_blocks * p.nt >= cout
+        assert p.cc % 4 == 0 and p.nch * p.cc >= cp
+        assert (p.nch - 1) * p.cc < cp                   # no empty chunk
+        assert p.dc % 32 == 0 and k * k * p.cc <= p.dc < k * k * p.cc + 32
+        assert 2 * p.nt * (p.dc + 16) <= 96 << 10 or p.dc == -(-k * k * 4
+                                                             // 32) * 32
+
+
+def _quantize_r(v, s):
+    """int8conv.cu:quantize_r in float32 (fma_f32 is a correctly rounded
+    fused multiply-add): q0 = x * RN(1/s), the residual's correction, then
+    + 1.5 * 2^23 rounds half to even."""
+    from plant3dvision_tpu_torch.ops.carving import fma_f32
+    r = torch.tensor(1.0, dtype=torch.float32) / s
+    q0 = v * r
+    q1 = fma_f32(fma_f32(-q0, s.expand_as(q0), v), r.expand_as(q0), q0)
+    magic = torch.tensor(12582912.0, dtype=torch.float32)
+    return ((q1 + magic) - magic).clamp(-127, 127)
+
+
+def test_k16_staging_quantises_exactly_without_a_division():
+    """The conv's staging quantises x as round(x / s) clipped to +-127
+    without dividing (int8conv.cu:quantize_r): equal to the division for
+    every finite bf16 value within each of 300 random absmaxes and 6 edge
+    ones (127, 1, the 1e-8 floor, bf16's largest, ...), and for float32
+    values within a few ulps of each (k + 1/2) * s, where the double
+    rounding would show."""
+    rng = np.random.default_rng(0)
+    bf = torch.arange(65536, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).float()
+    bf = bf[torch.isfinite(bf)]
+    amaxes = [np.float32(rng.uniform(1, 2) * 2.0 ** rng.integers(-30, 30))
+              for _ in range(300)]
+    amaxes += [np.float32(a) for a in (127.0, 1.0, 1e-8, 3.3895314e38, 0.5,
+                                       2.0 ** -100)]
+    for i, amax in enumerate(amaxes):
+        amax = torch.tensor(amax)
+        s = torch.clamp(amax, min=quant.X_FLOOR) * quant.INV127
+        v = bf[bf.abs() <= amax]
+        if i % 10 == 0:
+            k = torch.from_numpy(rng.integers(-127, 127, 20000)).float()
+            near = ((k + 0.5) * s.double()).float().view(torch.int32)
+            near += torch.from_numpy(rng.integers(-3, 4, 20000)).int()
+            near = near.view(torch.float32)
+            v = torch.cat([v, near[near.abs() <= amax]])
+        want = torch.round(v / s).clamp(-127, 127)
+        assert torch.equal(_quantize_r(v, s), want), float(amax)
