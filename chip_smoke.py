@@ -106,13 +106,15 @@
    AnglesAndInternodes. Prints the eikonal solve's sweep count, its ms in
    total and a sweep, the host clustering seconds, and the angles' count
    and DTW error (no angle bar). Checks (after phase 14) that K14 was
-   launched in the warm pass, that its launches are the solve's sweeps
-   rounded up to whole batches, and that the skeleton is a tree and has
-   the solve's clusters.
+   launched once in the warm pass and once for the solve alone, that the
+   solve read the host once after the compaction's nonzero (torch.cuda's
+   sync debug mode counts 2), and that the skeleton is a tree and has the
+   solve's clusters.
 14. Holds K14 (the whole solve on phase 13's volume, bit for bit, the same
    sweep count) and K15 (2000 steps of 0.5 from the skeleton's leaf nodes,
    on the solve's flow; votes equal) against their plain versions and
-   times both (none has a library call).
+   times both (none has a library call); K14's row gives the compaction's
+   ms and `floor_ms`, the sweeps times a measured empty grid barrier.
 15. Live carving: replays phase 2's scan (written here if phase 2 did not
    run) into a fresh scan directory, a copy thread writing the views in
    file order while `python -m plant3dvision_tpu_torch.live_carve` watches
@@ -546,6 +548,24 @@ def cuda_ms(fn, reps=7, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def host_syncs(fn):
+    """fn()'s result and the synchronizing CUDA operations it made, as
+    torch.cuda's sync debug mode reports them."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(str(w.message).startswith(
+        "called a synchronizing CUDA operation") for w in caught)
 
 
 def bound_ms(n_bytes, n_ops):
@@ -2320,8 +2340,7 @@ def run_fim_path(db, device_name):
     import numpy as np
     import torch
     from plant3dvision_tpu_torch import kernels
-    from plant3dvision_tpu_torch.ops.eikonal import (SWEEP_BATCH,
-                                                     geodesic_distance)
+    from plant3dvision_tpu_torch.ops import eikonal
     from plant3dvision_tpu_torch.runtime import RunContext, run_task
     from plant3dvision_tpu_torch.synth import SyntheticPlant
     from plant3dvision_tpu_torch.tasks.proc3d import distance_bin_clusters
@@ -2361,10 +2380,13 @@ def run_fim_path(db, device_name):
 
     mask, seeds = fim_inputs(scan, report, cfg)
     torch.cuda.synchronize()
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    dist, sweeps = geodesic_distance(mask, seeds, return_sweeps=True)
+    dist, sweeps = eikonal.geodesic_distance(mask, seeds, return_sweeps=True)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
+    solve_launches = kernels.LAUNCHES["eikonal_sweep"]
+    _, syncs = host_syncs(lambda: eikonal.geodesic_distance(mask, seeds))
     mask_np, dist_np = mask.cpu().numpy(), dist.cpu().numpy()
     t0 = time.perf_counter()
     centers, edges = distance_bin_clusters(mask_np, dist_np, 4.0)
@@ -2381,6 +2403,9 @@ def run_fim_path(db, device_name):
         "curve_skeleton_stages_s": stages,
         "sweeps": sweeps, "solve_ms": solve_s * 1e3,
         "ms_per_sweep": solve_s * 1e3 / max(sweeps, 1),
+        "active_voxels": int((mask & ~seeds).sum()),
+        "solve_launches": solve_launches,
+        "solve_host_syncs": syncs,
         "host_clusters_s": clusters_s,
         "skeleton_nodes": len(skel["points"]),
         "skeleton_edges": len(skel["lines"]),
@@ -2403,9 +2428,10 @@ def run_fim_path(db, device_name):
             n_nodes >= 20 and len(skel["lines"]) == n_nodes - 1,
         "the task's skeleton has the solve's clusters": n_nodes == len(
             centers),
-        "the solve's launches are its sweeps' whole batches": 0 < sweeps and
-            launches["eikonal_sweep"] == -(-sweeps // SWEEP_BATCH)
-            * SWEEP_BATCH,
+        "one K14 launch a solve": 0 < sweeps and solve_launches == 1
+            and launches["eikonal_sweep"] == 1,
+        "one host read a solve (the sweep count, after the compaction's "
+        "nonzero)": syncs == 2,
         "finite numbers": bool(np.isfinite(
             [cold_s, warm_s, solve_s, clusters_s, peak_mb,
              prof["device_idle_share"], *np.ravel(skel["points"]),
@@ -2421,6 +2447,8 @@ def check_fim_kernels(scan, report, launches):
     nodes (index coordinates), 2000 steps of 0.5, votes equal."""
     import numpy as np
     import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import eikonal
     from plant3dvision_tpu_torch.ops.eikonal import (
         geodesic_distance, geodesic_distance_plain, gradient_flow)
     from plant3dvision_tpu_torch.ops.geodesics import (trace_geodesics,
@@ -2436,9 +2464,21 @@ def check_fim_kernels(scan, report, launches):
     assert nk == np_, f"K14 stopped at sweep {nk}, its plain version {np_}"
     diff = int((k != p).sum())
     assert diff == 0, f"K14 != plain on {diff} voxels"
-    ms = cuda_ms(lambda: geodesic_distance(mask, seeds), reps=3, warmup=1)
+    ms = cuda_ms(lambda: geodesic_distance(mask, seeds), reps=5, warmup=1)
+    compaction_ms = cuda_ms(lambda: eikonal.compact_neighbors(mask, seeds))
     nvox = mask.numel()
     active = int((mask & ~seeds).sum())
+    # the floor: the sweeps times one empty grid barrier over the blocks
+    # the solve takes
+    so, dev = kernels.lib(), mask.device
+    iters = 10000
+
+    def barriers(n):
+        kernels.check("grid_barriers", so.p3d_grid_barriers(
+            active, n, kernels.stream_ptr(dev)))
+
+    barrier_us = (cuda_ms(lambda: barriers(iters + 1))
+                  - cuda_ms(lambda: barriers(1))) * 1e3 / iters
     # bytes: mask and seeds read once, the distances written once;
     # operations: ~45 f32 operations a sweep for each voxel it updates
     rows = [kernel_row(
@@ -2446,6 +2486,8 @@ def check_fim_kernels(scan, report, launches):
         2 * nvox + 4 * nvox, 45 * active * nk,
         extra={"path": "fim", "shape": list(mask.shape), "sweeps": nk,
                "ms_per_sweep": ms / nk, "active_voxels": active,
+               "compaction_ms": compaction_ms,
+               "barrier_us": barrier_us, "floor_ms": nk * barrier_us / 1e3,
                "launches_per_solve": launches["eikonal_sweep"]})]
 
     flow = gradient_flow(k, mask)

@@ -122,10 +122,11 @@ _ARGTYPES = {
                          _F, _F, _I, _I, _I, _I, _F, _P, _P, _P],
     # gray, mask, V, H, W, border, kappa, out, stream
     "p3d_harris": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
-    # buf0, buf1, active, speed_inv (or null), nx, ny, nz, k0, k1, tol, ctl,
-    # blocks, stream
-    "p3d_eikonal_sweeps": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _I,
-                           _P],
+    # nbr, M, speed_inv (or null), active, out, u0, u1, ctl, max_iters, tol,
+    # sweeps, stream
+    "p3d_eikonal_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P],
+    # M, iters, stream
+    "p3d_grid_barriers": [_I, _I, _P],
     # flow, values, tips, N, nx, ny, nz, step, n_steps, bx, by, bz, votes,
     # stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,

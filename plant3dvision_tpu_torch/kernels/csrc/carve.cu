@@ -44,11 +44,23 @@
 // verdict is -1 when the count exceeds max_kills, else 1 if seen, else 0.
 // The same projection, pixel and packed-bit read as K1. count_kills walks
 // every valid view (its counts are merged across flushes by the caller);
-// carve_tolerant stops once the count exceeds max_kills (the verdict is -1
-// whatever the rest says; the wrapper keeps the view count below 2^15, so
-// the int16 count cannot wrap back). What bounds it on the card: the same
-// mask reads and ~24 f32 operations per voxel-view test as K1, but without
-// K1's early exit in count mode, so every valid voxel-view pair is a test.
+// carve_tolerant stops a voxel once its count exceeds max_kills (the
+// verdict is -1 whatever the rest says; the wrapper keeps the view count
+// below 2^15, so the int16 count cannot wrap back). What bounds it on the
+// card: ~24 f32 operations per voxel-view test (count mode tests every
+// valid voxel-view pair) and the mask bytes those tests read; the work is
+// the tests' arithmetic.
+//
+// Design (redesigned for the arithmetic): a block stages the valid flags
+// and the 16-float cameras in shared memory (256 views at a time), and
+// each thread walks a run of consecutive z voxels of one (x, y) column: 8
+// in count mode; 1 in verdict mode, where a warp's voxels stop at their
+// own kills and a longer run keeps lanes idle. A numerator is dot3_add's
+// fma(c, z, fma(b, y, a*x)) + t, whose inner term depends on (x, y) only:
+// it is computed once a view and reused for each z, the same operations in
+// the same order. A view behind the camera (!(pz > 0)) is out of frame
+// whatever the quotients, so they are not computed; the two quotients are
+// __fdiv_rn, as in view_test.
 //
 // K11b carve_candidates (candidates_kernel below) replaces the per-candidate
 // hull of plant3dvision_tpu/ops/selfcal.py:_alive_volume / _robust_alive
@@ -141,41 +153,111 @@ __global__ void carve_kernel(const uint8_t* __restrict__ packed,
   out[idx] = label;
 }
 
-// max_kills < 0: count mode (kills, seen written); else the verdict (vol).
-__global__ void kills_kernel(const uint8_t* __restrict__ packed,
-                             long long row_bytes,
-                             const float* __restrict__ cams,
-                             const uint8_t* __restrict__ valid, int V, int H,
-                             int W, float ox, float oy, float oz, float vs,
-                             int nx, int ny, int nz, int max_kills,
-                             int16_t* __restrict__ kills_out,
-                             uint8_t* __restrict__ seen_out,
-                             int8_t* __restrict__ vol_out) {
-  const long long n = (long long)nx * ny * nz;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float x, y, z;
-  voxel_centre(idx, ny, nz, ox, oy, oz, vs, x, y, z);
+constexpr int kKillThreads = 256;
+constexpr int kCamChunk = 256;
 
-  int16_t kills = 0;
-  bool seen = false;
-  for (int v = 0; v < V; ++v) {
-    if (!valid[v]) continue;
-    const int t = view_test(packed, row_bytes, cams + 16 * v, v, H, W, x, y,
-                            z);
-    if (t < 0) continue;
-    if (t) {
-      seen = true;
-    } else {
-      kills = (int16_t)(kills + 1);
-      if (max_kills >= 0 && kills > max_kills) break;
-    }
+// max_kills < 0: count mode (kills, seen written); else the verdict (vol).
+// Blocks walk tiles of the grid's z runs: thread t takes the run [ZR zc,
+// ZR zc + ZR) of column (i, j), t = (i ny + j) nzc + zc, nzc = ceil(nz /
+// ZR). The cameras are staged once a block when they fit (V <=
+// kCamChunk), else a chunk at a time for each tile.
+template <int ZR>
+__global__ void __launch_bounds__(kKillThreads)
+    kills_kernel(const uint8_t* __restrict__ packed, long long row_bytes,
+                 const float* __restrict__ cams,
+                 const uint8_t* __restrict__ valid, int V, int H, int W,
+                 float ox, float oy, float oz, float vs, int nx, int ny,
+                 int nz, int max_kills, int16_t* __restrict__ kills_out,
+                 uint8_t* __restrict__ seen_out,
+                 int8_t* __restrict__ vol_out) {
+  __shared__ float cam_s[kCamChunk * 16];
+  __shared__ uint8_t valid_s[kCamChunk];
+  const int nzc = (nz + ZR - 1) / ZR;
+  const long long nt = (long long)nx * ny * nzc;
+  const bool once = V <= kCamChunk;
+  if (once) {
+    for (int e = threadIdx.x; e < V * 16; e += blockDim.x) cam_s[e] = cams[e];
+    for (int e = threadIdx.x; e < V; e += blockDim.x) valid_s[e] = valid[e];
+    __syncthreads();
   }
-  if (max_kills < 0) {
-    kills_out[idx] = kills;
-    seen_out[idx] = seen;
-  } else {
-    vol_out[idx] = kills > max_kills ? -1 : (seen ? 1 : 0);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long tile = (long long)blockIdx.x * blockDim.x; tile < nt;
+       tile += stride) {
+    const long long t = tile + threadIdx.x;
+    const bool live = t < nt;
+    const long long tt = live ? t : 0;
+    const int zc = (int)(tt % nzc);
+    const long long col = tt / nzc;
+    const int j = (int)(col % ny);
+    const int i = (int)(col / ny);
+    const int z0 = zc * ZR;
+    const int nq = live ? min(ZR, nz - z0) : 0;
+    const float x = __fadd_rn(ox, __fmul_rn(vs, (float)i));
+    const float y = __fadd_rn(oy, __fmul_rn(vs, (float)j));
+    float z[ZR];
+    int kills[ZR];
+#pragma unroll
+    for (int q = 0; q < ZR; ++q) {
+      z[q] = __fadd_rn(oz, __fmul_rn(vs, (float)(z0 + q)));
+      kills[q] = 0;
+    }
+    // bit q: voxel q is seen / needs no more tests (past the run's end, or
+    // its verdict is -1)
+    unsigned seen = 0u;
+    unsigned done = ~((1u << nq) - 1u);
+
+    for (int v0 = 0; v0 < V; v0 += kCamChunk) {
+      const int nv = min(kCamChunk, V - v0);
+      if (!once) {
+        __syncthreads();
+        for (int e = threadIdx.x; e < nv * 16; e += blockDim.x)
+          cam_s[e] = cams[(long long)v0 * 16 + e];
+        for (int e = threadIdx.x; e < nv; e += blockDim.x)
+          valid_s[e] = valid[v0 + e];
+        __syncthreads();
+      }
+      for (int vv = 0; vv < nv && done != ~0u; ++vv) {
+        if (!valid_s[vv]) continue;
+        const float* c = cam_s + 16 * vv;
+        const float pz_xy = __fmaf_rn(c[11], y, __fmul_rn(c[10], x));
+        const float nx_xy = __fmaf_rn(c[5], y, __fmul_rn(c[4], x));
+        const float ny_xy = __fmaf_rn(c[8], y, __fmul_rn(c[7], x));
+        const uint8_t* mrow = packed + (long long)(v0 + vv) * row_bytes;
+#pragma unroll
+        for (int q = 0; q < ZR; ++q) {
+          if (done & (1u << q)) continue;
+          const float pz = __fadd_rn(__fmaf_rn(c[12], z[q], pz_xy), c[15]);
+          if (!(pz > 0.0f)) continue;
+          const float nxp = __fadd_rn(__fmaf_rn(c[6], z[q], nx_xy), c[13]);
+          const float nyp = __fadd_rn(__fmaf_rn(c[9], z[q], ny_xy), c[14]);
+          const float px = __fmaf_rn(__fdiv_rn(nxp, pz), c[0], c[2]);
+          const float py = __fmaf_rn(__fdiv_rn(nyp, pz), c[1], c[3]);
+          const int pxi = __float2int_rz(px);
+          const int pyi = __float2int_rz(py);
+          // 0 <= pxi <= W - 1 and 0 <= pyi <= H - 1
+          if ((unsigned)pxi >= (unsigned)W || (unsigned)pyi >= (unsigned)H)
+            continue;
+          const int lin = pyi * W + pxi;
+          if ((__ldg(mrow + (lin >> 3)) << (lin & 7)) & 0x80) {
+            seen |= 1u << q;
+          } else if (++kills[q] > max_kills && max_kills >= 0) {
+            done |= 1u << q;
+          }
+        }
+      }
+    }
+    const long long idx = col * nz + z0;
+#pragma unroll
+    for (int q = 0; q < ZR; ++q) {
+      if (q >= nq) break;
+      if (max_kills < 0) {
+        kills_out[idx + q] = (int16_t)kills[q];
+        seen_out[idx + q] = (seen >> q) & 1u;
+      } else {
+        vol_out[idx + q] =
+            kills[q] > max_kills ? -1 : (((seen >> q) & 1u) ? 1 : 0);
+      }
+    }
   }
 }
 
@@ -229,17 +311,37 @@ extern "C" int p3d_carve_candidates(const void* packed, long long row_bytes,
 }
 
 // K11: count mode (max_kills < 0) writes kills (int16) and seen (uint8
-// 0/1); verdict mode writes vol (int8). The arguments as p3d_carve's.
+// 0/1); verdict mode writes vol (int8). The arguments as p3d_carve's. A
+// thread walks a run of 8 z voxels in count mode and 1 in verdict mode.
 extern "C" int p3d_count_kills(const void* packed, long long row_bytes,
                                const void* cams, const void* valid, int V,
                                int H, int W, float ox, float oy, float oz,
                                float vs, int nx, int ny, int nz,
                                int max_kills, void* kills, void* seen,
                                void* vol, void* stream) {
-  const long long n = (long long)nx * ny * nz;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  kills_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int zrun = max_kills < 0 ? 8 : 1;
+  void (*kernel)(const uint8_t*, long long, const float*, const uint8_t*,
+                 int, int, int, float, float, float, float, int, int, int,
+                 int, int16_t*, uint8_t*, int8_t*) =
+      max_kills < 0 ? kills_kernel<8> : kills_kernel<1>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kKillThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  // count mode: a block a tile; verdict mode, whose voxels stop at their
+  // own kills so that tiles take uneven time: as many blocks as the card
+  // holds, each taking tiles in turn (measured faster there and slower in
+  // count mode on an H100)
+  const long long n = (long long)nx * ny * ((nz + zrun - 1) / zrun);
+  const long long need = (n + kKillThreads - 1) / kKillThreads;
+  const long long most = (long long)per_sm * sms;
+  const int blocks = (int)(max_kills < 0 || need < most ? (need > 0 ? need : 1)
+                                                         : most);
+  kernel<<<blocks, kKillThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)packed, row_bytes, (const float*)cams,
       (const uint8_t*)valid, V, H, W, ox, oy, oz, vs, nx, ny, nz, max_kills,
       (int16_t*)kills, (uint8_t*)seen, (int8_t*)vol);

@@ -241,6 +241,8 @@ def _check_kills_args(packed, cameras, valid, shape, hw):
     _check_args(packed, cameras, valid, shape, hw)
     if packed.shape[0] > 32767:
         raise ValueError("the int16 kill counts take at most 32767 views")
+    if hw[0] * hw[1] >= 2 ** 31:
+        raise ValueError("the kills kernel takes images of < 2^31 pixels")
 
 
 def count_kills(packed, cameras, valid, origin, voxel_size, shape, hw):

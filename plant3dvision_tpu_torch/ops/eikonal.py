@@ -4,9 +4,10 @@ skeleton) and its normalised descent field.
 Port of plant3dvision_tpu/ops/eikonal.py. `geodesic_distance` runs dense
 Jacobi sweeps of the 3-D Godunov upwind update (h = 1) inside the mask from
 zero-distance seeds, until the first sweep whose largest finite |du| is at
-most `tol`, or `max_iters` sweeps. On CUDA the sweeps are the hand-written
-kernel K14 (kernels/csrc/eikonal.cu: one launch a sweep, the stop test on
-the device, one host read per batch of sweeps); on the CPU
+most `tol`, or `max_iters` sweeps. On CUDA the whole loop is the
+hand-written kernel K14 (kernels/csrc/eikonal.cu: one cooperative launch a
+solve over the compacted active voxels, `compact_neighbors`, one grid
+barrier a sweep; one host read, the sweep count); on the CPU
 `geodesic_distance_plain`, the same loop in torch ops with one host read
 per sweep. `gradient_flow` is torch ops on every device.
 
@@ -35,8 +36,10 @@ INF = 1e10
 #: a value below this counts as reached (the stop test's "finite")
 FINITE = 5e9
 _THIRD = float(np.float32(1.0) / np.float32(3.0))
-#: sweeps queued per host read of the device's stop flag
-SWEEP_BATCH = 64
+#: the compact neighbour table's entries for a neighbour that is not an
+#: active voxel: outside the mask or past the grid's edge (INF), a seed (0)
+NB_INF = -1
+NB_ZERO = -2
 
 
 def sqrt_f32(x):
@@ -105,6 +108,24 @@ def speed_inverse(speed):
     return torch.ones_like(s) / s
 
 
+def compact_neighbors(mask, seeds):
+    """The compacted active set of a solve: the C-order flat indices
+    (int64, M) of mask & ~seeds and, for each, an int32 row of its 6
+    neighbours (x-1, x+1, y-1, y+1, z-1, z+1), (M, 6): the neighbour's
+    compact index, NB_INF outside the mask or past the grid's edge, NB_ZERO
+    on a seed in the mask. (torch ops; the nonzero reads M on the host.)"""
+    fixed = (seeds & mask).reshape(-1)
+    active = torch.nonzero(mask.reshape(-1) & ~fixed)[:, 0]
+    m, n = len(active), fixed.numel()
+    nbr = _neighbor_index(active, tuple(int(s) for s in mask.shape))
+    inside = nbr < n
+    pos = torch.searchsorted(active, nbr).clamp(max=max(m - 1, 0))
+    hit = inside & (active[pos] == nbr) if m else inside & False
+    seed = inside & fixed[nbr.clamp(max=n - 1)]
+    table = torch.where(hit, pos, torch.where(seed, NB_ZERO, NB_INF))
+    return active, table.to(torch.int32)
+
+
 def geodesic_distance(mask, seeds, speed=None, max_iters: int = 10000,
                       tol: float = 1e-3, return_sweeps: bool = False):
     """Geodesic distance from the seed voxels through the mask.
@@ -120,39 +141,32 @@ def geodesic_distance(mask, seeds, speed=None, max_iters: int = 10000,
                                        return_sweeps)
     tensors = [mask, seeds] + ([speed] if speed is not None else [])
     kernels.require_cuda("eikonal_sweep", *tensors)
-    nx, ny, nz = (int(s) for s in mask.shape)
     dev = mask.device
-    fixed = seeds & mask
-    active = (mask & ~fixed).to(torch.uint8)
-    u0 = torch.where(fixed, 0.0, INF).to(torch.float32)
-    bufs = (u0, u0.clone())
-    f = speed_inverse(speed).contiguous() if speed is not None else None
-    # ctl[0] done flag, ctl[1] sweeps applied when done, ctl[2 + k] the
-    # float bits of sweep k's largest finite |du|
-    ctl = torch.zeros(2 + max(int(max_iters), 1), dtype=torch.int32,
-                      device=dev)
+    u = torch.where(seeds & mask, 0.0, INF).to(torch.float32)
+    active, table = compact_neighbors(mask, seeds)
+    m = len(active)
     tol32 = np.float32(tol)
-    so = kernels.lib()
-    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
-    k, n = 0, int(max_iters)
-    while k < max_iters:
-        k1 = min(k + SWEEP_BATCH, int(max_iters))
-        rc = so.p3d_eikonal_sweeps(
-            bufs[0].data_ptr(), bufs[1].data_ptr(), active.data_ptr(),
-            f.data_ptr() if f is not None else None, nx, ny, nz, k, k1,
-            float(tol32), ctl.data_ptr(), blocks, kernels.stream_ptr(dev))
-        kernels.LAUNCHES["eikonal_sweep"] += k1 - k
+    if not m:
+        # every sweep leaves the field as it is, with |du| = 0
+        n = min(int(max_iters), 1)
+    elif int(max_iters) <= 0 or not np.float32(2 * tol32) > tol32:
+        n = 0
+    else:
+        nbr = table.t().contiguous()
+        f = (speed_inverse(speed).reshape(-1)[active].contiguous()
+             if speed is not None else None)
+        fp = f.data_ptr() if f is not None else None
+        sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+        bufs = torch.full((2, m), INF, dtype=torch.float32, device=dev)
+        ctl = torch.zeros(3, dtype=torch.int32, device=dev)
+        rc = kernels.lib().p3d_eikonal_grid(
+            nbr.data_ptr(), m, fp, active.data_ptr(), u.data_ptr(),
+            bufs[0].data_ptr(), bufs[1].data_ptr(), ctl.data_ptr(),
+            int(max_iters), float(tol32), sweeps.data_ptr(),
+            kernels.stream_ptr(dev))
+        kernels.LAUNCHES["eikonal_sweep"] += 1
         kernels.check("eikonal_sweep", rc)
-        done, count, last = ctl[torch.tensor([0, 1, 1 + k1], device=dev)
-                                ].tolist()
-        if done:
-            n = count
-            break
-        if not np.int32(last).view(np.float32) > tol32:
-            n = k1
-            break
-        k = k1
-    u = bufs[n & 1]
+        n = int(sweeps.item())
     return (u, n) if return_sweeps else u
 
 

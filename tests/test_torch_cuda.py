@@ -446,7 +446,8 @@ def test_mask_kernel_matches_plain(dev, dtype, lane):
 def test_kills_kernel_matches_plain(dev, shape, vs):
     """K11: count_kills (int16 counts, seen flags) and carve_tolerant at
     tolerances 0-3 with an invalid view: equal to their plain versions;
-    carve_tolerant at 0 is the strict carve (K1)."""
+    carve_tolerant at 0 is the strict carve (K1). nz = 45 and 9 are not
+    multiples of count mode's z run of 8."""
     from plant3dvision_tpu_torch.ops import carving
     rng = np.random.default_rng(0)
     packed, cams, hw = _scene(rng)
@@ -465,6 +466,60 @@ def test_kills_kernel_matches_plain(dev, shape, vs):
         assert torch.equal(k, carving.carve_tolerant_plain(*args, tol))
         assert torch.equal(k, carving.tolerance_verdict(kills, seen, tol))
     assert torch.equal(carving.carve_tolerant(*args, 0), carving.carve(*args))
+
+
+@pytest.mark.parametrize("nz", [1, 7, 13])
+def test_kills_kernel_out_of_frame_and_behind_the_camera(dev, nz):
+    """K11 on a grid that some views see from behind (pz <= 0 on part of
+    it), one view that sees none of it (all out of frame), and an nz of a
+    partial z run; tolerances 0-3 against the plain versions."""
+    from plant3dvision_tpu_torch.ops import carving
+    rng = np.random.default_rng(5)
+    packed, cams, hw = _scene(rng, V=10)
+    cams = cams.copy()
+    cams[2, 15] = 0.0            # camera 2's centre plane through the grid
+    cams[4, 2] += 10 * hw[1]     # view 4 out of frame everywhere
+    shape, vs = (23, 19, nz), 1.1
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.ones(len(cams), dtype=torch.bool, device=dev),
+            -(np.array(shape) - 1) * vs / 2, vs, shape, hw)
+    behind = 0
+    for v in (2,):
+        c = cams[v]
+        g = np.stack(np.meshgrid(*[np.float32(a) + np.float32(vs)
+                                   * np.arange(n, dtype=np.float32)
+                                   for a, n in zip(args[3], shape)],
+                                 indexing="ij"), -1)
+        behind += int(((g @ c[10:13]) + c[15] <= 0).sum())
+    assert behind > 0
+    kills, seen = carving.count_kills(*args)
+    kp, sp = carving.count_kills_plain(*args)
+    assert torch.equal(kills, kp) and torch.equal(seen, sp)
+    for tol in range(4):
+        assert torch.equal(carving.carve_tolerant(*args, tol),
+                           carving.carve_tolerant_plain(*args, tol))
+
+
+def test_kills_kernel_stages_the_cameras_in_chunks(dev):
+    """More views than a block stages at once (300 > 256, one invalid):
+    the kernel stages them a chunk at a time, equal to the plain version
+    in both modes."""
+    from plant3dvision_tpu_torch.ops import carving
+    rng = np.random.default_rng(7)
+    packed, cams, hw = _scene(rng, V=300, H=36, W=48)
+    valid = np.ones(len(cams), bool)
+    valid[270] = False
+    shape, vs = (21, 18, 27), 0.9
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.from_numpy(valid).to(dev),
+            -(np.array(shape) - 1) * vs / 2, vs, shape, hw)
+    kills, seen = carving.count_kills(*args)
+    kp, sp = carving.count_kills_plain(*args)
+    assert torch.equal(kills, kp) and torch.equal(seen, sp)
+    assert int(kills.max()) > 10
+    for tol in (0, 3, 40):
+        assert torch.equal(carving.carve_tolerant(*args, tol),
+                           carving.carve_tolerant_plain(*args, tol))
 
 
 def _perturbed(cams, rng, B):
@@ -592,12 +647,18 @@ def _blob_mask(rng, shape, n=14):
 
 
 def _eikonal_both(dev, mask, seeds, speed=None, **kw):
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops.eikonal import (
         geodesic_distance, geodesic_distance_plain)
     args = [torch.from_numpy(mask).to(dev), torch.from_numpy(seeds).to(dev),
             None if speed is None else torch.from_numpy(speed).to(dev)]
+    before = kernels.LAUNCHES["eikonal_sweep"]
     k, nk = geodesic_distance(*args, return_sweeps=True, **kw)
+    launches = kernels.LAUNCHES["eikonal_sweep"] - before
     p, np_ = geodesic_distance_plain(*args, return_sweeps=True, **kw)
+    # one launch a solve (none when nothing is active or max_iters is 0)
+    solves = bool((mask & ~seeds).any()) and kw.get("max_iters", 1) > 0
+    assert launches == int(solves)
     return k, nk, p, np_
 
 
@@ -618,14 +679,28 @@ def test_eikonal_kernel_matches_plain(dev, seed, shape, speed):
 
 @pytest.mark.parametrize("length", [1, 63, 64, 65, 130])
 def test_eikonal_kernel_stops_at_the_plain_sweep(dev, length):
-    """Stops at sweep 1 (nothing to update), at a batch's last sweep, at
-    the batch size and one past it, and two batches on."""
-    from plant3dvision_tpu_torch.ops.eikonal import SWEEP_BATCH
-    assert SWEEP_BATCH == 64
+    """One launch a solve stops at sweep 1 (nothing to update), and at
+    sweeps 63, 64, 65 and 130 (where the old batched launches turned), with
+    one host read (the sweep count) after the compaction's nonzero."""
+    import warnings
+    from plant3dvision_tpu_torch.ops.eikonal import geodesic_distance
     mask, seeds = _tube(length)
     k, nk, p, np_ = _eikonal_both(dev, mask, seeds)
     assert nk == np_ == max(length, 1)
     assert torch.equal(k, p)
+    m, s = torch.from_numpy(mask).to(dev), torch.from_numpy(seeds).to(dev)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            geodesic_distance(m, s)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if str(w.message).startswith(
+        "called a synchronizing CUDA operation")]
+    assert len(syncs) == (2 if length > 1 else 1), [str(w.message)
+                                                    for w in syncs]
 
 
 @pytest.mark.parametrize("max_iters", [0, 1, 10, 64, 65])
@@ -634,6 +709,36 @@ def test_eikonal_kernel_max_iters_binds(dev, max_iters):
     k, nk, p, np_ = _eikonal_both(dev, mask, seeds, max_iters=max_iters)
     assert nk == np_ == max_iters
     assert torch.equal(k, p)
+
+
+def test_eikonal_kernel_large_active_set(dev):
+    """An active set of 409.6 K voxels, more than the cooperative grid's
+    threads, so that each thread updates several voxels a sweep:
+    bit-equal to the plain version, at the same sweep count."""
+    nx, ny, nz = 80, 80, 64
+    mask = np.zeros((nx, ny, nz + 1), bool)
+    mask[:, :, 1:] = True
+    seeds = np.zeros_like(mask)
+    seeds[:, :, 1] = True
+    mask[:, :, 0] = True             # below the seed plane: nx * ny more
+    assert int((mask & ~seeds).sum()) == nx * ny * nz
+    k, nk, p, np_ = _eikonal_both(dev, mask, seeds)
+    assert nk == np_ > 5
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 10])
+def test_eikonal_kernel_empty_active_set(dev, max_iters):
+    """Nothing to update (every mask voxel a seed, or an empty mask): no
+    launch, the initial field, min(max_iters, 1) sweeps as the plain
+    version counts."""
+    mask = np.zeros((5, 6, 7), bool)
+    mask[1:3, 2:4, 3] = True
+    for seeds in (mask.copy(), np.zeros_like(mask)):
+        m = mask if seeds.any() else np.zeros_like(mask)
+        k, nk, p, np_ = _eikonal_both(dev, m, seeds, max_iters=max_iters)
+        assert nk == np_ == min(max_iters, 1)
+        assert torch.equal(k, p)
 
 
 def test_eikonal_kernel_refuses_what_it_cannot_take(dev):

@@ -13,6 +13,8 @@ Tolerances, and what is exact:
   1.0 (14.14): a flaw of the reference, repeated, not fixed.
 - gradient_flow: within 1e-6 (equal here: the norm as XLA fuses it).
 - trace_geodesics: equal int32 votes.
+- The compacted neighbour table (K14's data path): a plain loop over it
+  gives the same bits and sweep count.
 - The task: on geom_pipe_synth.toml with CurveSkeleton.method = "fim",
   equal fileset ids, equal skeleton nodes and edges, centers within 1e-6
   mm, angles within 0.05 deg.
@@ -128,6 +130,86 @@ def test_geodesic_distance_matches_jax(name):
     _assert_bits(j[2], ref)
     _assert_bits(_port(mask, seeds, max_iters=n - 1)[0], j[1])
     assert (ref < 1e9).sum() > 20
+
+
+def _table_loop(mask, seeds, speed=None, max_iters=10000, tol=1e-3):
+    """The Jacobi loop as K14 runs it, in plain torch ops over the
+    compacted neighbour table (compact_neighbors): values gathered through
+    the table, the sentinels' INF and 0 in two extra slots, then scattered
+    into the dense field. Returns the distances and the sweep count."""
+    m, s = torch.from_numpy(mask), torch.from_numpy(seeds)
+    active, table = PE.compact_neighbors(m, s)
+    n = len(active)
+    idx = table.long()
+    idx = torch.where(idx == PE.NB_INF, n, torch.where(idx == PE.NB_ZERO,
+                                                         n + 1, idx))
+    u = torch.full((n + 2,), PE.INF, dtype=torch.float32)
+    u[n + 1] = 0.0
+    f = (PE.speed_inverse(torch.from_numpy(speed)).reshape(-1)[active]
+         if speed is not None else torch.tensor(1.0))
+    tol32, sweeps = np.float32(tol), 0
+    while n and sweeps < max_iters:
+        nb = u[idx]
+        new = PE._godunov_update(u[:n], torch.minimum(nb[:, 0], nb[:, 1]),
+                                 torch.minimum(nb[:, 2], nb[:, 3]),
+                                 torch.minimum(nb[:, 4], nb[:, 5]), f)
+        moved = bool(((new < PE.FINITE) & ((u[:n] - new).abs() > tol32))
+                     .any())
+        u[:n] = new
+        sweeps += 1
+        if not moved:
+            break
+    dense = torch.where(m & s, 0.0, PE.INF).reshape(-1)
+    dense[active] = u[:n]
+    return dense.reshape(mask.shape).numpy(), sweeps
+
+
+@pytest.mark.parametrize("name", ["tube", "l_bend", "slab", "cube", "blob0",
+                                  "blob1", "blob2"])
+def test_compact_neighbor_table_loop_matches_jax(name):
+    """K14's data path on the CPU: a plain loop over the compacted
+    neighbour table (sentinels for INF and the seeds' 0, the stop test as
+    "some finite |du| > tol") gives JAX's distances bit for bit, at the
+    sweep count of the port's geodesic_distance."""
+    mask, seeds = _scene(name)
+    got, n = _table_loop(mask, seeds)
+    _assert_bits(got, _jax(mask, seeds))
+    assert n == _port(mask, seeds)[1]
+
+
+def test_compact_neighbor_table_loop_with_speed_matches_jax():
+    mask, seeds = _scene("blob1")
+    speed = np.random.default_rng(6).uniform(0.3, 2.0, mask.shape).astype(
+        np.float32)
+    got, n = _table_loop(mask, seeds, speed)
+    _assert_bits(got, _jax(mask, seeds, speed))
+    assert n == _port(mask, seeds, speed)[1]
+
+
+def test_compact_neighbors_entries():
+    """Each entry of the table against the dense grid: the neighbour's
+    compact index when it is active, NB_ZERO on a seed of the mask, NB_INF
+    outside the mask or past the edge."""
+    rng = np.random.default_rng(3)
+    mask = rng.random((7, 6, 9)) > 0.3
+    seeds = mask & (rng.random(mask.shape) > 0.8)
+    active, table = PE.compact_neighbors(torch.from_numpy(mask),
+                                         torch.from_numpy(seeds))
+    act = mask & ~seeds
+    np.testing.assert_array_equal(active.numpy(), np.flatnonzero(act))
+    where = {f: i for i, f in enumerate(active.tolist())}
+    steps = [(-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1),
+             (0, 0, 1)]
+    for row, f in zip(table.numpy(), active.tolist()):
+        p = np.array(np.unravel_index(f, mask.shape))
+        for entry, step in zip(row, steps):
+            q = p + step
+            if ((q < 0) | (q >= mask.shape)).any() or not mask[tuple(q)]:
+                assert entry == PE.NB_INF
+            elif seeds[tuple(q)]:
+                assert entry == PE.NB_ZERO
+            else:
+                assert entry == where[np.ravel_multi_index(q, mask.shape)]
 
 
 def test_the_reference_mid_cancellation_is_repeated():
