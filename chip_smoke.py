@@ -13,7 +13,9 @@
 3. Holds each kernel against its plain PyTorch version on the card at the
    main path's shapes (K1 on one 100-view group, K2-K4 on the carved grid)
    and times kernel, plain version and, where one exists, a PyTorch
-   library call computing the same function (CUDA events, median).
+   library call computing the same function (CUDA events, median). K4's
+   rows (here and in phase 6) also give a call's launches and host syncs
+   and its floor_ms: as many empty launches and one 8-byte read.
 4. Runs the 60-view 1440x1080 carve into a 301x301x561 grid at 0.5 mm and
    vol2pcd on its result.
 5. Drives the ML path through the port's task runtime at full width: a
@@ -69,8 +71,10 @@
    undistorted images; also against compute_mask_numpy) and K11
    (count_kills and carve_tolerant at 3, on the 58 masks) against their
    plain versions at that path's shapes, and times them beside a PyTorch
-   library chain (grid_sample for K9, tensordot + compare for K10; none
-   for K11).
+   library call (grid_sample for K9; for K10 the fast lane's own call,
+   imgs[..., k] > t, with the tensordot chain beside it, and the excess
+   green chain; none for K11). K10 is also timed on one image, as live
+   carving launches it.
 11. Drives configs/geom_pipe_real_selfcal.toml from TurntableCalibration to
    AnglesAndInternodes (selfcal_config: no TriangleMesh, no evaluation,
    Voxels' box phase 9's) on a 60-view 1440x1080 RGB turntable scan of the
@@ -770,7 +774,7 @@ def check_vol2pcd_kernels(vol, level, launches, path):
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from plant3dvision_tpu_torch import proc3d
+    from plant3dvision_tpu_torch import kernels, proc3d
     from plant3dvision_tpu_torch.ops import edt, filters
 
     dev = vol.device
@@ -851,11 +855,24 @@ def check_vol2pcd_kernels(vol, level, launches, path):
         idx = idx.reshape(-1)
         return [t.reshape(-1).index_select(0, idx) for t in (sd, gx, gy, gz)]
 
+    # a call's launches and host reads; its floor: as many empty launches
+    # and one 8-byte read from the card
+    before = kernels.LAUNCHES["band_compact"]
+    _, syncs = host_syncs(lambda: proc3d.band_compact(sd, gx, gy, gz, level))
+    per_call = kernels.LAUNCHES["band_compact"] - before
+    so, stream = kernels.lib(), kernels.stream_ptr(dev)
+    word = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def floor():
+        kernels.check("band_compact", so.p3d_band_empty(per_call, stream))
+        return int(word[0])
+
     row("band_compact", err,
         cuda_ms(lambda: proc3d.band_compact(sd, gx, gy, gz, level)),
         cuda_ms(lambda: proc3d.band_compact_plain(sd, gx, gy, gz, level)),
         4 * n + 36 * len(ik), 2 * n, library=cuda_ms(k4_library),
-        extra={"n_band": int(len(ik))})
+        extra={"n_band": int(len(ik)), "launches_a_call": per_call,
+               "host_syncs_a_call": syncs, "floor_ms": cuda_ms(floor)})
     return rows
 
 
@@ -1642,6 +1659,15 @@ def _library_undistort(imgs, K, dist):
     return out.round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1)
 
 
+def fast_lane_library(imgs, channel, fast_t):
+    """K10's fast lane (uint8, linear, binarised, one positive
+    coefficient) as one PyTorch call on a (N, H, W, C) stack: PyTorch
+    compares the uint8 channel with the float threshold in float32, as the
+    kernel and compute_mask_numpy do. `channel` and `fast_t` are the
+    lane's, from ops/masks.py:_lane."""
+    return imgs[..., channel] > fast_t
+
+
 def check_frontend_kernels(scan, report, launches):
     """Phase 10: K9 on the 58 raw images, K10 (linear and excess green) on
     the warm pass's 58 undistorted images, K11 (count_kills and
@@ -1713,31 +1739,48 @@ def check_frontend_kernels(scan, report, launches):
         assert n_host == 0, f"mask kernel != compute_mask_numpy ({ftype}, " \
             f"{n_host} pixels)"
         cvec = torch.tensor(coefs, device=dev)
+        mode, _, ch, fast_t = masks._lane(imgs, ftype, coefs, thr, True)
 
-        def lib():
+        def chain():
+            # the general lanes' chain: rescale, filter, compare
             x = carving.div_f32(imgs.float(), 255.0)
             if ftype == "linear":
                 return torch.tensordot(x, cvec, dims=([3], [0])) > thr
             s = x.sum(-1).clamp(min=1e-12)
             return (2 * x[..., 1] - x[..., 0] - x[..., 2]) / s > thr
 
+        lib = ((lambda: fast_lane_library(imgs, ch, fast_t))
+               if mode == masks.FAST else chain)
         # bytes: the images read once, the masks written once; operations:
         # 1 compare per pixel (the fast lane) or 3 divisions, 2 adds and
         # the filter (~12) per pixel
         npx = N * H * W
+        one = imgs[:1]          # a live-carving view: one image a launch
+        extra = {"path": "frontend", "filter": ftype, "threshold": thr,
+                 "fast_lane": mode == masks.FAST, "shape": list(imgs.shape),
+                 "true": int(got.sum()),
+                 "library_pixels_differing": int((lib() != got).sum()),
+                 "compute_mask_numpy_pixels_differing": n_host,
+                 "one_image_ms": cuda_ms(lambda: masks.mask_filter(
+                     one, ftype, coefs, thr, True), reps=21),
+                 "one_image_bound_ms": bound_ms(
+                     one.numel() + H * W,
+                     (1 if ftype == "linear" else 12) * H * W)[0]}
+        if mode == masks.FAST:
+            extra["chain_ms"] = cuda_ms(chain)
+            extra["one_image_library_ms"] = cuda_ms(
+                lambda: fast_lane_library(one, ch, fast_t), reps=21)
         lanes[ftype] = kernel_row(
             "mask_filter", launches["mask_filter"], 0,
             cuda_ms(lambda: masks.mask_filter(*args)),
             cuda_ms(lambda: masks.mask_filter_plain(*args)),
             imgs.numel() + npx, (1 if ftype == "linear" else 12) * npx,
-            library=cuda_ms(lib),
-            extra={"path": "frontend", "filter": ftype, "threshold": thr,
-                   "shape": list(imgs.shape), "true": int(got.sum()),
-                   "library_pixels_differing": int((lib() != got).sum()),
-                   "compute_mask_numpy_pixels_differing": n_host})
+            library=cuda_ms(lib), extra=extra)
     rows.append(dict(lanes["linear"], filters={
-        f: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_by", "true")}
+        f: {k: r.get(k) for k in ("ms", "plain_ms", "library_ms", "chain_ms",
+                                  "bound_ms", "bound_by", "one_image_ms",
+                                  "one_image_library_ms",
+                                  "one_image_bound_ms", "true")}
         for f, r in lanes.items()}))
     del imgs, got, want
 

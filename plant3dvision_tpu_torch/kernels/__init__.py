@@ -87,12 +87,14 @@ _ARGTYPES = {
     "p3d_gradient": [_P, _P, _I, _I, _I, _I, _P],
     # x, y, nx, ny, nz, axis, taps (host float*), radius, stream
     "p3d_gauss": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # d, n, lo, hi, counts, stream
+    # d, n, lo, hi, offsets (tiles + 1 int64), stream
     "p3d_band_count": [_P, _L, _F, _F, _P, _P],
     # n -> number of tiles (and of per-tile counts)
     "p3d_band_tiles": [_L],
     # d, gx, gy, gz, n, lo, hi, offsets, idx_out, d_out, g_out, stream
     "p3d_band_scatter": [_P, _P, _P, _P, _L, _F, _F, _P, _P, _P, _P, _P],
+    # launches, stream
+    "p3d_band_empty": [_I, _P],
     # vol, probs, cams, valid, B, C, H, W, ox, oy, oz, vs, nx, ny, nz,
     # x_start, slab_nx, log_mode, box, avg, store_x0, stream
     "p3d_accumulate": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,

@@ -48,9 +48,10 @@ def band_compact(dist, gx, gy, gz, level_set_value):
     """The level-set band of `dist` as records in flat index order:
     (idx int64 (n,), d float32 (n,), g float32 (n, 3)).
 
-    A CUDA tensor goes to kernels/csrc/band.cu (count per tile, exclusive
-    scan of the tile counts, ordered scatter; the band is counted first and
-    the outputs allocated exactly), a CPU tensor to `band_compact_plain`.
+    A CUDA tensor goes to kernels/csrc/band.cu (a count launch, a scan of
+    the tile counts on the card, one host read of the band's size to
+    allocate the outputs exactly, an ordered scatter launch), a CPU tensor
+    to `band_compact_plain`.
     """
     if dist.device.type == "cpu":
         return band_compact_plain(dist, gx, gy, gz, level_set_value)
@@ -62,17 +63,17 @@ def band_compact(dist, gx, gy, gz, level_set_value):
     lo, hi = band_limits(level_set_value)
     n = dist.numel()
     dev = dist.device
-    so = kernels.lib()
-    n_tiles = so.p3d_band_tiles(n)
-    stream = kernels.stream_ptr(dev)
-    counts = torch.empty(n_tiles, dtype=torch.int64, device=dev)
-    rc = so.p3d_band_count(dist.data_ptr(), n, float(lo), float(hi),
-                           counts.data_ptr(), stream)
-    kernels.LAUNCHES["band_compact"] += 1
-    kernels.check("band_compact", rc)
-    ends = torch.cumsum(counts, 0)
-    offsets = (ends - counts).contiguous()
-    n_band = int(ends[-1]) if n_tiles else 0
+    n_band = 0
+    if n:
+        so = kernels.lib()
+        n_tiles = so.p3d_band_tiles(n)
+        stream = kernels.stream_ptr(dev)
+        offsets = torch.empty(n_tiles + 1, dtype=torch.int64, device=dev)
+        rc = so.p3d_band_count(dist.data_ptr(), n, float(lo), float(hi),
+                               offsets.data_ptr(), stream)
+        kernels.LAUNCHES["band_compact"] += 2      # the count and the scan
+        kernels.check("band_compact", rc)
+        n_band = int(offsets[n_tiles])             # the call's one sync
     idx = torch.empty(n_band, dtype=torch.int64, device=dev)
     d = torch.empty(n_band, dtype=torch.float32, device=dev)
     g = torch.empty((n_band, 3), dtype=torch.float32, device=dev)

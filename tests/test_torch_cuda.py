@@ -89,20 +89,34 @@ def test_gradient_gaussian_kernel_matches_plain(dev, shape):
                                    atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("n_extra", [0, 1, 4095])
-def test_band_compact_kernel_matches_plain(dev, n_extra):
+@pytest.mark.parametrize("shape", [(16, 16, 16), (16, 16, 17), (16, 16, 4111),
+                                   (64, 64, 192), (165, 146, 504)])
+def test_band_compact_kernel_matches_plain(dev, shape):
+    """K4 on one tile, a ragged last tile (n not a multiple of 4 or of the
+    4096-voxel tile), 192 tiles (64^3 x 3) and the ML grid's shape: equal
+    to its plain version for a thin band, a thick one, an empty one, a band
+    that holds every voxel, and a distance view whose base is not 16-byte
+    aligned (the scalar loads)."""
     from plant3dvision_tpu_torch.proc3d import band_compact, band_compact_plain
     rng = np.random.default_rng(3)
-    shape = (16, 16, 16 + n_extra)
     d = torch.from_numpy((rng.random(shape) * 6 - 3).astype(np.float32)).to(dev)
     d[0, 0, :5] = torch.tensor([0.0, np.float32(np.sqrt(3)), -0.0, 1e-7, 2.0])
     gs = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
           .to(dev) for _ in range(3)]
-    for level in (0.0, 1.0, 50.0):                # 50: empty band
-        k = band_compact(d, *gs, level)
-        p = band_compact_plain(d, *gs, level)
+    shifted = torch.cat([d.new_zeros(1), d.reshape(-1)])[1:].view(shape)
+    assert shifted.data_ptr() % 16 != 0
+    cases = [(d, 0.0), (d, 1.0), (d, 50.0),      # 50: empty band
+             (d * 0.25, 0.8),                    # every voxel in (-0.8, 0.93]
+             (shifted, 1.0)]
+    for dist, level in cases:
+        k = band_compact(dist, *gs, level)
+        p = band_compact_plain(dist, *gs, level)
         for a, b in zip(k, p):
             assert torch.equal(a, b)
+        if level == 0.8:
+            assert len(k[0]) == d.numel()
+        if level == 50.0:
+            assert len(k[0]) == 0
 
 
 def test_vol2pcd_cuda_matches_cpu(dev):
@@ -416,30 +430,70 @@ def test_undistort_kernel_matches_plain(dev, dtype, channels, dist):
     assert (k != 0).any()
 
 
-@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
-@pytest.mark.parametrize("lane", [("linear", (0.0, 1.0, 0.0), True),
-                                  ("linear", (0.2, 0.7, 0.1), True),
-                                  ("linear", (0.2, 0.5, 0.1, 0.3), False),
-                                  ("excess_green", (0.0, 1.0, 0.0), True),
-                                  ("excess_green", (0.0, 1.0, 0.0), False)])
-def test_mask_kernel_matches_plain(dev, dtype, lane):
-    """K10 in every lane (the uint8 fast lane, the linear filter over 3 and
-    4 channels, excess green; binarised and clipped) on uint8, uint16 and
-    float32 RGBA stacks: equal to its plain version."""
-    from plant3dvision_tpu_torch.ops.masks import mask_filter, mask_filter_plain
-    ftype, coefs, binarize = lane
+MASK_LANES = [("linear", (0.0, 1.0, 0.0), True),
+              ("linear", (0.2, 0.7, 0.1), True),
+              ("linear", (0.2, 0.5, 0.1, 0.3), False),
+              ("excess_green", (0.0, 1.0, 0.0), True),
+              ("excess_green", (0.0, 1.0, 0.0), False)]
+
+
+def _mask_stacks(dev, dtype, layout):
+    """K10's test stacks. rgba: (3, 37, 53, 4), 5883 pixels (not a
+    multiple of the kernel's 16-pixel run; runs span images); rgb: the
+    same with 3 channels, and 5 images of 3 x 4 pixels (a run spans
+    several); view: an RGB stack that starts at pixel 1 of a larger one,
+    so its base is not 16-byte aligned; gray: (3, 37, 53) and (2, 16, 32);
+    huge: one uint8 RGB stack of more than 2^31 bytes (the 64-bit
+    indexes), made on the card."""
+    if layout == "huge":
+        g = torch.Generator(device=dev).manual_seed(7)
+        return [torch.randint(0, 256, (684, 1024, 1024, 3), generator=g,
+                              dtype=torch.uint8, device=dev)]
     rng = np.random.default_rng(7)
-    shape = (3, 37, 53, 4)
-    if dtype == np.float32:
-        img = (rng.random(shape) * 3 - 1).astype(dtype)
-    else:
-        img = rng.integers(0, 256 if dtype == np.uint8 else 65536, shape)
-        img = img.astype(dtype)
-    t = torch.from_numpy(img).to(dev)
-    for thr in (0.15, 0.2, 0.3):
-        k = mask_filter(t, ftype, coefs, thr, binarize)
-        p = mask_filter_plain(t, ftype, coefs, thr, binarize)
-        assert k.dtype == p.dtype and torch.equal(k, p)
+    shapes = {"rgba": [(3, 37, 53, 4)], "rgb": [(3, 37, 53, 3), (5, 3, 4, 3)],
+              "view": [(4, 37, 53, 3)],
+              "gray": [(3, 37, 53), (2, 16, 32)]}[layout]
+    out = []
+    for shape in shapes:
+        if dtype == np.float32:
+            img = (rng.random(shape) * 3 - 1).astype(dtype)
+        else:
+            img = rng.integers(0, 256 if dtype == np.uint8 else 65536, shape)
+            img = img.astype(dtype)
+        t = torch.from_numpy(img).to(dev)
+        if layout == "view":
+            N, H, W, C = shape
+            t = t.reshape(-1, C)[1:1 + (N - 1) * H * W].view(N - 1, H, W, C)
+            assert t.data_ptr() % 16 != 0
+        out.append(t)
+    return out
+
+
+@pytest.mark.parametrize("case", [
+    (dtype, lane, layout)
+    for dtype in (np.uint8, np.uint16, np.float32)
+    for lane in range(len(MASK_LANES))
+    for layout in ("rgba", "rgb", "view", "gray")] + [(np.uint8, 0, "huge")])
+def test_mask_kernel_matches_plain(dev, case):
+    """K10 in every lane (the uint8 fast lane, the linear filter over 1, 3
+    and 4 channels, excess green; binarised and clipped) on uint8, uint16
+    and float32 stacks (_mask_stacks): equal to its plain version. Gray
+    stacks have no excess green: both versions refuse it."""
+    from plant3dvision_tpu_torch.ops.masks import mask_filter, mask_filter_plain
+    dtype, lane, layout = case
+    ftype, coefs, binarize = MASK_LANES[lane]
+    for t in _mask_stacks(dev, dtype, layout):
+        if ftype == "excess_green" and t.ndim == 3:
+            for fn in (mask_filter, mask_filter_plain):
+                with pytest.raises(ValueError, match="3 channels"):
+                    fn(t, ftype, coefs, 0.15, binarize)
+            continue
+        for thr in (0.15, 0.2, 0.3):
+            k = mask_filter(t, ftype, coefs, thr, binarize)
+            p = mask_filter_plain(t, ftype, coefs, thr, binarize)
+            assert k.dtype == p.dtype and torch.equal(k, p)
+            if layout == "huge":
+                assert 0 < int(k.sum()) < k.numel()
 
 
 @pytest.mark.parametrize("shape,vs", [((40, 37, 45), 0.5), ((17, 64, 9), 0.7)])

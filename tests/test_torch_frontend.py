@@ -317,6 +317,44 @@ def test_mask_filter_refuses_what_it_cannot_take():
         masks.mask_filter(torch.zeros((1, 4, 4, 5)), "linear", (1.0,) * 5)
 
 
+def _config_fast_lanes():
+    """(coefs, threshold) of each shipped config's Masks task whose lane on
+    uint8 images is the fast lane (linear, one positive coefficient)."""
+    import tomllib
+    from pathlib import Path
+    lanes = set()
+    for path in sorted((Path(__file__).parents[1] / "configs").glob("*.toml")):
+        m = tomllib.loads(path.read_text()).get("Masks", {})
+        c = tuple(map(float, json.loads(m.get("parameters", "[]"))))
+        if (m.get("type") == "linear" and np.count_nonzero(c) == 1
+                and max(c) > 0):
+            lanes.add((c, float(m["threshold"])))
+    return sorted(lanes)
+
+
+@pytest.mark.parametrize("coefs,threshold", _config_fast_lanes())
+def test_fast_lane_library_call_equals_numpy(coefs, threshold):
+    """chip_smoke.py times K10's fast lane beside one PyTorch call,
+    chip_smoke.fast_lane_library (imgs[..., k] > t). For every shipped
+    config's fast lane, at every uint8 level in every channel, that call
+    gives compute_mask_numpy's masks and mask_filter_plain's: it computes
+    the lane's function."""
+    import chip_smoke
+    img = _threshold_images(np.random.default_rng(9))
+    stack = torch.from_numpy(np.stack([img, img[::-1]]))
+    mode, _, ch, fast_t = masks._lane(stack, "linear", coefs, threshold,
+                                      True)
+    assert mode == masks.FAST
+    got = chip_smoke.fast_lane_library(stack, ch, fast_t)
+    want = np.stack([jmasks.compute_mask_numpy(im, "linear", coefs,
+                                               threshold, as_bool=True)
+                     for im in stack.numpy()])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, masks.mask_filter_plain(stack, "linear", coefs,
+                                                    threshold))
+    assert 0 < want.mean() < 1
+
+
 # -- K11: count_kills / carve_tolerant / the vote Backprojection -------------
 
 def _vote_scene(V=9, H=48, W=64, seed=0):
