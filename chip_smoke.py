@@ -74,7 +74,9 @@
    library call (grid_sample for K9; for K10 the fast lane's own call,
    imgs[..., k] > t, with the tensordot chain beside it, and the excess
    green chain; none for K11). K10 is also timed on one image, as live
-   carving launches it.
+   carving launches it. Holds K8 at the Masks task's radius 3 on the
+   linear lane's 58 masks against its plain version and conv2d with the
+   disk.
 11. Drives configs/geom_pipe_real_selfcal.toml from TurntableCalibration to
    AnglesAndInternodes (selfcal_config: no TriangleMesh, no evaluation,
    Voxels' box phase 9's) on a 60-view 1440x1080 RGB turntable scan of the
@@ -98,11 +100,14 @@
    pass of configs/ml_pipe_real_hybrid.toml's tasks after its calibration
    on phase 11's calibration (segnet_real at 704x528 with resize = true),
    run to the angles with no angle bar.
-12. Holds K11b (a round-0 and a round-1 CEM population), K12 (the two
-   populations and the polish's V x G launch) and K13 (the 60 grays in
-   chunks of 12) against their plain versions at phase 11's shapes, and
-   times them beside a library chain for K13 (rolls + avg_pool2d +
-   max_pool2d; none for K11b, K12).
+12. Holds K11b (a round-0 and a round-1 CEM population, the polish's
+   robust hull), K12 (the two populations and the polish's V x G launch),
+   K8 (the keypoint masks, radius 6) and K13 (the 60 grays in chunks of
+   12) against their plain versions at phase 11's shapes
+   (selfcal_launches; tools/selfcal_ab.py times K11b and K12 of two
+   checkouts in turns), and times them beside a library call for K8
+   (conv2d with the disk) and K13 (rolls + avg_pool2d + max_pool2d; none
+   for K11b, K12).
 13. Drives CurveSkeleton(method="fim") on phase 9's scan (written here if
    phase 9 did not run) through phase 9's strict front end (0.5 mm, the
    301x301x561 grid; bin_size 4 voxels = 2 mm): one cold pass, one warm
@@ -724,6 +729,38 @@ def kernel_row(name, launches, err, ms, plain, nbytes, nops, library=None,
          "bound_by": by, "library_ms": library}
     r.update(extra or {})
     return r
+
+
+def dilation_row(binm, r, launches, extra):
+    """K8 (`binary_dilation`) on a bool (N, H, W) mask stack at radius r:
+    held equal to its plain version and to one PyTorch call for the same
+    function (`conv2d` with the disk, `> 0`), timed beside both; the bound
+    is the masks read and written once."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.ops import masks as masks_ops
+
+    got = masks_ops.binary_dilation(binm, r)
+    want = masks_ops.binary_dilation_plain(binm, r)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"dilate kernel != plain (radius {r})"
+    offs = masks_ops._disk_offsets(r)
+    fp = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=binm.device)
+    fp[0, 0, offs[:, 0] + r, offs[:, 1] + r] = 1.0
+
+    def lib():
+        return F.conv2d(binm[:, None].float(), fp, padding=r)[:, 0] > 0
+
+    assert torch.equal(lib(), got), f"conv2d footprint != K8 (r {r})"
+    return kernel_row(
+        "dilate_disk", launches, 0.0,
+        cuda_ms(lambda: masks_ops.binary_dilation(binm, r)),
+        cuda_ms(lambda: masks_ops.binary_dilation_plain(binm, r), reps=3,
+                warmup=1),
+        2 * binm.numel(), 0, library=cuda_ms(lib, reps=3, warmup=1),
+        extra={"radius": r, "shape": list(binm.shape), "offsets": len(offs),
+               "true_in": int(binm.sum()), "true_out": int(got.sum()),
+               **extra})
 
 
 def check_kernels(scan, vfile, launches):
@@ -1389,10 +1426,8 @@ def check_separate_kernels(scan, report, launches):
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from plant3dvision_tpu_torch.fsdb import io
-    from plant3dvision_tpu_torch.ops import carving, masks as masks_ops
-    from plant3dvision_tpu_torch.ops import reproject
+    from plant3dvision_tpu_torch.ops import carving, reproject
 
     dev = torch.device("cuda")
     rows = []
@@ -1495,31 +1530,9 @@ def check_separate_kernels(scan, report, launches):
     m = torch.from_numpy(stack).to(dev)
     binm = carving.div_f32(m.float(), 255.0) > float(np.float32(0.01))
     del m
-    radii = {}
-    for r in (1, 3):
-        got = masks_ops.binary_dilation(binm, r)
-        want = masks_ops.binary_dilation_plain(binm, r)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), f"dilate kernel != plain (radius {r})"
-        offs = masks_ops._disk_offsets(r)
-        fp = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=dev)
-        fp[0, 0, offs[:, 0] + r, offs[:, 1] + r] = 1.0
-
-        def lib():
-            return F.conv2d(binm[:, None].float(), fp, padding=r)[:, 0] > 0
-
-        assert torch.equal(lib(), got), f"conv2d footprint != K8 (r {r})"
-        radii[r] = kernel_row(
-            "dilate_disk", launches["dilate_disk"], 0.0,
-            cuda_ms(lambda: masks_ops.binary_dilation(binm, r)),
-            cuda_ms(lambda: masks_ops.binary_dilation_plain(binm, r)),
-            2 * binm.numel(), len(offs) * binm.numel(),
-            library=cuda_ms(lib, reps=3, warmup=1),
-            extra={"path": "ml_separate", "radius": r,
-                   "launches_counted_in": "binarised Segmentation2D",
-                   "shape": list(binm.shape), "offsets": len(offs),
-                   "true_in": int(binm.sum()), "true_out": int(got.sum())})
-        del got, want
+    radii = {r: dilation_row(binm, r, launches["dilate_disk"], {
+        "path": "ml_separate",
+        "launches_counted_in": "binarised Segmentation2D"}) for r in (1, 3)}
     rows.append(dict(radii[1], radii={
         r: {k: x[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by")} for r, x in radii.items()}))
@@ -1782,7 +1795,16 @@ def check_frontend_kernels(scan, report, launches):
                                   "one_image_library_ms",
                                   "one_image_bound_ms", "true")}
         for f, r in lanes.items()}))
+    # K8: the Masks task's dilation of those masks (radius 3)
+    fm = masks.mask_filter(imgs, "linear", coefs, float(mcfg["threshold"]),
+                           True)
     del imgs, got, want
+    rows.append(dilation_row(fm, int(mcfg["dilation"]),
+                             launches["dilate_disk"], {
+                                 "path": "frontend",
+                                 "launches_counted_in": "front-end warm pass"
+                                 " (Masks)"}))
+    del fm
 
     # K11: the warm pass's 58 masks, count_kills and carve_tolerant at 3
     mfiles = scan.get_fileset(report["Masks"]["fileset"]).get_files()
@@ -2166,11 +2188,119 @@ def _harris_library(gray, mask, border, kappa):
     return torch.where((r >= rmax) & mask & inside, r, -torch.inf)
 
 
+def selfcal_launches(masks, poses, theta_cem, theta, jitter, hull,
+                     workspace, device="cuda"):
+    """Phase 12's K11b and K12 launches at phase 11's shapes. From the
+    full-resolution silhouettes (V, H, W) bool numpy, the CNC poses (V, 5),
+    the CEM's theta (each round's population of 48 is drawn around it), the
+    polished calibration (theta and the per-view jitter (V, 3) [dpan,
+    dtilt, droll] on the card), the calibrated hull's box and the
+    workspace (mm): round 0 at 4 mm and 1/8 over the workspace, round 1 at
+    2 mm and 1/4 over a 16-quantized crop of the hull (as the CEM's crop
+    rule), the polish at 2 mm and 1/4 over the workspace (60 views x 77
+    deltas against the robust hull). Returns (k11b, k12): k11b maps a
+    launch (round0, round1: the population at tolerance 0; robust: the
+    polish's robust hull, one candidate at tolerance 2) to carve_candidates'
+    arguments; k12 maps a launch to (the k11b launch whose alive volumes it
+    reads, a function of those volumes giving ray_coverage_counts'
+    arguments, its number of groups)."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.ops import carving, selfcal
+
+    dev = torch.device(device)
+    V, H, W = masks.shape
+    rng = np.random.default_rng(0)
+
+    def lowres(k):
+        m_lo = selfcal._dilate1(selfcal._maxpool2d(masks, k))
+        uv, ok = selfcal._sample_sil(selfcal._maxpool2d(masks, k),
+                                     192 if k == 8 else 256, rng)
+        return (torch.from_numpy(carving.pack_masks(m_lo)).to(dev),
+                torch.from_numpy(uv).to(dev), torch.from_numpy(ok).to(dev),
+                m_lo.shape[1:])
+
+    origin0, shape0 = grid_of(workspace, 4.0)
+    lo = np.array([hull[a][0] for a in "xyz"])
+    n16 = np.ceil((np.floor((np.array([hull[a][1] for a in "xyz"]) - lo)
+                            / 2.0) + 1) / 16).astype(int) * 16
+    crop = {a: [float(lo[i]), float(lo[i] + (n16[i] - 0.5) * 2.0)]
+            for i, a in enumerate("xyz")}
+    origin1, shape1 = grid_of(crop, 2.0)
+    poses_t = torch.from_numpy(np.asarray(poses, np.float32)).to(dev)
+    k11b, k12 = {}, {}
+    for rnd, (k, vs, origin, shape) in enumerate(
+            ((8, 4.0, origin0, shape0), (4, 2.0, origin1, shape1))):
+        packed, uv, ok, hw = lowres(k)
+        pop = torch.from_numpy(_population(theta_cem, 1.0 / (1 + rnd), 48,
+                                           rnd)).to(dev)
+        cams = selfcal.cnc_to_cameras(poses_t, pop, np.float32(W),
+                                      np.float32(H), np.float32(1.0 / k))
+        k11b[f"round{rnd}"] = (packed, cams, origin, vs, shape, hw, 0)
+        # K12 on the population's hulls: a group per candidate and view
+        B = cams.shape[0]
+        steps = int(np.ceil(np.linalg.norm(shape) * 0.75))
+        cand = torch.arange(B, dtype=torch.int32, device=dev)
+        view = torch.arange(V, dtype=torch.int32, device=dev)
+        k12[f"cem_round{rnd}"] = (
+            f"round{rnd}",
+            lambda alive, c=(cams.reshape(B * V, 16), cand.repeat_interleave(
+                V), view.repeat(B)), rest=(uv, ok, origin, vs, shape, steps):
+            (*c, alive, *rest), B * V)
+    # the polish: 60 views x 77 deltas against the robust hull of the
+    # calibrated cameras
+    packed, uv, ok, hw = lowres(4)
+    origin, shape = grid_of(workspace, 2.0)
+    cams_v = selfcal.cnc_to_cameras(
+        torch.stack([poses_t[:, 0], poses_t[:, 1], poses_t[:, 2],
+                     poses_t[:, 3] + jitter[:, 0],
+                     poses_t[:, 4] + jitter[:, 1]], 1), theta,
+        np.float32(W), np.float32(H), np.float32(0.25), droll=jitter[:, 2])
+    k11b["robust"] = (packed, cams_v[None].contiguous(), origin, 2.0, shape,
+                      hw, 2)
+    dp = np.linspace(-1.5, 1.5, 11, dtype=np.float32)
+    dt = np.linspace(-1.0, 1.0, 7, dtype=np.float32)
+    deltas = torch.from_numpy(np.stack(np.meshgrid(
+        dp, dt, np.zeros(1, np.float32), indexing="ij"), -1).reshape(
+        -1, 3)).to(dev)
+    var = selfcal._variant_cameras(poses_t, theta, jitter, deltas,
+                                   np.float32(W), np.float32(H),
+                                   np.float32(0.25))
+    G = deltas.shape[0]
+    view = torch.arange(V, dtype=torch.int32, device=dev).repeat_interleave(G)
+    steps = int(np.ceil(np.linalg.norm(shape) * 0.9))
+    k12["polish"] = (
+        "robust",
+        lambda alive: (var.reshape(V * G, 16), torch.zeros_like(view), view,
+                       alive, uv, ok, origin, 2.0, shape, steps), V * G)
+    return k11b, k12
+
+
+def k11b_work(args, tests):
+    """(bytes, operations) of a K11b launch: the masks and cameras read,
+    the alive volumes written once; 24 operations a voxel-view test made
+    (`tests`, the plain version's count_work)."""
+    import numpy as np
+    packed, cams, shape = args[0], args[1], args[4]
+    return (packed.numel() + cams.numel() * 4
+            + cams.shape[0] * int(np.prod(shape)), 24 * tests)
+
+
+def k12_work(cargs, groups, n_valid, steps):
+    """(bytes, operations) of a K12 launch: the alive volumes, cameras,
+    indices, samples and counts once; ~60 operations a valid ray and ~12 a
+    step walked (`steps`, the plain version's count_work)."""
+    return (cargs[3].numel() + groups * (16 * 4 + 8) + cargs[4].numel() * 4
+            + cargs[5].numel(), 60 * n_valid + 12 * steps)
+
+
 def check_selfcal_kernels(scan, report, launches):
-    """Phase 12: K11b on a round-0 and a round-1 CEM population, K12 on the
-    polish's V x G launch and on a CEM population, K13 on the 60 grays in
-    build_matches' chunks of 12, each against its plain version at phase
-    11's shapes, timed beside it (and beside a library chain for K13)."""
+    """Phase 12: K11b on a round-0 and a round-1 CEM population and on the
+    polish's robust hull, K12 on the polish's V x G launch and on the CEM
+    populations (selfcal_launches), K8 on the keypoint masks (radius 6),
+    K13 on the 60 grays in build_matches' chunks of 12, each against its
+    plain version at phase 11's shapes, timed beside it (and beside a
+    library call for K8 and K13)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -2199,94 +2329,38 @@ def check_selfcal_kernels(scan, report, launches):
                      np.float32)
     cal = json.loads(scan.get_fileset(report["TurntableCalibration"][
         "fileset"]).get_file("calibration").read_raw())
-    theta = np.array([cal["silhouette_stage"]["theta"][n]
-                      for n in selfcal.THETA_NAMES], np.float32)
     hull = scan.get_fileset(report["TurntableCalibration"][
         "fileset"]).get_metadata("bounding_box")
-    rng = np.random.default_rng(0)
-
-    def lowres(k):
-        m_lo = selfcal._dilate1(selfcal._maxpool2d(masks, k))
-        uv, ok = selfcal._sample_sil(selfcal._maxpool2d(masks, k),
-                                     192 if k == 8 else 256, rng)
-        return (torch.from_numpy(carving.pack_masks(m_lo)).to(dev),
-                torch.from_numpy(uv).to(dev), torch.from_numpy(ok).to(dev),
-                m_lo.shape[1:])
-
-    # round 0: the workspace at 4 mm and 1/8; round 1: a 16-quantized crop
-    # of the calibrated hull at 2 mm and 1/4 (as the CEM's crop rule)
     workspace = scan.get_fileset("images").get_metadata("workspace")
-    origin0, shape0 = grid_of(workspace, 4.0)
-    lo = np.array([hull[a][0] for a in "xyz"])
-    n16 = np.ceil((np.floor((np.array([hull[a][1] for a in "xyz"]) - lo)
-                            / 2.0) + 1) / 16).astype(int) * 16
-    crop = {a: [float(lo[i]), float(lo[i] + (n16[i] - 0.5) * 2.0)]
-            for i, a in enumerate("xyz")}
-    origin1, shape1 = grid_of(crop, 2.0)
-    k11b, k12 = {}, {}
-    poses_t = torch.from_numpy(poses).to(dev)
-    for rnd, (k, vs, origin, shape) in enumerate(
-            ((8, 4.0, origin0, shape0), (4, 2.0, origin1, shape1))):
-        packed, uv, ok, hw = lowres(k)
-        pop = torch.from_numpy(_population(theta, 1.0 / (1 + rnd), 48,
-                                           rnd)).to(dev)
-        cams = selfcal.cnc_to_cameras(poses_t, pop, np.float32(W),
-                                      np.float32(H), np.float32(1.0 / k))
-        args = (packed, cams, origin, vs, shape, hw, 0)
+    jit = torch.tensor(np.stack([cal["dpan_view"], cal["dtilt_view"],
+                                 cal["droll_view"]], 1), dtype=torch.float32,
+                       device=dev)
+    k11b_args, k12_args = selfcal_launches(
+        masks, poses, np.array([cal["silhouette_stage"]["theta"][n]
+                                for n in selfcal.THETA_NAMES], np.float32),
+        torch.tensor([cal["theta"][n] for n in selfcal.THETA_NAMES],
+                     device=dev), jit, hull, workspace)
+
+    k11b, alive = {}, {}
+    for name, args in k11b_args.items():
         got = carving.carve_candidates(*args)
         want, tests = carving.carve_candidates_plain(*args, count_work=True)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), \
-            f"carve_candidates != plain (round {rnd})"
-        nvox = int(np.prod(shape))
-        k11b[rnd] = kernel_row(
+        assert torch.equal(got, want), f"carve_candidates != plain ({name})"
+        alive[name] = got
+        k11b[name] = kernel_row(
             "carve_candidates", launches["carve_candidates"], 0,
             cuda_ms(lambda: carving.carve_candidates(*args)),
             cuda_ms(lambda: carving.carve_candidates_plain(*args), reps=1,
                     warmup=0),
-            packed.numel() + cams.numel() * 4 + cams.shape[0] * nvox,
-            24 * tests,
-            extra={"path": "selfcal", "round": rnd, "shape": list(shape),
-                   "candidates": cams.shape[0], "views": V,
-                   "low_res": list(hw), "voxel_view_tests": tests,
-                   "alive": int(got.sum())})
-        # K12 on the same population (a group per candidate and view)
-        B = cams.shape[0]
-        steps = int(np.ceil(np.linalg.norm(shape) * 0.75))
-        cand = torch.arange(B, dtype=torch.int32, device=dev)
-        view = torch.arange(V, dtype=torch.int32, device=dev)
-        cargs = (cams.reshape(B * V, 16), cand.repeat_interleave(V),
-                 view.repeat(B), got, uv, ok, origin, vs, shape, steps)
-        k12[f"cem_round{rnd}"] = (cargs, B * V)
-    # K12 on the polish's launch: 60 views x 77 deltas, the robust hull of
-    # the calibrated cameras over the workspace at 2 mm and 1/4
-    packed, uv, ok, hw = lowres(4)
-    origin, shape = grid_of(workspace, 2.0)
-    jit = torch.tensor(np.stack([cal["dpan_view"], cal["dtilt_view"],
-                                 cal["droll_view"]], 1), dtype=torch.float32,
-                       device=dev)
-    th = torch.tensor([cal["theta"][n] for n in selfcal.THETA_NAMES],
-                      device=dev)
-    cams_v = selfcal.cnc_to_cameras(
-        torch.stack([poses_t[:, 0], poses_t[:, 1], poses_t[:, 2],
-                     poses_t[:, 3] + jit[:, 0], poses_t[:, 4] + jit[:, 1]],
-                    1), th, np.float32(W), np.float32(H), np.float32(0.25),
-        droll=jit[:, 2])
-    alive = selfcal._robust_alive(cams_v, packed, origin, 2.0, shape, *hw, 2)
-    dp = np.linspace(-1.5, 1.5, 11, dtype=np.float32)
-    dt = np.linspace(-1.0, 1.0, 7, dtype=np.float32)
-    deltas = torch.from_numpy(np.stack(np.meshgrid(
-        dp, dt, np.zeros(1, np.float32), indexing="ij"), -1).reshape(
-        -1, 3)).to(dev)
-    var = selfcal._variant_cameras(poses_t, th, jit, deltas, np.float32(W),
-                                   np.float32(H), np.float32(0.25))
-    G = deltas.shape[0]
-    view = torch.arange(V, dtype=torch.int32, device=dev).repeat_interleave(G)
-    k12["polish"] = ((var.reshape(V * G, 16), torch.zeros_like(view), view,
-                      alive[None], uv, ok, origin, 2.0, shape,
-                      int(np.ceil(np.linalg.norm(shape) * 0.9))), V * G)
+            *k11b_work(args, tests),
+            extra={"path": "selfcal", "launch": name, "shape": list(args[4]),
+                   "candidates": args[1].shape[0], "views": V,
+                   "max_kills": args[6], "low_res": list(args[5]),
+                   "voxel_view_tests": tests, "alive": int(got.sum())})
     modes = {}
-    for name, (cargs, groups) in k12.items():
+    for name, (src, make, groups) in k12_args.items():
+        cargs = make(alive[src])
         got = selfcal.ray_coverage_counts(*cargs)
         *want, work = selfcal.ray_coverage_counts_plain(*cargs,
                                                         count_work=True)
@@ -2294,26 +2368,31 @@ def check_selfcal_kernels(scan, report, launches):
         assert all(torch.equal(a, b) for a, b in zip(got, want)), \
             f"ray_coverage != plain ({name})"
         n_valid = int(got[1].sum())
-        shp = cargs[8]
         modes[name] = kernel_row(
             "ray_coverage", launches["ray_coverage"], 0,
             cuda_ms(lambda: selfcal.ray_coverage_counts(*cargs)),
             cuda_ms(lambda: selfcal.ray_coverage_counts_plain(*cargs),
                     reps=1, warmup=0),
-            cargs[3].numel() + groups * (16 * 4 + 8) + cargs[4].numel() * 4
-            + cargs[5].numel(), 60 * n_valid + 12 * work,
+            *k12_work(cargs, groups, n_valid, work),
             extra={"path": "selfcal", "launch": name, "groups": groups,
-                   "volumes": cargs[3].shape[0], "shape": list(shp),
-                   "n_steps": cargs[9], "valid_rays": n_valid,
-                   "covered_rays": int(got[0].sum()), "steps_walked": work})
-    rows.append(dict(k11b[0], rounds={
-        r: {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                              "shape", "voxel_view_tests")}
-        for r, x in k11b.items()}))
+                   "volumes": cargs[3].shape[0], "shape": list(cargs[8]),
+                   "voxel_size": cargs[7], "n_steps": cargs[9],
+                   "valid_rays": n_valid, "covered_rays": int(got[0].sum()),
+                   "steps_walked": work})
+    rows.append(dict(k11b["round0"], launches_by={
+        m: {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "shape", "candidates", "max_kills",
+                              "voxel_view_tests", "alive")}
+        for m, x in k11b.items()}))
     rows.append(dict(modes["polish"], launches_by={
         m: {k: x[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "groups", "steps_walked")}
         for m, x in modes.items()}))
+    # K8: the keypoint masks' dilation (radius 6; the Masks task's radius 3
+    # is phase 10's row)
+    rows.append(dilation_row(masks_t, 6, launches["dilate_disk"], {
+        "path": "selfcal", "launches_counted_in": "calibrated warm pass "
+        "(the Masks task at radius 3, the keypoint masks at radius 6)"}))
 
     # K13: the 60 grays in chunks of 12, against the plain version
     n_cand = 0
@@ -2340,10 +2419,9 @@ def check_selfcal_kernels(scan, report, launches):
                "library_candidates_differing": int(
                    (torch.isfinite(lib) != torch.isfinite(
                        sfmlite.harris_response(g, m))).sum())}))
-    emit({"selfcal_kernel_checks": {"masks": list(masks.shape),
-                                    "round0_grid": list(shape0),
-                                    "round1_grid": list(shape1),
-                                    "polish_grid": list(shape)}})
+    emit({"selfcal_kernel_checks": {
+        "masks": list(masks.shape),
+        **{f"{m}_grid": list(a[4]) for m, a in k11b_args.items()}}})
     return rows
 
 

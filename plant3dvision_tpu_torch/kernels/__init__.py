@@ -118,10 +118,11 @@ _ARGTYPES = {
     # max_kills, alive, stream
     "p3d_carve_candidates": [_P, _L, _P, _I, _I, _I, _I, _F, _F, _F, _F, _I,
                              _I, _I, _I, _P, _P],
-    # cams, vol_of, view_of, alive, uv, valid, G, N, ox, oy, oz, bx, by, bz,
-    # vs, nx, ny, nz, n_steps, rcp_steps, covered, valid_out, stream
-    "p3d_ray_coverage": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _F,
-                         _F, _F, _I, _I, _I, _I, _F, _P, _P, _P],
+    # cams, vol_of, view_of, alive, NB, box, uv, valid, G, N, ox, oy, oz,
+    # bx, by, bz, vs, inv_vs, nx, ny, nz, n_steps, rcp_steps, covered,
+    # valid_out, stream
+    "p3d_ray_coverage": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F, _F,
+                         _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _P, _P, _P],
     # gray, mask, V, H, W, border, kappa, out, stream
     "p3d_harris": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
     # nbr, M, speed_inv (or null), active, out, u0, u1, ctl, max_iters, tol,
@@ -226,6 +227,8 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library (built first if needed), with its entry
     points' argtypes set."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             so = ctypes.CDLL(str(build()))
@@ -247,8 +250,12 @@ def check(name: str, rc: int) -> None:
 
 
 def stream_ptr(device) -> int:
-    """Raw cudaStream_t of PyTorch's current stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """Raw cudaStream_t of PyTorch's current stream on `device` (read as
+    torch.cuda.current_stream reads it, without building a Stream object:
+    a few microseconds of a one-image call)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(idx)
 
 
 def require_volume(name: str, x) -> None:

@@ -67,13 +67,32 @@
 // (carve_tolerant(...) == 1 under vmap/lax.map over the CEM population):
 // B candidate camera sets over ONE shared packed mask stack, every view
 // valid. alive[b, voxel] = the voxel is seen and at most max_kills views
-// miss it; the walk over the views stops at the (max_kills + 1)-th kill, as
-// K11's verdict mode does. What bounds it: B x the voxel-view tests of K11's
-// verdict mode (~24 f32 operations each) and one byte per voxel and
-// candidate written; the low-res masks (60 x 180x135 bits = 182 KB) sit in
-// L2. Design: blockIdx.y is the candidate, so a block's camera rows are
-// warp-uniform broadcasts, and the voxel layout, projection and test are
-// K11's (`view_test`), so the alive set is carve_tolerant's.
+// miss it. What bounds it: B x the voxel-view tests of K11's verdict mode
+// (a voxel's walk ends at its (max_kills + 1)-th kill; ~24 f32 operations
+// each) and one byte per voxel and candidate written; the low-res masks
+// (60 x 180x135 bits = 182 KB) sit in L2. Most voxels die within a few
+// views, a few (the hull) walk them all, so a thread a voxel leaves most
+// lanes of a warp idle behind one alive voxel.
+// Design (for Hopper): a block takes one candidate's tile of z runs (256
+// threads) and stages the candidate's cameras in shared memory (kCamChunk
+// views at a time), in a spread view order, k -> k * s mod V with s the
+// integer nearest 0.618 V that is prime to V: views far apart round the
+// turntable first, so a voxel outside the hull meets a view that kills it
+// sooner than along the ring (2.1 tests a voxel instead of 3.1 on the
+// calibration's round 0: tools/selfcal_walks.py). Phase 1: each thread walks its z run, K11's (x, y) terms reused
+// along it, over the first kFirstKills (max_kills + 1) views until its
+// voxels are killed; runs of 4 voxels at tolerance 0, of 1 under a
+// tolerance (a run's thread would walk until all of its voxels had
+// max_kills + 1 kills). Phase 2: the voxels still open go to a
+// shared-memory list (warp ballots), and their remaining (voxel, view)
+// pairs are spread over the block's threads a chunk of views at a time
+// (about kCandPairs pairs), kills and "seen" summed with shared-memory
+// integer atomics; after each chunk the list is compacted to the voxels
+// not yet killed, so the early exit holds at chunk granularity.
+// Exactness: the verdict is a function of the set of tests made (a voxel
+// stops only once more than max_kills views miss it, whatever the others
+// say), so the view order and the chunking change no bit; each test is
+// view_test's arithmetic, both quotients __fdiv_rn.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -261,52 +280,258 @@ __global__ void __launch_bounds__(kKillThreads)
   }
 }
 
-// K11b: candidate blockIdx.y's cameras (B, V, 16) over the shared masks.
-__global__ void candidates_kernel(const uint8_t* __restrict__ packed,
-                                  long long row_bytes,
-                                  const float* __restrict__ cams, int V,
-                                  int H, int W, float ox, float oy, float oz,
-                                  float vs, int nx, int ny, int nz,
-                                  int max_kills, uint8_t* __restrict__ alive) {
-  const long long n = (long long)nx * ny * nz;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const long long b = blockIdx.y;
-  float x, y, z;
-  voxel_centre(idx, ny, nz, ox, oy, oz, vs, x, y, z);
+// K11b: candidate sets of cameras (B, V, 16) over the shared masks. Block
+// blockIdx.x takes candidate blockIdx.x / tiles and that candidate's voxel
+// tile blockIdx.x % tiles: kCandThreads z runs of ZR voxels, in K11's run
+// order.
+constexpr int kCandThreads = 256;
+constexpr int kListSlots = 4;                    // list entries a thread
+constexpr int kCandTile = kCandThreads * kListSlots;   // ZR <= kListSlots
+constexpr int kFirstKills = 4;       // phase 1's views a kill to die by
+constexpr int kCandPairs = 64 * kCandThreads;    // phase 2's pairs a chunk
+constexpr int kSeen = 1 << 30;                   // list state: seen flag
+constexpr int kWarps = kCandThreads / 32;
 
-  const float* cb = cams + b * V * 16;
-  int kills = 0;
-  bool seen = false;
-  for (int v = 0; v < V; ++v) {
-    const int t = view_test(packed, row_bytes, cb + 16 * v, v, H, W, x, y, z);
-    if (t < 0) continue;
-    if (t) {
-      seen = true;
-    } else if (++kills > max_kills) {
-      break;
+// The list's entries whose kills are <= max_kills, moved to its front in
+// order (each thread holds entries tid + m kCandThreads); returns the new
+// length. Entered and left with the block in step.
+__device__ __forceinline__ int compact_list(float* lx, float* ly, float* lz,
+                                            int* lstate, int* lout, int n,
+                                            int max_kills,
+                                            int (*s_cnt)[kWarps]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float x[kListSlots], y[kListSlots], z[kListSlots];
+  int st[kListSlots], out[kListSlots];
+  unsigned bal[kListSlots];
+#pragma unroll
+  for (int m = 0; m < kListSlots; ++m) {
+    const int e = tid + m * kCandThreads;
+    bool keep = false;
+    if (e < n) {
+      x[m] = lx[e];
+      y[m] = ly[e];
+      z[m] = lz[e];
+      st[m] = lstate[e];
+      out[m] = lout[e];
+      keep = (st[m] & (kSeen - 1)) <= max_kills;
+    }
+    bal[m] = __ballot_sync(0xffffffffu, keep);
+    if (lane == 0) s_cnt[m][warp] = __popc(bal[m]);
+  }
+  __syncthreads();
+  int total = 0;
+  int at[kListSlots];
+#pragma unroll
+  for (int m = 0; m < kListSlots; ++m) {
+    at[m] = total;
+    for (int w = 0; w < kWarps; ++w) {
+      if (w < warp) at[m] += s_cnt[m][w];
+      total += s_cnt[m][w];
     }
   }
-  alive[b * n + idx] = (kills <= max_kills && seen) ? 1 : 0;
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int m = 0; m < kListSlots; ++m) {
+    if (bal[m] >> lane & 1u) {
+      const int e = at[m] + __popc(bal[m] & below);
+      lx[e] = x[m];
+      ly[e] = y[m];
+      lz[e] = z[m];
+      lstate[e] = st[m];
+      lout[e] = out[m];
+    }
+  }
+  __syncthreads();
+  return total;
+}
+
+// Positions [k0, k0 + nk) of the walk's view order, k -> k * stride mod V
+// (V < 2^15, so the product fits 32 bits): their views into view_s, then
+// their cameras into cam_s. Entered and left with the block in step.
+__device__ __forceinline__ void stage_cameras(float* cam_s, int* view_s,
+                                              const float* __restrict__ cb,
+                                              int k0, int nk, int V,
+                                              int stride) {
+  for (int e = threadIdx.x; e < nk; e += blockDim.x)
+    view_s[e] = (k0 + e) * stride % V;
+  __syncthreads();
+  for (int e = threadIdx.x; e < nk * 16; e += blockDim.x)
+    cam_s[e] = cb[16 * view_s[e >> 4] + (e & 15)];
+  __syncthreads();
+}
+
+template <int ZR>
+__global__ void __launch_bounds__(kCandThreads)
+    candidates_kernel(const uint8_t* __restrict__ packed, long long row_bytes,
+                      const float* __restrict__ cams, int V, int H, int W,
+                      float ox, float oy, float oz, float vs, int nx, int ny,
+                      int nz, int max_kills, int stride, unsigned tiles,
+                      uint8_t* __restrict__ alive) {
+  extern __shared__ float cam_s[];          // min(V, kCamChunk) x 16
+  __shared__ int view_s[kCamChunk];
+  __shared__ float lx[kCandTile], ly[kCandTile], lz[kCandTile];
+  __shared__ int lstate[kCandTile], lout[kCandTile];
+  __shared__ int s_n;
+  __shared__ int s_cnt[kListSlots][kWarps];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const long long b = blockIdx.x / tiles;
+  const long long tile = blockIdx.x % tiles;
+  const float* cb = cams + b * V * 16;
+  int c0 = 0, nc = min(V, kCamChunk);       // the staged positions
+  if (tid == 0) s_n = 0;
+  stage_cameras(cam_s, view_s, cb, 0, nc, V, stride);
+
+  // phase 1: K11's z run with the (x, y) terms reused, the first views
+  const int nzc = (nz + ZR - 1) / ZR;
+  const long long nt = (long long)nx * ny * nzc;
+  const long long t = tile * kCandThreads + tid;
+  const bool live = t < nt;
+  const long long tt = live ? t : 0;
+  const int zc = (int)(tt % nzc);
+  const long long col = tt / nzc;
+  const int j = (int)(col % ny);
+  const int i = (int)(col / ny);
+  const int z0 = zc * ZR;
+  const int nq = live ? min(ZR, nz - z0) : 0;
+  const float x = __fadd_rn(ox, __fmul_rn(vs, (float)i));
+  const float y = __fadd_rn(oy, __fmul_rn(vs, (float)j));
+  float z[ZR];
+  int kills[ZR];
+#pragma unroll
+  for (int q = 0; q < ZR; ++q) {
+    z[q] = __fadd_rn(oz, __fmul_rn(vs, (float)(z0 + q)));
+    kills[q] = 0;
+  }
+  unsigned seen = 0u;
+  unsigned done = ~((1u << nq) - 1u);       // past the run, or killed
+  // phase 1 walks kFirstKills views for each kill a voxel needs to die
+  const int v1 = (int)min((long long)nc, kFirstKills * (max_kills + 1LL));
+  for (int v = 0; v < v1 && done != ~0u; ++v) {
+    const float* c = cam_s + 16 * v;
+    const float pz_xy = __fmaf_rn(c[11], y, __fmul_rn(c[10], x));
+    const float nx_xy = __fmaf_rn(c[5], y, __fmul_rn(c[4], x));
+    const float ny_xy = __fmaf_rn(c[8], y, __fmul_rn(c[7], x));
+    const uint8_t* mrow = packed + (long long)view_s[v] * row_bytes;
+#pragma unroll
+    for (int q = 0; q < ZR; ++q) {
+      if (done & (1u << q)) continue;
+      const float pz = __fadd_rn(__fmaf_rn(c[12], z[q], pz_xy), c[15]);
+      if (!(pz > 0.0f)) continue;
+      const float nxp = __fadd_rn(__fmaf_rn(c[6], z[q], nx_xy), c[13]);
+      const float nyp = __fadd_rn(__fmaf_rn(c[9], z[q], ny_xy), c[14]);
+      const int pxi = __float2int_rz(__fmaf_rn(__fdiv_rn(nxp, pz), c[0], c[2]));
+      const int pyi = __float2int_rz(__fmaf_rn(__fdiv_rn(nyp, pz), c[1], c[3]));
+      if ((unsigned)pxi >= (unsigned)W || (unsigned)pyi >= (unsigned)H)
+        continue;
+      const int lin = pyi * W + pxi;
+      if ((__ldg(mrow + (lin >> 3)) << (lin & 7)) & 0x80)
+        seen |= 1u << q;
+      else if (++kills[q] > max_kills)
+        done |= 1u << q;
+    }
+  }
+  // every voxel of the run is 0 unless phase 2 finds it alive; the
+  // undecided ones go to the list
+  uint8_t* out = alive + b * ((long long)nx * ny * nz);
+  const int idx0 = (int)(col * nz + z0);    // nx ny nz < 2^31
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int q = 0; q < ZR; ++q) {
+    if (q < nq) out[idx0 + q] = 0;
+    const bool open = !(done >> q & 1u);
+    const unsigned bal = __ballot_sync(0xffffffffu, open);
+    int at = 0;
+    if (lane == 0 && bal) at = atomicAdd(&s_n, __popc(bal));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (open) {
+      const int e = at + __popc(bal & below);
+      lx[e] = x;
+      ly[e] = y;
+      lz[e] = z[q];
+      lstate[e] = kills[q] | (seen >> q & 1u ? kSeen : 0);
+      lout[e] = idx0 + q;
+    }
+  }
+  __syncthreads();
+  int n = s_n;
+
+  // phase 2: the open voxels' remaining (voxel, view) pairs over the
+  // block's threads, a chunk of views at a time, then the list compacted
+  for (int v = v1; v < V && n > 0;) {
+    if (v >= c0 + nc) {                     // the next camera chunk
+      c0 = v;
+      nc = min(kCamChunk, V - c0);
+      stage_cameras(cam_s, view_s, cb, c0, nc, V, stride);
+    }
+    const int vc = min(c0 + nc - v, max(1, (kCandPairs + n - 1) / n));
+#pragma unroll 4
+    for (int p = tid; p < n * vc; p += kCandThreads) {
+      const int dv = p / n;
+      const int e = p - dv * n;
+      const float* c = cam_s + 16 * (v - c0 + dv);
+      const float ex = lx[e], ey = ly[e], ez = lz[e];
+      const float pz = dot3_add(c[10], c[11], c[12], ex, ey, ez, c[15]);
+      if (!(pz > 0.0f)) continue;
+      const float nxp = dot3_add(c[4], c[5], c[6], ex, ey, ez, c[13]);
+      const float nyp = dot3_add(c[7], c[8], c[9], ex, ey, ez, c[14]);
+      const int pxi = __float2int_rz(__fmaf_rn(__fdiv_rn(nxp, pz), c[0], c[2]));
+      const int pyi = __float2int_rz(__fmaf_rn(__fdiv_rn(nyp, pz), c[1], c[3]));
+      if ((unsigned)pxi >= (unsigned)W || (unsigned)pyi >= (unsigned)H)
+        continue;
+      const int lin = pyi * W + pxi;
+      const uint8_t* mrow = packed + (long long)view_s[v - c0 + dv] * row_bytes;
+      if ((__ldg(mrow + (lin >> 3)) << (lin & 7)) & 0x80)
+        atomicOr(&lstate[e], kSeen);
+      else
+        atomicAdd(&lstate[e], 1);
+    }
+    v += vc;
+    __syncthreads();
+    n = compact_list(lx, ly, lz, lstate, lout, n, max_kills, s_cnt);
+  }
+  for (int e = tid; e < n; e += kCandThreads) {
+    const int st = lstate[e];
+    if ((st & kSeen) && (st & (kSeen - 1)) <= max_kills) out[lout[e]] = 1;
+  }
 }
 
 }  // namespace
 
 // K11b: alive (B, nx, ny, nz) uint8 0/1 of B candidate camera sets; the
-// other arguments as p3d_carve's (every view valid).
+// other arguments as p3d_carve's (every view valid; nx ny nz < 2^31).
 extern "C" int p3d_carve_candidates(const void* packed, long long row_bytes,
                                     const void* cams, int B, int V, int H,
                                     int W, float ox, float oy, float oz,
                                     float vs, int nx, int ny, int nz,
                                     int max_kills, void* alive,
                                     void* stream) {
-  const long long n = (long long)nx * ny * nz;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  const dim3 grid((unsigned)blocks, (unsigned)B);
-  candidates_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, row_bytes, (const float*)cams, V, H, W, ox, oy,
-      oz, vs, nx, ny, nz, max_kills, (uint8_t*)alive);
+  // phase 1's z run: 4 voxels when the first kill decides a voxel (their
+  // tests overlap), 1 under a tolerance, where a run's thread would walk
+  // until every voxel of it had max_kills + 1 kills
+  const int zr = max_kills == 0 ? 4 : 1;
+  const long long runs = (long long)nx * ny * ((nz + zr - 1) / zr);
+  const long long tiles = (runs + kCandThreads - 1) / kCandThreads;
+  if (tiles * B > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = sizeof(float) * 16 * (size_t)min(V, kCamChunk);
+  // the views in the order k -> k * stride mod V, stride the integer
+  // nearest 0.618 V that is prime to V: views spread round the turntable
+  // early, so a voxel outside the hull meets a view that kills it sooner
+  // than along the ring
+  int stride = (int)(0.618 * V + 0.5);
+  auto gcd = [](int a, int b) {
+    while (b) {
+      const int t = a % b;
+      a = b;
+      b = t;
+    }
+    return a;
+  };
+  while (gcd(stride, V) != 1) ++stride;
+  (zr == 4 ? candidates_kernel<4> : candidates_kernel<1>)
+      <<<(unsigned)(tiles * B), kCandThreads, smem, (cudaStream_t)stream>>>(
+          (const uint8_t*)packed, row_bytes, (const float*)cams, V, H, W, ox,
+          oy, oz, vs, nx, ny, nz, max_kills, stride, (unsigned)tiles,
+          (uint8_t*)alive);
   return (int)cudaGetLastError();
 }
 

@@ -19,10 +19,10 @@ The same arguments and outputs as the JAX tool, plus `--device` (the card
 by default; "cpu" runs the plain versions) and `--report` (a JSON of the
 run: each preview's seconds, the ingest time and rate, the kernels'
 launches, and on the card the device's busy and idle time, from
-torch.profiler). Masks come from `ops/masks.py:compute_masks_batch` on the
-device (K10, and K8 when --dilation > 0); images are read as cv2.imread's
-three colour channels would give them: PNG by the port's own codec, JPEG
-by cv2 (which must import).
+torch.profiler). Masks come from `ops/masks.py:mask_filter` on the
+device (K10, and `binary_dilation`, K8, when --dilation > 0), kept bool;
+images are read as cv2.imread's three colour channels would give them:
+PNG by the port's own codec, JPEG by cv2 (which must import).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def main(argv=None):
     import torch
 
     from . import kernels
-    from .ops.masks import compute_masks_batch
+    from .ops.masks import binary_dilation, mask_filter
     from .ops.streaming import StreamingCarver
 
     device = torch.device(args.device)
@@ -172,10 +172,9 @@ def main(argv=None):
                     continue
                 t0 = time.perf_counter()
                 rgb = torch.from_numpy(read_rgb(img)).to(device)
-                mask = compute_masks_batch(
-                    rgb[None], filter_type=args.filter, coefs=coefs,
-                    threshold=args.threshold, dilation_radius=args.dilation,
-                    binarize=True)[0] != 0
+                mask = binary_dilation(mask_filter(
+                    rgb[None], args.filter, coefs, args.threshold, True),
+                    args.dilation)[0]
                 if args.invert:
                     mask = ~mask
                 if sc is None:

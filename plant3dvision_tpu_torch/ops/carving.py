@@ -63,17 +63,21 @@ def pack_masks(masks) -> np.ndarray:
 
 
 def _check_args(packed, cameras, valid, shape, hw):
-    H, W = hw
     V = packed.shape[0]
+    _check_masks_and_grid(packed, shape, hw)
+    if cameras.dtype != torch.float32 or tuple(cameras.shape) != (V, 16):
+        raise ValueError("cameras must be (V, 16) float32")
+    if valid.dtype != torch.bool or tuple(valid.shape) != (V,):
+        raise ValueError("valid must be (V,) bool")
+
+
+def _check_masks_and_grid(packed, shape, hw):
+    H, W = hw
     if packed.dtype != torch.uint8 or packed.ndim != 2:
         raise ValueError("packed masks must be (V, ceil(HW/8)) uint8")
     if packed.shape[1] < (H * W + 7) // 8:
         raise ValueError(f"packed rows hold {packed.shape[1] * 8} bits, "
                          f"need {H * W}")
-    if cameras.dtype != torch.float32 or tuple(cameras.shape) != (V, 16):
-        raise ValueError("cameras must be (V, 16) float32")
-    if valid.dtype != torch.bool or tuple(valid.shape) != (V,):
-        raise ValueError("valid must be (V,) bool")
     if len(shape) != 3 or min(shape) < 1:
         raise ValueError(f"bad grid shape {shape}")
 
@@ -239,6 +243,10 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
 
 def _check_kills_args(packed, cameras, valid, shape, hw):
     _check_args(packed, cameras, valid, shape, hw)
+    _check_kills_limits(packed, hw)
+
+
+def _check_kills_limits(packed, hw):
     if packed.shape[0] > 32767:
         raise ValueError("the int16 kill counts take at most 32767 views")
     if hw[0] * hw[1] >= 2 ** 31:
@@ -341,8 +349,8 @@ def carve_candidates(packed, cameras, origin, voxel_size, shape, hw,
     if cameras.dtype != torch.float32 or cameras.ndim != 3 \
             or tuple(cameras.shape[1:]) != (V, 16):
         raise ValueError("cameras must be (B, V, 16) float32")
-    _check_kills_args(packed, cameras[0], torch.ones(V, dtype=torch.bool),
-                      shape, hw)
+    _check_masks_and_grid(packed, shape, hw)
+    _check_kills_limits(packed, hw)
     if int(max_kills) < 0:
         raise ValueError("max_kills must be >= 0")
     if packed.device.type == "cpu":
@@ -350,10 +358,12 @@ def carve_candidates(packed, cameras, origin, voxel_size, shape, hw,
                                       shape, hw, max_kills)
     kernels.require_cuda("carve_candidates", packed, cameras)
     B = cameras.shape[0]
-    if not 1 <= B <= 65535:
-        raise ValueError(f"carve_candidates takes 1-65535 candidates, got {B}")
+    if B < 1:
+        raise ValueError("carve_candidates takes at least 1 candidate")
     H, W = hw
     nx, ny, nz = (int(s) for s in shape)
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError("carve_candidates takes grids of < 2^31 voxels")
     o = np.asarray(origin, np.float32)
     alive = torch.empty((B, nx, ny, nz), dtype=torch.bool,
                         device=packed.device)

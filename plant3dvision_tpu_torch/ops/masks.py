@@ -19,6 +19,8 @@ uses.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -208,27 +210,42 @@ def excess_green(image):
 def _lane(images, filter_type, coefs, threshold, binarize):
     """(mode, coefs, channel, fast threshold) of compute_mask_numpy's lane
     for a (N, H, W[, C]) stack."""
-    gray = images.ndim == 3
-    C = 1 if gray else images.shape[-1]
+    return _plan(images.dtype, images.ndim == 3,
+                 1 if images.ndim == 3 else images.shape[-1], filter_type,
+                 tuple(coefs), threshold, binarize)[:4]
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(dtype, gray, C, filter_type, coefs, threshold, binarize):
+    """The lane of `_lane` for a stack's dtype, layout and channels, plus
+    what the mask kernel's call takes: the coefficients as a float32 array
+    (kept alive here, so its address stays valid), that address, and the
+    threshold as float32. Cached by its arguments: a one-image call (a
+    live-carving view) then spends no host time on numpy."""
     c = np.asarray(coefs, np.float32)
     if filter_type == "linear":
         nz = np.nonzero(c)[0]
-        if (binarize and images.dtype == torch.uint8 and len(nz) == 1
+        if (binarize and dtype == torch.uint8 and len(nz) == 1
                 and c[nz[0]] > 0):
             if nz[0] >= C and not gray:
                 raise ValueError(f"coefficient {nz[0]} of a {C}-channel image")
             # numpy's own expression: float32 under NEP 50
             t = np.float32(threshold * 255.0 / c[nz[0]])
-            return FAST, c[:0], 0 if gray else int(nz[0]), float(t)
-        n = min(C, len(c))
-        if not 1 <= n <= 4:
-            raise ValueError(f"the linear filter takes 1-4 channels, got {n}")
-        return LINEAR, c[:n], 0, 0.0
-    if filter_type == "excess_green":
+            lane = FAST, c[:0], 0 if gray else int(nz[0]), float(t)
+        else:
+            n = min(C, len(c))
+            if not 1 <= n <= 4:
+                raise ValueError(
+                    f"the linear filter takes 1-4 channels, got {n}")
+            lane = LINEAR, c[:n], 0, 0.0
+    elif filter_type == "excess_green":
         if C < 3:
             raise ValueError("excess_green needs 3 channels")
-        return EXCESS_GREEN, c[:0], 0, 0.0
-    raise ValueError(f"Unknown mask filter type: {filter_type}")
+        lane = EXCESS_GREEN, c[:0], 0, 0.0
+    else:
+        raise ValueError(f"Unknown mask filter type: {filter_type}")
+    cc = np.ascontiguousarray(lane[1], np.float32)
+    return (*lane, cc, cc.ctypes.data, float(np.float32(threshold)))
 
 
 def mask_filter(images, filter_type="linear", coefs=(0.0, 1.0, 0.0),
@@ -236,30 +253,32 @@ def mask_filter(images, filter_type="linear", coefs=(0.0, 1.0, 0.0),
     """Filter + threshold of a (N, H, W[, C]) image stack: bool (N, H, W)
     masks (binarize) or float32 filter values clipped to [0, 1], on the
     images' device, equal to compute_mask_numpy's (before any dilation)."""
-    if images.ndim not in (3, 4):
+    shape, dtype, dev = images.shape, images.dtype, images.device
+    if len(shape) not in (3, 4):
         raise ValueError("images must be (N, H, W[, C])")
-    mode, c, channel, fast_t = _lane(images, filter_type, coefs, threshold,
-                                     binarize)
-    if images.device.type == "cpu":
+    C = shape[3] if len(shape) == 4 else 1
+    mode, _, channel, fast_t, cc, cc_ptr, thr = _plan(
+        dtype, len(shape) == 3, C, filter_type, tuple(coefs), threshold,
+        binarize)
+    if dev.type == "cpu":
         return mask_filter_plain(images, filter_type, coefs, threshold,
                                  binarize)
-    if images.dtype not in _DTYPES:
+    code = _DTYPES.get(dtype)
+    if code is None:
         raise ValueError(f"mask_filter: the CUDA kernel takes uint8, uint16 "
-                         f"or float32 images, got {images.dtype}")
-    kernels.require_cuda("mask_filter", images)
-    N, H, W = images.shape[:3]
-    C = images.shape[3] if images.ndim == 4 else 1
+                         f"or float32 images, got {dtype}")
+    if dev.type != "cuda" or not images.is_contiguous():
+        kernels.require_cuda("mask_filter", images)      # raises
+    N, H, W = shape[:3]
     binary = binarize or mode == FAST
-    out = torch.empty((N, H, W), device=images.device,
-                      dtype=torch.bool if binary else torch.float32)
-    ranges = _ranges(images) if images.dtype == torch.float32 else None
-    cc = np.ascontiguousarray(c, np.float32)
+    out = images.new_empty((N, H, W),
+                           dtype=torch.bool if binary else torch.float32)
+    ranges = _ranges(images) if dtype == torch.float32 else None
     rc = kernels.lib().p3d_mask(
-        images.data_ptr(), out.data_ptr(), N, H, W, C,
-        _DTYPES[images.dtype], mode, cc.ctypes.data, len(cc), channel,
-        int(binary), float(np.float32(threshold)), fast_t,
+        images.data_ptr(), out.data_ptr(), N, H, W, C, code, mode, cc_ptr,
+        cc.size, channel, binary, thr, fast_t,
         ranges.data_ptr() if ranges is not None else None,
-        kernels.stream_ptr(images.device))
+        kernels.stream_ptr(dev))
     kernels.LAUNCHES["mask_filter"] += 1
     kernels.check("mask_filter", rc)
     return out

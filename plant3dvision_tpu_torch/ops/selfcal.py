@@ -14,8 +14,9 @@ hand-written kernels:
   program length and memory (candidates are independent, so the scores are
   the same);
 - the silhouette ray coverage, `ray_coverage_counts` (K12,
-  kernels/csrc/coverage.cu): one launch per population, per polish round
-  (every view x search delta) and per `coverage_for_cameras`.
+  kernels/csrc/coverage.cu): one call per population, per polish round
+  (every view x search delta) and per `coverage_for_cameras`, each two
+  launches (the alive voxels' box, then the walk).
 
 `ray_coverage_counts_plain` is K12's plain PyTorch version (the CPU path and
 its oracle on the card). The arithmetic is that of XLA's CPU program for
@@ -29,6 +30,9 @@ there, the plain versions on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
+import math
 
 import numpy as np
 import torch
@@ -107,6 +111,17 @@ def _box(origin, voxel_size, shape):
     _ray_coverage: origin + vs*n per axis, the product fused into the add,
     except on a cube (XLA's compiler then forms one product vs*n for the
     three axes and does not fuse it)."""
+    o, hi = _box_of(tuple(np.asarray(origin, np.float32).tolist()),
+                    float(np.float32(voxel_size)), tuple(shape))
+    return o.copy(), hi.copy()
+
+
+@functools.lru_cache(maxsize=64)
+def _box_of(origin, voxel_size, shape):
+    """`_box` of hashable arguments, cached: its emulated fused
+    multiply-adds take a fraction of a millisecond of host time, more than
+    a coverage launch's kernel, and a calibration asks for the same few
+    grids again and again."""
     o = np.asarray(origin, np.float32)
     vs = np.float32(voxel_size)
     hi = np.empty(3, np.float32)
@@ -148,8 +163,8 @@ def ray_coverage_counts(cams, vol_of, view_of, alive, sil_uv, sil_valid,
     alive volume alive[vol_of[g]] ((NB, nx, ny, nz) bool). Returns int32
     (covered, valid) counts per group: valid samples, and those whose ray
     meets the grid box and lands, at one of `n_steps` midpoint samples, in
-    an alive voxel. On CUDA K12 (kernels/csrc/coverage.cu), on the CPU
-    `ray_coverage_counts_plain`."""
+    an alive voxel. On CUDA K12 (kernels/csrc/coverage.cu: two launches,
+    counted as two), on the CPU `ray_coverage_counts_plain`."""
     shape = tuple(int(s) for s in shape)
     _check_coverage_args(cams, vol_of, view_of, alive, sil_uv, sil_valid,
                          shape)
@@ -161,22 +176,37 @@ def ray_coverage_counts(cams, vol_of, view_of, alive, sil_uv, sil_valid,
                          sil_uv, sil_valid)
     G = cams.shape[0]
     N = sil_valid.shape[1]
+    nx, ny, nz = shape
+    if nx * ny * nz >= 2 ** 31:
+        raise ValueError("ray_coverage takes grids of < 2^31 voxels")
     o, hi = _box(origin, voxel_size, shape)
     covered = torch.empty(G, dtype=torch.int32, device=cams.device)
     valid = torch.empty(G, dtype=torch.int32, device=cams.device)
     if G == 0:
         return covered, valid
-    nx, ny, nz = shape
+    vs = np.float32(voxel_size)
+    box = torch.empty((alive.shape[0], 6), dtype=torch.int32,
+                      device=cams.device)
     rc = kernels.lib().p3d_ray_coverage(
         cams.data_ptr(), vol_of.data_ptr(), view_of.data_ptr(),
-        alive.data_ptr(), sil_uv.data_ptr(), sil_valid.data_ptr(), G, N,
-        float(o[0]), float(o[1]), float(o[2]), float(hi[0]), float(hi[1]),
-        float(hi[2]), float(np.float32(voxel_size)), nx, ny, nz,
-        int(n_steps), float(np.float32(1.0) / np.float32(n_steps)),
-        covered.data_ptr(), valid.data_ptr(), kernels.stream_ptr(cams.device))
-    kernels.LAUNCHES["ray_coverage"] += 1
+        alive.data_ptr(), alive.shape[0], box.data_ptr(),
+        sil_uv.data_ptr(), sil_valid.data_ptr(), G, N, float(o[0]),
+        float(o[1]), float(o[2]), float(hi[0]), float(hi[1]), float(hi[2]),
+        float(vs), _exact_reciprocal(vs), nx, ny, nz, int(n_steps),
+        float(np.float32(1.0) / np.float32(n_steps)), covered.data_ptr(),
+        valid.data_ptr(), kernels.stream_ptr(cams.device))
+    kernels.LAUNCHES["ray_coverage"] += 2        # the alive boxes, the walk
     kernels.check("ray_coverage", rc)
     return covered, valid
+
+
+def _exact_reciprocal(vs):
+    """1 / vs when vs is a power of two, whose float32 reciprocal is exact
+    (x * (1 / vs) then rounds the same real number as x / vs), else 0.0."""
+    inv = np.float32(1.0) / vs
+    exact = (math.frexp(float(vs))[0] == 0.5 and np.isfinite(inv)
+             and inv * vs == 1.0)
+    return float(inv) if exact else 0.0
 
 
 def ray_coverage_counts_plain(cams, vol_of, view_of, alive, sil_uv,
@@ -298,7 +328,7 @@ def _robust_alive(cams, packed, origin, voxel_size, shape, H, W, tol_kills):
 def _score_batch(thetas, poses, packed, sil_uv, sil_valid, origin,
                  voxel_size, width, height, scale, shape, Hl, Wl, n_steps):
     """Coherence score (silhouette-ray recall) of a (B, 9) batch of
-    candidates: one K11b launch for the B hulls and one K12 launch for the
+    candidates: one K11b launch for the B hulls and one K12 call for the
     B x V ray groups. Returns a (B,) float32 tensor."""
     cams = cnc_to_cameras(poses, thetas, width, height, scale)   # (B, V, 16)
     B, V = cams.shape[:2]
@@ -313,7 +343,7 @@ def _score_batch(thetas, poses, packed, sil_uv, sil_valid, origin,
 
 
 def _score_many(thetas, args, shape, Hl, Wl, n_steps):
-    """Score a candidate population: the whole population per launch pair,
+    """Score a candidate population: the whole population per call pair,
     split only where its hulls would exceed `_CANDIDATE_VOXELS`."""
     thetas = np.asarray(thetas, np.float32)
     n_vox = int(np.prod(shape))
@@ -419,7 +449,7 @@ def _polish_coverage(poses, theta, jitter, deltas, alive, sil_uv, sil_valid,
                      origin, voxel_size, width, height, scale, shape,
                      n_steps):
     """(V, G) coverages of every view's rays for every search delta against
-    one fixed hull: one K12 launch for all V x G camera variants."""
+    one fixed hull: one K12 call for all V x G camera variants."""
     cams = _variant_cameras(poses, theta, jitter, deltas, width, height,
                             scale)
     V, G = cams.shape[:2]
@@ -455,7 +485,7 @@ def refine_views_to_hull(masks, poses, theta, jitter, bbox, *,
     dtilt_view, droll_view, per_view_cov) numpy arrays.
 
     Within a round the hull is fixed and a view's coverage depends only on
-    its own delta, so all V x G variants go through one K12 launch; the
+    its own delta, so all V x G variants go through one K12 call; the
     argmax and the updates then run in view order, as the JAX package's
     per-view loop does. `shrink < 1` scales all spans each round."""
     masks = np.asarray(masks) != 0

@@ -584,55 +584,79 @@ def _perturbed(cams, rng, B):
     return c
 
 
-@pytest.mark.parametrize("tol", [0, 2])
-@pytest.mark.parametrize("shape,vs", [((40, 37, 45), 0.5), ((17, 64, 9), 0.7)])
-def test_carve_candidates_kernel_matches_plain(dev, shape, vs, tol):
-    """K11b: 5 candidate camera sets over one shared mask stack, at
-    tolerance 0 (the strict carve's alive set) and 2: equal to the plain
-    version, and each candidate equal to carve_tolerant(...) == 1."""
+@pytest.mark.parametrize("B", [5, 1, 48])
+@pytest.mark.parametrize("tol", [0, 2, 40, 400])
+@pytest.mark.parametrize("shape,vs,views", [
+    ((40, 37, 45), 0.5, 12), ((17, 64, 9), 0.7, 12),
+    ((90, 80, 75), 0.25, 12), ((21, 18, 27), 0.9, 300)])
+def test_carve_candidates_kernel_matches_plain(dev, shape, vs, views, tol, B):
+    """K11b: B candidate camera sets over one shared mask stack: equal to
+    the plain version, and each candidate equal to carve_tolerant(...) == 1.
+    Tolerance 0 (the strict carve's alive set: voxels alive through every
+    view), 2 (the robust hull's), and at or above the view count (no voxel
+    is ever killed: alive = seen); one candidate over a grid of 540 K
+    voxels (the polish's robust hull), a CEM population of 48; 300 views,
+    more than a block stages at once."""
     from plant3dvision_tpu_torch.ops import carving
     rng = np.random.default_rng(1)
-    packed, cams, hw = _scene(rng)
-    cand = torch.from_numpy(_perturbed(cams, rng, 5)).to(dev)
+    packed, cams, hw = (_scene(rng) if views == 12
+                        else _scene(rng, V=views, H=36, W=48))
+    cand = torch.from_numpy(_perturbed(cams, rng, B)).to(dev)
     pk = torch.from_numpy(packed).to(dev)
     origin = -(np.array(shape) - 1) * vs / 2 + 0.3
     k = carving.carve_candidates(pk, cand, origin, vs, shape, hw, tol)
     p = carving.carve_candidates_plain(pk, cand, origin, vs, shape, hw, tol)
-    assert k.dtype == torch.bool and tuple(k.shape) == (5, *shape)
+    assert k.dtype == torch.bool and tuple(k.shape) == (B, *shape)
     assert torch.equal(k, p)
     valid = torch.ones(len(cams), dtype=torch.bool, device=dev)
-    for b in range(5):
+    for b in range(B):
         assert torch.equal(k[b], carving.carve_tolerant(
             pk, cand[b].contiguous(), valid, origin, vs, shape, hw, tol) == 1)
-    assert k.any() and not k.all()
-    assert not torch.equal(k[0], k[1])
+    assert not k.all()
+    # (300 views of 2 % speckle leave few voxels alive at tolerance 0)
+    if views == 12 or tol > 0:
+        assert k.any()
+        if B > 1:
+            assert not torch.equal(k[0], k[1])
 
 
-def _coverage_case(rng, dev, shape, N, NB):
+def _coverage_case(rng, dev, shape, N, NB, hull="random"):
+    """Cameras, samples and NB hulls for K12: a sample in 7 aims far off the
+    grid (its ray misses the box); the hulls random, all dead or all
+    alive (a ray that meets the box then hits at its first step)."""
     packed, cams, hw = _scene(rng)
     V = len(cams)
     H, W = hw
     uv = np.stack([rng.uniform(W / 2 - 14, W / 2 + 14, (V, N)),
                    rng.uniform(H / 2 - 14, H / 2 + 14, (V, N))],
                   -1).astype(np.float32)
+    uv[:, ::7, 0] = -2.0 * W
     valid = rng.random((V, N)) > 0.1
-    alive = rng.random((NB, *shape)) > 0.95
+    alive = {"random": rng.random((NB, *shape)) > 0.95,
+             "dead": np.zeros((NB, *shape), bool),
+             "alive": np.ones((NB, *shape), bool)}[hull]
     return (torch.from_numpy(cams).to(dev), torch.from_numpy(uv).to(dev),
             torch.from_numpy(valid).to(dev), torch.from_numpy(alive).to(dev))
 
 
-@pytest.mark.parametrize("N", [256, 100, 9])
-@pytest.mark.parametrize("shape,n_steps", [((24, 22, 30), 37), ((16, 16, 16), 1)])
-def test_ray_coverage_kernel_matches_plain(dev, shape, n_steps, N):
-    """K12 on random hulls: CEM-like groups (a volume per candidate, every
-    view) and polish-like groups (one volume, several cameras per view),
-    sample counts with and without a scalar tail (N = 100, 9) and a cube:
-    the integer counts equal the plain version's."""
+@pytest.mark.parametrize("hull", ["random", "dead", "alive"])
+@pytest.mark.parametrize("N", [256, 100, 9, 192])
+@pytest.mark.parametrize("shape,n_steps,vs", [
+    ((24, 22, 30), 37, 1.0), ((16, 16, 16), 1, 1.5), ((12, 11, 15), 67, 2.0),
+    ((6, 6, 8), 160, 4.0), ((34, 31, 43), 160, 0.7)])
+def test_ray_coverage_kernel_matches_plain(dev, shape, n_steps, vs, N, hull):
+    """K12: CEM-like groups (a volume per candidate, three volumes, every
+    view) and polish-like groups (one volume, several cameras per view):
+    the integer counts equal the plain version's. Sample counts with and
+    without a scalar tail (N = 100, 9) and the CEM's and the polish's (192,
+    256); step counts that are not multiples of the lanes a ray (37, 67)
+    and the polish's 160; power-of-two voxel sizes (1, 2, 4: the step
+    multiplies by the reciprocal) and others (1.5 on a cube, 0.7); rays
+    that miss the box; random, all-dead and all-alive hulls."""
     from plant3dvision_tpu_torch.ops import selfcal
     rng = np.random.default_rng(2)
-    cams, uv, valid, alive = _coverage_case(rng, dev, shape, N, 3)
+    cams, uv, valid, alive = _coverage_case(rng, dev, shape, N, 3, hull)
     V = cams.shape[0]
-    vs = 24.0 / shape[0]
     origin = np.array([-12.0, -11.5, -12.2], np.float32)
     shift = torch.zeros((4, 16), device=dev)
     shift[:, 2] = torch.tensor([-1.5, -0.5, 0.5, 1.5])
@@ -650,7 +674,10 @@ def test_ray_coverage_kernel_matches_plain(dev, shape, n_steps, N):
         pc, pv = selfcal.ray_coverage_counts_plain(*args)
         assert kc.dtype == torch.int32
         assert torch.equal(kc, pc) and torch.equal(kv, pv)
-        assert int(kc.sum()) > 0 and bool((kc < kv).any())
+        if hull == "dead":
+            assert int(kc.sum()) == 0 and int(kv.sum()) > 0
+        else:
+            assert int(kc.sum()) > 0 and bool((kc < kv).any())
 
 
 @pytest.mark.parametrize("shape", [(3, 72, 96), (2, 37, 53)])
