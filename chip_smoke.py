@@ -11,7 +11,9 @@
    that more than 10 angles come out and that their mean error against the
    plant's ground truth is below 1 degree.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (K1 on one 100-view group, K2-K4 on the carved grid)
+   main path's shapes (K1 on one 100-view group, K2-K4 on the carved grid;
+   K3 as vol2pcd calls it, the fused smoothed_gradient, one launch a call,
+   with `gradient` and `gaussian_filter` alone held equal, untimed)
    and times kernel, plain version and, where one exists, a PyTorch
    library call computing the same function (CUDA events, median). K4's
    rows (here and in phase 6) also give a call's launches and host syncs
@@ -731,34 +733,61 @@ def kernel_row(name, launches, err, ms, plain, nbytes, nops, library=None,
     return r
 
 
+def library_dilation(binm, r):
+    """One PyTorch call for K8's function: `conv2d` of the (N, H, W) bool
+    stack with the disk's footprint, `> 0` (sums of at most a few thousand
+    ones: exact in TF32 too)."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.ops import masks as masks_ops
+    offs = masks_ops._disk_offsets(r)
+    fp = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=binm.device)
+    fp[0, 0, offs[:, 0] + r, offs[:, 1] + r] = 1.0
+    return F.conv2d(binm[:, None].float(), fp, padding=r)[:, 0] > 0
+
+
+def library_smoothed_gradient(x, taps):
+    """One PyTorch chain for K3's function: torch.gradient, then per axis
+    a symmetric pad and one grouped conv3d over the three gradients
+    (call with cuDNN's TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.ops import filters
+    w = torch.from_numpy(taps).to(x.device)
+    r = len(taps) // 2
+    g = torch.stack(torch.gradient(x))[None]          # (1, 3, nx, ny, nz)
+    for axis in range(3):
+        idx = filters._symmetric_index(x.shape[axis], r, x.device)
+        g = g.index_select(2 + axis, idx)
+        kshape = [1, 1, 1]
+        kshape[axis] = len(taps)
+        g = F.conv3d(g, w.reshape(kshape).expand(3, 1, *kshape), groups=3)
+    return g
+
+
 def dilation_row(binm, r, launches, extra):
     """K8 (`binary_dilation`) on a bool (N, H, W) mask stack at radius r:
     held equal to its plain version and to one PyTorch call for the same
     function (`conv2d` with the disk, `> 0`), timed beside both; the bound
     is the masks read and written once."""
     import torch
-    import torch.nn.functional as F
     from plant3dvision_tpu_torch.ops import masks as masks_ops
 
     got = masks_ops.binary_dilation(binm, r)
     want = masks_ops.binary_dilation_plain(binm, r)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"dilate kernel != plain (radius {r})"
-    offs = masks_ops._disk_offsets(r)
-    fp = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), device=binm.device)
-    fp[0, 0, offs[:, 0] + r, offs[:, 1] + r] = 1.0
-
-    def lib():
-        return F.conv2d(binm[:, None].float(), fp, padding=r)[:, 0] > 0
-
-    assert torch.equal(lib(), got), f"conv2d footprint != K8 (r {r})"
+    assert torch.equal(library_dilation(binm, r), got), \
+        f"conv2d footprint != K8 (r {r})"
     return kernel_row(
         "dilate_disk", launches, 0.0,
         cuda_ms(lambda: masks_ops.binary_dilation(binm, r)),
         cuda_ms(lambda: masks_ops.binary_dilation_plain(binm, r), reps=3,
                 warmup=1),
-        2 * binm.numel(), 0, library=cuda_ms(lib, reps=3, warmup=1),
-        extra={"radius": r, "shape": list(binm.shape), "offsets": len(offs),
+        2 * binm.numel(), 0,
+        library=cuda_ms(lambda: library_dilation(binm, r), reps=3, warmup=1),
+        extra={"radius": r, "shape": list(binm.shape),
+               "offsets": len(masks_ops._disk_offsets(r)),
                "true_in": int(binm.sum()), "true_out": int(got.sum()),
                **extra})
 
@@ -810,7 +839,6 @@ def check_vol2pcd_kernels(vol, level, launches, path):
     one kernel row each, with the launches counted on `path`."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from plant3dvision_tpu_torch import kernels, proc3d
     from plant3dvision_tpu_torch.ops import edt, filters
 
@@ -839,43 +867,37 @@ def check_vol2pcd_kernels(vol, level, launches, path):
                 warmup=1),
         8 * n, 2 * 2 * reads, extra={"cap": cap})
 
-    def k3(x):
-        return [filters.gaussian_filter(g, 1.0) for g in filters.gradient(x)]
-
     def k3_plain(x):
         return [filters.gaussian_filter_plain(g, 1.0)
                 for g in filters.gradient_plain(x)]
 
+    # K3 as vol2pcd calls it: the fused smoothed_gradient, bit for bit
     taps = filters.gaussian_kernel1d(1.0).astype(np.float32)
-    gk = k3(sd)
+    before = kernels.LAUNCHES["gradient_gaussian"]
+    gk = filters.smoothed_gradient(sd, 1.0)
+    per_call = kernels.LAUNCHES["gradient_gaussian"] - before
     gp = k3_plain(sd)
     torch.cuda.synchronize()
     err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
-    assert err <= 1e-5, f"gradient/gaussian kernel vs plain: {err} ({path})"
+    assert all(torch.equal(a, b) for a, b in zip(gk, gp)), \
+        f"smoothed gradient kernel != plain: max {err} ({path})"
     del gp
+    # the standalone per-axis kernels (one launch an axis), bit for bit
+    for a, b in zip(filters.gradient(sd), filters.gradient_plain(sd)):
+        assert torch.equal(a, b), f"gradient kernel != plain ({path})"
+        assert torch.equal(filters.gaussian_filter(a, 1.0),
+                           filters.gaussian_filter_plain(b, 1.0)), \
+            f"gaussian_filter kernel != plain ({path})"
 
-    w = torch.from_numpy(taps).to(dev)
-    r = len(taps) // 2
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
-
-    def k3_library(x):
-        # torch.gradient, then per axis a symmetric pad and one grouped
-        # conv3d over the three gradients
-        g = torch.stack(torch.gradient(x))[None]          # (1, 3, nx, ny, nz)
-        for axis in range(3):
-            idx = filters._symmetric_index(x.shape[axis], r, dev)
-            g = g.index_select(2 + axis, idx)
-            kshape = [1, 1, 1]
-            kshape[axis] = len(taps)
-            g = F.conv3d(g, w.reshape(kshape).expand(3, 1, *kshape), groups=3)
-        return g
-
-    lib3 = cuda_ms(lambda: k3_library(sd))
+    lib3 = cuda_ms(lambda: library_smoothed_gradient(sd, taps))
     torch.backends.cudnn.allow_tf32 = prev_tf32
-    row("gradient_gaussian", err, cuda_ms(lambda: k3(sd)),
+    row("gradient_gaussian", err,
+        cuda_ms(lambda: filters.smoothed_gradient(sd, 1.0)),
         cuda_ms(lambda: k3_plain(sd), reps=5, warmup=1),
-        16 * n, (6 + 3 * 3 * 18) * n, library=lib3)
+        16 * n, (6 + 3 * 3 * 18) * n, library=lib3,
+        extra={"launches_per_call": per_call})
 
     gx, gy, gz = gk
     ik, dk, vk = proc3d.band_compact(sd, gx, gy, gz, level)
@@ -2828,6 +2850,22 @@ def _library_int8_conv(x, qw, bias, stride, pads):
     return y.view(B, OH, OW, K).permute(0, 3, 1, 2)
 
 
+def _library_quantize_weight(w):
+    """One PyTorch chain for K16's weight quantise: each output channel's
+    absmax over (Cin, kh, kw), its scale (the floored absmax / 127 as the
+    lane's reciprocal product), round, clamp, and the permute + pad into
+    the (K, kh, kw, Cp) layout the conv's packing starts from."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.models import quant
+    wf = w.float()
+    amax = wf.abs().amax(dim=(1, 2, 3))
+    s = torch.clamp(amax, min=quant.W_FLOOR) * quant.INV127
+    q = torch.round(wf / s.view(-1, 1, 1, 1)).clamp(-127.0, 127.0)
+    q = F.pad(q.permute(0, 2, 3, 1), (0, quant._cp(w.shape[1]) - w.shape[1]))
+    return q.to(torch.int8), amax
+
+
 def _conv_inputs(model, batch):
     """One int8-lane forward of `batch` (uint8 NHWC on the card) with a
     hook on every compute conv: {shape key: [input in the conv's dtype,
@@ -2886,6 +2924,7 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
         equal = bool(torch.equal(got, want))
         w_equal = bool(torch.equal(qw.q, pw.q) and torch.equal(qw.amax,
                                                                  pw.amax))
+        wl_equal = bool(torch.equal(_library_quantize_weight(w)[0], qw.q))
         del got, want
         b32 = b.float()
         xmax = quant.activation_absmax(x)
@@ -2893,7 +2932,9 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
         a_ms = cuda_ms(lambda: quant.activation_absmax(x))
         c_ms = cuda_ms(lambda: quant.conv_fused(x, xmax, qw, b32, s, pads))
         wq_ms = cuda_ms(lambda: quant.quantize_weight(w))
+        wq_pack = cuda_ms(lambda: quant.pack_weight(qw.q, qw.plan))
         wq_plain = cuda_ms(lambda: quant.quantize_weight_plain(w))
+        wq_lib = cuda_ms(lambda: _library_quantize_weight(w))
         a_plain = cuda_ms(lambda: quant._quantize_plain(
             x, quant.X_FLOOR, per_group=False)[1])
         a_lib = cuda_ms(lambda: torch.linalg.vector_norm(x, float("inf")))
@@ -2923,10 +2964,12 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
              "launches_in_pass": n * batches_in_pass,
              "plan": {"nt": p.nt, "cc": p.cc, "chunks": p.nch, "dc": p.dc},
              "bit_equal": equal, "weights_equal": w_equal,
-             "library_equal": lib_equal, "function_ms": fn_ms,
+             "library_equal": lib_equal,
+             "weight_library_equal": wl_equal, "function_ms": fn_ms,
              "function_bound_ms": fb, "function_bound_by": fby,
              "absmax_ms": a_ms, "conv_launch_ms": c_ms,
-             "weight_quantize_ms": wq_ms, "plain_ms": plain_ms,
+             "weight_quantize_ms": wq_ms, "weight_packing_ms": wq_pack,
+             "weight_library_ms": wq_lib, "plain_ms": plain_ms,
              "library_ms": lib_ms, "bf16_cudnn_ms": bf16_ms,
              "gmac": macs / 1e9, "tmac_per_s": macs / fn_ms / 1e9}
         shapes.append(e)
@@ -2934,7 +2977,8 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
         for name, val in (("fn", fn_ms), ("fb", fb), ("a", a_ms), ("ab", ab),
                           ("a_plain", a_plain), ("a_lib", a_lib),
                           ("c", c_ms), ("wq", wq_ms), ("wqb", wqb),
-                          ("wq_plain", wq_plain), ("plain", plain_ms),
+                          ("wq_plain", wq_plain), ("wq_lib", wq_lib),
+                          ("wq_pack", wq_pack), ("plain", plain_ms),
                           ("lib", lib_ms), ("bf16", bf16_ms),
                           ("bytes", fn_bytes), ("macs", macs),
                           ("convs", 1), ("launches", batches_in_pass)):
@@ -3056,6 +3100,10 @@ def run_int8_path(db, device_name, bf16_pass):
            for e in shapes_u + shapes_s
            if not (e["bit_equal"] and e["weights_equal"])]
     assert not bad, f"K16 differs from its plain version at {bad}"
+    bad = [(e["net"], e["cin"], e["cout"], e["k"], e["stride"], e["in_hw"])
+           for e in shapes_u + shapes_s
+           if not (e["library_equal"] and e["weight_library_equal"])]
+    assert not bad, f"K16's library chains differ from the kernels at {bad}"
     assert launches["int8_conv"] == tot_u["launches"] > 0, launches
     assert launches["int8_absmax"] == tot_u["launches"], launches
     assert launches["int8_quantize"] == tot_u["convs"], launches
@@ -3084,8 +3132,11 @@ def run_int8_path(db, device_name, bf16_pass):
                 ("int8_absmax", t["a"], t["a_plain"], t["ab"], "bytes",
                  t["a_lib"], {"library": "torch.linalg.vector_norm(x, inf)"}),
                 ("int8_quantize", t["wq"], t["wq_plain"], t["wqb"], "bytes",
-                 None, {"what": "the weights, once a call, with the "
-                                "conv's packing"})):
+                 t["wq_lib"], {"what": "the weights, once a call, with the "
+                                       "conv's packing",
+                               "packing_ms": t["wq_pack"],
+                               "library": "amax over (Cin, kh, kw), scale, "
+                                          "round, clamp, permute + pad"})):
             src, rep = KERNEL_INFO[name]
             rows.append(dict({
                 "name": name, "route": "cuda", "source": src,

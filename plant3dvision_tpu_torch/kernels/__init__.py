@@ -87,6 +87,9 @@ _ARGTYPES = {
     "p3d_gradient": [_P, _P, _I, _I, _I, _I, _P],
     # x, y, nx, ny, nz, axis, taps (host float*), radius, stream
     "p3d_gauss": [_P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # d, gx, gy, gz, nx, ny, nz, reflect tables (device int32), taps (host
+    # float*), radius, stream
+    "p3d_smoothed_gradient": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # d, n, lo, hi, offsets (tiles + 1 int64), stream
     "p3d_band_count": [_P, _L, _F, _F, _P, _P],
     # n -> number of tiles (and of per-tile counts)
@@ -104,7 +107,7 @@ _ARGTYPES = {
     "p3d_select": [_P, _P, _I, _L, _I, _F, _F, _F, _I, _P],
     # points, masks, cams, label_idx, N, F, H, W, L, scores, stream
     "p3d_reproject": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    # in, out, M, H, W, offsets (host int32 pairs), n_off, stream
+    # in, out, M, H, W, chords (host int32, 2r + 1 half-widths), r, stream
     "p3d_dilate": [_P, _P, _L, _I, _I, _P, _I, _P],
     # in, out, N, H, W, C, dtype, gray2d, fx, fy, cx, cy, k1, k2, p1, p2,
     # k3, stream

@@ -3,13 +3,18 @@ Gaussian kernels and their plain PyTorch versions.
 
 Port of plant3dvision_tpu/ops/filters.py (np.gradient and
 scipy.ndimage.gaussian_filter with mode='reflect', as vol2pcd uses them).
-A CUDA tensor goes to kernels/csrc/filters.cu (one launch per axis per
-pass), a CPU tensor to the plain version. Both sum the taps in the same
-order; XLA's convolution sums in another, so results agree with the JAX
-package to float32 rounding (the tests hold them to atol 1e-5).
+`smoothed_gradient` (vol2pcd's three Gaussian-smoothed gradients) is one
+fused launch on a CUDA tensor (kernels/csrc/filters.cu); `gradient` and
+`gaussian_filter` alone are one launch per axis. A CPU tensor goes to the
+plain versions. Kernels and plain versions sum the taps in the same order
+with the same roundings and agree bit for bit; XLA's convolution sums in
+another order, so results agree with the JAX package to float32 rounding
+(the tests hold them to atol 1e-5).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -30,6 +35,15 @@ def _symmetric_index(n: int, r: int, device) -> torch.Tensor:
     (= numpy 'symmetric') extension."""
     q = torch.arange(-r, n + r, device=device) % (2 * n)
     return torch.where(q < n, q, 2 * n - 1 - q)
+
+
+@functools.lru_cache(maxsize=16)
+def _reflect_tables(shape, r, device):
+    """`_symmetric_index` of a volume's three axes back to back, int32 on
+    the card: the tables the fused kernel reads (kept, as a pass calls it
+    on one shape several times)."""
+    return torch.cat([_symmetric_index(n, r, device) for n in shape]).to(
+        torch.int32)
 
 
 def _conv1d_along_plain(x, taps, axis):
@@ -88,6 +102,45 @@ def gradient(x):
         kernels.check("gradient_gaussian", rc)
         outs.append(g)
     return outs
+
+
+#: the one Gaussian radius the fused kernel takes (0.875 <= sigma < 1.125:
+#: vol2pcd's sigma 1)
+FUSED_RADIUS = 4
+
+
+def smoothed_gradient(dist, sigma: float = 1.0):
+    """The three np.gradient components of a (nx, ny, nz) volume, each
+    Gaussian-filtered (scipy 'reflect', truncate 4): vol2pcd's normals.
+    One fused launch on a CUDA tensor (counted under "gradient_gaussian");
+    on a CPU tensor the plain composition, which the kernel equals bit for
+    bit. The kernel takes sigmas of Gaussian radius FUSED_RADIUS only."""
+    dist = torch.as_tensor(dist)
+    if dist.device.type == "cpu":
+        return [gaussian_filter_plain(g, sigma) for g in gradient_plain(dist)]
+    dist = dist.contiguous()
+    kernels.require_volume("smoothed_gradient", dist)
+    if min(dist.shape) < 2:
+        raise ValueError("gradient needs at least 2 samples per axis")
+    if dist.numel() >= 2 ** 31:
+        raise ValueError("smoothed_gradient: the CUDA kernel takes fewer "
+                         "than 2^31 voxels")
+    taps = np.ascontiguousarray(gaussian_kernel1d(sigma), np.float32)
+    r = (len(taps) - 1) // 2
+    if r != FUSED_RADIUS:
+        raise ValueError(f"smoothed_gradient: the CUDA kernel takes a "
+                         f"Gaussian radius of {FUSED_RADIUS} only, got {r} "
+                         f"(sigma {sigma})")
+    nx, ny, nz = dist.shape
+    tabs = _reflect_tables((nx, ny, nz), r, dist.device)
+    g = dist.new_empty((3, nx, ny, nz))
+    rc = kernels.lib().p3d_smoothed_gradient(
+        dist.data_ptr(), g[0].data_ptr(), g[1].data_ptr(), g[2].data_ptr(),
+        nx, ny, nz, tabs.data_ptr(), taps.ctypes.data, r,
+        kernels.stream_ptr(dist.device))
+    kernels.LAUNCHES["gradient_gaussian"] += 1
+    kernels.check("gradient_gaussian", rc)
+    return list(g)
 
 
 def gaussian_filter_plain(x, sigma: float = 1.0, truncate: float = 4.0):

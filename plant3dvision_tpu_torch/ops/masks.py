@@ -20,6 +20,7 @@ uses.
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -41,11 +42,35 @@ def _disk_offsets(radius: int) -> np.ndarray:
     return np.stack([dy[keep], dx[keep]], axis=1)
 
 
+#: the largest radius the dilate kernel takes (that of the earlier
+#: per-offset kernel: 4053 offsets, within its 4096)
+MAX_DILATION_RADIUS = 36
+
+
+def disk_chords(radius: int) -> np.ndarray:
+    """Half-width of the disk's chord at each dy in [-r, r], int32: the
+    disk of `_disk_offsets` is {(dy, dx): |dx| <= w(dy)}, w(dy) =
+    isqrt(r^2 - dy^2) (the dilate kernel's table)."""
+    r = int(radius)
+    return np.array([math.isqrt(r * r - dy * dy) for dy in range(-r, r + 1)],
+                    np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _chord_table(radius: int) -> np.ndarray:
+    """`disk_chords(radius)`, read-only and kept alive here: the kernel's
+    call reads it through its address while the GIL is released."""
+    w = disk_chords(radius)
+    w.setflags(write=False)
+    return w
+
+
 def binary_dilation(mask, radius: int):
     """Binary dilation of a (..., H, W) bool tensor with the exact Euclidean
     disk of `radius` (`_disk_offsets`): a pixel is true when any in-frame
     pixel of the disk around it is; pixels outside the frame count as
-    false. radius <= 0 returns `mask` as it is (as the JAX package does)."""
+    false. radius <= 0 returns `mask` as it is (as the JAX package does).
+    On CUDA the radius is at most MAX_DILATION_RADIUS."""
     if radius <= 0:
         return mask
     if mask.dtype != torch.bool or mask.ndim < 2:
@@ -53,12 +78,16 @@ def binary_dilation(mask, radius: int):
     if mask.device.type == "cpu":
         return binary_dilation_plain(mask, radius)
     kernels.require_cuda("dilate_disk", mask)
+    r = int(radius)
+    if r > MAX_DILATION_RADIUS:
+        raise ValueError(f"binary_dilation: the CUDA kernel takes a radius "
+                         f"up to {MAX_DILATION_RADIUS}, got {r}")
     H, W = mask.shape[-2:]
-    offsets = np.ascontiguousarray(_disk_offsets(radius), dtype=np.int32)
     out = torch.empty_like(mask)
+    chords = _chord_table(r)
     rc = kernels.lib().p3d_dilate(
         mask.data_ptr(), out.data_ptr(), mask.numel() // (H * W), H, W,
-        offsets.ctypes.data, len(offsets), kernels.stream_ptr(mask.device))
+        chords.ctypes.data, r, kernels.stream_ptr(mask.device))
     kernels.LAUNCHES["dilate_disk"] += 1
     kernels.check("dilate_disk", rc)
     return out

@@ -109,7 +109,7 @@ def vol2pcd(volume, origin, voxel_size, level_set_value=0, dist_cap=16,
     where it lies). Only the compacted band leaves the device.
     """
     from .ops.edt import signed_distance
-    from .ops.filters import gaussian_filter, gradient
+    from .ops.filters import smoothed_gradient
     from .runtime.config import resolve_device
 
     if torch.is_tensor(volume):
@@ -120,10 +120,7 @@ def vol2pcd(volume, origin, voxel_size, level_set_value=0, dist_cap=16,
     vol = vol.contiguous()
     cap = int(min(dist_cap + level_set_value + 4, max(vol.shape)))
     dist = signed_distance(vol, cap)
-    gx, gy, gz = gradient(dist)
-    gx = gaussian_filter(gx, 1.0)
-    gy = gaussian_filter(gy, 1.0)
-    gz = gaussian_filter(gz, 1.0)
+    gx, gy, gz = smoothed_gradient(dist, 1.0)
     idx, d, g = band_compact(dist, gx, gy, gz, level_set_value)
     idx = idx.cpu().numpy()
     d = d.cpu().numpy()

@@ -75,18 +75,31 @@ def test_signed_distance_kernel_matches_plain(dev, shape, cap):
                        edt.squared_edt_plain(vol > 0, cap))
 
 
-@pytest.mark.parametrize("shape", [(30, 26, 41), (2, 9, 5)])
+@pytest.mark.parametrize("shape", [(30, 26, 41), (2, 9, 5), (2, 2, 2),
+                                   (5, 5, 5), (33, 17, 65), (165, 146, 504)])
 def test_gradient_gaussian_kernel_matches_plain(dev, shape):
+    """K3 both ways, bit for bit: `gradient` and `gaussian_filter` alone
+    (one launch per axis) against their plain versions, and the fused
+    `smoothed_gradient` (one launch a call) against the plain composition,
+    on short axes (several reflection periods), a ragged tile and the ML
+    grid (165x146x504)."""
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops import filters
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    plain = []
     for k, p in zip(filters.gradient(x), filters.gradient_plain(x)):
         assert torch.equal(k, p)
-        # same taps in the same order; 1e-5 is the tolerance held against
-        # the JAX package, whose convolution sums in another order
-        torch.testing.assert_close(filters.gaussian_filter(k, 1.0),
-                                   filters.gaussian_filter_plain(p, 1.0),
-                                   atol=1e-5, rtol=0)
+        plain.append(filters.gaussian_filter_plain(p, 1.0))
+        assert torch.equal(filters.gaussian_filter(k, 1.0), plain[-1])
+    before = kernels.LAUNCHES["gradient_gaussian"]
+    fused = filters.smoothed_gradient(x, 1.0)
+    assert kernels.LAUNCHES["gradient_gaussian"] - before == 1
+    for k, p in zip(fused, plain):
+        assert torch.equal(k, p)
+    for sigma in (0.7, 1.2):                 # radius 3 and 5
+        with pytest.raises(ValueError, match="radius of 4 only"):
+            filters.smoothed_gradient(x, sigma)
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 16), (16, 16, 17), (16, 16, 4111),
@@ -383,21 +396,79 @@ def test_reproject_kernel_matches_plain(dev, L):
     assert (k > 0).any() and (k == 0).any()
 
 
-@pytest.mark.parametrize("radius", [0, 1, 2, 3, 5])
-def test_dilate_kernel_matches_plain(dev, radius):
-    """K8 at radii 0-5 on sparse masks with set pixels on every frame edge
-    and corner, a 1-pixel-wide stack and an empty mask: equal."""
-    from plant3dvision_tpu_torch.ops.masks import (binary_dilation,
+DILATE_CASES = ([("radius", r) for r in (0, 1, 2, 3, 5, 6, 16, 35, 36)]
+                + [("width", w) for w in (31, 32, 33, 63, 64, 65, 1440, 2100,
+                                          4100)]
+                + [("short", r) for r in (1, 3, 6, 35)]
+                + [(name, 0) for name in ("wide_disk", "full", "empty",
+                                          "unaligned", "keypoint_stack",
+                                          "limit")])
+
+
+@pytest.mark.parametrize("case", DILATE_CASES,
+                         ids=[f"{n}-{v}" for n, v in DILATE_CASES])
+def test_dilate_kernel_matches_plain(dev, case):
+    """K8 against its plain version, equal:
+    - radius: radii 0-36 (the limit) on sparse masks with set pixels on
+      every frame edge and corner, a 1-pixel-high stack and an empty mask;
+    - width: widths at word edges (31-65), 1440, and past one strip of
+      words (2100 at r = 35, 4100 at r = 6);
+    - short: heights 1 and below 2r + 1;
+    - wide_disk: a disk wider and higher than the frame;
+    - full / empty: all-true and all-false masks;
+    - unaligned: a stack starting one byte past a 16-byte boundary;
+    - keypoint_stack: the calibration's 60 x 1080x1440 masks at r = 6;
+    - limit: a radius above 36 raises."""
+    from plant3dvision_tpu_torch.ops.masks import (MAX_DILATION_RADIUS,
+                                                   binary_dilation,
                                                    binary_dilation_plain)
-    rng = np.random.default_rng(radius)
-    for shape in ((4, 29, 41), (2, 1, 17), (1, 8, 8)):
-        m = rng.random(shape) > 0.97
-        m[0, 0, :] = m[0, -1, 0] = m[0, :, -1] = True
-        m[-1] = False
-        t = torch.from_numpy(m).to(dev)
-        k = binary_dilation(t, radius)
-        p = t if radius == 0 else binary_dilation_plain(t, radius)
-        assert k.dtype == torch.bool and torch.equal(k, p)
+    name, v = case
+    rng = np.random.default_rng(sum(map(ord, name)) + v)
+
+    def check(m, r):
+        t = torch.from_numpy(np.ascontiguousarray(m)).to(dev)
+        k = binary_dilation(t, r)
+        p = t if r == 0 else binary_dilation_plain(t, r)
+        assert k.dtype == torch.bool and torch.equal(k, p), (m.shape, r)
+
+    if name == "radius":
+        for shape in ((4, 29, 41), (2, 1, 17), (1, 8, 8)):
+            m = rng.random(shape) > 0.97
+            m[0, 0, :] = m[0, -1, 0] = m[0, :, -1] = True
+            m[-1] = False
+            check(m, v)
+    elif name == "width":
+        for r in ((35,) if v == 2100 else (6,) if v == 4100 else (1, 3, 6)):
+            m = rng.random((3, 37, v)) > 0.995
+            m[0, :, 0] = m[1, :, -1] = True
+            check(m, r)
+    elif name == "short":
+        for H in sorted({1, 2 * v}):
+            m = rng.random((3, H, 100)) > 0.98
+            m[0, 0, 0] = m[-1, -1, -1] = True
+            check(m, v)
+    elif name == "wide_disk":
+        m = np.zeros((2, 9, 13), bool)
+        m[0, 4, 6] = m[1, 0, 12] = True
+        check(m, 20)
+    elif name in ("full", "empty"):
+        for r in (1, 6, 35):
+            check(np.full((2, 45, 70), name == "full"), r)
+    elif name == "unaligned":
+        flat = torch.from_numpy(rng.random(1 + 3 * 40 * 96) > 0.99).to(dev)
+        t = flat[1:].view(3, 40, 96)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 1
+        for r in (1, 6):
+            assert torch.equal(binary_dilation(t, r),
+                               binary_dilation_plain(t, r))
+    elif name == "keypoint_stack":
+        g = torch.Generator(device=dev).manual_seed(6)
+        t = torch.rand((60, 1080, 1440), generator=g, device=dev) > 0.999
+        assert torch.equal(binary_dilation(t, 6), binary_dilation_plain(t, 6))
+    else:
+        t = torch.zeros((1, 8, 8), dtype=torch.bool, device=dev)
+        with pytest.raises(ValueError, match="radius up to 36"):
+            binary_dilation(t, MAX_DILATION_RADIUS + 1)
 
 
 # -- the real-scan front end: K9, K10, K11 -------------------------------------

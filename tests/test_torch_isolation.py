@@ -23,7 +23,7 @@ def test_no_jax_or_jax_package_imports_in_the_port():
     evaluation.py, the separate-task ML route's, the real-scan front end's,
     the calibration's and the eikonal skeleton's modules included), of
     chip_smoke.py and of
-    tools/frontend_angles.py:
+    tools/frontend_angles.py and tools/dilate_filters_ab.py:
     no import statement and no importlib string names jax, flax,
     scikit-learn or plant3dvision_tpu."""
     offenders = []
@@ -37,7 +37,8 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                  "ops/geodesics.py", "tasks/proc3d.py"):
         assert PORT / name in paths
     for path in paths + [ROOT / "chip_smoke.py",
-                         ROOT / "tools" / "frontend_angles.py"]:
+                         ROOT / "tools" / "frontend_angles.py",
+                         ROOT / "tools" / "dilate_filters_ab.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []
