@@ -34,8 +34,11 @@
    bit) on one real batch of 32 CNN outputs of that scan, with the
    distribution of its tiles' pixel windows, K6 (select) on
    the warm pass's label volumes and K2-K4 on its fruit selection, against
-   their plain versions, and times them beside a PyTorch library chain
-   computing the same function. Each kernel row names the path (geometric,
+   their plain versions (K2 also in its 32-bit lane, cap None on the ML
+   grid, bit for bit; every K2 row gives its lane, its launches a call and
+   `bound_ms_yz`, the bound of the y and z passes' candidates alone),
+   and times them beside a PyTorch library chain computing the same
+   function. Each kernel row names the path (geometric,
    ml or ml_separate) whose shapes it was measured at and whose launches it
    counts.
 7. Drives the separate-task ML route (configs/ml_pipe_virtual.toml without
@@ -142,7 +145,10 @@
    of unet_seg (the pass's batch of 32) and tpusegnet_seg (one image) at
    896x896, timed beside the plain version, the library chain (absmax,
    round, pad, im2col, torch._int_mm (cuBLASLt int8), epilogue) and the
-   bf16 cuDNN conv.
+   bf16 cuDNN conv; and K16's weight quantise for all of each net's
+   compute weights in one launch (amax and the conv's packed layout, bit
+   for bit), timed beside the plain version and the library chain summed
+   over the weights. The pass makes one weight quantise launch.
 17. The gather probes K17-K19 at exp_pallas_gather.py:main's sizes, each
    equal to its plain version and to a torch.gather / index_select chain;
    M lookups/s, bounds, and the three versions' times.
@@ -852,20 +858,48 @@ def check_vol2pcd_kernels(vol, level, launches, path):
 
     n = vol.numel()
     cap = int(min(16 + level + 4, max(vol.shape)))     # as vol2pcd sets it
+    before = kernels.LAUNCHES["signed_distance"]
     sd = edt.signed_distance(vol, cap)
+    per_call = kernels.LAUNCHES["signed_distance"] - before
     sd_p = edt.signed_distance_plain(vol, cap)
     torch.cuda.synchronize()
     err = float((sd - sd_p).abs().max())
-    assert err == 0.0, f"signed distance kernel != plain (max {err}, {path})"
+    assert torch.equal(sd, sd_p), \
+        f"signed distance kernel != plain (max {err}, {path})"
+    assert torch.equal(edt.squared_edt(vol > 0.5, cap),
+                       edt.squared_edt_plain(vol > 0.5, cap)), \
+        f"squared EDT kernel != plain ({path})"
     del sd_p
-    reads = sum(2 * (vol.shape[a] - s) * (n // vol.shape[a])
-                for a in range(3)
-                for s in range(1, min(cap, vol.shape[a] - 1) + 1))
+    extra = {"cap": cap, "launches_a_call": per_call,
+             "lane": "16-bit" if edt.lane16(edt.axis_caps(vol.shape, cap))
+             else "32-bit"}
+    if path == "ml":
+        # the 32-bit lane: cap None on the ML grid, bit for bit
+        wide = edt.signed_distance(vol, None)
+        wide_p = edt.signed_distance_plain(vol, None)
+        torch.cuda.synchronize()
+        assert not edt.lane16(edt.axis_caps(vol.shape, None))
+        assert torch.equal(wide, wide_p), \
+            "signed distance kernel != plain in the 32-bit lane (cap None)"
+        del wide, wide_p
+        extra["lane32_cap_none"] = {
+            "bit_equal": True,
+            "ms": cuda_ms(lambda: edt.signed_distance(vol, None), reps=3,
+                          warmup=1),
+            "plain_ms": cuda_ms(lambda: edt.signed_distance_plain(vol, None),
+                                reps=3, warmup=1)}
+    reads = [sum(2 * (vol.shape[a] - s) * (n // vol.shape[a])
+                 for s in range(1, min(cap, vol.shape[a] - 1) + 1))
+             for a in range(3)]
+    # the x pass of a binary input needs O(1) a voxel, not its 2c + 1
+    # candidates: the bound of the y and z passes' candidates alone
+    extra["bound_ms_yz"] = bound_ms(8 * n, 2 * 2 * sum(reads[1:]))[0]
+    reads = sum(reads)
     row("signed_distance", err,
         cuda_ms(lambda: edt.signed_distance(vol, cap)),
         cuda_ms(lambda: edt.signed_distance_plain(vol, cap), reps=5,
                 warmup=1),
-        8 * n, 2 * 2 * reads, extra={"cap": cap})
+        8 * n, 2 * 2 * reads, extra=extra)
 
     def k3_plain(x):
         return [filters.gaussian_filter_plain(g, 1.0)
@@ -2820,7 +2854,8 @@ def _library_int8_conv(x, qw, bias, stride, pads):
     activation's absmax, division, round and clamp to int8, the SAME pads,
     im2col (a strided view copied into (B*OH*OW, kh*kw*Cp), the depth
     padded to a multiple of 8), one torch._int_mm (cuBLASLt int8) against
-    the weights (N padded to a multiple of 8), then the epilogue."""
+    the weights (N padded to a multiple of 8), then the epilogue. qw: the
+    plain version's weight (`quantize_weight_plain`, which keeps q)."""
     import torch
     import torch.nn.functional as F
     from plant3dvision_tpu_torch.models import quant
@@ -2866,6 +2901,58 @@ def _library_quantize_weight(w):
     return q.to(torch.int8), amax
 
 
+def model_weight_quantise(model):
+    """Phase 16's K16w check on one net: all its compute weights, cast as
+    `int8_lane` casts them, through `quantize_weights` (one launch): amax
+    and packed (the kernel's one copy of q) bit for bit against the plain
+    version (`quantize_weight_plain` + `pack_weight`) and the library
+    chain's q packed; the call timed beside the plain version and the
+    library chain (which stops at q, unpacked), each over all the weights.
+    The bound counts the weights read, one int8 copy (the packed layout
+    with its pads) and the amaxes written."""
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import quant
+    ws = [c.weight.detach().to(model.dtype)
+          for c in quant.compute_convs(model)]
+    before = kernels.LAUNCHES["int8_quantize"]
+    qws = quant.quantize_weights(ws)
+    per_call = kernels.LAUNCHES["int8_quantize"] - before
+    torch.cuda.synchronize()
+    for w, qw in zip(ws, qws):
+        pw = quant.quantize_weight_plain(w)
+        assert torch.equal(qw.amax, pw.amax), \
+            f"K16w amax != plain at {tuple(w.shape)}"
+        assert torch.equal(qw.packed, quant.pack_weight(pw.q, qw.plan)), \
+            f"K16w packed != pack_weight at {tuple(w.shape)}"
+        assert torch.equal(quant.pack_weight(_library_quantize_weight(w)[0],
+                                             qw.plan), qw.packed), \
+            f"K16w's library chain != the kernel at {tuple(w.shape)}"
+    del qws
+
+    def plain():
+        out = []
+        for w in ws:
+            pw = quant.quantize_weight_plain(w)
+            out.append((pw, quant.pack_weight(pw.q,
+                                              quant.conv_plan(*pw.q.shape))))
+        return out
+
+    w_bytes = sum(w.numel() * w.element_size() for w in ws)
+    a_bytes = sum(4 * w.shape[0] for w in ws)
+    p_bytes = sum(sl.plan.n_blocks * sl.plan.nch * sl.plan.nt * sl.plan.dc
+                  for sl in quant.weight_arena(tuple(
+                      tuple(w.shape) for w in ws)).slots)
+    ops = 4 * sum(w.numel() for w in ws)
+    b, by = bound_ms(w_bytes + p_bytes + a_bytes, ops)
+    return {"weights": len(ws), "launches_a_call": per_call,
+            "ms": cuda_ms(lambda: quant.quantize_weights(ws)),
+            "plain_ms": cuda_ms(plain, reps=3, warmup=1),
+            "library_ms": cuda_ms(lambda: [_library_quantize_weight(w)
+                                           for w in ws]),
+            "bound_ms": b, "bound_by": by}
+
+
 def _conv_inputs(model, batch):
     """One int8-lane forward of `batch` (uint8 NHWC on the card) with a
     hook on every compute conv: {shape key: [input in the conv's dtype,
@@ -2900,7 +2987,8 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
     forward of `batch`, kernel against plain (bit for bit; and the weight
     quantisation), each timed beside the plain version, the library chain
     (`_library_int8_conv`) and the bf16 cuDNN conv: the whole function
-    (absmax + conv launch), each launch alone, and the weight quantisation.
+    (absmax + conv launch) and each launch alone (the weight quantisation
+    is timed for all the net's weights at once, `model_weight_quantise`).
     Returns (per-shape entries, the net's sums over one forward)."""
     import torch
     import torch.nn.functional as F
@@ -2917,30 +3005,28 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
         b = conv.bias.detach().to(model.dtype)
         qw, pw = quant.quantize_weight(w), quant.quantize_weight_plain(w)
         got = quant.int8_conv(x, qw, b, s, pads)
-        want = quant.int8_conv_plain(x, qw, b, s, pads)
+        want = quant.int8_conv_plain(x, pw, b, s, pads)
         lib_equal = bool(torch.equal(
-            _library_int8_conv(x, qw, b, s, pads), got))
+            _library_int8_conv(x, pw, b, s, pads), got))
         torch.cuda.synchronize()
         equal = bool(torch.equal(got, want))
-        w_equal = bool(torch.equal(qw.q, pw.q) and torch.equal(qw.amax,
-                                                                 pw.amax))
-        wl_equal = bool(torch.equal(_library_quantize_weight(w)[0], qw.q))
+        w_equal = bool(torch.equal(qw.packed,
+                                   quant.pack_weight(pw.q, qw.plan))
+                       and torch.equal(qw.amax, pw.amax))
+        wl_equal = bool(torch.equal(quant.pack_weight(
+            _library_quantize_weight(w)[0], qw.plan), qw.packed))
         del got, want
         b32 = b.float()
         xmax = quant.activation_absmax(x)
         fn_ms = cuda_ms(lambda: quant.int8_conv(x, qw, b, s, pads))
         a_ms = cuda_ms(lambda: quant.activation_absmax(x))
         c_ms = cuda_ms(lambda: quant.conv_fused(x, xmax, qw, b32, s, pads))
-        wq_ms = cuda_ms(lambda: quant.quantize_weight(w))
-        wq_pack = cuda_ms(lambda: quant.pack_weight(qw.q, qw.plan))
-        wq_plain = cuda_ms(lambda: quant.quantize_weight_plain(w))
-        wq_lib = cuda_ms(lambda: _library_quantize_weight(w))
         a_plain = cuda_ms(lambda: quant._quantize_plain(
             x, quant.X_FLOOR, per_group=False)[1])
         a_lib = cuda_ms(lambda: torch.linalg.vector_norm(x, float("inf")))
-        plain_ms = cuda_ms(lambda: quant.int8_conv_plain(x, qw, b, s, pads),
+        plain_ms = cuda_ms(lambda: quant.int8_conv_plain(x, pw, b, s, pads),
                            reps=3, warmup=1)
-        lib_ms = cuda_ms(lambda: _library_int8_conv(x, qw, b, s, pads),
+        lib_ms = cuda_ms(lambda: _library_int8_conv(x, pw, b, s, pads),
                          reps=3, warmup=1)
         wb = conv.weight.detach().to(torch.bfloat16)
         xb = F.pad(x.to(torch.bfloat16), (pads[1][0], pads[1][1],
@@ -2956,8 +3042,6 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
             B * cout * out_hw[0] * out_hw[1] * 4
         fb, fby = int8_bound_ms(fn_bytes, macs)
         ab, _ = bound_ms(x_bytes, x.numel())
-        wqb, wqby = bound_ms(w.numel() * (w.element_size() + 1) + cout * 4,
-                             4 * w.numel())
         p = qw.plan
         e = {"net": net, "cin": cin, "cout": cout, "k": k, "stride": s,
              "in_hw": [H, W], "batch": B, "convs": n,
@@ -2968,17 +3052,14 @@ def check_int8_shapes(net, model, batch, batches_in_pass):
              "weight_library_equal": wl_equal, "function_ms": fn_ms,
              "function_bound_ms": fb, "function_bound_by": fby,
              "absmax_ms": a_ms, "conv_launch_ms": c_ms,
-             "weight_quantize_ms": wq_ms, "weight_packing_ms": wq_pack,
-             "weight_library_ms": wq_lib, "plain_ms": plain_ms,
+             "plain_ms": plain_ms,
              "library_ms": lib_ms, "bf16_cudnn_ms": bf16_ms,
              "gmac": macs / 1e9, "tmac_per_s": macs / fn_ms / 1e9}
         shapes.append(e)
         # the forward's sums: each shape as often as the net has it
         for name, val in (("fn", fn_ms), ("fb", fb), ("a", a_ms), ("ab", ab),
                           ("a_plain", a_plain), ("a_lib", a_lib),
-                          ("c", c_ms), ("wq", wq_ms), ("wqb", wqb),
-                          ("wq_plain", wq_plain), ("wq_lib", wq_lib),
-                          ("wq_pack", wq_pack), ("plain", plain_ms),
+                          ("c", c_ms), ("plain", plain_ms),
                           ("lib", lib_ms), ("bf16", bf16_ms),
                           ("bytes", fn_bytes), ("macs", macs),
                           ("convs", 1), ("launches", batches_in_pass)):
@@ -3069,6 +3150,9 @@ def run_int8_path(db, device_name, bf16_pass):
         "tpusegnet_seg", seg, torch.from_numpy(imgs[:1]).to(dev), 0)
     emit({"int8_conv_shapes": shapes_u + shapes_s,
           "int8_ops_per_s": INT8_OPS_PER_S})
+    wq = {"unet_seg": model_weight_quantise(unet),
+          "tpusegnet_seg": model_weight_quantise(seg)}
+    emit({"int8_weight_quantise": wq})
 
     seg_task = report["Segmentation2D"]["seconds"]
     res = {"device": device_name, "n_views": len(files),
@@ -3084,10 +3168,11 @@ def run_int8_path(db, device_name, bf16_pass):
            "n_angles": int(len(angles)), "n_gt": int(len(plant.gt_angles)),
            "mean_angle_error_deg": dtw["mean_angle_error"],
            "launches_in_pass": {k: launches[k] for k in (
-               "int8_quantize", "int8_absmax", "int8_conv")},
+               "int8_quantize", "int8_absmax", "int8_conv",
+               "signed_distance")},
            "forward_ms": {net: {"function": t["fn"], "absmax": t["a"],
                                 "conv_launch": t["c"],
-                                "weight_quantize": t["wq"],
+                                "weight_quantize": wq[net]["ms"],
                                 "plain": t["plain"],
                                 "library_int_mm": t["lib"],
                                 "bf16_cudnn": t["bf16"],
@@ -3106,7 +3191,10 @@ def run_int8_path(db, device_name, bf16_pass):
     assert not bad, f"K16's library chains differ from the kernels at {bad}"
     assert launches["int8_conv"] == tot_u["launches"] > 0, launches
     assert launches["int8_absmax"] == tot_u["launches"], launches
-    assert launches["int8_quantize"] == tot_u["convs"], launches
+    # one int8_lane entry (the pass's one segmentation_inference call): one
+    # launch quantises all of unet_seg's weights
+    assert launches["int8_quantize"] == 1, launches
+    assert all(q["launches_a_call"] == 1 for q in wq.values()), wq
     assert len(angles) > 0, "the int8 pass reached no angle"
     nums = [pass_s, agree, dtw["mean_angle_error"], *angles,
             *out["internodes"]]
@@ -3131,12 +3219,15 @@ def run_int8_path(db, device_name, bf16_pass):
                   "tmac_per_s": t["macs"] / t["fn"] / 1e9}),
                 ("int8_absmax", t["a"], t["a_plain"], t["ab"], "bytes",
                  t["a_lib"], {"library": "torch.linalg.vector_norm(x, inf)"}),
-                ("int8_quantize", t["wq"], t["wq_plain"], t["wqb"], "bytes",
-                 t["wq_lib"], {"what": "the weights, once a call, with the "
-                                       "conv's packing",
-                               "packing_ms": t["wq_pack"],
-                               "library": "amax over (Cin, kh, kw), scale, "
-                                          "round, clamp, permute + pad"})):
+                ("int8_quantize", wq[net]["ms"], wq[net]["plain_ms"],
+                 wq[net]["bound_ms"], wq[net]["bound_by"],
+                 wq[net]["library_ms"],
+                 {"what": f"all {wq[net]['weights']} compute weights in one "
+                          "launch: amax and q in the conv's packed layout",
+                  "launches_a_call": wq[net]["launches_a_call"],
+                  "library": "per weight: amax over (Cin, kh, kw), scale, "
+                             "round, clamp, permute + pad (no packing), "
+                             "summed"})):
             src, rep = KERNEL_INFO[name]
             rows.append(dict({
                 "name": name, "route": "cuda", "source": src,

@@ -81,8 +81,12 @@ _ARGTYPES = {
     # stream
     "p3d_count_kills": [_P, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                         _I, _I, _I, _I, _P, _P, _P, _P],
-    # src_a, src_b, out_a, out_b, nx, ny, nz, axis, cap, mode, stream
-    "p3d_edt_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # vol, words, nx, ny, nz, c0, nonzero, wide, stream
+    "p3d_edt_x": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # words, out, spill (or null), nx, ny, nz, c1, c2, mode, wide, stream
+    "p3d_edt_yz": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # nz, wide -> 1 where p3d_edt_yz needs its spill buffer
+    "p3d_edt_yz_spills": [_I, _I],
     # x, g, nx, ny, nz, axis, stream
     "p3d_gradient": [_P, _P, _I, _I, _I, _I, _P],
     # x, y, nx, ny, nz, axis, taps (host float*), radius, stream
@@ -137,8 +141,8 @@ _ARGTYPES = {
     # stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
                             _P, _P],
-    # w, dtype, K, C, taps, Cp, eps, maxbits, out, stream
-    "p3d_int8_quantize_weight": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _P],
+    # descriptors (host, n x 16 int64), n, arena, eps, stream
+    "p3d_int8_quantize_weights": [_P, _I, _P, _F, _P],
     # x, dtype, n, maxbits, stream
     "p3d_int8_absmax": [_P, _I, _L, _P, _P],
     # x, dtype, wp, xmax, wmax, bias (or null), out, B, C, H, W, K, kh, kw,

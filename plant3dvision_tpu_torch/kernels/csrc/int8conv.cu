@@ -7,12 +7,19 @@
 // weight scale, round and clip to +-127, an int8 x int8 -> int32
 // convolution, dequantisation to float32, then flax's bias add.
 //
-// p3d_int8_quantize_weight (count "int8_quantize"): a weight (K, Cin, kh,
-// kw) as K groups: each group's absmax (an atomicMax on the float bits;
-// every value is >= 0, so the bits order as the floats do), then
+// p3d_int8_quantize_weights (count "int8_quantize"): every compute weight
+// of a model in one launch (models/quant.py:quantize_weights, once per
+// `segmentation_inference` call, models/quant.py:int8_lane). A table of up
+// to kMaxWeights descriptors, a kernel parameter, names each weight (K,
+// Cin, kh, kw) and its places in one output arena; a block takes one row
+// (weight, output channel k): the row's absmax in registers and warp
+// shuffles (no atomics), then
 //   q = clamp(rint(w / (max(absmax, 1e-12) * f32(1/127))), -127, 127)
-// as int8 in (K, kh, kw, Cp), Cp = Cin rounded up to 4. Once per weight and
-// `segmentation_inference` call (models/quant.py:int8_lane).
+// written in the conv's packed layout (K_pad / NT, nch, NT, DC), the only
+// copy the conv reads (models/quant.py:pack_weight), zeros in every pad;
+// the packed layout's rows past K are blocks of their own that write
+// zeros. What bounds it: the host (a launch, the table); the bytes are a
+// few MB.
 //
 // p3d_int8_absmax (count "int8_absmax"): the activation's per-tensor
 // absmax, read by the conv from device memory.
@@ -208,27 +215,70 @@ cudaError_t launch_absmax(const void* x, int dtype, int G, long long inner,
   return cudaGetLastError();
 }
 
-// one thread per output quad (k, tap, q) of the (K, taps, Cp) layout
-__global__ void quantize_weight_kernel(const void* __restrict__ w, int dtype,
-                                       int K, int C, int taps, int nq,
-                                       float eps,
-                                       const unsigned int* __restrict__ maxbits,
-                                       int* __restrict__ out) {
-  const long long n = (long long)K * taps * nq;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  const int q = (int)(idx % nq);
-  const long long r = idx / nq;
-  const int t = (int)(r % taps);
-  const int k = (int)(r / taps);
-  const float s = __fmul_rn(fmaxf(__uint_as_float(maxbits[k]), eps), kInv127);
-  float v[4];
+constexpr int kMaxWeights = 48;   // descriptors a launch (4 KB of parameters)
+constexpr int kQThreads = 128;
+
+struct WeightDesc {
+  const void* w;                     // (K, C, kh, kw) bf16 or f32
+  long long p_off, a_off;            // arena bytes: packed, amax
+  int row0;                          // the weight's first row (block)
+  int dtype, K, C, taps, NT, CC, nch, DC;
+};
+
+struct WeightTable {
+  WeightDesc d[kMaxWeights];
+  int n;
+};
+
+__global__ void __launch_bounds__(kQThreads)
+quantize_weights_kernel(const __grid_constant__ WeightTable tab,
+                        char* __restrict__ arena, float eps) {
+  int i = 0;
+  while (i + 1 < tab.n && tab.d[i + 1].row0 <= (int)blockIdx.x) ++i;
+  const WeightDesc& d = tab.d[i];
+  const int k = (int)blockIdx.x - d.row0;
+  const bool real = k < d.K;
+  const long long inner = (long long)d.C * d.taps;
+  const long long base = (long long)k * inner;
+  float m = 0.0f;
+  if (real)
+    for (long long e = threadIdx.x; e < inner; e += kQThreads)
+      m = fmaxf(m, fabsf(load_f(d.w, base + e, d.dtype)));
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __shared__ float warp_max[kQThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = 4 * q + j;
-    v[j] = c < C ? load_f(w, ((long long)k * C + c) * taps + t, dtype) : 0.0f;
+  for (int w = 0; w < kQThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
+  if (real && threadIdx.x == 0)
+    reinterpret_cast<float*>(arena + d.a_off)[k] = m;
+  const float s = __fmul_rn(fmaxf(m, eps), kInv127);
+
+  // four channels c0 .. c0 + 3 of tap t, zeros past C
+  auto quad = [&](int t, int c0) {
+    float v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      v[j] = c0 + j < d.C
+                 ? load_f(d.w, base + (long long)(c0 + j) * d.taps + t,
+                          d.dtype)
+                 : 0.0f;
+    return quantize4(v, s);
+  };
+  // the packed row: block k / NT, lane k % NT, depth tap * CC + channel
+  const int nb = k / d.NT, dq = d.DC / 4;
+  int* p = reinterpret_cast<int*>(arena + d.p_off);
+  for (int e = threadIdx.x; e < d.nch * dq; e += kQThreads) {
+    const int ch = e / dq, d4 = 4 * (e - ch * dq);
+    int word = 0;
+    if (real && d4 < d.taps * d.CC) {
+      const int t = d4 / d.CC;
+      word = quad(t, ch * d.CC + d4 - t * d.CC);
+    }
+    p[(((long long)nb * d.nch + ch) * d.NT + k - nb * d.NT) * dq + d4 / 4] =
+        word;
   }
-  out[idx] = quantize4(v, s);
 }
 
 struct ConvArgs {
@@ -598,24 +648,42 @@ extern "C" int p3d_int8_absmax(const void* x, int dtype, long long n,
   return (int)launch_absmax(x, dtype, 1, n, 0, maxbits, (cudaStream_t)stream);
 }
 
-// w (K, C, kh, kw) float32 (dtype 0) or bfloat16 (dtype 1) -> maxbits (K,)
-// float32 absmaxes, out (K, kh, kw, Cp) int8 (Cp a multiple of 4, >= C).
-extern "C" int p3d_int8_quantize_weight(const void* w, int dtype, int K,
-                                        int C, int taps, int Cp, float eps,
-                                        void* maxbits, void* out,
-                                        void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if ((dtype != 0 && dtype != 1) || Cp % 4 != 0 || Cp < C || K < 1 ||
-      taps < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t e = launch_absmax(w, dtype, K, (long long)C * taps, 1, maxbits,
-                                s);
-  if (e != cudaSuccess) return (int)e;
-  const long long n = (long long)K * taps * (Cp / 4);
-  const int threads = 256;
-  quantize_weight_kernel<<<(unsigned)((n + threads - 1) / threads), threads,
-                           0, s>>>(w, dtype, K, C, taps, Cp / 4, eps,
-                                   (const unsigned int*)maxbits, (int*)out);
+// desc: n rows of 16 int64 (w, p_off, a_off, dtype, K, C, taps, NT, CC,
+// nch, DC, 0, 0, 0, 0, 0), n <= kMaxWeights; arena: the outputs, packed
+// (ceil(K / NT), nch, NT, DC) int8 at 16-byte offsets, amax (K,) float32 at
+// 4-byte ones.
+extern "C" int p3d_int8_quantize_weights(const long long* desc, int n,
+                                         void* arena, float eps,
+                                         void* stream) {
+  if (n < 1 || n > kMaxWeights) return (int)cudaErrorInvalidValue;
+  WeightTable tab{};
+  tab.n = n;
+  long long rows = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* r = desc + 16 * i;
+    WeightDesc& d = tab.d[i];
+    d.w = reinterpret_cast<const void*>(r[0]);
+    d.p_off = r[1];
+    d.a_off = r[2];
+    d.dtype = (int)r[3];
+    d.K = (int)r[4];
+    d.C = (int)r[5];
+    d.taps = (int)r[6];
+    d.NT = (int)r[7];
+    d.CC = (int)r[8];
+    d.nch = (int)r[9];
+    d.DC = (int)r[10];
+    d.row0 = (int)rows;
+    if ((d.dtype != 0 && d.dtype != 1) || d.K < 1 || d.C < 1 || d.taps < 1 ||
+        d.NT < 1 || d.CC < 4 || d.CC % 4 != 0 ||
+        (long long)d.nch * d.CC < d.C || d.DC % 32 != 0 ||
+        d.DC < d.taps * d.CC || d.p_off % 16 != 0 || d.a_off % 4 != 0)
+      return (int)cudaErrorInvalidValue;
+    rows += (long long)(d.K + d.NT - 1) / d.NT * d.NT;
+  }
+  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  quantize_weights_kernel<<<(unsigned)rows, kQThreads, 0,
+                            (cudaStream_t)stream>>>(tab, (char*)arena, eps);
   return (int)cudaGetLastError();
 }
 

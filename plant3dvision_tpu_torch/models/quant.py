@@ -25,8 +25,9 @@ kernel and the plain version repeat it):
 `int8_conv` is K16 on a CUDA tensor (kernels/csrc/int8conv.cu: the
 "int8_absmax" launch takes the activation's absmax, the "int8_conv" launch
 quantises the activation as it stages it, convolves on the int8 tensor
-cores and dequantises; `quantize_weight`'s "int8_quantize" launch quantises
-a weight) and `int8_conv_plain` on a CPU tensor. The plain version runs
+cores and dequantises; `quantize_weights`' one "int8_quantize" launch
+quantises and packs all of a model's weights into one arena) and
+`int8_conv_plain` on a CPU tensor. The plain version runs
 the integer convolution exactly: F.conv2d in float64 on the int8 values
 (every partial sum is an integer below 2^53; float32 would not be exact,
 127^2 * 9 * 512 > 2^24), cuDNN off on the card (its FFT and Winograd
@@ -36,6 +37,7 @@ algorithms do not keep integers), then a cast to int32.
 from __future__ import annotations
 
 import contextlib
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,17 +59,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 @dataclass
 class QuantizedWeight:
-    """A convolution's weight in the lane's form: `q` (K, kh, kw, Cp) int8,
-    the input channels zero-padded to Cp (a multiple of 4), and `amax` (K,)
-    float32, each output channel's absmax before its 1e-12 floor. On the
-    card also `plan` and `packed`: `q` in the conv kernel's layout
-    (`conv_plan`, `pack_weight`)."""
+    """A convolution's weight of `shape` (K, Cin, kh, kw) in the lane's
+    form: `amax` (K,) float32, each output channel's absmax before its
+    1e-12 floor, and the int8 values. The plain version gives them as `q`
+    (K, kh, kw, Cp), the input channels zero-padded to Cp (a multiple of
+    4); the kernel gives them only in the conv kernel's layout, `packed`
+    (`plan`: `conv_plan`, `pack_weight`)."""
 
-    q: torch.Tensor
     amax: torch.Tensor
-    cin: int
-    plan: "ConvPlan | None" = None
-    packed: "torch.Tensor | None" = None
+    shape: tuple
+    q: torch.Tensor | None = None
+    plan: ConvPlan | None = None
+    packed: torch.Tensor | None = None
+
+    @property
+    def cin(self) -> int:
+        return int(self.shape[1])
 
 
 def _cp(c: int) -> int:
@@ -96,15 +103,19 @@ def _quantize_plain(x, floor, per_group):
 def quantize_weight_plain(w) -> QuantizedWeight:
     """Plain version of the weight quantisation (w (K, Cin, kh, kw))."""
     q, amax = _quantize_plain(w, W_FLOOR, per_group=True)
-    K, C = w.shape[:2]
+    C = w.shape[1]
     q = F.pad(q.permute(0, 2, 3, 1), (0, _cp(C) - C)).to(torch.int8)
-    return QuantizedWeight(q.contiguous(), amax, int(C))
+    return QuantizedWeight(amax, tuple(int(n) for n in w.shape),
+                           q.contiguous())
 
 
 def int8_conv_plain(x, w, bias, stride, pads):
     """Plain PyTorch version of `int8_conv` (same arguments, same result,
     bit for bit)."""
     qw = w if isinstance(w, QuantizedWeight) else quantize_weight_plain(w)
+    if qw.q is None:
+        raise ValueError("int8_conv_plain: the weight must carry q "
+                         "(quantize_weight_plain)")
     (pt, pb), (pl, pr) = pads
     xq, xmax = _quantize_plain(x, X_FLOOR, per_group=False)
     wq = qw.q[..., :qw.cin].permute(0, 3, 1, 2).to(torch.float64)
@@ -145,6 +156,7 @@ class ConvPlan:
     n_blocks: int
 
 
+@functools.lru_cache(maxsize=None)
 def conv_plan(K, kh, kw, cp) -> ConvPlan:
     """The conv kernel's cut of a (K, kh, kw, Cp) weight: a function of the
     weight's shape alone, so a weight is packed once."""
@@ -190,28 +202,110 @@ def _dtype_code(name, t):
     return _DTYPE_CODE[t.dtype]
 
 
-def quantize_weight(w) -> QuantizedWeight:
-    """A conv weight (K, Cin, kh, kw) in the lane's form: K16's weight
-    quantise launch ("int8_quantize") on a CUDA tensor, then the conv's
-    packing; the plain version on a CPU tensor."""
-    if w.ndim != 4:
+#: the most weights one "int8_quantize" launch takes (int8conv.cu
+#: kMaxWeights)
+MAX_WEIGHTS = 48
+
+
+@dataclass(frozen=True)
+class WeightSlot:
+    """Where `quantize_weights` puts one weight (K, Cin, kh, kw) in its
+    arena: byte offsets of `packed` (the conv's layout, `plan`), 16-byte
+    aligned, and of `amax` (K,) float32."""
+
+    shape: tuple
+    plan: ConvPlan
+    p_off: int
+    a_off: int
+
+
+@dataclass(frozen=True)
+class WeightArena:
+    """`quantize_weights`' arena for one list of weight shapes: a slot
+    each, its bytes (each weight's packed layout, then all the amaxes back
+    to back from float32 index `amax_at`, `ks` of them a weight), and the
+    kernel's descriptor table without the weights' addresses and dtypes."""
+
+    slots: tuple
+    size: int
+    amax_at: int
+    ks: tuple
+    table: np.ndarray
+
+
+@functools.lru_cache(maxsize=64)
+def weight_arena(shapes) -> WeightArena:
+    """The arena of `quantize_weights` for weights of `shapes` (a tuple of
+    (K, Cin, kh, kw))."""
+    plans, end = [], 0
+    for K, C, kh, kw in shapes:
+        p = conv_plan(K, kh, kw, _cp(C))
+        plans.append((p, end))
+        end += -(-(p.n_blocks * p.nch * p.nt * p.dc) // 16) * 16
+    slots = []
+    table = np.zeros((len(shapes), 16), np.int64)
+    a_off = end
+    for i, ((K, C, kh, kw), (p, p_off)) in enumerate(zip(shapes, plans)):
+        slots.append(WeightSlot((K, C, kh, kw), p, p_off, a_off))
+        table[i, 1:11] = (p_off, a_off, 0, K, C, kh * kw, p.nt, p.cc, p.nch,
+                          p.dc)
+        a_off += 4 * K
+    table.setflags(write=False)
+    return WeightArena(tuple(slots), -(-a_off // 16) * 16, end // 4,
+                       tuple(K for K, *_ in shapes), table)
+
+
+def weight_table(ws, arena: WeightArena):
+    """The kernel's descriptor table: a row of 16 int64 a weight (w's
+    address, the packed and amax offsets, dtype code, K, Cin, kh*kw, NT,
+    CC, nch, DC, five zeros)."""
+    desc = arena.table.copy()
+    desc[:, 0] = [w.data_ptr() for w in ws]
+    desc[:, 3] = [_dtype_code("int8_quantize", w) for w in ws]
+    return desc
+
+
+def quantize_weights(ws) -> list:
+    """Conv weights (K, Cin, kh, kw) in the lane's form, one
+    `QuantizedWeight` each. On CUDA tensors one K16 launch
+    ("int8_quantize") quantises up to MAX_WEIGHTS weights and writes each
+    one's `packed` and `amax` into one arena (`weight_arena`); on CPU
+    tensors `quantize_weight_plain` each."""
+    ws = list(ws)
+    if any(w.ndim != 4 for w in ws):
         raise ValueError("weight must be (K, Cin, kh, kw)")
-    if w.device.type == "cpu":
-        return quantize_weight_plain(w)
-    w = w.contiguous()
-    kernels.require_cuda("int8_quantize", w)
-    code = _dtype_code("int8_quantize", w)
-    K, C, kh, kw = (int(s) for s in w.shape)
-    Cp = _cp(C)
-    q = torch.empty((K, kh, kw, Cp), dtype=torch.int8, device=w.device)
-    amax = torch.empty((K,), dtype=torch.float32, device=w.device)
-    rc = kernels.lib().p3d_int8_quantize_weight(
-        w.data_ptr(), code, K, C, kh * kw, Cp, W_FLOOR, amax.data_ptr(),
-        q.data_ptr(), kernels.stream_ptr(w.device))
+    if not ws or all(w.device.type == "cpu" for w in ws):
+        return [quantize_weight_plain(w) for w in ws]
+    if len(ws) > MAX_WEIGHTS:
+        raise ValueError(f"int8_quantize: one launch takes up to "
+                         f"{MAX_WEIGHTS} weights, got {len(ws)}")
+    ws = [w.contiguous() for w in ws]
+    kernels.require_cuda("int8_quantize", *ws)
+    lay = weight_arena(tuple(tuple(int(n) for n in w.shape) for w in ws))
+    dev = ws[0].device
+    arena = torch.empty(lay.size, dtype=torch.int8, device=dev)
+    desc = weight_table(ws, lay)
+    so, stream = kernels.lib(), kernels.stream_ptr(dev)
+    rc = so.p3d_int8_quantize_weights(desc.ctypes.data, len(ws),
+                                      arena.data_ptr(), W_FLOOR, stream)
     kernels.LAUNCHES["int8_quantize"] += 1
     kernels.check("int8_quantize", rc)
-    plan = conv_plan(K, kh, kw, Cp)
-    return QuantizedWeight(q, amax, C, plan, pack_weight(q, plan))
+    amaxes = arena.view(torch.float32).narrow(
+        0, lay.amax_at, sum(lay.ks)).split(lay.ks)
+    out = []
+    for sl, amax in zip(lay.slots, amaxes):
+        p = sl.plan
+        packed = arena.as_strided(
+            (p.n_blocks, p.nch, p.nt, p.dc),
+            (p.nch * p.nt * p.dc, p.nt * p.dc, p.dc, 1), sl.p_off)
+        out.append(QuantizedWeight(amax, sl.shape, None, p, packed))
+    return out
+
+
+def quantize_weight(w) -> QuantizedWeight:
+    """One conv weight (K, Cin, kh, kw) in the lane's form:
+    `quantize_weights([w])[0]`."""
+    return quantize_weights([w])[0]
 
 
 def out_size(size, k, stride, lo, hi):
@@ -247,7 +341,7 @@ def conv_fused(x, xmax, qw, bias, stride, pads):
     if qw.cin != C:
         raise ValueError(f"int8_conv: weight takes {qw.cin} channels, x has "
                          f"{C}")
-    K, kh, kw = (int(s) for s in qw.q.shape[:3])
+    K, _, kh, kw = qw.shape
     (pt, pb), (pl, pr) = pads
     OH, OW = out_size(H, kh, stride, pt, pb), out_size(W, kw, stride, pl, pr)
     p = qw.plan
@@ -295,12 +389,15 @@ def compute_convs(model):
 @contextlib.contextmanager
 def int8_lane(model, on=True):
     """Runs `model`'s compute convolutions in the int8 lane inside the
-    block: each one's weight, cast to the model's dtype as flax promotes it,
-    is quantised once on entry and dropped on exit."""
+    block: their weights, cast to the model's dtype as flax promotes them,
+    are quantised on entry, all in one `quantize_weights` call, and dropped
+    on exit."""
     convs = compute_convs(model) if on else []
     try:
-        for c in convs:
-            c.int8 = quantize_weight(c.weight.detach().to(model.dtype))
+        qws = quantize_weights([c.weight.detach().to(model.dtype)
+                                for c in convs])
+        for c, qw in zip(convs, qws):
+            c.int8 = qw
         yield model
     finally:
         for c in convs:

@@ -13,10 +13,12 @@ Port of plant3dvision_tpu/ops/edt.py with the same semantics:
   (reference proc3d.py:518-522): inside and outside distances combined as
   where(dist > 0.5, dist - 0.5, -mdist + 0.5).
 
-A CUDA tensor goes to kernels/csrc/edt.cu (one launch per axis; the
-signed distance carries both channels through each launch), a CPU tensor
-to the plain version. All finite values are integers below 2^24, so both
-are bit-equal to the JAX package.
+A CUDA tensor goes to kernels/csrc/edt.cu, two launches a call: the
+first axis by a march along x, then the other two fused in one launch,
+in one of two lanes chosen by range (`lane16`): both channels as int16
+halves of a 32-bit word, or the float32 pair. A CPU tensor goes to the
+plain version. All finite values are integers below 2^24, so both are
+bit-equal to the JAX package.
 """
 
 from __future__ import annotations
@@ -26,20 +28,49 @@ import torch
 from .. import kernels
 
 _INF = 1e12
+#: the 16-bit lane's INF (kernels/csrc/edt.cu kSent16): every finite value
+#: of the lane is below it, and it plus any shift^2 stays below 2^15
+SENTINEL16 = 16384
 
-# p3d_edt_pass modes (kernels/csrc/edt.cu)
-_SD_FIRST, _SD_MID, _SD_LAST, _SQ_FIRST, _SQ_MID = 0, 1, 2, 3, 4
+
+def axis_caps(shape, cap):
+    """The window of each axis: min(cap, n - 1) (n - 1 for cap None), as
+    `_minplus_pass` cuts it."""
+    return [max(0, min(n - 1 if cap is None else int(cap), n - 1))
+            for n in shape]
 
 
-def _edt_pass_cuda(mode, src_a, src_b, cap, axis, out_a, out_b):
-    nx, ny, nz = src_a.shape
-    so = kernels.lib()
-    rc = so.p3d_edt_pass(
-        src_a.data_ptr(), src_b.data_ptr() if src_b is not None else None,
-        out_a.data_ptr(), out_b.data_ptr() if out_b is not None else None,
-        nx, ny, nz, axis, cap, mode, kernels.stream_ptr(src_a.device))
+def lane16(caps) -> bool:
+    """The 16-bit lane holds a grid whose largest finite value, the sum of
+    the squared caps, is below its sentinel."""
+    return sum(c * c for c in caps) < SENTINEL16
+
+
+def _edt_cuda(v, cap, signed):
+    """Both launches of K2 on a 3-D float32 CUDA volume: the signed
+    distance of `v > 0.5` (signed) or the squared EDT of `v != 0`."""
+    name = "signed_distance" if signed else "squared_edt"
+    c0, c1, c2 = axis_caps(v.shape, cap)
+    kernels.require_volume(name, v)
+    nx, ny, nz = v.shape
+    wide = int(not lane16((c0, c1, c2)))
+    words = (torch.empty((nx, ny, nz, 2), dtype=torch.float32, device=v.device)
+             if wide else torch.empty(v.shape, dtype=torch.int32,
+                                      device=v.device))
+    out = torch.empty_like(v)
+    so, stream = kernels.lib(), kernels.stream_ptr(v.device)
+    # a z row too long for shared memory: the y pass's rows go through here
+    spill = torch.empty_like(words) if so.p3d_edt_yz_spills(nz, wide) else None
+    rc = so.p3d_edt_x(v.data_ptr(), words.data_ptr(), nx, ny, nz, c0,
+                      int(not signed), wide, stream)
     kernels.LAUNCHES["signed_distance"] += 1
     kernels.check("signed_distance", rc)
+    rc = so.p3d_edt_yz(words.data_ptr(), out.data_ptr(),
+                       None if spill is None else spill.data_ptr(), nx, ny,
+                       nz, c1, c2, int(not signed), wide, stream)
+    kernels.LAUNCHES["signed_distance"] += 1
+    kernels.check("signed_distance", rc)
+    return out
 
 
 def _minplus_pass(f, axis: int, cap: int):
@@ -64,17 +95,7 @@ def squared_edt(x, cap: int | None = None):
     x = torch.as_tensor(x)
     if x.device.type == "cpu":
         return squared_edt_plain(x, cap)
-    x = x.to(torch.float32).contiguous()
-    kernels.require_volume("squared_edt", x)
-    bufs = [torch.empty_like(x), torch.empty_like(x)]
-    src = x
-    for axis in range(3):
-        c = x.shape[axis] - 1 if cap is None else cap
-        out = bufs[axis % 2]
-        _edt_pass_cuda(_SQ_FIRST if axis == 0 else _SQ_MID, src, None,
-                       int(c), axis, out, None)
-        src = out
-    return src
+    return _edt_cuda(x.to(torch.float32).contiguous(), cap, signed=False)
 
 
 def squared_edt_plain(x, cap: int | None = None):
@@ -97,16 +118,8 @@ def signed_distance(volume, cap: int | None = 16):
     volume = torch.as_tensor(volume)
     if volume.device.type == "cpu":
         return signed_distance_plain(volume, cap)
-    v = volume.to(torch.float32).contiguous()
-    kernels.require_volume("signed_distance", v)
-    caps = [int(v.shape[a] - 1 if cap is None else cap) for a in range(3)]
-    a1, b1 = torch.empty_like(v), torch.empty_like(v)
-    _edt_pass_cuda(_SD_FIRST, v, None, caps[0], 0, a1, b1)
-    a2, b2 = torch.empty_like(v), torch.empty_like(v)
-    _edt_pass_cuda(_SD_MID, a1, b1, caps[1], 1, a2, b2)
-    sd = a1  # reuse: the last pass reads (a2, b2) only
-    _edt_pass_cuda(_SD_LAST, a2, b2, caps[2], 2, sd, None)
-    return sd
+    return _edt_cuda(volume.to(torch.float32).contiguous(), cap,
+                     signed=True)
 
 
 def signed_distance_plain(volume, cap: int | None = 16):

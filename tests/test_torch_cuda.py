@@ -63,14 +63,49 @@ def _blobs(rng, shape):
     return (gaussian_filter(x, 2.0) > 0.5).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(30, 26, 41), (5, 64, 3)])
-@pytest.mark.parametrize("cap", [3, 20, None])
+@pytest.mark.parametrize("shape", [(30, 26, 41), (5, 64, 3), (200, 30, 30),
+                                   (165, 146, 504), (4, 40, 2000),
+                                   (3, 30, 1300)])
+@pytest.mark.parametrize("cap", [3, 20, 130, None])
 def test_signed_distance_kernel_matches_plain(dev, shape, cap):
+    """K2, two launches a call, bit for bit in both lanes: the 16-bit lane
+    (caps 3 and 20; cap None on the small grids), the 32-bit lane (the ML
+    grid 165x146x504 at caps 130 and None, 200x30x30 at cap None); blocks
+    of kR rows, and of fewer where a z row is long (4x40x2000 and
+    3x30x1300: 8 rows, tests/test_torch_edt_lanes.py:test_block_rows)."""
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops import edt
     rng = np.random.default_rng(1)
     vol = torch.from_numpy(_blobs(rng, shape) * 2 - 1).to(dev)
-    assert torch.equal(edt.signed_distance(vol, cap),
-                       edt.signed_distance_plain(vol, cap))   # exact
+    before = kernels.LAUNCHES["signed_distance"]
+    sd = edt.signed_distance(vol, cap)
+    assert kernels.LAUNCHES["signed_distance"] - before == 2
+    assert torch.equal(sd, edt.signed_distance_plain(vol, cap))   # exact
+    assert torch.equal(edt.squared_edt(vol > 0, cap),
+                       edt.squared_edt_plain(vol > 0, cap))
+
+
+@pytest.mark.parametrize("shape,cap", [((2, 3, 30000), 20),
+                                       ((2, 5, 20000), 130),
+                                       ((3, 4, 20000), None),
+                                       ((32770, 2, 3), None)])
+def test_signed_distance_kernel_takes_any_shape(dev, shape, cap):
+    """K2 where a z row does not fit in shared memory (30000 voxels in the
+    16-bit lane, 20000 in the 32-bit: G through the spill buffer) and with
+    a first-axis window past 32767 (cap None on 32770 x-positions, one
+    column all inside): bit for bit, two launches a call."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import edt
+    rng = np.random.default_rng(4)
+    vol = torch.from_numpy(_blobs(rng, shape) * 2 - 1).to(dev)
+    vol[:, 0, 0] = 1.0
+    vol[0, 0, 0] = -1.0
+    wide = int(not edt.lane16(edt.axis_caps(shape, cap)))
+    assert kernels.lib().p3d_edt_yz_spills(shape[2], wide) == (shape[2] >= 20000)
+    before = kernels.LAUNCHES["signed_distance"]
+    sd = edt.signed_distance(vol, cap)
+    assert kernels.LAUNCHES["signed_distance"] - before == 2
+    assert torch.equal(sd, edt.signed_distance_plain(vol, cap))
     assert torch.equal(edt.squared_edt(vol > 0, cap),
                        edt.squared_edt_plain(vol > 0, cap))
 
@@ -1034,7 +1069,8 @@ def test_int8_conv_kernel_matches_plain(dev, kind, hw, dtype, bias):
     # the weight quantised once (as the lane does) gives the same
     qw = quant.quantize_weight(w)
     pw = quant.quantize_weight_plain(w)
-    assert torch.equal(qw.q, pw.q) and torch.equal(qw.amax, pw.amax)
+    assert qw.q is None and torch.equal(qw.amax, pw.amax)
+    assert torch.equal(qw.packed, quant.pack_weight(pw.q, qw.plan))
     assert torch.equal(quant.int8_conv(x, qw, b, s, pads), want)
 
 
@@ -1102,11 +1138,42 @@ def test_int8_segmentation_runs_the_lane_on_the_card(dev):
                                 output_dtype="float32", device=dev)
     assert kernels.LAUNCHES["int8_conv"] == 2 * n_conv
     assert kernels.LAUNCHES["int8_absmax"] == 2 * n_conv
-    assert kernels.LAUNCHES["int8_quantize"] == n_conv
+    assert kernels.LAUNCHES["int8_quantize"] == 1      # all the weights
     pf = segmentation_inference(model, img, batch_size=2, conv_mode="bf16",
                                 output_dtype="float32", device=dev)
     agree = (pi.argmax(1) == pf.argmax(1)).float().mean().item()
     assert agree > 0.95 and (pi - pf).abs().mean().item() < 0.02
+
+
+@pytest.mark.parametrize("path", ["unet_seg", "tpusegnet_seg"])
+def test_int8_lane_quantises_a_model_in_one_launch(dev, path):
+    """`int8_lane` on a committed net (bf16, as segmentation_inference casts
+    it): one "int8_quantize" launch for all its compute convs, and every
+    weight's amax and packed layout (its only copy of q) equal to the plain
+    version's (`quantize_weight_plain` + `pack_weight`), bit for bit."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import checkpoint, quant, zoo
+    ckpt = {"unet_seg": zoo.DEFAULT_CHECKPOINT,
+            "tpusegnet_seg": zoo.TPUSEGNET_CHECKPOINT}[path]
+    params, config = checkpoint.params_from_npz_bytes(ckpt.read_bytes())
+    model = checkpoint.model_from_config(config)
+    model.load_state_dict(checkpoint.state_dict_from_flax(
+        checkpoint._upcast_f16(params)))
+    model = model.to(dev, torch.bfloat16)
+    convs = quant.compute_convs(model)
+    kernels.reset_launches()
+    with quant.int8_lane(model):
+        assert kernels.LAUNCHES["int8_quantize"] == 1
+        for c in convs:
+            w = c.weight.detach()
+            pw = quant.quantize_weight_plain(w)
+            K, kh, kw, cp = pw.q.shape
+            assert c.int8.q is None and c.int8.shape == tuple(w.shape)
+            assert torch.equal(c.int8.amax, pw.amax)
+            assert c.int8.plan == quant.conv_plan(K, kh, kw, cp)
+            assert torch.equal(c.int8.packed,
+                               quant.pack_weight(pw.q, c.int8.plan))
+            assert c.int8.packed.data_ptr() % 16 == 0
 
 
 # -- K17-K19: the gather probes -----------------------------------------------------

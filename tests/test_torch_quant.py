@@ -467,3 +467,120 @@ def test_k16_staging_quantises_exactly_without_a_division():
             v = torch.cat([v, near[near.abs() <= amax]])
         want = torch.round(v / s).clamp(-127, 127)
         assert torch.equal(_quantize_r(v, s), want), float(amax)
+
+
+# -- K16's weight quantise: a model's weights in one launch -------------------------
+
+POISON = 0x5A
+
+
+def _emulate_quantize_weights(ws, desc, size):
+    """int8conv.cu:quantize_weights_kernel in numpy, from the descriptor
+    table the wrapper hands it: a block a row (weight, output channel k;
+    the packed layout's rows past K are blocks of their own), the row's
+    absmax, then its packed words (4 depth bytes of a chunk) at the
+    kernel's offsets. Bytes no block writes keep POISON."""
+    arena = np.full(size, POISON, np.uint8)
+    for w, d in zip(ws, desc):
+        (_, p_off, a_off, _, K, C, taps, NT, CC, nch,
+         DC) = (int(v) for v in d[:11])
+        wf = w.float().numpy().reshape(K, C, taps)
+        m = np.abs(wf).max(axis=(1, 2))
+        s = (np.maximum(m, np.float32(quant.W_FLOOR))
+             * np.float32(quant.INV127)).astype(np.float32)
+        q = np.clip(np.rint(wf / s[:, None, None]), -127, 127)
+        qpad = np.zeros((K, taps, nch * CC), np.int8)   # (k, tap, channel)
+        qpad[:, :, :C] = q.transpose(0, 2, 1)
+        arena[a_off:a_off + 4 * K] = m.astype(np.float32).view(np.uint8)
+        # packed: row k (past K: zeros), word e = (ch, d4 / 4)
+        dq = DC // 4
+        k, e, j = np.meshgrid(np.arange(-(-K // NT) * NT),
+                              np.arange(nch * dq), np.arange(4),
+                              indexing="ij")
+        ch, d4 = e // dq, 4 * (e % dq)
+        real = (k < K) & (d4 < taps * CC)
+        t = np.where(real, d4 // CC, 0)
+        c = np.where(real, ch * CC + d4 - t * CC + j, 0)
+        val = np.where(real, qpad[np.minimum(k, K - 1), t, c], 0)
+        nb = k // NT
+        arena[p_off + 4 * (((nb * nch + ch) * NT + k - nb * NT) * dq
+                           + d4 // 4) + j] = val.astype(np.int8).view(
+                               np.uint8)
+    return arena
+
+
+def _compute_weights():
+    ws = []
+    for path in (DEFAULT_CHECKPOINT, TPUSEGNET_CHECKPOINT):
+        params, config = checkpoint.params_from_npz_bytes(path.read_bytes())
+        m = checkpoint.model_from_config(config)
+        m.load_state_dict(checkpoint.state_dict_from_flax(
+            checkpoint._upcast_f16(params)))
+        ws.append([c.weight.detach().to(torch.bfloat16)
+                   for c in quant.compute_convs(m)])
+    return ws
+
+
+@pytest.mark.parametrize("net", [0, 1], ids=["unet_seg", "tpusegnet_seg"])
+def test_one_launch_weight_quantise_layout(net):
+    """Every compute conv of the net (bf16, as `int8_lane` casts it): the
+    arena that `quantize_weights` describes, filled as the kernel fills it,
+    holds `quantize_weight_plain`'s amax and `pack_weight` of its q bit
+    for bit, zeros in every pad (channels past Cin, depth past kh*kw*CC,
+    rows past K), in one table (one launch) of disjoint regions (packed
+    16-byte aligned, the amaxes back to back); the gaps between them
+    untouched."""
+    ws = _compute_weights()[net]
+    assert len(ws) == (30, 19)[net] <= quant.MAX_WEIGHTS
+    lay = quant.weight_arena(tuple(tuple(w.shape) for w in ws))
+    desc = quant.weight_table(ws, lay)
+    arena = _emulate_quantize_weights(ws, desc, lay.size)
+    written = np.zeros(lay.size, bool)
+    for w, sl in zip(ws, lay.slots):
+        K, C, kh, kw = sl.shape
+        p = sl.plan
+        assert sl.p_off % 16 == sl.a_off % 4 == 0
+        pw = quant.quantize_weight_plain(w)
+        assert p == quant.conv_plan(*pw.q.shape)
+        spans = ((sl.p_off, p.n_blocks * p.nch * p.nt * p.dc),
+                 (sl.a_off, 4 * K))
+        for off, n in spans:
+            assert off + n <= lay.size and not written[off:off + n].any()
+            written[off:off + n] = True
+        packed = arena[sl.p_off:sl.p_off + spans[0][1]].view(np.int8)
+        np.testing.assert_array_equal(
+            packed.reshape(p.n_blocks, p.nch, p.nt, p.dc),
+            quant.pack_weight(pw.q, p).numpy())
+        amax = arena[sl.a_off:sl.a_off + 4 * K].view(np.float32)
+        np.testing.assert_array_equal(amax, pw.amax.numpy())
+        rows = packed.reshape(p.n_blocks, p.nch, p.nt, p.dc).transpose(
+            0, 2, 1, 3).reshape(p.n_blocks * p.nt, p.nch, p.dc)
+        assert not rows[K:].any()                          # rows past K
+        assert not rows[:, :, kh * kw * p.cc:].any()       # depth past taps
+        by_channel = rows[:K, :, :kh * kw * p.cc].reshape(
+            K, p.nch, kh * kw, p.cc).transpose(0, 2, 1, 3).reshape(
+                K, kh * kw, p.nch * p.cc)
+        assert not by_channel[:, :, C:].any()              # channels past Cin
+    assert (arena[~written] == POISON).all()
+
+
+def test_quantize_weights_on_the_cpu_is_the_plain_version():
+    """On CPU tensors `quantize_weights` is `quantize_weight_plain` each, in
+    order, however many; off the CPU one launch takes at most MAX_WEIGHTS
+    and more are refused before any launch."""
+    ws = _compute_weights()[0][:5]
+    for got, w in zip(quant.quantize_weights(ws), ws):
+        want = quant.quantize_weight_plain(w)
+        assert torch.equal(got.q, want.q) and torch.equal(got.amax,
+                                                          want.amax)
+    assert quant.quantize_weights([]) == []
+    assert quant.quantize_weight(ws[0]).cin == ws[0].shape[1]
+    with pytest.raises(ValueError, match="weight must be"):
+        quant.quantize_weights([ws[0][0]])
+    many = [ws[0]] * (quant.MAX_WEIGHTS + 1)
+    assert len(quant.quantize_weights(many)) == quant.MAX_WEIGHTS + 1
+    with pytest.raises(ValueError, match="up to 48 weights, got 49"):
+        quant.quantize_weights([w.to("meta") for w in many])
+    with pytest.raises(ValueError, match="must carry q"):
+        quant.int8_conv_plain(torch.zeros((1, 3, 4, 4)), quant.QuantizedWeight(
+            torch.ones(2), (2, 3, 1, 1)), None, 1, ((0, 0), (0, 0)))
