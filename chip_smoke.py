@@ -53,9 +53,11 @@
    mean error is below 25 degrees.
 8. Holds K5-avg (one label's 126 masks, plain and log'd; with its tiles'
    windows), K7 (the warm
-   pass's points and 630 masks) and K8 (the pass's 756 masks thresholded at
-   0.01, radius 1 and 3) against their plain versions at that route's
-   shapes, and times them beside a PyTorch library chain.
+   pass's points and 630 masks; with its camera runs and the bound of one
+   projection a run, `bound_ms_runs`) and K8 (the pass's 756 masks
+   thresholded at 0.01, radius 1 and 3) against their plain versions at
+   that route's shapes, and times them beside a PyTorch library chain
+   (tools/harris_reproject_ab.py times K7 of two checkouts in turns).
 9. Drives the real-scan front end (configs/geom_pipe_real_selfcal.toml's
    tasks after its TurntableCalibration: Undistorted -> Masks -> Voxels
    with vote carving (kill_tolerance 3) at 0.5 mm into phase 4's
@@ -112,7 +114,9 @@
    (selfcal_launches; tools/selfcal_ab.py times K11b and K12 of two
    checkouts in turns), and times them beside a library call for K8
    (conv2d with the disk) and K13 (rolls + avg_pool2d + max_pool2d; none
-   for K11b, K12).
+   for K11b, K12), with harris_keypoints' call and its band sort alone
+   timed beside K13 (tools/harris_reproject_ab.py times K13 of two
+   checkouts in turns).
 13. Drives CurveSkeleton(method="fim") on phase 9's scan (written here if
    phase 9 did not run) through phase 9's strict front end (0.5 mm, the
    301x301x561 grid; bin_size 4 voxels = 2 mm): one cold pass, one warm
@@ -1564,20 +1568,27 @@ def check_separate_kernels(scan, report, launches):
         touched += int(torch.unique(lin[inside]).numel())
         in_pairs += int(inside.sum())
     n = pts.shape[0]
+    runs = int(reproject.camera_runs(ck, None).numel())
     # per point-file pair ~32 operations (three dot products, two
     # divisions and fused multiply-adds, frame test, / 255, the add); bytes:
     # the points, cameras and labels read once, the distinct mask bytes the
-    # in-frame pairs read, the scores written once
+    # in-frame pairs read, the scores written once. bound_ms_runs: ~30
+    # operations a point and camera run (the projection and frame test) and
+    # 2 a point-file pair (/ 255, the add), the same bytes
+    k7_bytes = 12 * n + ck.numel() * 4 + lk.numel() * 4 + touched + 4 * n * L
     rows.append(kernel_row(
         "reproject_scores", launches["reproject_scores"], 0.0,
         cuda_ms(lambda: reproject.score_points_by_masks(*args)),
         cuda_ms(lambda: reproject.score_points_by_masks_plain(*args), reps=3,
                 warmup=1),
-        12 * n + ck.numel() * 4 + lk.numel() * 4 + touched + 4 * n * L,
-        32 * n * len(organ),
+        k7_bytes, 32 * n * len(organ),
         library=cuda_ms(lambda: _library_reproject(*args), reps=3, warmup=1),
         extra={"path": "ml_separate", "points": n, "files": len(organ),
-               "labels": L, "in_frame_pairs": in_pairs,
+               "labels": L, "camera_runs": runs,
+               "camera_runs_chunked": int(reproject.camera_runs(ck).numel()),
+               "bound_ms_runs": bound_ms(
+                   k7_bytes, 30 * n * runs + 2 * n * len(organ))[0],
+               "in_frame_pairs": in_pairs,
                "mask_bytes_read": touched, "mask_bytes_held": mk.numel(),
                "library_max_abs_diff": float((lib_scores - got).abs().max())}))
     del mk, lib_scores
@@ -2462,6 +2473,18 @@ def check_selfcal_kernels(scan, report, launches):
     g, m = gray[:12].contiguous(), kp[:12].contiguous()
     lib = _harris_library(g, m, 16, 0.06)
     npx = g.numel()
+    # harris_keypoints' band selection (a stable sort of each band), timed
+    # beside K13 on the same chunk: the whole call and the sort alone
+    r = sfmlite.harris_response(g, m)
+    hb = -(-H // 6)
+    rb = torch.nn.functional.pad(r, (0, 0, 0, 6 * hb - H),
+                                 value=-torch.inf).reshape(12, 6, hb * W)
+    selection = {
+        "keypoints_ms": cuda_ms(lambda: sfmlite.harris_keypoints(g, m)),
+        "band_sort_ms": cuda_ms(lambda: torch.sort(
+            rb, dim=-1, descending=True, stable=True)),
+        "bands": 6, "values_a_band": hb * W}
+    del r, rb
     rows.append(kernel_row(
         "harris_response", launches["harris_response"], 0.0,
         cuda_ms(lambda: sfmlite.harris_response(g, m)),
@@ -2470,7 +2493,7 @@ def check_selfcal_kernels(scan, report, launches):
         9 * npx, 45 * npx,
         library=cuda_ms(lambda: _harris_library(g, m, 16, 0.06)),
         extra={"path": "selfcal", "chunk": list(g.shape),
-               "chunks": -(-V // 12),
+               "chunks": -(-V // 12), "band_selection": selection,
                "candidates_60_views": n_cand,
                "library_candidates_differing": int(
                    (torch.isfinite(lib) != torch.isfinite(

@@ -130,8 +130,8 @@ _ARGTYPES = {
     # valid_out, stream
     "p3d_ray_coverage": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _F, _F, _F,
                          _F, _F, _F, _F, _F, _I, _I, _I, _I, _F, _P, _P, _P],
-    # gray, mask, V, H, W, border, kappa, out, stream
-    "p3d_harris": [_P, _P, _I, _I, _I, _I, _F, _P, _P],
+    # gray, mask, V, H, W, rows (a warp's band), border, kappa, out, stream
+    "p3d_harris": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
     # nbr, M, speed_inv (or null), active, out, u0, u1, ctl, max_iters, tol,
     # sweeps, stream
     "p3d_eikonal_grid": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _F, _P, _P],

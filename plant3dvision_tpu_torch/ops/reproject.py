@@ -11,7 +11,9 @@ to the JAX task's `astype(float32) / 255.0` on the host.
 
 `score_points_by_masks` dispatches on the tensors' device: CUDA goes to the
 hand-written kernel (kernels/csrc/reproject.cu), CPU to
-`score_points_by_masks_plain`.
+`score_points_by_masks_plain`. The kernel projects a point once for each
+camera run (`camera_runs`: the L label files of an image carry its camera,
+one after another) and sums each label's files in file order.
 """
 
 from __future__ import annotations
@@ -23,6 +25,10 @@ from .carving import _dot3_add, div_f32, fma_f32
 
 #: the kernel holds a point's label sums in registers
 MAX_LABELS = 8
+
+#: files the kernel stages a chunk (reproject.cu's FC); a camera run is cut
+#: at a chunk's edge
+FILE_CHUNK = 64
 
 
 def _check_args(points, masks, cameras, label_idx, n_labels):
@@ -62,6 +68,20 @@ def score_points_by_masks(points, masks, cameras, label_idx, n_labels: int):
     kernels.LAUNCHES["reproject_scores"] += 1
     kernels.check("reproject_scores", rc)
     return scores
+
+
+def camera_runs(cameras, chunk: int | None = FILE_CHUNK):
+    """Start file of every camera run of `cameras` (F, 16) float32, as the
+    kernel finds them: a run is a maximal stretch of consecutive files whose
+    rows are equal bit for bit, also cut where a chunk of `chunk` files
+    starts (None: not cut). (R,) int64 on cameras' device."""
+    F = cameras.shape[0]
+    bits = cameras.contiguous().view(torch.int32)
+    start = torch.ones(F, dtype=torch.bool, device=cameras.device)
+    start[1:] = (bits[1:] != bits[:-1]).any(dim=1)
+    if chunk:
+        start[::chunk] = True
+    return torch.nonzero(start).flatten()
 
 
 def project_points(points, cam, hw):

@@ -56,6 +56,9 @@ def _full_f32():
 
 _RCP9 = float(np.float32(1.0) / np.float32(9.0))
 
+#: output rows a warp of K13 marches down (kernels/csrc/harris.cu)
+HARRIS_ROWS = 32
+
 
 def _box3(a, b):
     """3x3 box filter of the product a*b, batched (V, H, W), as XLA's CPU
@@ -84,7 +87,7 @@ def harris_response(gray, mask, border: int = 16, kappa: float = 0.06):
     V, H, W = gray.shape
     out = torch.empty_like(gray)
     rc = kernels.lib().p3d_harris(
-        gray.data_ptr(), mask.data_ptr(), V, H, W, int(border),
+        gray.data_ptr(), mask.data_ptr(), V, H, W, HARRIS_ROWS, int(border),
         float(np.float32(kappa)), out.data_ptr(),
         kernels.stream_ptr(gray.device))
     kernels.LAUNCHES["harris_response"] += 1

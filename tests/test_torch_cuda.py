@@ -431,6 +431,40 @@ def test_reproject_kernel_matches_plain(dev, L):
     assert (k > 0).any() and (k == 0).any()
 
 
+@pytest.mark.parametrize("order", ["image_major", "label_major", "apart"])
+@pytest.mark.parametrize("L", [1, 8])
+def test_reproject_kernel_camera_runs(dev, order, L):
+    """K7 over 2000 files (32 chunks of 64, the last one short): image-major
+    (runs of L files that cross chunk edges), label-major (runs of one) and
+    image-major with every other view's camera repeated two views later
+    (equal cameras apart: separate runs); 5037 points (not a multiple of a
+    block's 256), a file whose label is L: bit-equal to the plain
+    version."""
+    from plant3dvision_tpu_torch.ops.reproject import (
+        camera_runs, score_points_by_masks, score_points_by_masks_plain)
+    rng = np.random.default_rng(L)
+    H, W, F = 37, 53, 2000
+    V = F // L
+    _, views = _label_views(rng, V, 1, H, W)
+    if order == "apart":
+        views[2::4] = views[0::4][:len(views[2::4])]
+    cams = (np.tile(views, (L, 1)) if order == "label_major"
+            else np.repeat(views, L, axis=0))
+    lab = (np.repeat(np.arange(L), V) if order == "label_major"
+           else np.tile(np.arange(L), V)).astype(np.int32)
+    lab[5] = L                                    # adds nothing
+    pts = rng.uniform(-12, 12, (5037, 3)).astype(np.float32)
+    pts[:300] *= 5                                # behind some cameras
+    masks = rng.integers(0, 256, (F, H, W), dtype=np.uint8)
+    t = [torch.from_numpy(a).to(dev) for a in (pts, masks, cams, lab)]
+    k = score_points_by_masks(*t, L)
+    p = score_points_by_masks_plain(*t, L)
+    assert k.shape == (5037, L) and torch.equal(k, p)
+    assert (k > 0).any() and (k == 0).any()
+    runs = camera_runs(t[2], None).numel()
+    assert runs == {"image_major": V, "label_major": F, "apart": V}[order]
+
+
 DILATE_CASES = ([("radius", r) for r in (0, 1, 2, 3, 5, 6, 16, 35, 36)]
                 + [("width", w) for w in (31, 32, 33, 63, 64, 65, 1440, 2100,
                                           4100)]
@@ -806,6 +840,62 @@ def test_harris_kernel_matches_plain(dev, shape):
     uk, sk = sfmlite.harris_keypoints(gray, mask, k=36, border=8)
     up, sp = sfmlite.harris_keypoints(gray.cpu(), mask.cpu(), k=36, border=8)
     assert torch.equal(uk.cpu(), up) and torch.equal(sk.cpu(), sp)
+
+
+HARRIS_CASES = ([("shape", s) for s in ((1, 33, 121), (2, 97, 241),
+                                         (3, 65, 124), (1, 1080, 1443),
+                                         (12, 1080, 1440))]
+                + [("rows", r) for r in (1, 7, 64)]
+                + [(name, 0) for name in ("empty_mask", "constant",
+                                          "unaligned", "small")])
+
+
+@pytest.mark.parametrize("case", HARRIS_CASES,
+                         ids=[f"{a}-{b}" for a, b in HARRIS_CASES])
+def test_harris_kernel_strip_edges(dev, monkeypatch, case):
+    """K13's march at its edges: widths and heights that are not multiples
+    of the strip (120 columns) or the band (HARRIS_ROWS), a width that is
+    not a multiple of 4 (the scalar lane), a full calibration chunk, bands
+    of 1, 7 and 64 rows, an all-false mask, a constant image (r = 0: every
+    pixel ties), a stack that starts one pixel into its storage (unaligned),
+    a frame smaller than a strip: bit-equal to the plain version, one
+    launch a call."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import sfmlite
+    kind, arg = case
+    shape = arg if kind == "shape" else (2, 75, 248)
+    if kind == "small":
+        shape = (3, 9, 11)
+    if kind == "rows":
+        monkeypatch.setattr(sfmlite, "HARRIS_ROWS", arg)
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    g = rng.standard_normal(shape).astype(np.float32)
+    for ax in (1, 2):
+        g = (g + np.roll(g, 1, ax) + np.roll(g, -1, ax)) / 3
+    gray = torch.from_numpy(g.astype(np.float32)).to(dev)
+    mask = torch.from_numpy(rng.random(shape) > 0.2).to(dev)
+    if kind == "empty_mask":
+        mask[:] = False
+    elif kind == "constant":
+        gray[:] = 0.375
+    elif kind == "unaligned":
+        gray = torch.cat([torch.zeros(1, device=dev),
+                          gray.flatten()])[1:].view(shape)
+        mask = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                          mask.flatten()])[1:].view(shape)
+    border = 3 if kind == "small" else 8
+    before = kernels.LAUNCHES["harris_response"]
+    k = sfmlite.harris_response(gray, mask, border, 0.06)
+    assert kernels.LAUNCHES["harris_response"] == before + 1
+    p = sfmlite.harris_response_plain(gray, mask, border, 0.06)
+    assert torch.equal(k, p)
+    kept = int(torch.isfinite(k).sum())
+    if kind == "empty_mask":
+        assert kept == 0
+    elif kind == "constant":
+        assert kept > 1000 and bool((k[torch.isfinite(k)] == 0).all())
+    else:
+        assert kept > 0
 
 
 # -- K14 (eikonal sweeps), K15 (geodesic tracing), the repeatable BA ----------
