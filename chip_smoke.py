@@ -15,11 +15,13 @@
    K3 as vol2pcd calls it, the fused smoothed_gradient, one launch a call,
    with `gradient` and `gaussian_filter` alone held equal, untimed)
    and times kernel, plain version and, where one exists, a PyTorch
-   library call computing the same function (CUDA events, median). K4's
+   library call computing the same function (CUDA events, median; K1's
+   `kernel_ms` is its device time from torch.profiler). K4's
    rows (here and in phase 6) also give a call's launches and host syncs
    and its floor_ms: as many empty launches and one 8-byte read.
-4. Runs the 60-view 1440x1080 carve into a 301x301x561 grid at 0.5 mm and
-   vol2pcd on its result.
+4. Runs the 60-view 1440x1080 carve into a 301x301x561 grid at 0.5 mm
+   (K1 bit-equal to its plain version, with its launches, device time and
+   bound) and vol2pcd on its result.
 5. Drives the ML path through the port's task runtime at full width: a
    126-view 896x896 photo-domain scan (ProceduralArabidopsis(seed=1)), the
    committed TPUSegNet, FusedSegmentationCarving at 0.25 mm (165x146x504
@@ -80,7 +82,10 @@
    plain versions at that path's shapes, and times them beside a PyTorch
    library call (grid_sample for K9; for K10 the fast lane's own call,
    imgs[..., k] > t, with the tensordot chain beside it, and the excess
-   green chain; none for K11). K10 is also timed on one image, as live
+   green chain; none for K11). K9's row gives its device time
+   (torch.profiler) and its tiles by lane (staged, global-load, empty) as
+   the kernel counted them, held equal to `tile_windows`' prediction.
+   K10 is also timed on one image, as live
    carving launches it. Holds K8 at the Masks task's radius 3 on the
    linear lane's 58 masks against its plain version and conv2d with the
    disk.
@@ -571,6 +576,26 @@ def cuda_ms(fn, reps=7, warmup=2):
     return statistics.median(times)
 
 
+def device_ms(fn, reps=10, tries=3):
+    """Mean device milliseconds of fn() (its kernels' time on the card,
+    torch.profiler), after one warm-up call; None ("not measured") when
+    `tries` profiler sessions in a row record no device time (seen once in
+    a long run of this script)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages())
+        if total > 0:
+            return total / reps / 1e3
+    return None
+
+
 def host_syncs(fn):
     """fn()'s result and the synchronizing CUDA operations it made, as
     torch.cuda's sync debug mode reports them."""
@@ -730,15 +755,17 @@ def load_group(scan, n_views):
 
 
 def kernel_row(name, launches, err, ms, plain, nbytes, nops, library=None,
-               extra=None):
+               extra=None, kernel_ms=None):
     """One entry of the `kernels` line (bound from the bytes and operations
-    of this run's inputs)."""
+    of this run's inputs); `kernel_ms` the kernel's device time where it
+    was profiled, else the call's."""
     b, by = bound_ms(nbytes, nops)
     src, rep = KERNEL_INFO[name]
     r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches, "max_abs_err": err, "match": True,
-         "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": b,
-         "bound_by": by, "library_ms": library}
+         "ms": ms, "kernel_ms": ms if kernel_ms is None else kernel_ms,
+         "plain_ms": plain, "bound_ms": b, "bound_by": by,
+         "library_ms": library}
     r.update(extra or {})
     return r
 
@@ -831,6 +858,7 @@ def check_kernels(scan, vfile, launches):
         cuda_ms(lambda: carving.carve(*args)),
         cuda_ms(lambda: carving.carve_plain(*args), reps=5, warmup=1),
         mask_bytes + cm.numel() * 4 + va.numel() + nvox, 24 * tests,
+        kernel_ms=device_ms(lambda: carving.carve(*args)),
         extra={"path": "geometric", "shape": list(shape), "views": len(cams),
                "voxel_view_tests": tests, "mask_bytes_read": mask_bytes,
                "mask_bytes_held": pk.numel()})]
@@ -978,7 +1006,7 @@ def run_real_grid():
     + vol2pcd (301x301x561 voxels)."""
     import numpy as np
     import torch
-    from plant3dvision_tpu_torch import proc3d
+    from plant3dvision_tpu_torch import kernels, proc3d
     from plant3dvision_tpu_torch.ops.carving import (carve, carve_plain,
                                                      pack_camera, pack_masks)
     from plant3dvision_tpu_torch.synth import (SyntheticPlant, render_mask,
@@ -1003,9 +1031,16 @@ def run_real_grid():
     va = torch.ones(V, dtype=torch.bool, device=dev)
     args = (pk, cm, va, origin, vs, shape, (H, W))
     carve_ms = cuda_ms(lambda: carve(*args), reps=5, warmup=1)
+    kernel_ms = device_ms(lambda: carve(*args), reps=5)
+    before = kernels.LAUNCHES["carve"]
     vol = carve(*args)
-    plain, tests, _ = carve_plain(*args, count_work=True)
+    launches = kernels.LAUNCHES["carve"] - before
+    plain, tests, mask_bytes = carve_plain(*args, count_work=True)
     assert torch.equal(vol, plain), "real-grid carve != plain"
+    # the bound as phase 3's K1 row: 24 operations a test the early exit
+    # leaves, the mask bytes those tests read, cameras, flags, the grid
+    b, by = bound_ms(mask_bytes + cm.numel() * 4 + V + int(np.prod(shape)),
+                     24 * tests)
     del plain
     t0 = time.perf_counter()
     pcd = proc3d.vol2pcd(vol, origin, vs, 0.0)
@@ -1022,6 +1057,8 @@ def run_real_grid():
     emit({"real_grid": {
         "views": V, "image": [W, H], "shape": list(shape), "voxel_mm": vs,
         "workload_build_s": build_s, "carve_ms": carve_ms,
+        "kernel_ms": kernel_ms, "launches": launches, "bound_ms": b,
+        "bound_by": by, "bit_equal": True, "mask_bytes_read": mask_bytes,
         "grid_view_pairs_per_s": V * nvox / (carve_ms / 1e3),
         "voxel_view_tests": tests,
         "voxel_view_tests_per_s": tests / (carve_ms / 1e3),
@@ -1772,13 +1809,19 @@ def check_frontend_kernels(scan, report, launches):
     cam = cameralib.get_camera_kwargs_from_images_metadata(raw_files[0])
     K, dist = cam["K"].astype(np.float32), cam["dist"].astype(np.float32)
 
-    # K9: the 58 raw images
+    # K9: the 58 raw images, with the kernel's lane counts
     imgs = torch.from_numpy(raw).to(dev)
-    got = undistort.undistort_batch(imgs, K, dist)
+    lanes = torch.zeros(3, dtype=torch.int32, device=dev)
+    got = undistort.undistort_batch(imgs, K, dist, lane_counts=lanes)
     want = undistort.undistort_plain(imgs, K, dist)
     torch.cuda.synchronize()
     n_diff = int((got != want).sum())
     assert n_diff == 0, f"undistort kernel != plain ({n_diff} values)"
+    tiles = undistort.tile_windows(imgs.shape[1:3], K, dist, imgs.shape[3])
+    predicted = [int(tiles["staged"].sum()),
+                 int((tiles["any"] & ~tiles["staged"]).sum()),
+                 int((~tiles["any"]).sum())]
+    assert lanes.tolist() == predicted, (lanes.tolist(), predicted)
     lib = _library_undistort(imgs, K, dist)
     lib_diff = int((lib != got).sum())
     N, H, W, C = imgs.shape
@@ -1791,9 +1834,13 @@ def check_frontend_kernels(scan, report, launches):
                 warmup=0),
         2 * imgs.numel(), 40 * H * W + 8 * imgs.numel(),
         library=cuda_ms(lambda: _library_undistort(imgs, K, dist)),
+        kernel_ms=device_ms(lambda: undistort.undistort_batch(imgs, K, dist)),
         extra={"path": "frontend", "shape": list(imgs.shape),
                "k1": float(dist[0]),
-               "library_values_differing": lib_diff}))
+               "library_values_differing": lib_diff,
+               "tiles": dict(zip(("staged", "global_load", "empty"),
+                                 lanes.tolist())),
+               "window_bytes_max": int(tiles["bytes"].max())}))
     del imgs, got, want, lib
 
     # K10: the warm pass's 58 undistorted images

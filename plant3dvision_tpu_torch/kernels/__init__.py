@@ -114,9 +114,9 @@ _ARGTYPES = {
     # in, out, M, H, W, chords (host int32, 2r + 1 half-widths), r, stream
     "p3d_dilate": [_P, _P, _L, _I, _I, _P, _I, _P],
     # in, out, N, H, W, C, dtype, gray2d, fx, fy, cx, cy, k1, k2, p1, p2,
-    # k3, stream
+    # k3, lanes (or null), stream
     "p3d_undistort": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                      _F, _F, _F, _F, _P],
+                      _F, _F, _F, _F, _P, _P],
     # in, out, N, H, W, C, dtype, mode, coefs (host float*), n, channel,
     # binarize, threshold, fast_t, ranges, stream
     "p3d_mask": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F, _F, _P,

@@ -8,20 +8,38 @@
 // the mask bit. The voxel is -1 if any in-frame view misses, else 1 if any
 // in-frame view hits, else 0.
 //
-// What bounds it on the card: one random byte read per voxel-view test
-// from the packed masks (V x ceil(HW/8) bytes, MSB-first np.packbits rows;
-// 19.4 MB for a 100-view group at 1440x1080, inside the 50 MB L2), plus
-// ~24 f32 operations for the projection. The grid itself is written once
-// (1 byte per voxel). The early exit leaves few tests, and those read
-// few distinct mask bytes (0.2 MB on a north-star group), so the least
-// work is the tests' arithmetic; in practice the kernel is bound by
-// launch overhead and L2 latency, far from HBM bandwidth.
+// What bounds it on the card: ~24 f32 operations a voxel-view test that
+// the early exit leaves (a voxel stops at its first in-frame miss), plus
+// the distinct packed-mask bytes those tests read (V x ceil(HW/8) bytes of
+// MSB-first np.packbits rows: 19.4 MB for a 100-view group at 1440x1080,
+// inside the 50 MB L2; 0.2 MB of them read) and the int8 grid written once.
+// The tests' arithmetic bounds it: 0.0011 ms for a 100-view group into
+// 81x80x199 voxels, 0.063 ms for 60 views into 301x301x561.
 //
-// Design: one thread per voxel, flat index in C order (z fastest), so a
-// warp's voxels are neighbours along z and project to neighbouring pixels
-// (good L1/L2 sector reuse on the mask reads) and the int8 store is
-// coalesced. Each thread loops over the views and stops at the first
-// kill (-1 dominates). Camera rows are warp-uniform loads (broadcast).
+// Design (redesigned for Hopper; the first design was a thread a voxel
+// walking the views in ring order, reading `valid` and 16 camera floats
+// from global memory at every step, while a warp's 32 z-neighbours walked
+// as long as the longest of them, one L2 round trip a view for a hull
+// voxel). K1 (carve_kernel) takes K11b's answers below: as many blocks as
+// the card holds each stage the valid views' cameras in shared memory once
+// (256 spread positions at a time, the invalid ones dropped by a warp
+// ballot, so no invalid view is tested) and walk tiles of 256 z runs in
+// turn, the views in the spread order k -> k s mod V. Phase 1 tests each
+// run against the first 4 staged views, where most voxels die (99.4 % on
+// phase 3's group), the (x, y) terms of the numerators reused along the
+// run. Phase 2 differs from K11b's: the n open voxels of a tile (a
+// shared-memory list) walk the remaining views g threads a voxel (g the
+// largest power of two <= 32 with g n <= 256), thread r of a voxel the
+// views start + r + g m, in batches of 1, 2, then 4 views a thread whose
+// mask loads are in flight together, and all stop after the batch in
+// which one of them found a miss (a kill flag in shared memory). K11b's
+// chunks of pairs, compacted after each, test every view of a chunk
+// before a killed voxel leaves the list. The z run is 1 voxel: runs of 4
+// halve phase 1 on phase 4's grid, but a tile of 1024 voxels in a tight
+// box gathers up to 692 hull voxels (phase 3's group), more than its
+// threads, and their serial walks set the kernel's time
+// (tools/undistort_carve_ab.py --variants and --walks, PERF.md). Voxel
+// indexes are 32-bit, split once a run.
 //
 // Exactness: the projection repeats, operation for operation, the f32
 // arithmetic that the JAX package's carve compiles to (XLA on the CPU, the
@@ -60,7 +78,7 @@
 // it is computed once a view and reused for each z, the same operations in
 // the same order. A view behind the camera (!(pz > 0)) is out of frame
 // whatever the quotients, so they are not computed; the two quotients are
-// __fdiv_rn, as in view_test.
+// __fdiv_rn.
 //
 // K11b carve_candidates (candidates_kernel below) replaces the per-candidate
 // hull of plant3dvision_tpu/ops/selfcal.py:_alive_volume / _robust_alive
@@ -92,8 +110,9 @@
 // Exactness: the verdict is a function of the set of tests made (a voxel
 // stops only once more than max_kills views miss it, whatever the others
 // say), so the view order and the chunking change no bit; each test is
-// view_test's arithmetic, both quotients __fdiv_rn.
+// K1's arithmetic, both quotients __fdiv_rn.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -108,69 +127,6 @@ __device__ __forceinline__ float dot3_add(float a, float b, float c,
   return __fadd_rn(s, t);
 }
 
-// The centre of voxel `idx` (flat, C order, z fastest): origin + vs*i.
-__device__ __forceinline__ void voxel_centre(long long idx, int ny, int nz,
-                                             float ox, float oy, float oz,
-                                             float vs, float& x, float& y,
-                                             float& z) {
-  const int k = (int)(idx % nz);
-  const long long r = idx / nz;
-  const int j = (int)(r % ny);
-  const int i = (int)(r / ny);
-  x = __fadd_rn(ox, __fmul_rn(vs, (float)i));
-  y = __fadd_rn(oy, __fmul_rn(vs, (float)j));
-  z = __fadd_rn(oz, __fmul_rn(vs, (float)k));
-}
-
-// One voxel-view test of K1 and K11: -1 out of frame (or behind the
-// camera), else the packed mask bit at the voxel's pixel. c = [fx, fy, cx,
-// cy, r00..r22 (row-major), t0, t1, t2].
-__device__ __forceinline__ int view_test(const uint8_t* __restrict__ packed,
-                                         long long row_bytes,
-                                         const float* __restrict__ c, int v,
-                                         int H, int W, float x, float y,
-                                         float z) {
-  const float pz = dot3_add(c[10], c[11], c[12], x, y, z, c[15]);
-  const float nxp = dot3_add(c[4], c[5], c[6], x, y, z, c[13]);
-  const float nyp = dot3_add(c[7], c[8], c[9], x, y, z, c[14]);
-  const float px = __fmaf_rn(__fdiv_rn(nxp, pz), c[0], c[2]);
-  const float py = __fmaf_rn(__fdiv_rn(nyp, pz), c[1], c[3]);
-  const int pxi = __float2int_rz(px);
-  const int pyi = __float2int_rz(py);
-  if (!(pz > 0.0f) || pxi < 0 || pxi > W - 1 || pyi < 0 || pyi > H - 1)
-    return -1;
-  const long long lin = (long long)pyi * W + pxi;
-  const uint8_t byte = packed[(long long)v * row_bytes + (lin >> 3)];
-  return (byte >> (7 - (int)(lin & 7))) & 1;
-}
-
-__global__ void carve_kernel(const uint8_t* __restrict__ packed,
-                             long long row_bytes,
-                             const float* __restrict__ cams,
-                             const uint8_t* __restrict__ valid, int V, int H,
-                             int W, float ox, float oy, float oz, float vs,
-                             int nx, int ny, int nz,
-                             int8_t* __restrict__ out) {
-  const long long n = (long long)nx * ny * nz;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
-  float x, y, z;
-  voxel_centre(idx, ny, nz, ox, oy, oz, vs, x, y, z);
-
-  int8_t label = 0;
-  for (int v = 0; v < V; ++v) {
-    if (!valid[v]) continue;
-    const int t = view_test(packed, row_bytes, cams + 16 * v, v, H, W, x, y,
-                            z);
-    if (t < 0) continue;
-    if (t == 0) {
-      label = -1;
-      break;
-    }
-    label = 1;
-  }
-  out[idx] = label;
-}
 
 constexpr int kKillThreads = 256;
 constexpr int kCamChunk = 256;
@@ -495,7 +451,251 @@ __global__ void __launch_bounds__(kCandThreads)
   }
 }
 
+
+// K1: the strict carve. A block takes kCarveThreads z runs of ZR voxels
+// (K11's run order) and writes their int8 verdicts.
+constexpr int kCarveThreads = 256;
+constexpr int kCarveWarps = kCarveThreads / 32;
+// phase 1's z run: 1 voxel, so that a tile's open voxels (the hull in a
+// tight box) never outnumber its threads
+constexpr int kCarveRun = 1;
+// phase 2's largest batch: views a thread tests before it looks at the
+// kill flag
+constexpr int kCarveBatch = 4;
+constexpr int kCarveList = kCarveThreads * kCarveRun;   // the open voxels
+constexpr int kCarveFirst = 4;                  // phase 1's views
+
+// A camera row from shared memory: a = fx fy cx cy, b = r00 r01 r02 r10,
+// c = r11 r12 r20 r21, d = r22 t0 t1 t2.
+struct Cam {
+  float4 a, b, c, d;
+};
+
+__device__ __forceinline__ Cam load_cam(const float4* cam_s, int v) {
+  return {cam_s[4 * v], cam_s[4 * v + 1], cam_s[4 * v + 2], cam_s[4 * v + 3]};
+}
+
+// One voxel-view test: -1 behind the camera or out of frame, else the
+// packed mask bit at the voxel's pixel (0 a miss, 1 a hit).
+__device__ __forceinline__ int carve_test(const Cam& k,
+                                          const uint8_t* __restrict__ mrow,
+                                          int H, int W, float x, float y,
+                                          float z) {
+  const float pz = dot3_add(k.c.z, k.c.w, k.d.x, x, y, z, k.d.w);
+  if (!(pz > 0.0f)) return -1;
+  const float nxp = dot3_add(k.b.x, k.b.y, k.b.z, x, y, z, k.d.y);
+  const float nyp = dot3_add(k.b.w, k.c.x, k.c.y, x, y, z, k.d.z);
+  const int pxi = __float2int_rz(__fmaf_rn(__fdiv_rn(nxp, pz), k.a.x, k.a.z));
+  const int pyi = __float2int_rz(__fmaf_rn(__fdiv_rn(nyp, pz), k.a.y, k.a.w));
+  if ((unsigned)pxi >= (unsigned)W || (unsigned)pyi >= (unsigned)H)
+    return -1;
+  const int lin = pyi * W + pxi;
+  return (__ldg(mrow + (lin >> 3)) >> (7 - (lin & 7))) & 1;
+}
+
+// The valid views of spread positions [k0, k0 + nk) (nk <= kCarveThreads),
+// k -> k * stride mod V, in order: their views into view_s and cameras
+// into cam_s; a warp ballot a position. Returns how many. Entered and left
+// with the block in step.
+__device__ __forceinline__ int stage_valid_cameras(
+    float* cam_s, int* view_s, int* s_warp, const float* __restrict__ cams,
+    const uint8_t* __restrict__ valid, int k0, int nk, int V, int stride) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int view = 0;
+  bool ok = false;
+  if (tid < nk) {
+    view = (int)((long long)(k0 + tid) * stride % V);
+    ok = valid[view] != 0;
+  }
+  const unsigned bal = __ballot_sync(0xffffffffu, ok);
+  if (lane == 0) s_warp[warp] = __popc(bal);
+  __syncthreads();
+  int at = 0, n = 0;
+  for (int w = 0; w < kCarveWarps; ++w) {
+    if (w < warp) at += s_warp[w];
+    n += s_warp[w];
+  }
+  if (ok) view_s[at + __popc(bal & ((1u << lane) - 1u))] = view;
+  __syncthreads();
+  for (int e = tid; e < n * 16; e += kCarveThreads)
+    cam_s[e] = cams[16 * view_s[e >> 4] + (e & 15)];
+  __syncthreads();
+  return n;
+}
+
+template <int ZR>
+__global__ void __launch_bounds__(kCarveThreads)
+    carve_kernel(const uint8_t* __restrict__ packed, long long row_bytes,
+                 const float* __restrict__ cams,
+                 const uint8_t* __restrict__ valid, int V, int H, int W,
+                 float ox, float oy, float oz, float vs, int nx, int ny,
+                 int nz, int stride, int tiles, int8_t* __restrict__ vol) {
+  extern __shared__ float4 cam4_s[];        // min(V, kCarveThreads) x 4
+  __shared__ int view_s[kCarveThreads];
+  __shared__ float lx[kCarveList], ly[kCarveList], lz[kCarveList];
+  __shared__ int lout[kCarveList];
+  __shared__ uint8_t lkill[kCarveList], lseen[kCarveList];
+  __shared__ int s_n;
+  __shared__ int s_warp[kCarveWarps];
+  const int tid = threadIdx.x, lane = tid & 31;
+  volatile uint8_t* kill = lkill;
+  const int nzc = (nz + ZR - 1) / ZR;
+  const int runs = nx * ny * nzc;
+  const unsigned below = (1u << lane) - 1u;
+  if (tid == 0) s_n = 0;
+  int c0 = 0;                               // the staged chunk's position
+  int nc = stage_valid_cameras((float*)cam4_s, view_s, s_warp, cams, valid, 0,
+                               min(V, kCarveThreads), V, stride);
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    // phase 1: a z run, the (x, y) terms reused, the first views
+    const int t = tile * kCarveThreads + tid;
+    const bool live = t < runs;
+    const int tt = live ? t : 0;
+    const int col = tt / nzc;
+    const int zc = tt - col * nzc;
+    const int i = col / ny;
+    const int j = col - i * ny;
+    const int z0 = zc * ZR;
+    const int nq = live ? min(ZR, nz - z0) : 0;
+    const float x = __fadd_rn(ox, __fmul_rn(vs, (float)i));
+    const float y = __fadd_rn(oy, __fmul_rn(vs, (float)j));
+    float z[ZR];
+#pragma unroll
+    for (int q = 0; q < ZR; ++q)
+      z[q] = __fadd_rn(oz, __fmul_rn(vs, (float)(z0 + q)));
+    unsigned seen = 0u;
+    unsigned done = ~((1u << nq) - 1u);       // past the run, or killed
+    const int v1 = min(nc, kCarveFirst);
+    for (int v = 0; v < v1 && done != ~0u; ++v) {
+      const Cam k = load_cam(cam4_s, v);
+      const float pz_xy = __fmaf_rn(k.c.w, y, __fmul_rn(k.c.z, x));
+      const float nx_xy = __fmaf_rn(k.b.y, y, __fmul_rn(k.b.x, x));
+      const float ny_xy = __fmaf_rn(k.c.x, y, __fmul_rn(k.b.w, x));
+      const uint8_t* mrow = packed + (long long)view_s[v] * row_bytes;
+#pragma unroll
+      for (int q = 0; q < ZR; ++q) {
+        if (done & (1u << q)) continue;
+        const float pz = __fadd_rn(__fmaf_rn(k.d.x, z[q], pz_xy), k.d.w);
+        if (!(pz > 0.0f)) continue;
+        const float nxp = __fadd_rn(__fmaf_rn(k.b.z, z[q], nx_xy), k.d.y);
+        const float nyp = __fadd_rn(__fmaf_rn(k.c.y, z[q], ny_xy), k.d.z);
+        const int pxi =
+            __float2int_rz(__fmaf_rn(__fdiv_rn(nxp, pz), k.a.x, k.a.z));
+        const int pyi =
+            __float2int_rz(__fmaf_rn(__fdiv_rn(nyp, pz), k.a.y, k.a.w));
+        if ((unsigned)pxi >= (unsigned)W || (unsigned)pyi >= (unsigned)H)
+          continue;
+        const int lin = pyi * W + pxi;
+        if ((__ldg(mrow + (lin >> 3)) << (lin & 7)) & 0x80)
+          seen |= 1u << q;
+        else
+          done |= 1u << q;
+      }
+    }
+    // every voxel of the run is -1 now, and 1 or 0 again if phase 2 finds
+    // no miss; the undecided ones go to the list
+    const int idx0 = col * nz + z0;
+#pragma unroll
+    for (int q = 0; q < ZR; ++q) {
+      if (q < nq) vol[idx0 + q] = -1;
+      const bool open = !(done >> q & 1u);
+      const unsigned bal = __ballot_sync(0xffffffffu, open);
+      int at = 0;
+      if (lane == 0 && bal) at = atomicAdd(&s_n, __popc(bal));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (open) {
+        const int e = at + __popc(bal & below);
+        lx[e] = x;
+        ly[e] = y;
+        lz[e] = z[q];
+        lout[e] = idx0 + q;
+        lkill[e] = 0;
+        lseen[e] = (seen >> q) & 1u;
+      }
+    }
+    __syncthreads();
+    const int n = s_n;
+
+    // phase 2: g threads an open voxel, thread r of them the views start +
+    // r + g m, in batches whose mask loads are in flight together; every
+    // walk stops after the batch in which any of its threads found a miss
+    if (n > 0) {
+      int g = 1;
+      while (g < 32 && 2 * g * n <= kCarveThreads) g *= 2;
+      const int r = tid & (g - 1);
+      for (int start = v1;;) {
+        for (int e = tid / g; e < n; e += kCarveThreads / g) {
+          const float ex = lx[e], ey = ly[e], ez = lz[e];
+          // batches of 1, 2, then kCarveBatch views: a voxel that dies
+          // soon wastes few tests, a hull voxel keeps kCarveBatch mask
+          // loads in flight
+          for (int v = start + r, nb = 1; v < nc && !kill[e];
+               v += nb * g, nb = min(2 * nb, kCarveBatch)) {
+            int h[kCarveBatch];
+#pragma unroll
+            for (int u = 0; u < kCarveBatch; ++u) {
+              const int vu = v + u * g;
+              h[u] = u < nb && vu < nc
+                         ? carve_test(load_cam(cam4_s, vu),
+                                      packed + (long long)view_s[vu] *
+                                                   row_bytes,
+                                      H, W, ex, ey, ez)
+                         : -1;
+            }
+            bool miss = false, hit = false;
+#pragma unroll
+            for (int u = 0; u < kCarveBatch; ++u) {
+              miss |= h[u] == 0;
+              hit |= h[u] > 0;
+            }
+            if (miss)
+              kill[e] = 1;
+            else if (hit)
+              lseen[e] = 1;
+          }
+        }
+        if (c0 + kCarveThreads >= V) break;
+        c0 += kCarveThreads;                  // the next camera chunk
+        nc = stage_valid_cameras((float*)cam4_s, view_s, s_warp, cams, valid,
+                                 c0, min(kCarveThreads, V - c0), V, stride);
+        start = 0;
+      }
+      __syncthreads();
+      for (int e = tid; e < n; e += kCarveThreads)
+        if (!lkill[e]) vol[lout[e]] = lseen[e] ? 1 : 0;
+    }
+    // the next tile: the list and its count free, the first chunk staged
+    __syncthreads();
+    if (tid == 0) s_n = 0;
+    if (c0 != 0 && tile + (int)gridDim.x < tiles) {
+      c0 = 0;
+      nc = stage_valid_cameras((float*)cam4_s, view_s, s_warp, cams, valid, 0,
+                               min(V, kCarveThreads), V, stride);
+    } else {
+      __syncthreads();
+    }
+  }
+}
+
+// The walk's view stride for V views: the integer nearest 0.618 V that is
+// prime to V, as K11b's (p3d_carve_candidates).
+int spread_stride(int V) {
+  auto gcd = [](int a, int b) {
+    while (b) {
+      const int t = a % b;
+      a = b;
+      b = t;
+    }
+    return a;
+  };
+  int stride = (int)(0.618 * V + 0.5);
+  while (gcd(stride, V) != 1) ++stride;
+  return stride;
+}
+
 }  // namespace
+
 
 // K11b: alive (B, nx, ny, nz) uint8 0/1 of B candidate camera sets; the
 // other arguments as p3d_carve's (every view valid; nx ny nz < 2^31).
@@ -573,17 +773,39 @@ extern "C" int p3d_count_kills(const void* packed, long long row_bytes,
   return (int)cudaGetLastError();
 }
 
+
+// K1: vol (nx, ny, nz) int8, -1 where an in-frame valid view misses the
+// voxel, else 1 where one hits it, else 0: packed (V, row_bytes) mask rows,
+// cams (V, 16), valid (V,) 0/1 bytes, all contiguous on the card;
+// nx ny nz <= 2^31 - 256 (32-bit voxel indexes). One launch.
 extern "C" int p3d_carve(const void* packed, long long row_bytes,
                          const void* cams, const void* valid, int V, int H,
                          int W, float ox, float oy, float oz, float vs,
                          int nx, int ny, int nz, void* out, void* stream) {
-  const long long n = (long long)nx * ny * nz;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  carve_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)packed, row_bytes, (const float*)cams,
-      (const uint8_t*)valid, V, H, W, ox, oy, oz, vs, nx, ny, nz,
-      (int8_t*)out);
+  const int zr = kCarveRun;
+  const long long runs = (long long)nx * ny * ((nz + zr - 1) / zr);
+  const long long tiles = (runs + kCarveThreads - 1) / kCarveThreads;
+  if (tiles * kCarveThreads > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  if (tiles == 0) return (int)cudaSuccess;
+  const size_t smem = sizeof(float) * 16 * (size_t)std::min(V, kCarveThreads);
+  // as many blocks as the card holds, each walking tiles in turn with the
+  // cameras staged once (when they fit one chunk)
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, carve_kernel<kCarveRun>, kCarveThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks =
+      std::min(tiles, (long long)std::max(per_sm, 1) * sms);
+  carve_kernel<kCarveRun>
+      <<<(unsigned)blocks, kCarveThreads, smem, (cudaStream_t)stream>>>(
+          (const uint8_t*)packed, row_bytes, (const float*)cams,
+          (const uint8_t*)valid, V, H, W, ox, oy, oz, vs, nx, ny, nz,
+          spread_stride(V), (int)tiles, (int8_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -592,3 +814,4 @@ extern "C" int p3d_carve(const void* packed, long long row_bytes,
 extern "C" const char* p3d_errstr(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
+

@@ -12,7 +12,8 @@ it is 'seen' if any in-frustum view hits a nonzero pixel. Output int8:
 Masks arrive bit-packed, (V, ceil(HW/8)) uint8 rows of `np.packbits`
 (MSB first), as FusedCarving builds them. `carve` dispatches on the
 tensors' device: CUDA goes to the hand-written kernel
-(kernels/csrc/carve.cu), CPU to `carve_plain`.
+(kernels/csrc/carve.cu: K11b's kernel in its verdict mode, one launch a
+call), CPU to `carve_plain`.
 
 `count_kills` / `carve_tolerant` (the vote carve of ops/carving.py:176-239:
 per voxel the number of in-frame views that miss it, int16, and whether any
@@ -94,18 +95,24 @@ def carve(packed, cameras, valid, origin, voxel_size, shape, hw):
     if packed.device.type == "cpu":
         return carve_plain(packed, cameras, valid, origin, voxel_size, shape,
                            hw)
+    # the kernel reads (V, row_bytes) rows, (V, 16) cameras and V flags
+    # in C order: any other layout is copied into it first
+    packed, cameras, valid = (t.contiguous() for t in (packed, cameras,
+                                                         valid))
     kernels.require_cuda("carve", packed, cameras, valid)
     H, W = hw
     nx, ny, nz = (int(s) for s in shape)
+    if nx * ny * nz > 2 ** 31 - 256:
+        raise ValueError(f"the carve kernel takes grids of at most 2^31 - "
+                         f"256 voxels (32-bit voxel indexes), got {nx}x{ny}"
+                         f"x{nz}")
     o = np.asarray(origin, np.float32)
     out = torch.empty((nx, ny, nz), dtype=torch.int8, device=packed.device)
-    valid_u8 = valid.to(torch.uint8)
-    so = kernels.lib()
-    rc = so.p3d_carve(packed.data_ptr(), packed.shape[1], cameras.data_ptr(),
-                      valid_u8.data_ptr(), packed.shape[0], H, W,
-                      float(o[0]), float(o[1]), float(o[2]),
-                      float(np.float32(voxel_size)), nx, ny, nz,
-                      out.data_ptr(), kernels.stream_ptr(packed.device))
+    rc = kernels.lib().p3d_carve(
+        packed.data_ptr(), packed.shape[1], cameras.data_ptr(),
+        valid.data_ptr(), packed.shape[0], H, W, float(o[0]), float(o[1]),
+        float(o[2]), float(np.float32(voxel_size)), nx, ny, nz,
+        out.data_ptr(), kernels.stream_ptr(packed.device))
     kernels.LAUNCHES["carve"] += 1
     kernels.check("carve", rc)
     return out

@@ -22,7 +22,9 @@ except that for a 2-D (H, W) image XLA fuses the top and bottom rows'
 lerps the other way round, fma(b, w, a*(1 - w)).
 
 `undistort_batch` dispatches on the images' device: CUDA goes to the
-hand-written kernel (kernels/csrc/undistort.cu), CPU to `undistort_plain`.
+hand-written kernel (kernels/csrc/undistort.cu: a block a tile of output
+rows, its source window staged in shared memory an image at a time;
+`tile_windows` models the tiles), CPU to `undistort_plain`.
 """
 
 from __future__ import annotations
@@ -116,28 +118,105 @@ def _check_images(images):
                          f"{tuple(images.shape[1:3])}")
 
 
-def undistort_batch(images, K, dist):
+def undistort_batch(images, K, dist, lane_counts=None):
     """Undistort a stack of (N, H, W[, C]) images sharing one camera: K 3x3
     intrinsics, dist (k1, k2, p1, p2[, k3]). Integer images come back in
-    their dtype, others as float32, on the images' device."""
+    their dtype, others as float32, on the images' device.
+
+    lane_counts: None, or a (3,) int32 tensor on the images' card to which
+    the kernel adds its tiles that staged their source window in shared
+    memory, read it from global memory (the window over the budget), and
+    had no source pixel inside the frame (`tile_windows` predicts them)."""
     _check_images(images)
     if images.device.type == "cpu":
         return undistort_plain(images, K, dist)
     if images.dtype not in _DTYPES:
         raise ValueError(f"undistort: the CUDA kernel takes uint8, uint16 "
                          f"or float32 images, got {images.dtype}")
+    # the kernel reads (N, H, W, C) in C order: any other layout (a
+    # permuted or channel-sliced stack) is copied into it first
+    images = images.contiguous()
     kernels.require_cuda("undistort", images)
     (fx, fy, cx, cy), (k1, k2, p1, p2, k3) = _params(K, dist)
     N, H, W = images.shape[:3]
     C = images.shape[3] if images.ndim == 4 else 1
+    if C * images.element_size() > MAX_PIXEL_BYTES:
+        raise ValueError(f"undistort: the CUDA kernel takes pixels of at "
+                         f"most {MAX_PIXEL_BYTES} bytes, got {C} channels "
+                         f"of {images.element_size()}")
+    lanes = 0
+    if lane_counts is not None:
+        if lane_counts.dtype != torch.int32 or lane_counts.numel() != 3 \
+                or lane_counts.device != images.device \
+                or not lane_counts.is_contiguous():
+            raise ValueError("lane_counts must be a contiguous (3,) int32 "
+                             "tensor on the images' device")
+        lanes = lane_counts.data_ptr()
     out = torch.empty_like(images)
     rc = kernels.lib().p3d_undistort(
         images.data_ptr(), out.data_ptr(), N, H, W, C, _DTYPES[images.dtype],
         int(images.ndim == 3), *(float(v) for v in (fx, fy, cx, cy, k1, k2, p1, p2, k3)),
-        kernels.stream_ptr(images.device))
+        lanes, kernels.stream_ptr(images.device))
     kernels.LAUNCHES["undistort"] += 1
     kernels.check("undistort", rc)
     return out
+
+
+#: the kernel's tiles: TILE_ROWS output rows of 128, 64 or 32 pixels (a
+#: tile row of at most 512 bytes); a tile's source window is staged in
+#: shared memory when its rows, each padded to whole 16-byte chunks at its
+#: address's phase, fit in three times the tile's bytes (at least 2 KB, at
+#: most 48 KB). Pixels of more than MAX_PIXEL_BYTES are refused.
+TILE_ROWS = 8
+MAX_PIXEL_BYTES = 256
+
+
+def tile_width(pixel_bytes):
+    """The kernel's tile width, in pixels, for pixels of `pixel_bytes`."""
+    return 128 if pixel_bytes <= 4 else 64 if pixel_bytes <= 8 else 32
+
+
+def window_budget(pixel_bytes):
+    """Bytes a staged source window may take (kernels/csrc/undistort.cu)."""
+    tile = tile_width(pixel_bytes) * TILE_ROWS * pixel_bytes
+    return (min(max(3 * tile, 2048), 48 << 10) + 15) & ~15
+
+
+def tile_windows(hw, K, dist, pixel_bytes, rows=TILE_ROWS, width=None,
+                 budget=None):
+    """The kernel's tiles and their source windows, from the plain source
+    map: a dict of (tiles_y, tiles_x) int64 tensors `x0`, `x1`, `y0`, `y1`
+    (the first and last tap column and row of the tile's inside pixels),
+    `bytes` (the window's shared-memory bytes at the worst 16-byte phase),
+    and bools `any` (an inside pixel) and `staged` (any, and the window
+    within `budget`); the global-load lane takes the tiles that are `any`
+    and not `staged`. `width` and `budget` default to the kernel's."""
+    H, W = hw
+    tw = width or tile_width(pixel_bytes)
+    budget = window_budget(pixel_bytes) if budget is None else budget
+    px, py = source_map((H, W), K, dist)
+    inside = (px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
+    x0 = torch.nan_to_num(torch.floor(px).clamp(0, W - 2)).long()
+    y0 = torch.nan_to_num(torch.floor(py).clamp(0, H - 2)).long()
+    ty, tx = -(-H // rows), -(-W // tw)
+    big = 1 << 40
+
+    def per_tile(v, fill, op):
+        pad = torch.full((ty * rows, tx * tw), fill, dtype=torch.int64)
+        pad[:H, :W] = torch.where(inside, v, fill)
+        t = pad.view(ty, rows, tx, tw)
+        return op(op(t, 3).values, 1).values
+
+    xa = per_tile(x0, big, torch.min)
+    xb = per_tile(x0, -1, torch.max) + 1
+    ya = per_tile(y0, big, torch.min)
+    yb = per_tile(y0, -1, torch.max) + 1
+    any_ = xb >= 1
+    wb = (xb - xa + 1) * pixel_bytes
+    nbytes = torch.where(any_, (yb - ya + 1) * ((15 + wb + 15) // 16) * 16,
+                         0)
+    return {"x0": xa, "x1": xb, "y0": ya, "y1": yb, "bytes": nbytes,
+            "any": any_, "staged": any_ & (nbytes <= budget)}
 
 
 def undistort(image, K, dist):

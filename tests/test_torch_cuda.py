@@ -57,6 +57,102 @@ def test_carve_kernel_matches_plain(dev, shape, vs):
     assert (k == 1).any() and (k == -1).any()
 
 
+def _carve_case(rng, case):
+    """(packed, cams, valid, origin, vs, shape, hw) of a K1 case, on the
+    CPU (see test_carve_kernel_matches_plain_cases)."""
+    if case == "views_300":
+        packed, cams, hw = _scene(rng, V=300, H=36, W=48)
+        valid = np.ones(300, bool)
+        valid[[5, 140, 270]] = False
+        shape, vs = (21, 18, 27), 0.9
+    elif case == "all_invalid":
+        packed, cams, hw = _scene(rng, V=7)
+        valid = np.zeros(7, bool)
+        shape, vs = (13, 12, 11), 1.0
+    elif case == "behind":
+        packed, cams, hw = _scene(rng, V=10)
+        cams = cams.copy()
+        cams[2, 15] = 0.0            # camera 2's centre plane through the grid
+        cams[4, 2] += 10 * hw[1]     # view 4 out of frame everywhere
+        valid = np.ones(10, bool)
+        valid[0] = False
+        shape, vs = (23, 19, 13), 1.1
+    elif case == "group":            # phase 3's group: 100 views, 81x80x199
+        packed, cams, hw = _scene(rng, V=100, H=270, W=360)
+        valid = np.ones(100, bool)
+        shape, vs = (81, 80, 199), 0.12
+    else:                            # "grid": phase 4's 301x301x561 grid
+        packed, cams, hw = _scene(rng, V=12, H=270, W=360)
+        valid = np.ones(12, bool)
+        shape, vs = (301, 301, 561), 0.05
+    origin = -(np.array(shape) - 1) * vs / 2 + 0.3
+    return packed, cams, valid, origin, vs, shape, hw
+
+
+@pytest.mark.parametrize("case", ["views_300", "all_invalid", "behind",
+                                  "group", "grid"])
+def test_carve_kernel_matches_plain_cases(dev, case):
+    """K1, one launch a call, bit-equal to its plain version: 300 views
+    (two staged chunks, some invalid), every view invalid (all 0), a
+    camera whose centre plane cuts the grid and a view out of frame, phase
+    3's group shape (100 views into 81x80x199), phase 4's 301x301x561
+    grid."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.carving import carve, carve_plain
+    rng = np.random.default_rng(3)
+    packed, cams, valid, origin, vs, shape, hw = _carve_case(rng, case)
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.from_numpy(valid).to(dev), origin, vs, shape, hw)
+    before = kernels.LAUNCHES["carve"]
+    k = carve(*args)
+    assert kernels.LAUNCHES["carve"] - before == 1
+    p = carve_plain(*args)
+    assert torch.equal(k, p)
+    if case == "all_invalid":
+        assert not k.any()
+    else:
+        assert (k == -1).any()
+
+
+@pytest.mark.parametrize("layout", ["packed_columns", "cameras_transposed",
+                                    "valid_strided"])
+def test_carve_kernel_takes_any_layout(dev, layout):
+    """A column-sliced packed table (rows of k of a wider table's bytes), a
+    transposed camera table and a strided valid vector: the kernel is given
+    them in C order and equals the plain version on the same tensors."""
+    from plant3dvision_tpu_torch.ops.carving import carve, carve_plain
+    rng = np.random.default_rng(4)
+    packed, cams, hw = _scene(rng)
+    shape, vs = (40, 37, 45), 0.5
+    pk = torch.from_numpy(packed).to(dev)
+    cm = torch.from_numpy(cams).to(dev)
+    va = torch.ones(len(cams), dtype=torch.bool, device=dev)
+    if layout == "packed_columns":
+        wide = torch.zeros((len(packed), packed.shape[1] + 37),
+                           dtype=torch.uint8, device=dev)
+        wide[:, :packed.shape[1]] = pk
+        pk = wide[:, :packed.shape[1]]
+    elif layout == "cameras_transposed":
+        cm = cm.t().contiguous().t()
+    else:
+        every = torch.ones(2 * len(cams), dtype=torch.bool, device=dev)
+        every[7] = False
+        va = every[::2]
+    args = (pk, cm, va, -(np.array(shape) - 1) * vs / 2 + 0.3, vs, shape, hw)
+    assert not all(t.is_contiguous() for t in args[:3])
+    assert torch.equal(carve(*args), carve_plain(*args))
+
+
+def test_carve_kernel_refuses_grids_past_32_bit_indexes(dev):
+    from plant3dvision_tpu_torch.ops.carving import carve
+    rng = np.random.default_rng(0)
+    packed, cams, hw = _scene(rng, V=3)
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.ones(3, dtype=torch.bool, device=dev), (0.0, 0.0, 0.0), 1.0)
+    with pytest.raises(ValueError, match="32-bit voxel indexes"):
+        carve(*args, (2048, 1024, 1024), hw)
+
+
 def _blobs(rng, shape):
     x = rng.random(shape).astype(np.float32)
     from scipy.ndimage import gaussian_filter
@@ -568,6 +664,104 @@ def test_undistort_kernel_matches_plain(dev, dtype, channels, dist):
     p = undistort_plain(t, K, np.float32(dist))
     assert k.dtype == p.dtype and torch.equal(k, p)
     assert (k != 0).any()
+
+
+#: a wide-angle lens that stretches corner tiles' source windows past the
+#: kernel's budget (the global-load lane; tests/test_torch_undistort_tiles.py)
+FOLDING = (0.5, 0.2, 0.01, -0.01, 0.05)
+
+
+def _undistort_case(dev, case):
+    """(images on the card, K, dist) of a K9 case."""
+    from plant3dvision_tpu_torch.synth import turntable_cameras
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def stack(shape, dtype=torch.uint8):
+        if dtype == torch.float32:
+            return torch.rand(shape, generator=gen, device=dev)
+        return torch.randint(0, 256, shape, generator=gen, device=dev,
+                             dtype=dtype)
+
+    def camera(H, W, f):
+        return np.array([[f, 0, W / 2 - 0.7], [0, f * 1.02, H / 2 + 0.4],
+                         [0, 0, 1]], np.float32)
+
+    strong = np.float32((-0.21, 0.07, 0.011, -0.007, 0.013))
+    if case == "phase10":            # 58 x 1080x1440x3, k1 = -0.08
+        K = turntable_cameras(1, f=1400.0, width=1440,
+                              height=1080)[0][0].astype(np.float32)
+        return stack((58, 1080, 1440, 3)), K, np.float32((-0.08, 0, 0, 0))
+    if case == "edges_rgb":          # 203 x 300: neither tile side divides
+        return stack((3, 203, 300, 3)), camera(203, 300, 330.0), strong
+    if case == "edges_gray":
+        return stack((3, 9, 129)), camera(9, 129, 140.0), strong
+    if case == "small_frame":        # smaller than a tile
+        return stack((4, 5, 37, 3)), camera(5, 37, 40.0), strong
+    if case == "global_rgb":         # corner windows over the budget
+        return stack((5, 203, 304, 3)), camera(203, 304, 150.0), \
+            np.float32(FOLDING)
+    if case == "global_rgba_f32":
+        return stack((3, 203, 304, 4), torch.float32), \
+            camera(203, 304, 150.0), np.float32(FOLDING)
+    if case == "unaligned":          # a stack starting at byte 1
+        flat = stack((1 + 6 * 61 * 77 * 3,))
+        return flat[1:].view(6, 61, 77, 3), camera(61, 77, 80.0), strong
+    if case == "permuted":           # (N, C, H, W) seen as (N, H, W, C)
+        return stack((4, 3, 61, 83)).permute(0, 2, 3, 1), \
+            camera(61, 83, 90.0), strong
+    if case == "rgba_sliced":        # RGBA -> RGB, a channel slice
+        return stack((4, 61, 83, 4))[..., :3], camera(61, 83, 90.0), strong
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["phase10", "edges_rgb", "edges_gray",
+                                  "small_frame", "global_rgb",
+                                  "global_rgba_f32", "unaligned", "permuted",
+                                  "rgba_sliced"])
+def test_undistort_kernel_matches_plain_cases(dev, case):
+    """K9 bit-equal to its plain version at tile and window edges (frames
+    whose sides are not multiples of the tile's, a frame smaller than a
+    tile), on phase 10's 58 x 1080x1440x3 stack, with tiles forced into
+    the global-load lane, on a stack starting at byte 1, and on a permuted
+    and a channel-sliced stack (copied into C order first). The kernel's
+    lane counts equal `tile_windows`' prediction."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.undistort import (tile_windows,
+                                                       undistort_batch,
+                                                       undistort_plain)
+    imgs, K, dist = _undistort_case(dev, case)
+    lanes = torch.zeros(3, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["undistort"]
+    k = undistort_batch(imgs, K, dist, lane_counts=lanes)
+    assert kernels.LAUNCHES["undistort"] - before == 1
+    p = undistort_plain(imgs, K, dist)
+    assert k.dtype == p.dtype and torch.equal(k, p)
+    assert k.is_contiguous() and (k != 0).any()
+    C = imgs.shape[3] if imgs.ndim == 4 else 1
+    t = tile_windows(imgs.shape[1:3], K, dist, C * imgs.element_size())
+    want = [int(t["staged"].sum()), int((t["any"] & ~t["staged"]).sum()),
+            int((~t["any"]).sum())]
+    assert lanes.tolist() == want
+    if case.startswith("global"):
+        assert want[0] > 0 and want[1] > 0
+    elif case == "phase10":
+        assert want[1] == 0
+
+
+def test_undistort_kernel_matches_plain_past_2_31_bytes(dev):
+    """A 1400 x 1080x1440 gray stack (2.18 GB): the images past byte 2^31
+    equal the plain version's."""
+    from plant3dvision_tpu_torch.ops.undistort import (undistort_batch,
+                                                       undistort_plain)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    imgs = torch.randint(0, 256, (1400, 1080, 1440), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    assert imgs.numel() > 2 ** 31
+    K = np.array([[1400.0, 0, 720], [0, 1400.0, 540], [0, 0, 1]], np.float32)
+    dist = np.float32((-0.08, 0.0, 0.0, 0.0))
+    k = undistort_batch(imgs, K, dist)
+    for sel in (slice(0, 2), slice(1379, 1382), slice(1397, 1400)):
+        assert torch.equal(k[sel], undistort_plain(imgs[sel], K, dist))
 
 
 MASK_LANES = [("linear", (0.0, 1.0, 0.0), True),
