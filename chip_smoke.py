@@ -755,15 +755,16 @@ def load_group(scan, n_views):
 
 
 def kernel_row(name, launches, err, ms, plain, nbytes, nops, library=None,
-               extra=None, kernel_ms=None):
+               extra=None, kernel_ms=...):
     """One entry of the `kernels` line (bound from the bytes and operations
-    of this run's inputs); `kernel_ms` the kernel's device time where it
-    was profiled, else the call's."""
+    of this run's inputs); `kernel_ms` the kernel's device time as the
+    profiler gave it (None: not measured) where the row profiles, else the
+    call's time."""
     b, by = bound_ms(nbytes, nops)
     src, rep = KERNEL_INFO[name]
     r = {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches, "max_abs_err": err, "match": True,
-         "ms": ms, "kernel_ms": ms if kernel_ms is None else kernel_ms,
+         "ms": ms, "kernel_ms": ms if kernel_ms is ... else kernel_ms,
          "plain_ms": plain, "bound_ms": b, "bound_by": by,
          "library_ms": library}
     r.update(extra or {})
@@ -851,16 +852,20 @@ def check_kernels(scan, vfile, launches):
     err = int((k1.to(torch.int16) - p1.to(torch.int16)).abs().max())
     assert err == 0, f"carve kernel != plain ({int((k1 != p1).sum())} voxels)"
     nvox = int(np.prod(shape))
-    # bytes: the distinct mask bytes that the tests the early exit leaves
+    # the bound: 24 operations a test of the least work that any view
+    # order needs (carve_least_work), the distinct mask bytes those tests
     # read, the cameras and flags, the int8 grid written once
+    least, least_bytes = carving.carve_least_work(p1, *args)
     rows = [kernel_row(
         "carve", launches["carve"], err,
         cuda_ms(lambda: carving.carve(*args)),
         cuda_ms(lambda: carving.carve_plain(*args), reps=5, warmup=1),
-        mask_bytes + cm.numel() * 4 + va.numel() + nvox, 24 * tests,
+        least_bytes + cm.numel() * 4 + va.numel() + nvox, 24 * least,
         kernel_ms=device_ms(lambda: carving.carve(*args)),
         extra={"path": "geometric", "shape": list(shape), "views": len(cams),
                "voxel_view_tests": tests, "mask_bytes_read": mask_bytes,
+               "least_voxel_view_tests": least,
+               "least_mask_bytes": least_bytes,
                "mask_bytes_held": pk.numel()})]
 
     # K2-K4 on the scan's carved grid (the FusedCarving volume)
@@ -1007,7 +1012,9 @@ def run_real_grid():
     import numpy as np
     import torch
     from plant3dvision_tpu_torch import kernels, proc3d
-    from plant3dvision_tpu_torch.ops.carving import (carve, carve_plain,
+    from plant3dvision_tpu_torch.ops.carving import (carve,
+                                                     carve_least_work,
+                                                     carve_plain,
                                                      pack_camera, pack_masks)
     from plant3dvision_tpu_torch.synth import (SyntheticPlant, render_mask,
                                                turntable_cameras)
@@ -1037,10 +1044,11 @@ def run_real_grid():
     launches = kernels.LAUNCHES["carve"] - before
     plain, tests, mask_bytes = carve_plain(*args, count_work=True)
     assert torch.equal(vol, plain), "real-grid carve != plain"
-    # the bound as phase 3's K1 row: 24 operations a test the early exit
-    # leaves, the mask bytes those tests read, cameras, flags, the grid
-    b, by = bound_ms(mask_bytes + cm.numel() * 4 + V + int(np.prod(shape)),
-                     24 * tests)
+    # the bound as phase 3's K1 row: 24 operations a test of the least
+    # work, the mask bytes those tests read, cameras, flags, the grid
+    least, least_bytes = carve_least_work(plain, *args)
+    b, by = bound_ms(least_bytes + cm.numel() * 4 + V + int(np.prod(shape)),
+                     24 * least)
     del plain
     t0 = time.perf_counter()
     pcd = proc3d.vol2pcd(vol, origin, vs, 0.0)
@@ -1062,6 +1070,7 @@ def run_real_grid():
         "grid_view_pairs_per_s": V * nvox / (carve_ms / 1e3),
         "voxel_view_tests": tests,
         "voxel_view_tests_per_s": tests / (carve_ms / 1e3),
+        "least_voxel_view_tests": least, "least_mask_bytes": least_bytes,
         "alive_voxels": alive, "vol2pcd_first_s": pcd_s,
         "vol2pcd_s": pcd_warm_s, "n_points": len(pcd)}})
 

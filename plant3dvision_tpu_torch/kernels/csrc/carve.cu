@@ -8,13 +8,16 @@
 // the mask bit. The voxel is -1 if any in-frame view misses, else 1 if any
 // in-frame view hits, else 0.
 //
-// What bounds it on the card: ~24 f32 operations a voxel-view test that
-// the early exit leaves (a voxel stops at its first in-frame miss), plus
-// the distinct packed-mask bytes those tests read (V x ceil(HW/8) bytes of
-// MSB-first np.packbits rows: 19.4 MB for a 100-view group at 1440x1080,
-// inside the 50 MB L2; 0.2 MB of them read) and the int8 grid written once.
-// The tests' arithmetic bounds it: 0.0011 ms for a 100-view group into
-// 81x80x199 voxels, 0.063 ms for 60 views into 301x301x561.
+// What bounds it on the card: ~24 f32 operations a voxel-view test of
+// the least work that any view order needs (ops/carving.py:
+// carve_least_work: one test a killed voxel, a test of every valid view
+// for each voxel that no view kills), plus the distinct packed-mask bytes
+// those tests read (V x ceil(HW/8) bytes of MSB-first np.packbits rows:
+// 19.4 MB for a 100-view group at 1440x1080, inside the 50 MB L2; 0.18 MB
+// of them read) and the int8 grid written once. The tests' arithmetic
+// bounds it: 0.00065 ms for a 100-view group into 81x80x199 voxels
+// (1,824,516 tests); chip_smoke.py phase 4 gives it for 60 views into
+// 301x301x561.
 //
 // Design (redesigned for Hopper; the first design was a thread a voxel
 // walking the views in ring order, reading `valid` and 16 camera floats

@@ -30,8 +30,9 @@
 // shared memory with 16-byte cp.async copies, aligned down to 16 bytes,
 // kStages images deep, so that the next images' windows arrive while image
 // n is sampled; the taps are read from shared memory with 32-bit offsets
-// (uint8 RGB: a tap row's 6 bytes from three 32-bit loads and two funnel
-// shifts, each byte made a float by one byte permute and one add), the
+// (uint8 RGB whose rows are a multiple of 16 bytes: a tap row's 6 bytes
+// from three 32-bit loads and two funnel shifts, each byte made a float by
+// one byte permute and one add), the
 // results written into a shared output tile laid out at the global rows'
 // 16-byte phase, and the tile's rows are stored with 16-byte stores (bytes
 // one at a time only in the partial chunks at a row's ends). A window over
@@ -184,28 +185,24 @@ __device__ __forceinline__ void rgb8_pair(const unsigned char* win, int a,
                    8388608.0f);
 }
 
-// The uint8 RGB lane of a staged tile: a thread's 4 pixels, their 12
-// output bytes into the shared tile. tap[k] is pixel k's tap (x0, y0) in
-// the window without the row's phase, ry[k] its window row; UNIFORM: every
-// row at the phase iph0 (rowbytes % 16 == 0, as for 1440 RGB pixels), so
-// that a tap's offset is one add.
-template <bool UNIFORM>
+// The uint8 RGB lane of a staged tile whose rows all lie at the window's
+// 16-byte phase iph0 (rowbytes % 16 == 0, as for 1440 RGB pixels), so that
+// a tap's offset is one add: a thread's 4 pixels, their 12 output bytes
+// into the shared tile; tap[k] is pixel k's tap (x0, y0) in the window
+// without the phase. Rows at other phases take the generic lane, which is
+// as fast as this lane would be at each row's own phase.
 __device__ __forceinline__ void sample_rgb8(
     const unsigned char* win, unsigned char* o, const int* tap,
-    const int* ry, const float* wx, const float* wy, unsigned in, int pitch,
-    unsigned iph0, unsigned irb15) {
+    const float* wx, const float* wy, unsigned in, int pitch,
+    unsigned iph0) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float v[3] = {0.0f, 0.0f, 0.0f};
     if (in >> k & 1u) {
-      const int a0 = tap[k] + (UNIFORM ? (int)iph0
-                                       : (int)((iph0 + ry[k] * irb15) & 15u));
-      const int a1 = tap[k] + pitch +
-                     (UNIFORM ? (int)iph0
-                              : (int)((iph0 + (ry[k] + 1) * irb15) & 15u));
+      const int a0 = tap[k] + (int)iph0;
       float t0[6], t1[6];
       rgb8_pair(win, a0, t0);
-      rgb8_pair(win, a1, t1);
+      rgb8_pair(win, a0 + pitch, t1);
       const float gx = wx[k], gy = wy[k];
       const float gx1 = __fsub_rn(1.0f, gx), gy1 = __fsub_rn(1.0f, gy);
 #pragma unroll
@@ -450,10 +447,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                        ((phase16(ob0) + warp * rb15) & 15u) +
                        lane * ppt * pb;
     if (staged && rgb8 && rb15 == 0)
-      sample_rgb8<true>(win, o, px0, py0, wx, wy, in_mask, pitch, iph0, 0u);
-    else if (staged && rgb8)
-      sample_rgb8<false>(win, o, px0, py0, wx, wy, in_mask, pitch, iph0,
-                         rb15);
+      sample_rgb8(win, o, px0, wx, wy, in_mask, pitch, iph0);
     else if (staged)
       sample_image<T, CT, GRAY, true>(win, nullptr, o, px0, py0, wx, wy,
                                       live, in_mask, C, W, pitch, iph0, rb15);

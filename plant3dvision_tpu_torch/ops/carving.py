@@ -12,8 +12,8 @@ it is 'seen' if any in-frustum view hits a nonzero pixel. Output int8:
 Masks arrive bit-packed, (V, ceil(HW/8)) uint8 rows of `np.packbits`
 (MSB first), as FusedCarving builds them. `carve` dispatches on the
 tensors' device: CUDA goes to the hand-written kernel
-(kernels/csrc/carve.cu: K11b's kernel in its verdict mode, one launch a
-call), CPU to `carve_plain`.
+(kernels/csrc/carve.cu:carve_kernel, one launch a call), CPU to
+`carve_plain`.
 
 `count_kills` / `carve_tolerant` (the vote carve of ops/carving.py:176-239:
 per voxel the number of in-frame views that miss it, int16, and whether any
@@ -246,6 +246,27 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
         seen |= in_img & hit
     vol = torch.where(killed, -1, torch.where(seen, 1, 0)).to(torch.int8)
     return (vol, tests, mask_bytes) if count_work else vol
+
+
+def carve_least_work(vol, packed, cameras, valid, origin, voxel_size, shape,
+                     hw):
+    """The least work that any view order needs for `vol`, the carve of
+    these inputs, as (tests, mask_bytes): one voxel-view test for each
+    killed voxel (one of its misses) and one for each valid view of each
+    voxel that no view kills; and the distinct packed-mask bytes those
+    tests read, taking each killed voxel's first miss in file order."""
+    killed = vol == -1
+    kept = ~killed
+    tests = int(killed.sum()) + int(valid.sum()) * int(kept.sum())
+    mask_bytes = 0
+    done = torch.zeros_like(killed)
+    for in_img, hit, lin in _view_tests(packed, cameras, valid, origin,
+                                           voxel_size, shape, hw):
+        miss = in_img & ~hit & ~done
+        mask_bytes += int(torch.unique(
+            (lin >> 3)[(in_img & kept) | miss]).numel())
+        done |= miss
+    return tests, mask_bytes
 
 
 def _check_kills_args(packed, cameras, valid, shape, hw):

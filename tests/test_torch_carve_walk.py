@@ -211,3 +211,27 @@ def test_walk_verdict_does_not_depend_on_the_view_order(stride):
     np.testing.assert_array_equal(other, spread)
     np.testing.assert_array_equal(spread, carving.carve_plain(*args).numpy())
     assert n_spread > 0 and n_other > 0
+
+
+@pytest.mark.parametrize("stride", [None, 1, 7, 31])
+def test_least_work_is_below_every_walk(stride):
+    """`carve_least_work`, the work K1's bound counts: one test a killed
+    voxel and every valid view of a voxel that no view kills. The kernel's
+    walk in the spread order or another makes at least as many tests, and
+    the plain version's ring order reads at least as many mask bytes."""
+    rng = np.random.default_rng(3)
+    masks, cams, hw = _scene(rng, V=60, H=72, W=96)
+    shape, vs = (40, 37, 45), 0.5
+    valid = np.ones(60, bool)
+    valid[[11, 40]] = False
+    origin = (-(np.array(shape) - 1) * vs / 2 + 0.3).astype(np.float32)
+    args = (torch.from_numpy(pack_masks(masks)), torch.from_numpy(cams),
+            torch.from_numpy(valid), origin, vs, shape, hw)
+    vol, ring_tests, ring_bytes = carving.carve_plain(*args, count_work=True)
+    tests, mask_bytes = carving.carve_least_work(vol, *args)
+    killed = int((vol == -1).sum())
+    assert tests == killed + 58 * (vol.numel() - killed)
+    assert 0 < killed < vol.numel()
+    _, walked = walk(*args, stride=stride)
+    assert tests <= walked and tests <= ring_tests
+    assert 0 < mask_bytes <= ring_bytes

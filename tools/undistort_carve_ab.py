@@ -59,9 +59,6 @@ VARIANTS = {
     "k9": ("undistort.cu", [], True),
     "k9_stages2": ("undistort.cu", [("constexpr int kStages = 3;",
                                      "constexpr int kStages = 2;")], True),
-    "k9_rows_at_own_phases": ("undistort.cu", [(
-        "    if (staged && rgb8 && rb15 == 0)\n",
-        "    if (staged && rgb8 && rb15 == 99)\n")], True),
     "k9_generic_lane": ("undistort.cu", [(
         "const bool rgb8 = sizeof(T) == 1 && CT == 3 && ppt == 4;",
         "const bool rgb8 = false;")], True),
@@ -147,9 +144,10 @@ def plain(tmp):
     (imgs, K, dist), k1 = inputs(tmp, dev)
     out = {"k9": undistort.undistort_plain(imgs, K, dist).cpu()}
     for key, args in k1.items():
-        vol, tests, mask_bytes = carving.carve_plain(*args, count_work=True)
+        vol, tests, _ = carving.carve_plain(*args, count_work=True)
         out[key] = vol.cpu()
-        out[key + "_work"] = (tests, mask_bytes)
+        out[key + "_work"] = (tests,
+                              *carving.carve_least_work(vol, *args))
     torch.save(out, Path(tmp) / "plain.pt")
 
 
@@ -168,6 +166,9 @@ def device_us_by_kernel(fn, reps=20):
 
 
 def k1_bound(args, tests, mask_bytes):
+    """K1's bound: 24 operations a test of the least work
+    (`carving.carve_least_work`), the mask bytes those tests read, the
+    cameras, the flags and the int8 grid written once."""
     from chip_smoke import bound_ms
     pk, cm, va, _, _, shape, _ = args
     nvox = shape[0] * shape[1] * shape[2]
@@ -215,13 +216,14 @@ def measure(root, tmp):
         assert torch.equal(got.cpu(), want[key]), f"carve kernel != plain " \
             f"({key})"
         del got
-        tests, mask_bytes = want[key + "_work"]
-        b, by = k1_bound(args, tests, mask_bytes)
+        tests, least, mask_bytes = want[key + "_work"]
+        b, by = k1_bound(args, least, mask_bytes)
         out["k1_" + key] = {
             "views": int(args[0].shape[0]), "shape": list(args[5]),
             "bit_equal": True, "launches_per_call": launches,
             "voxel_view_tests_ring_order": tests,
-            "mask_bytes_read": mask_bytes, "ms": cuda_ms(k1_call, reps=21),
+            "least_voxel_view_tests": least,
+            "least_mask_bytes": mask_bytes, "ms": cuda_ms(k1_call, reps=21),
             "device_us_by_kernel": device_us_by_kernel(k1_call),
             "bound_ms": b, "bound_by": by}
     print(json.dumps(out), flush=True)
@@ -307,7 +309,8 @@ def walks(tmp):
     """Where K1's walks go on phase 3's group, on the CPU with the plain
     version's tests: the voxels phase 1's first 4 spread views leave open,
     those no view kills (the hull: every view tested), the tests of the
-    ring and the spread order until the first miss, and the open voxels a
+    ring and the spread order until the first miss, the least tests and
+    their mask bytes (`carving.carve_least_work`), and the open voxels a
     tile holds at z runs of 1 and 4 (256 runs a tile)."""
     from math import gcd
 
@@ -319,10 +322,10 @@ def walks(tmp):
     cm = torch.from_numpy(z["group_cams"])
     shape = tuple(int(v) for v in z["group_shape"])
     V = len(cm)
+    args = (pk, cm, torch.ones(V, dtype=torch.bool), z["group_origin"], 1.0,
+            shape, (K9_H, K9_W))
     miss = np.stack([(inn & ~hit).reshape(-1).numpy()
-                     for inn, hit, _ in carving._view_tests(
-                         pk, cm, torch.ones(V, dtype=torch.bool),
-                         z["group_origin"], 1.0, shape, (K9_H, K9_W))])
+                     for inn, hit, _ in carving._view_tests(*args)])
     stride = int(0.618 * V + 0.5)
     while gcd(stride, V) != 1:
         stride += 1
@@ -334,6 +337,8 @@ def walks(tmp):
            "never_killed": int((first == V).sum()),
            "tests_ring_order": int(np.minimum(ring + 1, V).sum()),
            "tests_spread_order": int(np.minimum(first + 1, V).sum())}
+    out["tests_least"], out["least_mask_bytes"] = carving.carve_least_work(
+        carving.carve_plain(*args), *args)
     nx, ny, nz = shape
     opened = (first >= 4).reshape(nx * ny, nz)
     for zrun in (1, 4):
