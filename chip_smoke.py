@@ -138,6 +138,11 @@
    on the solve's flow; votes equal) against their plain versions and
    times both (none has a library call); K14's row gives the compaction's
    ms and `floor_ms`, the sweeps times a measured empty grid barrier.
+   K15 runs once with the counts set to 0; its row gives the kernel's
+   device time without the vote grid's zeroing and the zeroing's, the
+   steps (equal to the plain walk's), the longest and the mean, the
+   bricks staged waiting and ahead, and `floor_ms`, the longest walk's
+   steps times a measured dependent step inside a shared-memory brick.
 15. Live carving: replays phase 2's scan (written here if phase 2 did not
    run) into a fresh scan directory, a copy thread writing the views in
    file order while `python -m plant3dvision_tpu_torch.live_carve` watches
@@ -160,7 +165,8 @@
    over the weights. The pass makes one weight quantise launch.
 17. The gather probes K17-K19 at exp_pallas_gather.py:main's sizes, each
    equal to its plain version and to a torch.gather / index_select chain;
-   M lookups/s, bounds, and the three versions' times.
+   M lookups/s, bounds, and the three versions' times; K17's rows give
+   `floor_ms`, the same launch at reps = 0 (staging and output alone).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -594,6 +600,21 @@ def device_ms(fn, reps=10, tries=3):
         if total > 0:
             return total / reps / 1e3
     return None
+
+
+def device_ms_by_kernel(fn, reps=10):
+    """Mean device milliseconds of fn() by kernel name (torch.profiler),
+    after one warm-up call; {} when the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.self_device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
 def host_syncs(fn):
@@ -2757,28 +2778,61 @@ def check_fim_kernels(scan, report, launches):
     deg = np.bincount(lines.ravel(), minlength=len(skel["points"]))
     leaves = (np.asarray(skel["points"])[deg == 1] - origin) / vs
     tips = torch.from_numpy(leaves.astype(np.float32)).cuda()
-    vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
+    # K15's own run: the counts set to 0, one call (no task calls it)
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000,
+                         stats=stats)
+    trace_launches = kernels.LAUNCHES["trace_geodesics"]
     t0 = time.perf_counter()
-    vp = trace_geodesics_plain(flow, values, tips, step=0.5, n_steps=2000)
+    vp, psteps = trace_geodesics_plain(flow, values, tips, step=0.5,
+                                       n_steps=2000, return_steps=True)
     torch.cuda.synchronize()
     tplain_ms = (time.perf_counter() - t0) * 1e3
     vdiff = int((vk - vp).abs().sum())
     assert vdiff == 0, f"K15 votes differ from the plain version's by {vdiff}"
-    tms = cuda_ms(lambda: trace_geodesics(flow, values, tips, step=0.5,
-                                          n_steps=2000))
+    n_steps_all, longest, waited, ahead = stats.tolist()
+    assert n_steps_all == int(psteps.sum()) and longest == int(
+        psteps.max()), "K15's step counts differ from the plain walk's"
+
+    def trace():
+        return trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
+    tms = cuda_ms(trace)
+    by_kernel = device_ms_by_kernel(trace)
+    trace_kernel_ms = sum(v for k, v in by_kernel.items()
+                          if "trace_kernel" in k)
+    zero_ms = cuda_ms(lambda: torch.zeros(values.shape, dtype=torch.int32,
+                                          device=dev))
+    # the floor: the longest walk's steps, each one warp's dependent step
+    # inside a shared-memory brick (two trilinear samples, no staging)
+    sink = torch.zeros(1, device=dev)
+
+    def floor_steps(n):
+        kernels.check("trace_step_floor", so.p3d_trace_step_floor(
+            n, sink.data_ptr(), kernels.stream_ptr(dev)))
+
+    step_us = (cuda_ms(lambda: floor_steps(iters + 1))
+               - cuda_ms(lambda: floor_steps(1))) * 1e3 / iters
     votes = int(vk.sum())
-    # a step is taken for each vote and once more by each particle (the
-    # step that stops it); bytes: the tips read once, the dense votes
-    # written once, and each step's two trilinear samples, 8 corners of
-    # the flow (12 B) and of the values (4 B); operations: ~130 a step
-    # (the samples, the step, the clip, the tests)
-    steps = votes + len(leaves)
+    # bytes: the tips read once, the dense votes written once, and each
+    # step's two trilinear samples, 8 corners of the flow (12 B) and of the
+    # values (4 B); operations: ~130 a step (the samples, the step, the
+    # clip, the tests); a step is taken for each vote and once more by
+    # each particle that stops
     rows.append(kernel_row(
-        "trace_geodesics", launches["trace_geodesics"], 0, tms, tplain_ms,
-        tips.numel() * 4 + 4 * nvox + 8 * 16 * steps, 130 * steps,
+        "trace_geodesics", trace_launches, 0, tms, tplain_ms,
+        tips.numel() * 4 + 4 * nvox + 8 * 16 * n_steps_all,
+        130 * n_steps_all, kernel_ms=trace_kernel_ms,
         extra={"path": "phase 14 only (no task calls it)",
                "particles": len(leaves), "votes": votes,
-               "n_steps": 2000}))
+               "n_steps": 2000, "steps": n_steps_all,
+               "longest_steps": longest,
+               "mean_steps": n_steps_all / max(len(leaves), 1),
+               "bricks_waited": waited, "bricks_ahead": ahead,
+               "zeroing_ms": zero_ms,
+               "device_ms_by_kernel": by_kernel,
+               "step_floor_us": step_us,
+               "floor_ms": longest * step_us / 1e3}))
     emit({"fim_kernel_checks": {"grid": list(mask.shape), "sweeps": nk,
                                 "particles": len(leaves), "votes": votes}})
     return rows
@@ -3382,6 +3436,11 @@ def run_gather_probes(device_name):
         ms = gp.timed(lambda: fn(*args, 64)) * 1e3
         plain_ms = gp.timed(lambda: plain[name](*args, 64)) * 1e3
         lib_ms = gp.timed(lambda: library[name](*args, 64)) * 1e3
+        extra = {}
+        if name == "gather_axis1":
+            # the floor: the same launch with no lookups (the staging and
+            # the output alone)
+            extra["floor_ms"] = gp.timed(lambda: fn(*args, 0)) * 1e3
         n_bytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
         b, by = bound_ms(n_bytes, 4 * lookups)
         where = ("registers (warp shuffle)" if name == "gather_select32"
@@ -3393,7 +3452,8 @@ def run_gather_probes(device_name):
                                4 * lookups, library=lib_ms, extra={
                                    "path": "phase 17 (gather_probe's run)",
                                    "probe": label, "table_in": where,
-                                   "M_lookups_per_s": lookups / ms / 1e3}))
+                                   "M_lookups_per_s": lookups / ms / 1e3,
+                                   **extra}))
     emit({"gather_probes": {"device": device_name, "probes": probes}})
     return rows
 

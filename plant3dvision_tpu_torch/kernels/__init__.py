@@ -113,10 +113,10 @@ _ARGTYPES = {
     "p3d_reproject": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     # in, out, M, H, W, chords (host int32, 2r + 1 half-widths), r, stream
     "p3d_dilate": [_P, _P, _L, _I, _I, _P, _I, _P],
-    # in, out, N, H, W, C, dtype, gray2d, fx, fy, cx, cy, k1, k2, p1, p2,
-    # k3, lanes (or null), stream
-    "p3d_undistort": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F,
-                      _F, _F, _F, _F, _P, _P],
+    # in, out, N, H, W, C, dtype, fx, fy, cx, cy, k1, k2, p1, p2, k3,
+    # lanes (or null), stream
+    "p3d_undistort": [_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                      _F, _F, _F, _P, _P],
     # in, out, N, H, W, C, dtype, mode, coefs (host float*), n, channel,
     # binarize, threshold, fast_t, ranges, stream
     "p3d_mask": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _F, _F, _P,
@@ -138,9 +138,11 @@ _ARGTYPES = {
     # M, iters, stream
     "p3d_grid_barriers": [_I, _I, _P],
     # flow, values, tips, N, nx, ny, nz, step, n_steps, bx, by, bz, votes,
-    # stream
+    # stats (or null), stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
-                            _P, _P],
+                            _P, _P, _P],
+    # iters, sink, stream
+    "p3d_trace_step_floor": [_I, _P, _P],
     # descriptors (host, n x 16 int64), n, arena, eps, stream
     "p3d_int8_quantize_weights": [_P, _I, _P, _F, _P],
     # x, dtype, n, maxbits, stream

@@ -15,50 +15,114 @@
 //
 // What bounds them on the card: the lookups, not device memory. Each
 // input is read once at best (a 4 MB table at most), while every lookup is
-// a dependent index computation and a load from shared memory, L1 or L2.
+// an index computation and a load from shared memory, L1 or L2.
 //
-// Where the tables live: K17 stages one table row per block in shared
-// memory when the row fits a block (4 L bytes up to 227 KB, L <= 56K: the
-// probe's L = 8K and 32K) and reads the row through L1/L2 (__ldg) when it
-// does not (L = 128K, a 512 KB row of a 4 MB table). K18's table does not
-// fit a block at either probe size (R = 4K is 512 KB, R = 32K 4 MB): a warp
-// reads one 128-byte table row a lookup through L1/L2, all 32 lanes at
-// once. K19 keeps each 32-wide row in the registers of one warp (a lane a
-// column) and picks the column with a warp shuffle, the register-file
-// counterpart of the Pallas 5-level select tree.
+// K17: a warp takes 32 columns n of a row at a time and reads each
+// column's window (idx + i) % L, i < reps, 32 consecutive entries an
+// instruction (lane l the entry i = 32 q + l): one load is 32 lookups on
+// consecutive addresses, conflict-free in shared memory, one or two
+// 128-byte lines in L1/L2. The wrap is one compare and subtract a load
+// (the window's start advances by 32 and wraps once a load; L < 32 takes a
+// modulo a lookup). Each lane keeps 32 partial sums, one a column, and a
+// transpose reduction (31 shuffles) leaves column l's sum in lane l. The
+// first design (a thread 4 columns, a % L a lookup, 8 blocks of a row each
+// staging the whole row, 64 blocks on 132 SMs) issued ~20 instructions a
+// lookup. Two lanes by L: a row of L <= kStageMaxL (227 KB) is staged in
+// shared memory by one block an SM (floor(SMs / R) blocks a row, each
+// staging it once with 16-byte loads where aligned); a longer row is read
+// through L1/L2, where the lookups read no more bytes than staging would.
+//
+// K18's table does not fit a block at either probe size (R = 4K is 512 KB,
+// R = 32K 4 MB): a warp reads one 128-byte table row a lookup through
+// L1/L2, all 32 lanes at once. K19 keeps each 32-wide row in the registers
+// of one warp (a lane a column) and picks the column with a warp shuffle,
+// the register-file counterpart of the Pallas 5-level select tree.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxSmem = 232448;   // 227 KB a block on sm_90
+constexpr int kMaxSmem = 232448;           // 227 KB a block on sm_90
+constexpr int kStageMaxL = kMaxSmem / 4;   // the longest staged row
+constexpr int kWarpsStaged = 16;           // warps a block, staged lane
+constexpr int kWarpsDirect = 8;            // warps a block, L1/L2 lane
 
-// grid (ceil(N / (threads * per)), R): block stages row r when smem, then
-// each thread sums `per` columns n
-template <bool kSmem>
+// lane l of the warp ends with the sum over the warp's lanes of v[l]
+__device__ __forceinline__ unsigned transpose_sum(unsigned (&v)[32],
+                                                  int lane) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+    const bool upper = (lane & off) != 0;
+#pragma unroll
+    for (int i = 0; i < off; ++i) {
+      const unsigned send = upper ? v[i] : v[i + off];
+      const unsigned keep = upper ? v[i + off] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  return v[0];
+}
+
+// grid (blocks a row, R): STAGED copies row r into shared memory first;
+// each warp then takes groups of 32 columns, strided over the row's blocks
+template <bool STAGED>
 __global__ void axis1_kernel(const int* __restrict__ tab,
                              const int* __restrict__ idx,
-                             int* __restrict__ out, int L, int N, int reps,
-                             int per) {
-  extern __shared__ int row_s[];
+                             int* __restrict__ out, int L, int N, int reps) {
+  extern __shared__ int4 row_s4[];
+  int* rs = (int*)row_s4;
   const int r = blockIdx.y;
   const int* row = tab + (long long)r * L;
-  if (kSmem) {
-    for (int i = threadIdx.x; i < L; i += blockDim.x) row_s[i] = row[i];
+  if (STAGED) {
+    if ((((uintptr_t)row) & 15) == 0) {
+      const int n4 = L >> 2;
+      for (int i = threadIdx.x; i < n4; i += blockDim.x)
+        row_s4[i] = __ldg((const int4*)row + i);
+      for (int i = (n4 << 2) + threadIdx.x; i < L; i += blockDim.x)
+        rs[i] = row[i];
+    } else {
+      for (int i = threadIdx.x; i < L; i += blockDim.x) rs[i] = row[i];
+    }
     __syncthreads();
   }
-  const long long n0 = (long long)blockIdx.x * blockDim.x * per;
-  for (int j = 0; j < per; ++j) {
-    const long long n = n0 + (long long)j * blockDim.x + threadIdx.x;
-    if (n >= N) return;
-    const int base = idx[(long long)r * N + n];
-    unsigned int acc = 0u;
-    for (int i = 0; i < reps; ++i) {
-      const int k = (base + i) % L;
-      acc += (unsigned int)(kSmem ? row_s[k] : __ldg(row + k));
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int full = reps >> 5, rem = reps & 31;
+  for (long long n0 = ((long long)blockIdx.x * warps + (threadIdx.x >> 5)) * 32;
+       n0 < N; n0 += (long long)gridDim.x * warps * 32) {
+    const long long n = n0 + lane;
+    const int mine = n < N ? idx[(long long)r * N + n] : 0;
+    unsigned acc[32];
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int base = __shfl_sync(0xffffffffu, mine, c);
+      unsigned a = 0u;
+      if (L >= 32) {
+        int kw = base;                       // in [0, L)
+        for (int q = 0; q < full; ++q) {
+          int k = kw + lane;
+          if (k >= L) k -= L;
+          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
+          kw += 32;
+          if (kw >= L) kw -= L;
+        }
+        if (lane < rem) {
+          int k = kw + lane;
+          if (k >= L) k -= L;
+          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
+        }
+      } else {                               // a modulo a lookup
+        for (int i = lane; i < reps; i += 32) {
+          const int k = (base + i) % L;
+          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
+        }
+      }
+      acc[c] = a;
     }
-    out[(long long)r * N + n] = (int)acc;
+    const unsigned s = transpose_sum(acc, lane);
+    if (n < N) out[(long long)r * N + n] = (int)s;
   }
 }
 
@@ -100,30 +164,39 @@ __global__ void select32_kernel(const int* __restrict__ T,
 extern "C" int p3d_gather_axis1(const void* tab, const void* idx, void* out,
                                 int R, int L, int N, int reps, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (R < 1 || L < 1 || N < 1 || reps < 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256, per = 4;
-  const dim3 grid((unsigned)((N + threads * per - 1) / (threads * per)),
-                  (unsigned)R);
-  const size_t smem = sizeof(int) * (size_t)L;
-  if (smem <= (size_t)kMaxSmem) {
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(
-          axis1_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
-      if (e != cudaSuccess) return (int)e;
-    }
-    axis1_kernel<true><<<grid, threads, smem, s>>>(
-        (const int*)tab, (const int*)idx, (int*)out, L, N, reps, per);
+  if (R < 1 || R > 65535 || L < 1 || N < 1 || reps < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (N + 31LL) / 32;        // 32 columns a warp
+  if (L <= kStageMaxL) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const size_t smem = sizeof(int) * (size_t)L;
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(axis1_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    // a block an SM: each block of a row stages the row once
+    const long long per_row = std::max(
+        1LL, std::min((long long)(sms / R),
+                      (groups + kWarpsStaged - 1) / kWarpsStaged));
+    axis1_kernel<true><<<dim3((unsigned)per_row, (unsigned)R),
+                         32 * kWarpsStaged, smem, s>>>(
+        (const int*)tab, (const int*)idx, (int*)out, L, N, reps);
   } else {
-    axis1_kernel<false><<<grid, threads, 0, s>>>(
-        (const int*)tab, (const int*)idx, (int*)out, L, N, reps, per);
+    const long long per_row = (groups + kWarpsDirect - 1) / kWarpsDirect;
+    axis1_kernel<false><<<dim3((unsigned)per_row, (unsigned)R),
+                          32 * kWarpsDirect, 0, s>>>(
+        (const int*)tab, (const int*)idx, (int*)out, L, N, reps);
   }
   return (int)cudaGetLastError();
 }
 
 // 1 when p3d_gather_axis1 stages a row of length L in shared memory
 extern "C" int p3d_gather_axis1_staged(int L) {
-  return sizeof(int) * (size_t)L <= (size_t)kMaxSmem ? 1 : 0;
+  return L <= kStageMaxL ? 1 : 0;
 }
 
 // tab (R, 32) int32, rows (P,) int32 in [0, R) -> out (P, 32) int32

@@ -55,8 +55,9 @@
 //   dx = fma(p2, fma(2x, x, r2), fma((2 p1) x, y, x*rm))
 //   dy = fma((2 p2) x, y, fma(p1, r2 + (2y)*y, y*rm))
 //   px = fma(dx, fx, u), py = fma(dy, fy, v)
-//   lerp(a, b, w) = fma(a, 1 - w, b*w); for a 2-D (H, W) image the row
-//   lerps are fma(b, w, a*(1 - w)) (XLA fuses them the other way there)
+//   lerp(a, b, w) = fma(a, 1 - w, b*w); for one channel (a 2-D (H, W)
+//   image or an (H, W, 1) one, of any type) the row lerps are
+//   fma(b, w, a*(1 - w)) (XLA fuses them the other way there)
 // (tests/test_torch_frontend.py holds the plain version bit-equal to JAX;
 // tests/test_torch_undistort_tiles.py the windows and conversions).
 
@@ -502,13 +503,12 @@ cudaError_t launch(const void* in, void* out, int N, int H, int W, int C,
   return cudaGetLastError();
 }
 
+// one channel takes the 2-D image's row lerps (GRAY), as XLA fuses them
 template <typename T>
 cudaError_t launch_type(const void* in, void* out, int N, int H, int W,
-                        int C, int gray2d, Camera cam, int* lanes,
-                        cudaStream_t s) {
-  if (gray2d) return launch<T, 1, true>(in, out, N, H, W, 1, cam, lanes, s);
+                        int C, Camera cam, int* lanes, cudaStream_t s) {
   switch (C) {
-    case 1: return launch<T, 1, false>(in, out, N, H, W, 1, cam, lanes, s);
+    case 1: return launch<T, 1, true>(in, out, N, H, W, 1, cam, lanes, s);
     case 3: return launch<T, 3, false>(in, out, N, H, W, 3, cam, lanes, s);
     case 4: return launch<T, 4, false>(in, out, N, H, W, 4, cam, lanes, s);
     default: return launch<T, 0, false>(in, out, N, H, W, C, cam, lanes, s);
@@ -518,11 +518,10 @@ cudaError_t launch_type(const void* in, void* out, int N, int H, int W,
 }  // namespace
 
 // in, out (N, H, W, C) contiguous, of one type (dtype 0 uint8, 1 uint16,
-// 2 float32); gray2d = 1 when the images are 2-D (C = 1, no channel axis);
-// C * the type's bytes <= 256. lanes: null, or 3 int32 on the card that
+// 2 float32); C = 1 for 2-D images; C * the type's bytes <= 256. lanes: null, or 3 int32 on the card that
 // the launch adds its blocks to: staged, global-load lane, no inside pixel.
 extern "C" int p3d_undistort(const void* in, void* out, int N, int H, int W,
-                             int C, int dtype, int gray2d, float fx,
+                             int C, int dtype, float fx,
                              float fy, float cx, float cy, float k1,
                              float k2, float p1, float p2, float k3,
                              void* lanes, void* stream) {
@@ -532,12 +531,11 @@ extern "C" int p3d_undistort(const void* in, void* out, int N, int H, int W,
   int* l = (int*)lanes;
   switch (dtype) {
     case 0:
-      return (int)launch_type<uint8_t>(in, out, N, H, W, C, gray2d, cam, l, s);
+      return (int)launch_type<uint8_t>(in, out, N, H, W, C, cam, l, s);
     case 1:
-      return (int)launch_type<uint16_t>(in, out, N, H, W, C, gray2d, cam, l,
-                                        s);
+      return (int)launch_type<uint16_t>(in, out, N, H, W, C, cam, l, s);
     case 2:
-      return (int)launch_type<float>(in, out, N, H, W, C, gray2d, cam, l, s);
+      return (int)launch_type<float>(in, out, N, H, W, C, cam, l, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

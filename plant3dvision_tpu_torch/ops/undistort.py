@@ -18,8 +18,9 @@ seeded images; tests/test_torch_frontend.py):
     px = fma(dx, fx, u)            py = fma(dy, fy, v)
     lerp(a, b, w) = fma(a, 1 - w, b*w)   (top, bottom, then between them)
 
-except that for a 2-D (H, W) image XLA fuses the top and bottom rows'
-lerps the other way round, fma(b, w, a*(1 - w)).
+except that for one channel, a 2-D (H, W) image or an (H, W, 1) one of
+any type, XLA fuses the top and bottom rows' lerps the other way round,
+fma(b, w, a*(1 - w)).
 
 `undistort_batch` dispatches on the images' device: CUDA goes to the
 hand-written kernel (kernels/csrc/undistort.cu: a block a tile of output
@@ -88,7 +89,7 @@ def bilinear_sample(image, px, py):
     if image.ndim == 3:
         fx, fy = fx[..., None], fy[..., None]
     xi, yi = x0.long(), y0.long()
-    gray = image.ndim == 2
+    gray = image.ndim == 2 or image.shape[2] == 1
     top = _lerp(image[yi, xi], image[yi, xi + 1], fx, gray)
     bot = _lerp(image[yi + 1, xi], image[yi + 1, xi + 1], fx, gray)
     return _lerp(top, bot, fy)
@@ -155,7 +156,7 @@ def undistort_batch(images, K, dist, lane_counts=None):
     out = torch.empty_like(images)
     rc = kernels.lib().p3d_undistort(
         images.data_ptr(), out.data_ptr(), N, H, W, C, _DTYPES[images.dtype],
-        int(images.ndim == 3), *(float(v) for v in (fx, fy, cx, cy, k1, k2, p1, p2, k3)),
+        *(float(v) for v in (fx, fy, cx, cy, k1, k2, p1, p2, k3)),
         lanes, kernels.stream_ptr(images.device))
     kernels.LAUNCHES["undistort"] += 1
     kernels.check("undistort", rc)

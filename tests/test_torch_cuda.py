@@ -700,6 +700,9 @@ def _undistort_case(dev, case):
     if case == "global_rgb":         # corner windows over the budget
         return stack((5, 203, 304, 3)), camera(203, 304, 150.0), \
             np.float32(FOLDING)
+    if case == "global_one_f32":     # one channel: a 2-D image's lerps
+        return stack((3, 203, 304, 1), torch.float32), \
+            camera(203, 304, 150.0), np.float32(FOLDING)
     if case == "global_rgba_f32":
         return stack((3, 203, 304, 4), torch.float32), \
             camera(203, 304, 150.0), np.float32(FOLDING)
@@ -716,7 +719,8 @@ def _undistort_case(dev, case):
 
 @pytest.mark.parametrize("case", ["phase10", "edges_rgb", "edges_gray",
                                   "small_frame", "global_rgb",
-                                  "global_rgba_f32", "unaligned", "permuted",
+                                  "global_one_f32", "global_rgba_f32",
+                                  "unaligned", "permuted",
                                   "rgba_sliced"])
 def test_undistort_kernel_matches_plain_cases(dev, case):
     """K9 bit-equal to its plain version at tile and window edges (frames
@@ -1224,32 +1228,100 @@ def test_eikonal_kernel_refuses_what_it_cannot_take(dev):
         geodesic_distance(m.transpose(0, 2), m.transpose(0, 2))  # strided
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_trace_kernel_matches_plain(dev, seed):
+def _trace_case(rng, case):
+    """(mask, seeds, tips) of a K15 case."""
+    import scipy.ndimage as ndi
+    if case.startswith("blob"):
+        mask, seeds = _blob_mask(rng, (40, 36, 60))
+    else:                                   # a straight tube along z
+        nz = 1100 if case == "all_steps" else 160
+        mask = np.zeros((10, 9, nz), bool)
+        mask[3:7, 3:6, :] = True
+        seeds = np.zeros_like(mask)
+        seeds[3:7, 3:6, 0] = True
+    if case == "all_steps":                 # 1000 voxels of 2000 steps
+        return mask, seeds, np.array([[4.5, 4.2, 1098.0]], np.float32)
+    if case == "one_voxel":                 # 300 particles, one path
+        return mask, seeds, np.tile([[4.4, 4.6, 150.3]], (300, 1)).astype(
+            np.float32)
+    d = _trace_distance(mask, seeds)
+    dn = np.where(mask & (d < 1e9), d, -1)
+    tips = np.argwhere((dn == ndi.maximum_filter(dn, size=3)) & (dn > 2))
+    tips = np.concatenate([tips, tips + rng.uniform(-0.4, 0.4, tips.shape),
+                           [[39.5, 35.2, 59.9]]])
+    if case == "faces":                     # a tip on each face, past n - 2
+        n = np.array(mask.shape, np.float32)
+        inner = np.argwhere(mask)[int(mask.sum()) // 2].astype(np.float32)
+        for a in range(3):
+            for v in (0.0, n[a] - 1.001, n[a] - 1.5, n[a] - 0.75):
+                t = inner.copy()
+                t[a] = v
+                tips = np.concatenate([tips, t[None]])
+    return mask, seeds, tips.astype(np.float32)
+
+
+def _trace_distance(mask, seeds):
+    from plant3dvision_tpu_torch.ops.eikonal import geodesic_distance
+    return geodesic_distance(torch.from_numpy(mask), torch.from_numpy(
+        seeds)).numpy()
+
+
+@pytest.mark.parametrize("case", ["blob0", "blob1", "faces", "long",
+                                  "all_steps", "one_voxel"])
+def test_trace_kernel_matches_plain(dev, case):
     """K15's votes equal its plain version's on the flow of a blob's
     distance map, from tips at the distance's local maxima (and jittered
-    copies), with extrapolating start points past n - 2."""
-    import scipy.ndimage as ndi
+    copies), with extrapolating start points past n - 2; tips on each of
+    the grid's faces; walks down a 160-voxel tube that cross many bricks;
+    one walk of all 2000 steps; 300 particles voting the same voxels. The
+    kernel's stats (steps, longest walk, bricks staged waiting and ahead)
+    equal `brick_walk`'s model of its staging, on the CPU."""
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops.eikonal import (geodesic_distance,
                                                      gradient_flow)
-    from plant3dvision_tpu_torch.ops.geodesics import (trace_geodesics,
+    from plant3dvision_tpu_torch.ops.geodesics import (brick_walk,
+                                                       trace_geodesics,
                                                        trace_geodesics_plain)
-    rng = np.random.default_rng(seed)
-    mask, seeds = _blob_mask(rng, (40, 36, 60))
+    rng = np.random.default_rng(int(case[-1]) if case[-1].isdigit() else 0)
+    mask, seeds, tips = _trace_case(rng, case)
     m = torch.from_numpy(mask).to(dev)
     d = geodesic_distance(m, torch.from_numpy(seeds).to(dev))
     flow = gradient_flow(d, m)
     values = torch.where(m, d, 0.0)
-    dn = np.where(mask & (d.cpu().numpy() < 1e9), d.cpu().numpy(), -1)
-    tips = np.argwhere((dn == ndi.maximum_filter(dn, size=3)) & (dn > 2))
-    tips = np.concatenate([tips, tips + rng.uniform(-0.4, 0.4, tips.shape),
-                           [[39.5, 35.2, 59.9]]]).astype(np.float32)
     t = torch.from_numpy(tips).to(dev)
-    vk = trace_geodesics(flow, values, t, step=0.5, n_steps=2000)
-    vp = trace_geodesics_plain(flow, values, t, step=0.5, n_steps=2000)
+    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["trace_geodesics"]
+    vk = trace_geodesics(flow, values, t, step=0.5, n_steps=2000,
+                         stats=stats)
+    assert kernels.LAUNCHES["trace_geodesics"] - before == 1
+    vp, steps = trace_geodesics_plain(flow, values, t, step=0.5,
+                                      n_steps=2000, return_steps=True)
     assert vk.dtype == torch.int32
     assert torch.equal(vk, vp)
     assert int(vk.sum()) > 100
+    _, model = brick_walk(flow.cpu(), values.cpu(), t.cpu(), 0.5, 2000)
+    assert stats.tolist() == [model["steps"], model["longest"],
+                              model["waited"], model["ahead"]]
+    assert model["steps"] == int(steps.sum())
+    if case == "all_steps":
+        assert model["longest"] == 2000 and int(vk.sum()) == 2000
+    if case == "long":
+        assert model["ahead"] > len(tips)
+    if case == "one_voxel":
+        assert int(vk.max()) == 300
+
+
+def test_trace_step_floor_runs(dev):
+    """The floor of a step (one warp's dependent steps in a brick) launches
+    and scales with its count."""
+    from plant3dvision_tpu_torch import kernels
+    sink = torch.zeros(1, device=dev)
+    so = kernels.lib()
+    for iters in (1, 1000):
+        kernels.check("trace_step_floor", so.p3d_trace_step_floor(
+            iters, sink.data_ptr(), kernels.stream_ptr(dev)))
+        torch.cuda.synchronize()
+        assert float(sink) > 0
 
 
 def _ba_scene(V=12, W=320, H=240, seed=3):
@@ -1462,15 +1534,29 @@ def test_int8_lane_quantises_a_model_in_one_launch(dev, path):
 
 # -- K17-K19: the gather probes -----------------------------------------------------
 
-@pytest.mark.parametrize("L,N,reps", [(64, 1000, 5), (8192, 8192, 64),
-                                      (60000, 3000, 64), (131072, 8192, 64)])
+@pytest.mark.parametrize("L,N,reps", [
+    (64, 1000, 5), (8192, 8192, 64), (32768, 8192, 64), (60000, 3000, 64),
+    (131072, 8192, 64),                     # the probe's sizes and others
+    (58112, 4000, 64), (58113, 4000, 64),   # the staging limit either side
+    (40, 96, 200), (58113, 33, 60000),      # reps > L, in both lanes
+    (1, 40, 7), (31, 50, 70), (33, 77, 64),  # L < 32 (a modulo), L = 33
+    (300, 33, 0), (70000, 33, 0),           # reps = 0
+    (8192, 65, 33)])                        # N off the warp, reps off 32
 def test_gather_axis1_kernel_matches_plain(dev, L, N, reps):
+    """K17 equal to its plain version in both lanes (a staged row up to
+    232,448 bytes, L = 58112; L1/L2 above), with sums that wrap."""
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.tools import gather_probe as gp
-    np.random.seed(L)
+    np.random.seed(L % 1000 + N)
     tab, idx = gp.axis1_inputs(L, N, dev)
+    tab = tab * 1000003 + 2 ** 30
     assert gp.axis1_staged(L) == (L * 4 <= 232448)
-    assert torch.equal(gp.axis1_gather(tab, idx, reps),
-                       gp.axis1_gather_plain(tab, idx, reps))
+    before = kernels.LAUNCHES["gather_axis1"]
+    got = gp.axis1_gather(tab, idx, reps)
+    assert kernels.LAUNCHES["gather_axis1"] - before == 1
+    assert torch.equal(got, gp.axis1_gather_plain(tab, idx, reps))
+    # rows 1-7 alone: with L % 4 != 0, a table that starts off 16 bytes
+    assert torch.equal(gp.axis1_gather(tab[1:], idx[1:], reps), got[1:])
 
 
 @pytest.mark.parametrize("R,P,reps", [(48, 100, 9), (4096, 4096, 64),

@@ -72,9 +72,9 @@ DISTS = {"zero": (0.0, 0.0, 0.0, 0.0),
 
 @pytest.mark.parametrize("dist", list(DISTS))
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
-@pytest.mark.parametrize("channels", [None, 3, 4])
+@pytest.mark.parametrize("channels", [None, 1, 3, 4])
 def test_undistort_batch_equals_jax(channels, dtype, dist):
-    """Gray (2-D), RGB and RGBA stacks of uint8, uint16 and float32, zero
+    """Gray (2-D), one-channel, RGB and RGBA stacks of uint8, uint16 and float32, zero
     and nonzero distortion with len(dist) 4 and 5: undistort_batch
     bit-equal to JAX's, and `undistort` of one image to JAX's."""
     rng = np.random.default_rng(len(DISTS[dist]) + (channels or 1))
@@ -92,6 +92,83 @@ def test_undistort_batch_equals_jax(channels, dtype, dist):
         jnp.asarray(img[1]), jnp.asarray(K), jnp.asarray(d))))
     if dist != "zero":
         assert (got != img).mean() > 0.5
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
+def test_undistort_one_channel_stack_is_a_gray_image(dtype):
+    """An (N, H, W, 1) stack gives the values of the (N, H, W) stack of the
+    same pixels, bit for bit, and both equal JAX's: XLA fuses a
+    one-channel stack's row lerps as it fuses a 2-D image's,
+    fma(b, w, a*(1 - w)), and so does the port."""
+    rng = np.random.default_rng(11)
+    H, W = 41, 56
+    img = _images(rng, (3, H, W), dtype)
+    K, d = _K(H, W), np.float32(DISTS["k3"])
+    gray = undistort.undistort_batch(torch.from_numpy(img), K, d).numpy()
+    one = undistort.undistort_batch(torch.from_numpy(img[..., None]), K,
+                                    d).numpy()
+    np.testing.assert_array_equal(one[..., 0], gray)
+    np.testing.assert_array_equal(gray, np.asarray(jund.undistort_batch(
+        jnp.asarray(img), jnp.asarray(K), jnp.asarray(d))))
+    np.testing.assert_array_equal(one, np.asarray(jund.undistort_batch(
+        jnp.asarray(img[..., None]), jnp.asarray(K), jnp.asarray(d))))
+
+
+def _rounding_edge_stack(dtype, n=8):
+    """(n, 41, 56) images, image i holding at pixel i's four taps values
+    whose bilinear sample rounds to another integer under a multi-channel
+    stack's row lerps, fma(a, 1 - w, b*w), than under a 2-D image's; the
+    pixels, and both roundings."""
+    rng = np.random.default_rng(12)
+    H, W = 41, 56
+    K, d = _K(H, W), np.float32(DISTS["k3"])
+    px, py = undistort.source_map((H, W), K, d)
+    x0 = torch.floor(px).clamp(0, W - 2)
+    y0 = torch.floor(py).clamp(0, H - 2)
+    fx, fy = px - x0, py - y0
+    inside = ((px >= 0) & (px <= W - 1) & (py >= 0) & (py <= H - 1)
+              & (fx > 0.01) & (fy > 0.01))
+    cand = np.argwhere(inside.numpy())
+    imgs = _images(rng, (n, H, W), dtype)
+    found = []
+    for v, u in cand[rng.permutation(len(cand))]:
+        q = torch.from_numpy(rng.integers(0, 256, (4, 50000)).astype(
+            np.float32))
+        wx, wy = fx[v, u], fy[v, u]
+
+        def sample(fuse_b):
+            lerp = undistort._lerp
+            return torch.round(lerp(lerp(q[0], q[1], wx, fuse_b),
+                                    lerp(q[2], q[3], wx, fuse_b), wy))
+        multi, gray = sample(False), sample(True)
+        hit = torch.nonzero(multi != gray)[:, 0]
+        if len(hit) == 0:
+            continue
+        j, i = int(hit[0]), len(found)
+        yi, xi = int(y0[v, u]), int(x0[v, u])
+        imgs[i, yi:yi + 2, xi:xi + 2] = q[:, j].numpy().reshape(2, 2)
+        found.append((v, u, float(multi[j]), float(gray[j])))
+        if len(found) == n:
+            break
+    assert len(found) == n
+    return imgs, K, d, found
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("channels", [None, 1])
+def test_undistort_integer_one_channel_rounds_as_jax(dtype, channels):
+    """Integer gray and one-channel stacks whose taps put a sample where
+    the two lerp fusions round to different integers: the port gives the
+    2-D image's rounding, and so does JAX, at every such pixel."""
+    imgs, K, d, found = _rounding_edge_stack(dtype)
+    if channels == 1:
+        imgs = imgs[..., None]
+    got = undistort.undistort_batch(torch.from_numpy(imgs), K, d).numpy()
+    ref = np.asarray(jund.undistort_batch(jnp.asarray(imgs), jnp.asarray(K),
+                                          jnp.asarray(d)))
+    np.testing.assert_array_equal(got, ref)
+    for i, (v, u, multi, gray) in enumerate(found):
+        assert got[i, v, u].item() == gray != multi
 
 
 def test_undistort_gray_row_tail_differs_by_an_ulp():

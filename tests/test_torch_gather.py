@@ -97,3 +97,116 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="32"):
         gather_probe.rows_gather(torch.zeros((4, 16), dtype=torch.int32),
                                  torch.zeros(3, dtype=torch.int32), 1)
+
+
+# -- K17's warp reads, modelled -------------------------------------------------
+
+#: kernels/csrc/gather.cu: the longest row staged in shared memory and the
+#: warps a block of each lane
+STAGE_MAX_L, WARPS_STAGED, WARPS_DIRECT = 232448 // 4, 16, 8
+
+
+def _transpose_sum(v):
+    """The kernel's transpose reduction over a warp: v (32 lanes, 32
+    columns) uint32 -> lane l's result, the sum of column l."""
+    v = v.copy()
+    lanes = np.arange(32)
+    off = 16
+    while off >= 1:
+        upper = (lanes & off) != 0
+        for i in range(off):
+            send = np.where(upper, v[:, i], v[:, i + off])
+            keep = np.where(upper, v[:, i + off], v[:, i])
+            v[:, i] = keep + send[lanes ^ off]
+        off >>= 1
+    return v[:, 0]
+
+
+def axis1_kernel_model(tab, idx, reps, sms=132):
+    """K17 as the kernel runs it: the launcher's lane and grid, each warp's
+    groups of 32 columns, each load's 32 lookups at (kw + lane) with one
+    compare and subtract (a modulo when L < 32), asserting every index in
+    [0, L) and every column written once; the partial sums in uint32, the
+    transpose reduction. Returns the output, the lane (True: staged) and
+    the blocks a row."""
+    tab = tab.numpy().astype(np.uint32)
+    idx = idx.numpy()
+    R, L = tab.shape
+    N = idx.shape[1]
+    groups = -(-N // 32)
+    staged = L <= STAGE_MAX_L
+    warps = WARPS_STAGED if staged else WARPS_DIRECT
+    per_row = max(1, min(sms // R, -(-groups // warps))) if staged \
+        else -(-groups // warps)
+    full, rem = reps >> 5, reps & 31
+    lanes = np.arange(32)
+    out = np.zeros((R, N), np.uint32)
+    written = np.zeros((R, N), int)
+    for r in range(R):
+        for b in range(per_row):
+            for w in range(warps):
+                n0 = (b * warps + w) * 32
+                while n0 < N:
+                    n = n0 + lanes
+                    mine = np.where(n < N, idx[r, np.minimum(n, N - 1)], 0)
+                    acc = np.zeros((32, 32), np.uint32)
+                    for c in range(32):
+                        base = int(mine[c])
+                        if L >= 32:
+                            kw = base
+                            for q in range(full + (rem > 0)):
+                                k = kw + lanes
+                                k = np.where(k >= L, k - L, k)
+                                assert ((k >= 0) & (k < L)).all()
+                                on = lanes < (32 if q < full else rem)
+                                acc[:, c] += np.where(on, tab[r, k], 0) \
+                                    .astype(np.uint32)
+                                kw += 32
+                                kw = kw - L if kw >= L else kw
+                        else:
+                            for i0 in range(0, reps, 32):
+                                i = i0 + lanes
+                                k = (base + i) % L
+                                acc[:, c] += np.where(i < reps, tab[r, k], 0) \
+                                    .astype(np.uint32)
+                    s = _transpose_sum(acc)
+                    ok = n < N
+                    out[r, n[ok]] = s[ok]
+                    written[r, n[ok]] += 1
+                    n0 += per_row * warps * 32
+    assert (written == 1).all()
+    return torch.from_numpy(out.view(np.int32)), staged, per_row
+
+
+@pytest.mark.parametrize("L,N,reps", [
+    (64, 1000, 5),          # N not a multiple of 32 or of a block
+    (40, 96, 200),          # reps > L: the window wraps 5 times
+    (33, 77, 64),           # a load that wraps, L just above a warp
+    (32, 64, 33),           # rem = 1
+    (1, 40, 7),             # L = 1: a modulo a lookup
+    (31, 50, 70),           # L < 32, reps > L
+    (300, 33, 0),           # reps = 0: zeros
+    (STAGE_MAX_L + 1, 40, 64),   # the L1/L2 lane
+])
+def test_axis1_kernel_model_equals_plain(L, N, reps):
+    np.random.seed(L + N + reps)
+    tab, idx = gather_probe.axis1_inputs(L, N, device="cpu")
+    tab = tab * 1000003 + 2 ** 30                       # sums that wrap
+    got, staged, _ = axis1_kernel_model(tab, idx, reps)
+    assert staged == (L <= STAGE_MAX_L)
+    torch.testing.assert_close(got, gather_probe.axis1_gather_plain(
+        tab, idx, reps), rtol=0, atol=0)
+    if reps == 0:
+        assert not got.any()
+
+
+def test_axis1_kernel_model_at_the_probe_size():
+    """The probe's (8, 8192) table and (8, 8192) indices, 64 reps, on a
+    card of 132 SMs: one block an SM, 16 blocks a row of 512 columns each,
+    every column once."""
+    np.random.seed(0)
+    tab, idx = gather_probe.axis1_inputs(8192, 8192, device="cpu")
+    got, staged, per_row = axis1_kernel_model(tab, idx, 64)
+    assert staged and per_row == 16
+    torch.testing.assert_close(got, gather_probe.axis1_gather_plain(
+        tab, idx, 64), rtol=0, atol=0)

@@ -25,7 +25,7 @@ def test_no_jax_or_jax_package_imports_in_the_port():
     chip_smoke.py and of
     tools/frontend_angles.py and the A/B tools (dilate_filters_ab.py,
     edt_quant_ab.py, harris_reproject_ab.py, harris_reproject_variants.py,
-    undistort_carve_ab.py):
+    undistort_carve_ab.py, trace_gather_ab.py):
     no import statement and no importlib string names jax, flax,
     scikit-learn or plant3dvision_tpu."""
     offenders = []
@@ -44,7 +44,8 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                          ROOT / "tools" / "edt_quant_ab.py",
                          ROOT / "tools" / "harris_reproject_ab.py",
                          ROOT / "tools" / "harris_reproject_variants.py",
-                         ROOT / "tools" / "undistort_carve_ab.py"]:
+                         ROOT / "tools" / "undistort_carve_ab.py",
+                         ROOT / "tools" / "trace_gather_ab.py"]:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             names = []

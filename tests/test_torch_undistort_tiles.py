@@ -111,7 +111,6 @@ def kernel_model(images, K, dist, offset=0, width=None, budget=None):
     gx = (px - x0).clamp(0.0, 1.0)
     gy = (py - y0).clamp(0.0, 1.0)
     x0, y0 = x0.long().numpy(), y0.long().numpy()
-    gray = images.ndim == 3
     out = np.zeros_like(images, dtype=images.dtype)
     lanes = {"staged": 0, "global": 0, "empty": 0}
     tys, txs = tiles["any"].shape
@@ -164,37 +163,38 @@ def kernel_model(images, K, dist, offset=0, width=None, budget=None):
                 adr = [np.where(ins, a, 0) for a in adr]
                 vals = [src[a[..., None] + np.arange(pb)].view(
                     images.dtype).reshape(*a.shape, C) for a in adr]
-                out[n, vs, us] = _sample(vals, gx[vs, us], gy[vs, us], ins,
-                                         gray, images.dtype)
+                val = _sample(vals, gx[vs, us], gy[vs, us], ins, C == 1,
+                              images.dtype)
+                out[n, vs, us] = val[..., 0] if images.ndim == 3 else val
     return out, lanes
 
 
-def _sample(vals, gx, gy, ins, gray, dtype):
-    """The kernel's lerps of the four taps (plain arithmetic) and its
-    store: the magic conversions for integer types."""
+def _sample(vals, gx, gy, ins, one, dtype):
+    """The kernel's lerps of the four taps (plain arithmetic; one channel
+    takes a 2-D image's row lerps) and its store: the magic conversions
+    for integer types."""
     if dtype == np.float32:
         f = [torch.from_numpy(v.astype(np.float32)) for v in vals]
     else:
         f = [torch.from_numpy(byte_to_float(v.astype(np.uint32)))
              for v in vals]
     gx, gy = gx[..., None], gy[..., None]
-    top = P._lerp(f[0], f[1], gx, gray)
-    bot = P._lerp(f[2], f[3], gx, gray)
+    top = P._lerp(f[0], f[1], gx, one)
+    bot = P._lerp(f[2], f[3], gx, one)
     val = torch.where(torch.from_numpy(ins)[..., None], P._lerp(top, bot, gy),
                       0.0).numpy()
     if dtype != np.float32:
         val = float_to_byte(val).astype(dtype)
-    return val[..., 0] if gray else val
+    return val
 
 
-def _check(images, K, dist, offset=0, jax_too=True, **kw):
+def _check(images, K, dist, offset=0, **kw):
     got, lanes = kernel_model(images, K, dist, offset, **kw)
     plain = P.undistort_plain(torch.from_numpy(images), K, dist).numpy()
     np.testing.assert_array_equal(got, plain)
-    if jax_too:
-        ref = np.asarray(J.undistort_batch(jnp.asarray(images),
-                                           jnp.asarray(K), jnp.asarray(dist)))
-        np.testing.assert_array_equal(got, ref)
+    ref = np.asarray(J.undistort_batch(jnp.asarray(images), jnp.asarray(K),
+                                       jnp.asarray(dist)))
+    np.testing.assert_array_equal(got, ref)
     return lanes
 
 
@@ -217,16 +217,13 @@ def test_folding_lens_takes_both_lanes(channels, dtype):
     budget: those tiles read their taps from global memory, the others
     stage; 203 rows and 304 columns divide into neither tile side. Gray
     (2-D), 1, 3 and 4 channels of each type, bit-equal to the plain
-    version, and to JAX but for one-channel float32: XLA fuses a
-    one-channel stack's row lerps as it fuses a 2-D image's, the plain
-    version as a multi-channel stack's, 1 ulp apart (ROADMAP Queue C);
-    the integer stacks round that ulp away and are held to JAX."""
+    version and to JAX (a one-channel stack takes a 2-D image's row
+    lerps, as XLA fuses them)."""
     rng = np.random.default_rng(1)
     H, W = 203, 304
     img = _stack(rng, dtype, 2, H, W, channels)
     K = _f32([[150.0, 0, W / 2 - 0.7], [0, 153.0, H / 2 + 0.4], [0, 0, 1]])
-    lanes = _check(img, K, _f32(FOLDING),
-                   jax_too=not (channels == 1 and dtype == np.float32))
+    lanes = _check(img, K, _f32(FOLDING))
     assert lanes["global"] > 0 and lanes["staged"] > 0
 
 
@@ -239,7 +236,7 @@ def test_unaligned_stack_and_row_phases(offset):
     H, W = 5, 77
     img = _stack(rng, np.uint8, 3, H, W, 3)
     K = _f32([[70.0, 0, W / 2], [0, 70.0, H / 2], [0, 0, 1]])
-    lanes = _check(img, K, _f32(STRONG), offset=offset, jax_too=False)
+    lanes = _check(img, K, _f32(STRONG), offset=offset)
     assert lanes["staged"] == 1
 
 

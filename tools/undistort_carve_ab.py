@@ -262,12 +262,12 @@ def variants(tmp):
         so = ctypes.CDLL(str(tmp / f"{name}.so"))
         if src == "undistort.cu":
             f = so.p3d_undistort
-            f.argtypes = [P_, P_] + [I_] * 6 + [F_] * 9 + [P_, P_]
+            f.argtypes = [P_, P_] + [I_] * 5 + [F_] * 9 + [P_, P_]
             out = torch.empty_like(imgs)
 
             def call(f=f, out=out):
                 assert f(imgs.data_ptr(), out.data_ptr(), K9_N, K9_H, K9_W,
-                         K9_C, 0, 0, fx, fy, cx, cy, *d, None, stream) == 0
+                         K9_C, 0, fx, fy, cx, cy, *d, None, stream) == 0
                 return out
             call()
             torch.cuda.synchronize()
