@@ -2804,12 +2804,15 @@ def check_fim_kernels(scan, report, launches):
     zero_ms = cuda_ms(lambda: torch.zeros(values.shape, dtype=torch.int32,
                                           device=dev))
     # the floor: the longest walk's steps, each one warp's dependent step
-    # inside a shared-memory brick (two trilinear samples, no staging)
+    # (two trilinear samples) with every read on chip
     sink = torch.zeros(1, device=dev)
+    scratch = torch.zeros(4 * 4096, device=dev)
+    scratch[3 * 4096:] = 1.0
 
     def floor_steps(n):
         kernels.check("trace_step_floor", so.p3d_trace_step_floor(
-            n, sink.data_ptr(), kernels.stream_ptr(dev)))
+            n, scratch.data_ptr(), sink.data_ptr(),
+            kernels.stream_ptr(dev)))
 
     step_us = (cuda_ms(lambda: floor_steps(iters + 1))
                - cuda_ms(lambda: floor_steps(1))) * 1e3 / iters

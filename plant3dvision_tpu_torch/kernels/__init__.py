@@ -141,8 +141,8 @@ _ARGTYPES = {
     # stats (or null), stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
                             _P, _P, _P],
-    # iters, sink, stream
-    "p3d_trace_step_floor": [_I, _P, _P],
+    # iters, scratch (4 x 16^3 float32 on the card), sink, stream
+    "p3d_trace_step_floor": [_I, _P, _P, _P],
     # descriptors (host, n x 16 int64), n, arena, eps, stream
     "p3d_int8_quantize_weights": [_P, _I, _P, _F, _P],
     # x, dtype, n, maxbits, stream

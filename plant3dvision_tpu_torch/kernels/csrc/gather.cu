@@ -96,30 +96,39 @@ __global__ void axis1_kernel(const int* __restrict__ tab,
     const int mine = n < N ? idx[(long long)r * N + n] : 0;
     unsigned acc[32];
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int base = __shfl_sync(0xffffffffu, mine, c);
-      unsigned a = 0u;
-      if (L >= 32) {
-        int kw = base;                       // in [0, L)
-        for (int q = 0; q < full; ++q) {
-          int k = kw + lane;
+    for (int c = 0; c < 32; ++c) acc[c] = 0u;
+    if (L >= 32) {
+      // lane l: its own column's window start, advanced 32 a load
+      int kw = mine;                         // in [0, L)
+      for (int q = 0; q < full; ++q) {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          int k = __shfl_sync(0xffffffffu, kw, c) + lane;
           if (k >= L) k -= L;
-          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
-          kw += 32;
-          if (kw >= L) kw -= L;
+          acc[c] += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
         }
-        if (lane < rem) {
-          int k = kw + lane;
+        kw += 32;
+        if (kw >= L) kw -= L;
+      }
+      if (rem > 0) {
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          int k = __shfl_sync(0xffffffffu, kw, c) + lane;
           if (k >= L) k -= L;
-          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
-        }
-      } else {                               // a modulo a lookup
-        for (int i = lane; i < reps; i += 32) {
-          const int k = (base + i) % L;
-          a += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
+          if (lane < rem)
+            acc[c] += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
         }
       }
-      acc[c] = a;
+    } else {                                 // a modulo a lookup
+      for (int i0 = 0; i0 < reps; i0 += 32) {
+        const int i = i0 + lane;
+#pragma unroll
+        for (int c = 0; c < 32; ++c) {
+          const int k = (__shfl_sync(0xffffffffu, mine, c) + i) % L;
+          if (i < reps)
+            acc[c] += (unsigned)(STAGED ? rs[k] : __ldg(row + k));
+        }
+      }
     }
     const unsigned s = transpose_sum(acc, lane);
     if (n < N) out[(long long)r * N + n] = (int)s;

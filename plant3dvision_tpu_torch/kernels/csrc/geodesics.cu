@@ -48,7 +48,12 @@
 
 namespace {
 
+// the design: bricks in shared memory, or the corners read through L1
+// with the path ahead prefetched into it (trace_l1_kernel)
+constexpr bool kBricks = false;
 constexpr int kWarps = 2;                   // particles a block
+constexpr bool kPrefetch = true;            // the L1 design's prefetch
+constexpr int kAhead1 = 2, kAhead2 = 4;     // prefetched steps ahead
 constexpr int kBX = 8, kBY = 8, kBZ = 16;   // brick sides (voxels)
 constexpr int kMargin = 1;    // voxels behind the corner on a travelled axis
 constexpr int kAhead = 2;     // prefetch when this close to the leading face
@@ -268,6 +273,99 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
   }
 }
 
+// channel `ch` of a (nx, ny, nz, C) volume at the corner's 8 neighbours,
+// read from global memory (through L1), in JAX's term order
+template <int C, int NC>
+__device__ __forceinline__ void sample_global(const float* __restrict__ vol,
+                                              const Corner& c, int ny, int nz,
+                                              float* out) {
+  const float wx[2] = {__fsub_rn(1.f, c.fx), c.fx};
+  const float wy[2] = {__fsub_rn(1.f, c.fy), c.fy};
+  const float wz[2] = {__fsub_rn(1.f, c.fz), c.fz};
+  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
+                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
+  const long long sx = (long long)ny * nz;
+  const float* base = vol + (((long long)c.x * ny + c.y) * nz + c.z) * C;
+  float txy[NC][8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float* v = base + (d[t][0] * sx + d[t][1] * nz + d[t][2]) * C;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch)
+      txy[ch][t] = __fmul_rn(__fmul_rn(__ldg(v + ch), wx[d[t][0]]),
+                             wy[d[t][1]]);
+  }
+#pragma unroll
+  for (int ch = 0; ch < NC; ++ch) {
+    float s = __fmaf_rn(txy[ch][0], wz[0], __fmul_rn(txy[ch][1], wz[0]));
+#pragma unroll
+    for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[ch][t], wz[d[t][2]], s);
+    out[ch] = s;
+  }
+}
+
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// a warp a particle; every lane runs the step (the loads are broadcasts),
+// lane 0 votes. After each step the lanes prefetch into L1 the lines the
+// samples kAhead1 and kAhead2 steps ahead would read if the flow stayed
+// as it is: lane j takes step (j < 16 ? kAhead1 : kAhead2), corner row
+// (x + (j & 1), y + (j >> 1 & 1)) and the first or last byte of its flow
+// (j >> 2 & 1 = 0) or value (1) pair (z, z + 1) (j >> 3 & 1).
+__global__ void __launch_bounds__(32 * kWarps)
+trace_l1_kernel(const float* __restrict__ flow,
+                const float* __restrict__ values,
+                const float* __restrict__ tips, int N, int nx, int ny, int nz,
+                float step, int n_steps, float bx, float by, float bz,
+                int* __restrict__ votes, int* __restrict__ stats) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarps + w;
+  if (p >= N || n_steps <= 0) return;
+  float px = tips[3 * p], py = tips[3 * p + 1], pz = tips[3 * p + 2];
+  float prev = 1e10f;
+  int steps = 0;
+  const float ahead = (float)(lane < 16 ? kAhead1 : kAhead2) * step;
+  const int rx = lane & 1, ry = lane >> 1 & 1;
+  const bool is_value = (lane >> 2 & 1) != 0, last = (lane >> 3 & 1) != 0;
+  for (int s = 0; s < n_steps; ++s) {
+    ++steps;
+    const Corner c = corner(px, py, pz, nx, ny, nz);
+    float g[3];
+    sample_global<3, 3>(flow, c, ny, nz, g);
+    const float qx = fminf(bx, fmaxf(0.f, __fmaf_rn(-step, g[0], px)));
+    const float qy = fminf(by, fmaxf(0.f, __fmaf_rn(-step, g[1], py)));
+    const float qz = fminf(bz, fmaxf(0.f, __fmaf_rn(-step, g[2], pz)));
+    const Corner cv = corner(qx, qy, qz, nx, ny, nz);
+    float val;
+    sample_global<1, 1>(values, cv, ny, nz, &val);
+    if (kPrefetch) {   // the path ahead (a hint, any rounding will do)
+      const Corner a = corner(qx - ahead * g[0], qy - ahead * g[1],
+                              qz - ahead * g[2], nx, ny, nz);
+      const long long v =
+          ((long long)(a.x + rx) * ny + (a.y + ry)) * nz + a.z;
+      prefetch_l1(is_value ? (const void*)(values + v + (last ? 1 : 0))
+                           : (const void*)(flow + 3 * v + (last ? 5 : 0)));
+    }
+    if (!(val < prev && val > step)) break;
+    if (lane == 0) {
+      const long long lin =
+          ((long long)(int)rintf(qx) * ny + (int)rintf(qy)) * nz +
+          (int)rintf(qz);
+      atomicAdd(&votes[lin], 1);
+    }
+    px = qx;
+    py = qy;
+    pz = qz;
+    prev = val;
+  }
+  if (stats != nullptr && lane == 0) {
+    atomicAdd(&stats[0], steps);
+    atomicMax(&stats[1], steps);
+  }
+}
+
 // the floor of a step: one warp takes `iters` dependent steps inside a
 // brick of zero flow (the particle stays put) and values that never stop
 // it, with the trace's arithmetic, holds and shared-memory samples
@@ -323,19 +421,61 @@ extern "C" int p3d_trace_geodesics(const void* flow, const void* values,
                                    float by, float bz, void* votes,
                                    void* stats, void* stream) {
   if (N <= 0) return 0;
+  const int blocks = (N + kWarps - 1) / kWarps;
+  if (!kBricks) {
+    trace_l1_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+        (const float*)flow, (const float*)values, (const float*)tips, N, nx,
+        ny, nz, step, n_steps, bx, by, bz, (int*)votes, (int*)stats);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * 2 * kWarps * kBrickFloats;
   cudaError_t e = allow_smem(trace_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  trace_kernel<<<(N + kWarps - 1) / kWarps, 32 * kWarps, smem,
-                 (cudaStream_t)stream>>>(
+  trace_kernel<<<blocks, 32 * kWarps, smem, (cudaStream_t)stream>>>(
       (const float*)flow, (const float*)values, (const float*)tips, N, nx, ny,
       nz, step, n_steps, bx, by, bz, (int*)votes, (int*)stats);
   return (int)cudaGetLastError();
 }
 
-// `iters` dependent steps of one warp inside a shared-memory brick (the
-// floor of a step: time it at two counts); sink one float on the card
-extern "C" int p3d_trace_step_floor(int iters, void* sink, void* stream) {
+// the L1 design's floor: `iters` dependent steps of one warp on a
+// 16^3 volume of zero flow in global memory (`vol`: 16^3 x 4 floats, the
+// flow then the values), every read an L1 hit after the first
+__global__ void step_floor_l1_kernel(const float* __restrict__ vol, int iters,
+                                     float* __restrict__ sink) {
+  const int lane = threadIdx.x & 31;
+  const float* flow = vol;
+  const float* values = vol + 3 * 4096;
+  float px = 7.25f, py = 7.5f, pz = 7.75f, acc = 0.f;
+  for (int s = 0; s < iters; ++s) {
+    const Corner c = corner(px, py, pz, 16, 16, 16);
+    float g[3];
+    sample_global<3, 3>(flow, c, 16, 16, g);
+    const float qx = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[0], px)));
+    const float qy = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[1], py)));
+    const float qz = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[2], pz)));
+    const Corner cv = corner(qx, qy, qz, 16, 16, 16);
+    float val;
+    sample_global<1, 1>(values, cv, 16, 16, &val);
+    if (val != val) break;
+    acc = __fadd_rn(acc, val);
+    px = qx;
+    py = qy;
+    pz = qz;
+  }
+  if (lane == 0) sink[0] = acc;
+}
+
+// `iters` dependent steps of one warp with every read on chip (the floor
+// of a step: time it at two counts): inside a shared-memory brick, or
+// for the L1 design on a small volume in L1 (`scratch`: 4 x 16^3 floats
+// on the card, flow zero, values positive); sink one float on the card
+extern "C" int p3d_trace_step_floor(int iters, void* scratch, void* sink,
+                                    void* stream) {
+  if (!kBricks) {
+    step_floor_l1_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+        (const float*)scratch, iters, (float*)sink);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = sizeof(float) * kBrickFloats;
   cudaError_t e = allow_smem(step_floor_kernel, smem);
   if (e != cudaSuccess) return (int)e;

@@ -125,7 +125,8 @@ def _transpose_sum(v):
 def axis1_kernel_model(tab, idx, reps, sms=132):
     """K17 as the kernel runs it: the launcher's lane and grid, each warp's
     groups of 32 columns, each load's 32 lookups at (kw + lane) with one
-    compare and subtract (a modulo when L < 32), asserting every index in
+    compare and subtract, a lane's window start shuffled to the warp a
+    column at a time (a modulo when L < 32), asserting every index in
     [0, L) and every column written once; the partial sums in uint32, the
     transpose reduction. Returns the output, the lane (True: staged) and
     the blocks a row."""
@@ -150,23 +151,23 @@ def axis1_kernel_model(tab, idx, reps, sms=132):
                     n = n0 + lanes
                     mine = np.where(n < N, idx[r, np.minimum(n, N - 1)], 0)
                     acc = np.zeros((32, 32), np.uint32)
-                    for c in range(32):
-                        base = int(mine[c])
-                        if L >= 32:
-                            kw = base
-                            for q in range(full + (rem > 0)):
-                                k = kw + lanes
+                    if L >= 32:
+                        kw = mine.copy()     # lane l: its column's start
+                        for q in range(full + (rem > 0)):
+                            on = lanes < (32 if q < full else rem)
+                            for c in range(32):
+                                k = kw[c] + lanes
                                 k = np.where(k >= L, k - L, k)
                                 assert ((k >= 0) & (k < L)).all()
-                                on = lanes < (32 if q < full else rem)
                                 acc[:, c] += np.where(on, tab[r, k], 0) \
                                     .astype(np.uint32)
-                                kw += 32
-                                kw = kw - L if kw >= L else kw
-                        else:
-                            for i0 in range(0, reps, 32):
-                                i = i0 + lanes
-                                k = (base + i) % L
+                            kw = kw + 32
+                            kw = np.where(kw >= L, kw - L, kw)
+                    else:
+                        for i0 in range(0, reps, 32):
+                            i = i0 + lanes
+                            for c in range(32):
+                                k = (mine[c] + i) % L
                                 acc[:, c] += np.where(i < reps, tab[r, k], 0) \
                                     .astype(np.uint32)
                     s = _transpose_sum(acc)

@@ -47,26 +47,28 @@ K17_SIZES = ((0, 8 * 1024), (1, 32 * 1024), (2, 128 * 1024))
 K17_N, K17_REPS = 8 * 1024, 64
 STEP, N_STEPS = 0.5, 2000
 
-_K15_NO_PREFETCH = [("constexpr int kAhead = 2;",
-                     "constexpr int kAhead = -1000;")]
+_K15_BRICKS = [("constexpr bool kBricks = false;",
+                "constexpr bool kBricks = true;")]
 
 #: --variants: name -> (source, source edits, computes the function); a
 #: variant with a part cut out (an ablation) is timed, not checked
 VARIANTS = {
     "k15": ("geodesics.cu", [], True),
-    "k15_no_prefetch": ("geodesics.cu", _K15_NO_PREFETCH, True),
-    "k15_centred": ("geodesics.cu", [("constexpr float kMove = 0.25f;",
-                                      "constexpr float kMove = 2.0f;")],
-                    True),
-    "k15_brick_8x8x8": ("geodesics.cu", [(
-        "constexpr int kBX = 8, kBY = 8, kBZ = 16;",
-        "constexpr int kBX = 8, kBY = 8, kBZ = 8;")], True),
-    "k15_brick_16x16x16": ("geodesics.cu", [
-        ("constexpr int kBX = 8, kBY = 8, kBZ = 16;",
-         "constexpr int kBX = 16, kBY = 16, kBZ = 16;"),
-        ("constexpr int kWarps = 2;", "constexpr int kWarps = 1;")], True),
+    "k15_no_prefetch": ("geodesics.cu", [("constexpr bool kPrefetch = true;",
+                                          "constexpr bool kPrefetch = false;")],
+                        True),
+    "k15_ahead_1_2": ("geodesics.cu", [(
+        "constexpr int kAhead1 = 2, kAhead2 = 4;",
+        "constexpr int kAhead1 = 1, kAhead2 = 2;")], True),
+    "k15_ahead_4_8": ("geodesics.cu", [(
+        "constexpr int kAhead1 = 2, kAhead2 = 4;",
+        "constexpr int kAhead1 = 4, kAhead2 = 8;")], True),
     "k15_one_warp_a_block": ("geodesics.cu", [(
         "constexpr int kWarps = 2;", "constexpr int kWarps = 1;")], True),
+    "k15_bricks": ("geodesics.cu", _K15_BRICKS, True),
+    "k15_bricks_no_prefetch": ("geodesics.cu", _K15_BRICKS + [(
+        "constexpr int kAhead = 2;", "constexpr int kAhead = -1000;")],
+        True),
     "k17": ("gather.cu", [], True),
     "k17_all_direct": ("gather.cu", [(
         "constexpr int kStageMaxL = kMaxSmem / 4;",
@@ -225,10 +227,30 @@ def measure(root, tmp):
     print(json.dumps(out), flush=True)
 
 
+def step_floor_us(so, iters=10000):
+    """Microseconds of one dependent step with every read on chip, from a
+    library's p3d_trace_step_floor at two step counts."""
+    import torch
+    from chip_smoke import cuda_ms
+    f = so.p3d_trace_step_floor
+    f.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    scratch = torch.zeros(4 * 4096, device="cuda")
+    scratch[3 * 4096:] = 1.0
+    sink = torch.zeros(1, device="cuda")
+
+    def run(n):
+        assert f(n, scratch.data_ptr(), sink.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream) == 0
+    return (cuda_ms(lambda: run(iters + 1)) - cuda_ms(lambda: run(1))) \
+        * 1e3 / iters
+
+
 def variants(tmp):
     """Build VARIANTS (edits of this checkout's sources), hold those that
-    compute the function equal to the plain results, hold the unedited
-    K15's stats to the brick model, and time each twice, in turns."""
+    compute the function equal to the plain results, hold each K15's
+    steps and longest walk, and the brick design's staging counts, to the
+    plain walk and its brick model, time each K15's dependent step on chip
+    (`p3d_trace_step_floor`), and time each twice, in turns."""
     import torch
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops.geodesics import upper_bounds
@@ -274,12 +296,13 @@ def variants(tmp):
             call()
             torch.cuda.synchronize()
             assert not exact or torch.equal(votes.cpu(), want["k15"]), name
-            out[name + "_stats"] = stats.tolist()
-            if name == "k15":
-                m = want["k15_model"]
-                assert stats.tolist() == [m["steps"], m["longest"],
-                                          m["waited"], m["ahead"]], \
-                    (stats.tolist(), m)
+            m = want["k15_model"]
+            got = stats.tolist()
+            assert got[:2] == [m["steps"], m["longest"]], (name, got, m)
+            if name == "k15_bricks":       # the brick rule as modelled
+                assert got[2:] == [m["waited"], m["ahead"]], (name, got, m)
+            out[name + "_stats"] = got
+            out[name + "_step_floor_us"] = step_floor_us(so)
             calls[name] = call
             continue
         f = so.p3d_gather_axis1
