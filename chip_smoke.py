@@ -140,9 +140,9 @@
    ms and `floor_ms`, the sweeps times a measured empty grid barrier.
    K15 runs once with the counts set to 0; its row gives the kernel's
    device time without the vote grid's zeroing and the zeroing's, the
-   steps (equal to the plain walk's), the longest and the mean, the
-   bricks staged waiting and ahead, and `floor_ms`, the longest walk's
-   steps times a measured dependent step inside a shared-memory brick.
+   steps (equal to the plain walk's), the longest and the mean, and
+   `floor_ms`, the longest walk's steps times a measured dependent step
+   whose reads all hit L1.
 15. Live carving: replays phase 2's scan (written here if phase 2 did not
    run) into a fresh scan directory, a copy thread writing the views in
    file order while `python -m plant3dvision_tpu_torch.live_carve` watches
@@ -2779,7 +2779,7 @@ def check_fim_kernels(scan, report, launches):
     leaves = (np.asarray(skel["points"])[deg == 1] - origin) / vs
     tips = torch.from_numpy(leaves.astype(np.float32)).cuda()
     # K15's own run: the counts set to 0, one call (no task calls it)
-    stats = torch.zeros(4, dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
     kernels.reset_launches()
     vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000,
                          stats=stats)
@@ -2791,7 +2791,7 @@ def check_fim_kernels(scan, report, launches):
     tplain_ms = (time.perf_counter() - t0) * 1e3
     vdiff = int((vk - vp).abs().sum())
     assert vdiff == 0, f"K15 votes differ from the plain version's by {vdiff}"
-    n_steps_all, longest, waited, ahead = stats.tolist()
+    n_steps_all, longest = stats.tolist()
     assert n_steps_all == int(psteps.sum()) and longest == int(
         psteps.max()), "K15's step counts differ from the plain walk's"
 
@@ -2804,7 +2804,7 @@ def check_fim_kernels(scan, report, launches):
     zero_ms = cuda_ms(lambda: torch.zeros(values.shape, dtype=torch.int32,
                                           device=dev))
     # the floor: the longest walk's steps, each one warp's dependent step
-    # (two trilinear samples) with every read on chip
+    # (two trilinear samples) with every read an L1 hit
     sink = torch.zeros(1, device=dev)
     scratch = torch.zeros(4 * 4096, device=dev)
     scratch[3 * 4096:] = 1.0
@@ -2831,7 +2831,6 @@ def check_fim_kernels(scan, report, launches):
                "n_steps": 2000, "steps": n_steps_all,
                "longest_steps": longest,
                "mean_steps": n_steps_all / max(len(leaves), 1),
-               "bricks_waited": waited, "bricks_ahead": ahead,
                "zeroing_ms": zero_ms,
                "device_ms_by_kernel": by_kernel,
                "step_floor_us": step_us,

@@ -10,32 +10,29 @@
 //
 // What bounds it: on paper bytes (the tips and the dense votes once, 8
 // corners of flow and values a step); in practice the longest particle's
-// chain of dependent steps. Each step is two dependent trilinear samples,
-// and the grids of the eikonal skeleton (301x301x561: 610 MB of flow, 203
-// MB of values) are far past the 50 MB L2, so a step that reads new
-// corners waits on device memory. The first design (a thread a particle,
-// the corners read from global memory each step) ran phase 14's 461
-// particles on 4 of 132 SMs, each step two round trips to memory.
+// chain of dependent steps (669 on phase 14's skeleton, 38 on average).
+// The grids of the eikonal skeleton (301x301x561: 610 MB of flow, 203 MB
+// of values) are far past the 50 MB L2, so a step whose corners are new
+// waits on L2 or device memory. The first design (a thread a particle)
+// ran phase 14's 461 particles on 4 of 132 SMs, each step two dependent
+// round trips to memory (the flow at pos, then the values at the new
+// position), and its warps waited on their slowest lane's misses.
 //
-// Design: a warp a particle, kWarps particles a block, so the particles
-// spread over the card. Each warp keeps a brick of kBX x kBY x kBZ voxels
-// around its particle in shared memory, every voxel as float4 (gx, gy, gz,
-// value), and takes both samples of a step from it while the corners stay
-// inside: a normalised flow moves a particle at most step (0.5) voxels
-// along an axis a step, so a brick lasts several steps. The brick is
-// placed along the particle's travel: on an axis where |g| > kMove the
-// corner sits kMargin voxels from the trailing face, elsewhere in the
-// middle; clipped to the grid as the corners are (`brick_origin`). When
-// the corner comes within kAhead voxels of the leading face, the warp
-// copies the next brick, placed from the current corner, into its second
-// buffer with 4-byte cp.async and steps on; when a corner leaves the
-// brick, the copy is waited for and the buffers swap; a corner outside
-// both (a turn) is staged at once. ops/geodesics.py:brick_walk models the
-// rule on the CPU. All 32 lanes run the step's arithmetic (shared-memory
-// broadcasts); lane 0 votes by atomicAdd on int32 (exact in any order,
-// off the chain). `stats` (optional) adds the steps evaluated, the
-// longest particle's steps, the bricks staged while the warp waited and
-// those that arrived ahead.
+// Design: a warp a particle (kWarps a block), so the particles spread
+// over the card and no particle waits on another's misses; every lane
+// runs the step (the loads are broadcasts) and lane 0 votes by atomicAdd
+// on int32 (exact in any order, off the chain). The corner of the new
+// position is the next step's flow corner (the particle moves there), so
+// a step loads the flow there together with the values and samples both
+// side by side: one round trip and one sampling time a step, the next
+// step's flow in hand. `stats` (optional) adds the steps evaluated and
+// the longest walk's.
+// Tried and dropped (PERF.md §6, tools/trace_gather_ab.py): a brick of the
+// volumes in shared memory a particle (8 x 8 x 16 voxels, the next brick
+// prefetched along the travel): its steps were quick (0.242 us on chip
+// against 0.276 through L1) but a warp issuing its own copies spent more
+// on staging than it saved (0.755 ms); prefetching the path ahead into L1
+// (0.355 ms against 0.322 without).
 //
 // Exactness: XLA's CPU arithmetic (the library is built with -fmad=false):
 // f = p - floor(p) before the corner is clipped to [0, n - 2]; each term
@@ -48,17 +45,7 @@
 
 namespace {
 
-// the design: bricks in shared memory, or the corners read through L1
-// with the path ahead prefetched into it (trace_l1_kernel)
-constexpr bool kBricks = false;
-constexpr int kWarps = 2;                   // particles a block
-constexpr bool kPrefetch = true;            // the L1 design's prefetch
-constexpr int kAhead1 = 2, kAhead2 = 4;     // prefetched steps ahead
-constexpr int kBX = 8, kBY = 8, kBZ = 16;   // brick sides (voxels)
-constexpr int kMargin = 1;    // voxels behind the corner on a travelled axis
-constexpr int kAhead = 2;     // prefetch when this close to the leading face
-constexpr float kMove = 0.25f;  // |g| above which an axis is travelled
-constexpr int kBrickFloats = kBX * kBY * kBZ * 4;
+constexpr int kWarps = 1;                   // particles a block
 
 struct Corner {
   int x, y, z;      // the clipped corner (x0, y0, z0)
@@ -78,112 +65,76 @@ __device__ __forceinline__ Corner corner(float px, float py, float pz, int nx,
   return c;
 }
 
-// first brick voxel along an axis of n voxels, for a brick of D <= n
-// voxels holding the corner pair [c, c + 1]; the particle moves along -g
-__device__ __forceinline__ int brick_origin(int c, float g, int n, int D) {
-  const int m = min(kMargin, D - 2);
-  int lo;
-  if (g < -kMove) lo = c - m;                     // moving up
-  else if (g > kMove) lo = c + 1 + m - (D - 1);   // moving down
-  else lo = c - (D - 2) / 2;
-  return min(max(lo, 0), n - D);
-}
-
-struct Brick {
-  int x, y, z;      // origin
-};
-
-__device__ __forceinline__ bool holds(const Brick& b, const Corner& c, int DX,
-                                      int DY, int DZ) {
-  return c.x >= b.x && c.x + 2 <= b.x + DX && c.y >= b.y &&
-         c.y + 2 <= b.y + DY && c.z >= b.z && c.z + 2 <= b.z + DZ;
-}
-
-__device__ __forceinline__ Brick place(const Corner& c, float gx, float gy,
-                                       float gz, int nx, int ny, int nz,
-                                       int DX, int DY, int DZ) {
-  return {brick_origin(c.x, gx, nx, DX), brick_origin(c.y, gy, ny, DY),
-          brick_origin(c.z, gz, nz, DZ)};
-}
-
-// the corner within kAhead voxels of the brick's leading face on a
-// travelled axis
-__device__ __forceinline__ bool near_face(const Brick& b, const Corner& c,
-                                          float gx, float gy, float gz,
-                                          int DX, int DY, int DZ) {
-  const auto axis = [](int lo, int D, int cc, float g) {
-    if (g < -kMove) return lo + D - 2 - cc < kAhead;
-    if (g > kMove) return cc - lo < kAhead;
-    return false;
-  };
-  return axis(b.x, DX, c.x, gx) || axis(b.y, DY, c.y, gy) ||
-         axis(b.z, DZ, c.z, gz);
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncwarp();
-}
-
-// the warp copies brick b (DX x DY x DZ voxels) into buf: each (x, y) row's
-// 3 DZ flow floats, then its DZ values, lane-strided (coalesced rows)
-__device__ void stage(float* buf, const float* __restrict__ flow,
-                      const float* __restrict__ values, const Brick& b,
-                      int DX, int DY, int DZ, int ny, int nz, int lane) {
-  __syncwarp();                 // every lane has read the old brick
-  const int rowf = 4 * DZ;
-  for (int x = 0; x < DX; ++x) {
-    for (int y = 0; y < DY; ++y) {
-      const long long g = ((long long)(b.x + x) * ny + (b.y + y)) * nz + b.z;
-      float* d = buf + (x * kBY + y) * kBZ * 4;
-      for (int k = lane; k < rowf; k += 32) {
-        if (k < 3 * DZ) {
-          const int z = k / 3;
-          cp_async4(d + z * 4 + (k - 3 * z), flow + g * 3 + k);
-        } else {
-          const int z = k - 3 * DZ;
-          cp_async4(d + z * 4 + 3, values + g + z);
-        }
-      }
-    }
+// the NC channels of a (nx, ny, nz, NC) volume at the corner's 8
+// neighbours in JAX's term order, through L1, into raw[ch][t]
+template <int NC>
+__device__ __forceinline__ void gather8(const float* __restrict__ vol,
+                                        const Corner& c, int ny, int nz,
+                                        float (&raw)[NC][8]) {
+  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
+                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
+  const long long sx = (long long)ny * nz;
+  const float* base = vol + (((long long)c.x * ny + c.y) * nz + c.z) * NC;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float* v = base + (d[t][0] * sx + d[t][1] * nz + d[t][2]) * NC;
+#pragma unroll
+    for (int ch = 0; ch < NC; ++ch) raw[ch][t] = __ldg(v + ch);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// channels [0, NC) of the trilinear sample at corner c from the brick,
-// in JAX's term order (NC = 3: the flow; the values: channel 3 alone)
-template <int CH0, int NC>
-__device__ __forceinline__ void sample(const float* buf, const Brick& b,
-                                       const Corner& c, float* out) {
+// the trilinear sample of raw's NC channels at corner c, in JAX's order
+template <int NC>
+__device__ __forceinline__ void combine(const float (&raw)[NC][8],
+                                        const Corner& c, float* out) {
+  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
+                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
   const float wx[2] = {__fsub_rn(1.f, c.fx), c.fx};
   const float wy[2] = {__fsub_rn(1.f, c.fy), c.fy};
   const float wz[2] = {__fsub_rn(1.f, c.fz), c.fz};
-  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
-                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
-  const float* base =
-      buf + (((c.x - b.x) * kBY + (c.y - b.y)) * kBZ + (c.z - b.z)) * 4;
-  float txy[NC][8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const float* v = base + ((d[t][0] * kBY + d[t][1]) * kBZ + d[t][2]) * 4;
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch)
-      txy[ch][t] = __fmul_rn(__fmul_rn(v[CH0 + ch], wx[d[t][0]]),
-                             wy[d[t][1]]);
-  }
 #pragma unroll
   for (int ch = 0; ch < NC; ++ch) {
-    float s = __fmaf_rn(txy[ch][0], wz[0], __fmul_rn(txy[ch][1], wz[0]));
+    float txy[8];
 #pragma unroll
-    for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[ch][t], wz[d[t][2]], s);
+    for (int t = 0; t < 8; ++t)
+      txy[t] = __fmul_rn(__fmul_rn(raw[ch][t], wx[d[t][0]]), wy[d[t][1]]);
+    float s = __fmaf_rn(txy[0], wz[0], __fmul_rn(txy[1], wz[0]));
+#pragma unroll
+    for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[t], wz[d[t][2]], s);
     out[ch] = s;
   }
+}
+
+// one step from (px, py, pz), whose flow sample g is in hand: the new
+// position into (px, py, pz); its value and flow corners loaded together,
+// the value returned and the flow sampled into g (the next step's), the
+// two samples independent of each other
+__device__ __forceinline__ float step_once(
+    const float* __restrict__ flow, const float* __restrict__ values,
+    float& px, float& py, float& pz, float (&g)[3], int nx, int ny, int nz,
+    float step, float bx, float by, float bz) {
+  px = fminf(bx, fmaxf(0.f, __fmaf_rn(-step, g[0], px)));
+  py = fminf(by, fmaxf(0.f, __fmaf_rn(-step, g[1], py)));
+  pz = fminf(bz, fmaxf(0.f, __fmaf_rn(-step, g[2], pz)));
+  const Corner c = corner(px, py, pz, nx, ny, nz);
+  float vr[1][8], fl[3][8];
+  gather8<1>(values, c, ny, nz, vr);
+  gather8<3>(flow, c, ny, nz, fl);
+  float val;
+  combine<1>(vr, c, &val);
+  combine<3>(fl, c, g);
+  return val;
+}
+
+// the flow sample at (px, py, pz)
+__device__ __forceinline__ void first_flow(const float* __restrict__ flow,
+                                           float px, float py, float pz,
+                                           float (&g)[3], int nx, int ny,
+                                           int nz) {
+  const Corner c = corner(px, py, pz, nx, ny, nz);
+  float fl[3][8];
+  gather8<3>(flow, c, ny, nz, fl);
+  combine<3>(fl, c, g);
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -191,173 +142,25 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
              const float* __restrict__ tips, int N, int nx, int ny, int nz,
              float step, int n_steps, float bx, float by, float bz,
              int* __restrict__ votes, int* __restrict__ stats) {
-  extern __shared__ float smem[];
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + w;
-  if (p >= N || n_steps <= 0) return;
-  float* bufs[2] = {smem + (2 * w) * kBrickFloats,
-                    smem + (2 * w + 1) * kBrickFloats};
-  const int DX = min(kBX, nx), DY = min(kBY, ny), DZ = min(kBZ, nz);
-  float px = tips[3 * p], py = tips[3 * p + 1], pz = tips[3 * p + 2];
-  float prev = 1e10f;
-  float gx = 0.f, gy = 0.f, gz = 0.f;   // the last step's flow: the travel
-  int cur = 0, steps = 0, waited = 1, ahead = 0;
-  bool pending = false;
-  Brick b[2];
-  b[0] = place(corner(px, py, pz, nx, ny, nz), 0.f, 0.f, 0.f, nx, ny, nz, DX,
-               DY, DZ);
-  stage(bufs[0], flow, values, b[0], DX, DY, DZ, ny, nz, lane);
-  cp_async_wait();
-
-  // make brick `cur` hold corner c: the prefetched brick if it does, else
-  // a brick placed for c along the travel, staged now
-  const auto hold = [&](const Corner& c, float hx, float hy, float hz) {
-    if (holds(b[cur], c, DX, DY, DZ)) return;
-    if (pending) {
-      cp_async_wait();
-      pending = false;
-      cur ^= 1;
-      if (holds(b[cur], c, DX, DY, DZ)) {
-        ++ahead;
-        return;
-      }
-    }
-    b[cur] = place(c, hx, hy, hz, nx, ny, nz, DX, DY, DZ);
-    stage(bufs[cur], flow, values, b[cur], DX, DY, DZ, ny, nz, lane);
-    cp_async_wait();
-    ++waited;
-  };
-
-  for (int s = 0; s < n_steps; ++s) {
-    ++steps;
-    const Corner c = corner(px, py, pz, nx, ny, nz);
-    hold(c, gx, gy, gz);
-    float g[3];
-    sample<0, 3>(bufs[cur], b[cur], c, g);
-    gx = g[0];
-    gy = g[1];
-    gz = g[2];
-    const float qx = fminf(bx, fmaxf(0.f, __fmaf_rn(-step, gx, px)));
-    const float qy = fminf(by, fmaxf(0.f, __fmaf_rn(-step, gy, py)));
-    const float qz = fminf(bz, fmaxf(0.f, __fmaf_rn(-step, gz, pz)));
-    const Corner cv = corner(qx, qy, qz, nx, ny, nz);
-    hold(cv, gx, gy, gz);
-    float val;
-    sample<3, 1>(bufs[cur], b[cur], cv, &val);
-    if (!(val < prev && val > step)) break;
-    if (lane == 0) {
-      const long long lin =
-          ((long long)(int)rintf(qx) * ny + (int)rintf(qy)) * nz +
-          (int)rintf(qz);
-      atomicAdd(&votes[lin], 1);
-    }
-    px = qx;
-    py = qy;
-    pz = qz;
-    prev = val;
-    if (!pending && near_face(b[cur], cv, gx, gy, gz, DX, DY, DZ)) {
-      const Brick nb = place(cv, gx, gy, gz, nx, ny, nz, DX, DY, DZ);
-      if (nb.x != b[cur].x || nb.y != b[cur].y || nb.z != b[cur].z) {
-        b[cur ^ 1] = nb;
-        stage(bufs[cur ^ 1], flow, values, nb, DX, DY, DZ, ny, nz, lane);
-        pending = true;
-      }
-    }
-  }
-  if (pending) cp_async_wait();
-  if (stats != nullptr && lane == 0) {
-    atomicAdd(&stats[0], steps);
-    atomicMax(&stats[1], steps);
-    atomicAdd(&stats[2], waited);
-    atomicAdd(&stats[3], ahead);
-  }
-}
-
-// channel `ch` of a (nx, ny, nz, C) volume at the corner's 8 neighbours,
-// read from global memory (through L1), in JAX's term order
-template <int C, int NC>
-__device__ __forceinline__ void sample_global(const float* __restrict__ vol,
-                                              const Corner& c, int ny, int nz,
-                                              float* out) {
-  const float wx[2] = {__fsub_rn(1.f, c.fx), c.fx};
-  const float wy[2] = {__fsub_rn(1.f, c.fy), c.fy};
-  const float wz[2] = {__fsub_rn(1.f, c.fz), c.fz};
-  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
-                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
-  const long long sx = (long long)ny * nz;
-  const float* base = vol + (((long long)c.x * ny + c.y) * nz + c.z) * C;
-  float txy[NC][8];
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const float* v = base + (d[t][0] * sx + d[t][1] * nz + d[t][2]) * C;
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch)
-      txy[ch][t] = __fmul_rn(__fmul_rn(__ldg(v + ch), wx[d[t][0]]),
-                             wy[d[t][1]]);
-  }
-#pragma unroll
-  for (int ch = 0; ch < NC; ++ch) {
-    float s = __fmaf_rn(txy[ch][0], wz[0], __fmul_rn(txy[ch][1], wz[0]));
-#pragma unroll
-    for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[ch][t], wz[d[t][2]], s);
-    out[ch] = s;
-  }
-}
-
-__device__ __forceinline__ void prefetch_l1(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
-}
-
-// a warp a particle; every lane runs the step (the loads are broadcasts),
-// lane 0 votes. After each step the lanes prefetch into L1 the lines the
-// samples kAhead1 and kAhead2 steps ahead would read if the flow stayed
-// as it is: lane j takes step (j < 16 ? kAhead1 : kAhead2), corner row
-// (x + (j & 1), y + (j >> 1 & 1)) and the first or last byte of its flow
-// (j >> 2 & 1 = 0) or value (1) pair (z, z + 1) (j >> 3 & 1).
-__global__ void __launch_bounds__(32 * kWarps)
-trace_l1_kernel(const float* __restrict__ flow,
-                const float* __restrict__ values,
-                const float* __restrict__ tips, int N, int nx, int ny, int nz,
-                float step, int n_steps, float bx, float by, float bz,
-                int* __restrict__ votes, int* __restrict__ stats) {
-  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int p = blockIdx.x * kWarps + w;
+  const int lane = threadIdx.x & 31;
+  const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= N || n_steps <= 0) return;
   float px = tips[3 * p], py = tips[3 * p + 1], pz = tips[3 * p + 2];
+  float g[3];
+  first_flow(flow, px, py, pz, g, nx, ny, nz);
   float prev = 1e10f;
   int steps = 0;
-  const float ahead = (float)(lane < 16 ? kAhead1 : kAhead2) * step;
-  const int rx = lane & 1, ry = lane >> 1 & 1;
-  const bool is_value = (lane >> 2 & 1) != 0, last = (lane >> 3 & 1) != 0;
   for (int s = 0; s < n_steps; ++s) {
     ++steps;
-    const Corner c = corner(px, py, pz, nx, ny, nz);
-    float g[3];
-    sample_global<3, 3>(flow, c, ny, nz, g);
-    const float qx = fminf(bx, fmaxf(0.f, __fmaf_rn(-step, g[0], px)));
-    const float qy = fminf(by, fmaxf(0.f, __fmaf_rn(-step, g[1], py)));
-    const float qz = fminf(bz, fmaxf(0.f, __fmaf_rn(-step, g[2], pz)));
-    const Corner cv = corner(qx, qy, qz, nx, ny, nz);
-    float val;
-    sample_global<1, 1>(values, cv, ny, nz, &val);
-    if (kPrefetch) {   // the path ahead (a hint, any rounding will do)
-      const Corner a = corner(qx - ahead * g[0], qy - ahead * g[1],
-                              qz - ahead * g[2], nx, ny, nz);
-      const long long v =
-          ((long long)(a.x + rx) * ny + (a.y + ry)) * nz + a.z;
-      prefetch_l1(is_value ? (const void*)(values + v + (last ? 1 : 0))
-                           : (const void*)(flow + 3 * v + (last ? 5 : 0)));
-    }
+    const float val = step_once(flow, values, px, py, pz, g, nx, ny, nz,
+                                step, bx, by, bz);
     if (!(val < prev && val > step)) break;
     if (lane == 0) {
       const long long lin =
-          ((long long)(int)rintf(qx) * ny + (int)rintf(qy)) * nz +
-          (int)rintf(qz);
+          ((long long)(int)rintf(px) * ny + (int)rintf(py)) * nz +
+          (int)rintf(pz);
       atomicAdd(&votes[lin], 1);
     }
-    px = qx;
-    py = qy;
-    pz = qz;
     prev = val;
   }
   if (stats != nullptr && lane == 0) {
@@ -366,120 +169,50 @@ trace_l1_kernel(const float* __restrict__ flow,
   }
 }
 
-// the floor of a step: one warp takes `iters` dependent steps inside a
-// brick of zero flow (the particle stays put) and values that never stop
-// it, with the trace's arithmetic, holds and shared-memory samples
-__global__ void step_floor_kernel(int iters, float* __restrict__ sink) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  for (int i = lane; i < kBrickFloats; i += 32)
-    smem[i] = (i & 3) == 3 ? (float)(i >> 2) : 0.f;
-  __syncwarp();
-  const int nx = 64, ny = 64, nz = 64;
-  const Brick br{28, 28, 24};
-  float px = 31.25f, py = 31.5f, pz = 31.75f, acc = 0.f;
+// the floor of a step: one warp takes `iters` dependent steps on a 16^3
+// volume of zero flow (vol: the flow, 3 x 16^3 floats, then the values),
+// the particle staying put, so every read after the first hits L1
+__global__ void step_floor_kernel(const float* __restrict__ vol, int iters,
+                                  float* __restrict__ sink) {
+  const float* flow = vol;
+  const float* values = vol + 3 * 4096;
+  float px = 7.25f, py = 7.5f, pz = 7.75f, acc = 0.f;
+  float g[3];
+  first_flow(flow, px, py, pz, g, 16, 16, 16);
   for (int s = 0; s < iters; ++s) {
-    const Corner c = corner(px, py, pz, nx, ny, nz);
-    if (!holds(br, c, kBX, kBY, kBZ)) break;
-    float g[3];
-    sample<0, 3>(smem, br, c, g);
-    const float qx = fminf(62.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[0], px)));
-    const float qy = fminf(62.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[1], py)));
-    const float qz = fminf(62.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[2], pz)));
-    const Corner cv = corner(qx, qy, qz, nx, ny, nz);
-    if (!holds(br, cv, kBX, kBY, kBZ)) break;
-    float val;
-    sample<3, 1>(smem, br, cv, &val);
+    const float val = step_once(flow, values, px, py, pz, g, 16, 16, 16,
+                                0.5f, 14.f, 14.f, 14.f);
     if (val != val) break;
     acc = __fadd_rn(acc, val);
-    px = qx;
-    py = qy;
-    pz = qz;
   }
-  if (lane == 0) sink[0] = acc;
-}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return bytes > 48 * 1024
-             ? cudaFuncSetAttribute(
-                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                   (int)bytes)
-             : cudaSuccess;
+  if ((threadIdx.x & 31) == 0) sink[0] = acc;
 }
 
 }  // namespace
 
 // K15: flow (nx, ny, nz, 3) f32, values (nx, ny, nz) f32, tips (N, 3) f32
 // -> votes (nx, ny, nz) int32, zero on entry; (bx, by, bz) the clip's
-// upper bounds; stats null or 4 int32 on the card (steps evaluated, the
-// longest particle's steps, bricks staged while waiting, bricks prefetched
-// and used), added to.
+// upper bounds; stats null or 2 int32 on the card (the steps evaluated,
+// the longest particle's steps), added to.
 extern "C" int p3d_trace_geodesics(const void* flow, const void* values,
                                    const void* tips, int N, int nx, int ny,
                                    int nz, float step, int n_steps, float bx,
                                    float by, float bz, void* votes,
                                    void* stats, void* stream) {
   if (N <= 0) return 0;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  if (!kBricks) {
-    trace_l1_kernel<<<blocks, 32 * kWarps, 0, (cudaStream_t)stream>>>(
-        (const float*)flow, (const float*)values, (const float*)tips, N, nx,
-        ny, nz, step, n_steps, bx, by, bz, (int*)votes, (int*)stats);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * 2 * kWarps * kBrickFloats;
-  cudaError_t e = allow_smem(trace_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  trace_kernel<<<blocks, 32 * kWarps, smem, (cudaStream_t)stream>>>(
+  trace_kernel<<<(N + kWarps - 1) / kWarps, 32 * kWarps, 0,
+                 (cudaStream_t)stream>>>(
       (const float*)flow, (const float*)values, (const float*)tips, N, nx, ny,
       nz, step, n_steps, bx, by, bz, (int*)votes, (int*)stats);
   return (int)cudaGetLastError();
 }
 
-// the L1 design's floor: `iters` dependent steps of one warp on a
-// 16^3 volume of zero flow in global memory (`vol`: 16^3 x 4 floats, the
-// flow then the values), every read an L1 hit after the first
-__global__ void step_floor_l1_kernel(const float* __restrict__ vol, int iters,
-                                     float* __restrict__ sink) {
-  const int lane = threadIdx.x & 31;
-  const float* flow = vol;
-  const float* values = vol + 3 * 4096;
-  float px = 7.25f, py = 7.5f, pz = 7.75f, acc = 0.f;
-  for (int s = 0; s < iters; ++s) {
-    const Corner c = corner(px, py, pz, 16, 16, 16);
-    float g[3];
-    sample_global<3, 3>(flow, c, 16, 16, g);
-    const float qx = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[0], px)));
-    const float qy = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[1], py)));
-    const float qz = fminf(14.f, fmaxf(0.f, __fmaf_rn(-0.5f, g[2], pz)));
-    const Corner cv = corner(qx, qy, qz, 16, 16, 16);
-    float val;
-    sample_global<1, 1>(values, cv, 16, 16, &val);
-    if (val != val) break;
-    acc = __fadd_rn(acc, val);
-    px = qx;
-    py = qy;
-    pz = qz;
-  }
-  if (lane == 0) sink[0] = acc;
-}
-
-// `iters` dependent steps of one warp with every read on chip (the floor
-// of a step: time it at two counts): inside a shared-memory brick, or
-// for the L1 design on a small volume in L1 (`scratch`: 4 x 16^3 floats
-// on the card, flow zero, values positive); sink one float on the card
+// `iters` dependent steps of one warp with every read an L1 hit (the floor
+// of a step: time it at two counts); scratch 4 x 16^3 float32 on the card
+// (the flow zero, the values positive), sink one float on the card
 extern "C" int p3d_trace_step_floor(int iters, void* scratch, void* sink,
                                     void* stream) {
-  if (!kBricks) {
-    step_floor_l1_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-        (const float*)scratch, iters, (float*)sink);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = sizeof(float) * kBrickFloats;
-  cudaError_t e = allow_smem(step_floor_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  step_floor_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(iters,
-                                                          (float*)sink);
+  step_floor_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const float*)scratch, iters, (float*)sink);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,9 @@ clip(pos - step*g, 0, shape - 1.001), val = trilinear(values, new_pos); it
 goes on while val is below the previous value and above `step`, and each
 step it takes adds one vote at the voxel nearest new_pos (rounded half to
 even). On CUDA the hand-written kernel K15 (kernels/csrc/geodesics.cu: a
-warp a particle, both samples of a step from a brick of the volumes in
-shared memory, `brick_walk` models its staging; int32 atomic votes, exact
-in any order); on the CPU `trace_geodesics_plain`.
+warp a particle, each step's value corners loaded with the next step's flow
+corners, one round trip a step; int32 atomic votes, exact in any order);
+on the CPU `trace_geodesics_plain`.
 
 Arithmetic: XLA's CPU program's float32 operations (its optimized HLO and
 x86 code). `_trilinear` takes f = pts - floor(pts) before it clips the
@@ -82,10 +82,10 @@ def trace_geodesics(flow, values, tips, step: float = 0.5,
     device. Returns the int32 (nx, ny, nz) votes. CUDA tensors go to K15,
     CPU tensors to `trace_geodesics_plain`.
 
-    stats: None, or a contiguous (4,) int32 tensor on the card to which
-    the kernel adds the steps it evaluated, the longest particle's steps
-    (a max), the bricks it staged while the particle waited and those
-    prefetched and used (`brick_walk` counts the same)."""
+    stats: None, or a contiguous (2,) int32 tensor on the card to which
+    the kernel adds the steps it evaluated and the longest particle's
+    steps (a max): `trace_geodesics_plain(..., return_steps=True)`'s sum
+    and max."""
     tips = torch.as_tensor(tips, device=values.device).to(torch.float32)
     _check(flow, values, tips)
     if values.device.type == "cpu":
@@ -96,10 +96,10 @@ def trace_geodesics(flow, values, tips, step: float = 0.5,
         raise ValueError("flow and values must be contiguous")
     sp = 0
     if stats is not None:
-        if stats.dtype != torch.int32 or stats.numel() != 4 \
+        if stats.dtype != torch.int32 or stats.numel() != 2 \
                 or stats.device != values.device \
                 or not stats.is_contiguous():
-            raise ValueError("stats must be a contiguous (4,) int32 tensor "
+            raise ValueError("stats must be a contiguous (2,) int32 tensor "
                              "on the volumes' device")
         sp = stats.data_ptr()
     nx, ny, nz = (int(s) for s in values.shape)
@@ -148,127 +148,3 @@ def trace_geodesics_plain(flow, values, tips, step: float = 0.5,
     votes = votes.reshape(shape)
     return (votes, steps) if return_steps else votes
 
-
-# -- K15's bricks, modelled ------------------------------------------------------
-
-#: kernels/csrc/geodesics.cu: brick sides, the voxels kept behind the
-#: corner on a travelled axis, how close to the leading face a prefetch
-#: starts, and the |g| above which an axis counts as travelled
-BRICK = (8, 8, 16)
-BRICK_MARGIN = 1
-BRICK_AHEAD = 2
-BRICK_MOVE = np.float32(0.25)
-
-
-def brick_origin(c, g, n, D):
-    """K15's brick origin along one axis (int64 tensors c, the corners,
-    float32 g, the flow on the axis): the pair [c, c + 1] inside a brick
-    of D <= n voxels; on a travelled axis the corner BRICK_MARGIN voxels
-    from the trailing face (the particle moves along -g), else in the
-    middle; clipped to [0, n - D]."""
-    m = min(BRICK_MARGIN, D - 2)
-    lo = torch.where(g < -BRICK_MOVE, c - m,
-                     torch.where(g > BRICK_MOVE, c + 1 + m - (D - 1),
-                                 c - (D - 2) // 2))
-    return lo.clamp(0, n - D)
-
-
-def _corner(pts, shape):
-    hi = torch.tensor([s - 2 for s in shape], device=pts.device)
-    return torch.minimum(torch.floor(pts).to(torch.int64).clamp(min=0), hi)
-
-
-def brick_walk(flow, values, tips, step: float = 0.5, n_steps: int = 2000,
-               check=None):
-    """K15's staging replayed on the plain walk (the same positions, the
-    same stops): each particle holds a brick of `BRICK` voxels (clipped
-    to the grid) and a second, prefetched one, with the kernel's rule.
-    Before the flow sample the corner of pos, before the value sample the
-    corner of the new position, must be inside the current brick: if not,
-    the prefetched brick takes its place, and if that does not hold the
-    corner either, a brick placed for it (along the last step's flow, or
-    this step's) is staged at once. After a step taken, a corner within
-    BRICK_AHEAD voxels of the brick's leading face on a travelled axis
-    starts a prefetch, placed from that corner, if none is pending and it
-    differs from the current brick.
-
-    check(kind, corners, origins, dims, alive), if given, is called for
-    every read ("flow", "values") with the (N, 3) corners and the current
-    bricks' origins. Returns (votes, counts) with counts the kernel's
-    stats: "steps", "longest", "waited" (bricks staged while the particle
-    waited, its first brick included), "ahead" (prefetched bricks used),
-    as Python ints."""
-    tips = torch.as_tensor(tips, device=values.device).to(torch.float32)
-    _check(flow, values, tips)
-    dev = values.device
-    shape = tuple(values.shape)
-    dims = tuple(min(b, s) for b, s in zip(BRICK, shape))
-    N = len(tips)
-    step32 = torch.tensor(np.float32(step), device=dev)
-    bound = torch.from_numpy(upper_bounds(shape)).to(dev)
-    votes = torch.zeros(values.numel(), dtype=torch.int32, device=dev)
-    strides = torch.tensor([shape[1] * shape[2], shape[2], 1], device=dev)
-    dims_t = torch.tensor(dims, device=dev)
-
-    def place(c, g):
-        return torch.stack([brick_origin(c[:, a], g[:, a], shape[a], dims[a])
-                            for a in range(3)], 1)
-
-    def holds(o, c):
-        return ((c >= o) & (c + 2 <= o + dims_t)).all(1)
-
-    pos = tips.clone()
-    alive = torch.ones(N, dtype=torch.bool, device=dev)
-    prev = torch.full((N,), 1e10, dtype=torch.float32, device=dev)
-    glast = torch.zeros((N, 3), dtype=torch.float32, device=dev)
-    cur = place(_corner(pos, shape), glast)
-    nxt = cur.clone()
-    pending = torch.zeros(N, dtype=torch.bool, device=dev)
-    steps = torch.zeros(N, dtype=torch.int64, device=dev)
-    waited = torch.full((N,), int(n_steps > 0), dtype=torch.int64,
-                        device=dev)
-    ahead = torch.zeros(N, dtype=torch.int64, device=dev)
-
-    def hold(c, g, live, kind):
-        nonlocal pending
-        need = live & ~holds(cur, c)
-        swap = need & pending
-        cur[swap] = nxt[swap]
-        pending = pending & ~swap
-        used = swap & holds(cur, c)
-        ahead.add_(used)
-        stage = need & ~used
-        cur[stage] = place(c, g)[stage]
-        waited.add_(stage)
-        if check is not None:
-            check(kind, c, cur, dims, live)
-
-    for s in range(int(n_steps)):
-        if not bool(alive.any()):
-            break
-        steps += alive
-        hold(_corner(pos, shape), glast, alive, "flow")
-        g = _trilinear(flow, pos)
-        new_pos = torch.minimum(
-            fma_f32(-step32, g, pos).clamp(min=0.0), bound)
-        cv = _corner(new_pos, shape)
-        glast = torch.where(alive[:, None], g, glast)
-        hold(cv, g, alive, "values")
-        val = _trilinear(values, new_pos)
-        still = alive & (val < prev) & (val > step32)
-        lin = (torch.round(new_pos[still]).to(torch.int64) * strides).sum(1)
-        votes.index_add_(0, lin, torch.ones_like(lin, dtype=torch.int32))
-        pos = torch.where(still[:, None], new_pos, pos)
-        alive, prev = still, val
-        # the prefetch: near the leading face of a travelled axis
-        lead = torch.where(g < -BRICK_MOVE, cur + dims_t - 2 - cv,
-                           torch.where(g > BRICK_MOVE, cv - cur,
-                                       torch.full_like(cv, BRICK_AHEAD)))
-        nb = place(cv, g)
-        pf = still & ~pending & (lead < BRICK_AHEAD).any(1) \
-            & (nb != cur).any(1)
-        nxt[pf] = nb[pf]
-        pending = pending | pf
-    counts = {"steps": int(steps.sum()), "longest": int(steps.max()) if N
-              else 0, "waited": int(waited.sum()), "ahead": int(ahead.sum())}
-    return votes.reshape(shape), counts

@@ -103,7 +103,7 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
 
 #: kernels/csrc/gather.cu: the longest row staged in shared memory and the
 #: warps a block of each lane
-STAGE_MAX_L, WARPS_STAGED, WARPS_DIRECT = 232448 // 4, 16, 8
+STAGE_MAX_L, WARPS_STAGED, WARPS_DIRECT = 16384, 16, 8
 
 
 def _transpose_sum(v):

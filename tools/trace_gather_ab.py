@@ -17,9 +17,8 @@ compares two versions on one card. The inputs, made once:
   from numpy seeded as phase 17 seeds it.
 
 The plain versions run once, in a process of their own (this checkout's;
-unchanged from the parent), which also replays K15's bricks on the plain
-walk (`ops/geodesics.py:brick_walk`: the stats this checkout's kernel must
-give). Each root holds its kernels equal to them and times each call:
+unchanged from the parent), K15's with each particle's steps. Each root
+holds its kernels equal to them and times each call:
 K15 with CUDA events (median, the vote grid's zeroing included) and as
 device time by kernel (torch.profiler); K17 as `gather_probe.timed`'s
 graph-replayed calls, and at reps = 0 (the floor). Prints one JSON line a
@@ -47,41 +46,60 @@ K17_SIZES = ((0, 8 * 1024), (1, 32 * 1024), (2, 128 * 1024))
 K17_N, K17_REPS = 8 * 1024, 64
 STEP, N_STEPS = 0.5, 2000
 
-_K15_BRICKS = [("constexpr bool kBricks = false;",
-                "constexpr bool kBricks = true;")]
+def _k15_prefetch(level, a1, a2):
+    """K15 with the path ahead prefetched each step: lane j asks `level`
+    for a line of the flow or value corners (a1 if j < 16 else a2) steps
+    ahead along the current flow."""
+    anchor = "  const Corner c = corner(px, py, pz, nx, ny, nz);\n  float vr"
+    code = (
+        "  const Corner c = corner(px, py, pz, nx, ny, nz);\n"
+        "  {\n"
+        "    const int lane = threadIdx.x & 31;\n"
+        f"    const float ah = (float)(lane < 16 ? {a1} : {a2}) * step;\n"
+        "    const Corner a = corner(px - ah * g[0], py - ah * g[1],\n"
+        "                            pz - ah * g[2], nx, ny, nz);\n"
+        "    const long long v = ((long long)(a.x + (lane & 1)) * ny +\n"
+        "                         (a.y + (lane >> 1 & 1))) * nz + a.z;\n"
+        "    const int last = lane >> 3 & 1;\n"
+        "    const void* q = (lane >> 2 & 1)\n"
+        "        ? (const void*)(values + v + last)\n"
+        "        : (const void*)(flow + 3 * v + 5 * last);\n"
+        f"    asm volatile(\"prefetch.global.{level} [%0];\" :: \"l\"(q));\n"
+        "  }\n"
+        "  float vr")
+    return [(anchor, code)]
+
 
 #: --variants: name -> (source, source edits, computes the function); a
 #: variant with a part cut out (an ablation) is timed, not checked
 VARIANTS = {
     "k15": ("geodesics.cu", [], True),
-    "k15_no_prefetch": ("geodesics.cu", [("constexpr bool kPrefetch = true;",
-                                          "constexpr bool kPrefetch = false;")],
-                        True),
-    "k15_ahead_1_2": ("geodesics.cu", [(
-        "constexpr int kAhead1 = 2, kAhead2 = 4;",
-        "constexpr int kAhead1 = 1, kAhead2 = 2;")], True),
-    "k15_ahead_4_8": ("geodesics.cu", [(
-        "constexpr int kAhead1 = 2, kAhead2 = 4;",
-        "constexpr int kAhead1 = 4, kAhead2 = 8;")], True),
-    "k15_one_warp_a_block": ("geodesics.cu", [(
-        "constexpr int kWarps = 2;", "constexpr int kWarps = 1;")], True),
-    "k15_bricks": ("geodesics.cu", _K15_BRICKS, True),
-    "k15_bricks_no_prefetch": ("geodesics.cu", _K15_BRICKS + [(
-        "constexpr int kAhead = 2;", "constexpr int kAhead = -1000;")],
-        True),
+    "k15_two_warps_a_block": ("geodesics.cu", [(
+        "constexpr int kWarps = 1;", "constexpr int kWarps = 2;")], True),
+    "k15_four_warps_a_block": ("geodesics.cu", [(
+        "constexpr int kWarps = 1;", "constexpr int kWarps = 4;")], True),
+    "k15_two_warps_min_blocks_1": ("geodesics.cu", [
+        ("constexpr int kWarps = 1;", "constexpr int kWarps = 2;"),
+        ("__global__ void __launch_bounds__(32 * kWarps)",
+         "__global__ void __launch_bounds__(32 * kWarps, 1)")], True),
+    "k15_prefetch_l2_2_4": ("geodesics.cu", _k15_prefetch("L2", 2, 4), True),
     "k17": ("gather.cu", [], True),
     "k17_all_direct": ("gather.cu", [(
-        "constexpr int kStageMaxL = kMaxSmem / 4;",
+        "constexpr int kStageMaxL = 16384;",
         "constexpr int kStageMaxL = 0;")], True),
-    "k17_staged_8_warps": ("gather.cu", [(
-        "constexpr int kWarpsStaged = 16;",
-        "constexpr int kWarpsStaged = 8;")], True),
-    "k17_staged_32_warps": ("gather.cu", [(
-        "constexpr int kWarpsStaged = 16;",
-        "constexpr int kWarpsStaged = 32;")], True),
-    "k17_direct_4_warps": ("gather.cu", [(
-        "constexpr int kWarpsDirect = 8;",
-        "constexpr int kWarpsDirect = 4;")], True),
+    "k17_stage_max_56k": ("gather.cu", [(
+        "constexpr int kStageMaxL = 16384;",
+        "constexpr int kStageMaxL = kMaxSmem / 4;")], True),
+    "k17_cluster_2": ("gather.cu", [("constexpr int kClusterMax = 0;",
+                                     "constexpr int kClusterMax = 2;")],
+                      True),
+    "k17_cluster_8": ("gather.cu", [("constexpr int kClusterMax = 0;",
+                                     "constexpr int kClusterMax = 8;")],
+                      True),
+    "k17_cluster_8_stage_max_56k": ("gather.cu", [
+        ("constexpr int kClusterMax = 0;", "constexpr int kClusterMax = 8;"),
+        ("constexpr int kStageMaxL = 16384;",
+         "constexpr int kStageMaxL = kMaxSmem / 4;")], True),
 }
 
 
@@ -139,8 +157,8 @@ def k17_inputs(seed, L, dev):
 
 
 def plain(tmp):
-    """The plain versions' results, and K15's brick stats modelled on the
-    plain walk, saved to tmp/plain.pt."""
+    """The plain versions' results (K15's with each particle's steps),
+    saved to tmp/plain.pt."""
     import torch
     from plant3dvision_tpu_torch.ops import geodesics
     from plant3dvision_tpu_torch.tools import gather_probe as gp
@@ -148,9 +166,7 @@ def plain(tmp):
     flow, values, tips = k15_inputs(tmp, dev)
     votes, steps = geodesics.trace_geodesics_plain(
         flow, values, tips, STEP, N_STEPS, return_steps=True)
-    _, model = geodesics.brick_walk(flow, values, tips, STEP, N_STEPS)
-    out = {"k15": votes.cpu(), "k15_steps": steps.cpu(),
-           "k15_model": model}
+    out = {"k15": votes.cpu(), "k15_steps": steps.cpu()}
     for seed, L in K17_SIZES:
         out[f"k17_{L}"] = gp.axis1_gather_plain(
             *k17_inputs(seed, L, dev), K17_REPS).cpu()
@@ -248,9 +264,9 @@ def step_floor_us(so, iters=10000):
 def variants(tmp):
     """Build VARIANTS (edits of this checkout's sources), hold those that
     compute the function equal to the plain results, hold each K15's
-    steps and longest walk, and the brick design's staging counts, to the
-    plain walk and its brick model, time each K15's dependent step on chip
-    (`p3d_trace_step_floor`), and time each twice, in turns."""
+    steps and longest walk to the plain walk's, time each K15's dependent
+    step on chip (`p3d_trace_step_floor`), and time each twice, in
+    turns."""
     import torch
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops.geodesics import upper_bounds
@@ -264,12 +280,22 @@ def variants(tmp):
             text = text.replace(old, new)
         (tmp / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
-             str(tmp / f"{name}.so"), str(tmp / f"{name}.cu")],
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v",
+             "-shared", "-o", str(tmp / f"{name}.so"),
+             str(tmp / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    registers = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         assert proc.returncode == 0, (name, log)
+        # each kernel's registers and stack, as ptxas reports them
+        lines = log.splitlines()
+        registers[name] = [
+            lines[i].split("for ")[-1][-40:] + ": " + lines[i + 2].split(
+                ": ")[-1] + "; " + lines[i + 1].strip()
+            for i in range(len(lines) - 2)
+            if "Function properties" in lines[i]
+            and ("trace_kernel" in lines[i] or "axis1" in lines[i])]
     dev = torch.device("cuda")
     want = torch.load(tmp / "plain.pt")
     flow, values, tips = k15_inputs(tmp, dev)
@@ -286,7 +312,7 @@ def variants(tmp):
             f.argtypes = [P_, P_, P_] + [I_] * 4 + [F_, I_] + [F_] * 3 + \
                 [P_, P_, P_]
             votes = torch.zeros(values.shape, dtype=torch.int32, device=dev)
-            stats = torch.zeros(4, dtype=torch.int32, device=dev)
+            stats = torch.zeros(2, dtype=torch.int32, device=dev)
 
             def call(f=f, votes=votes, stats=stats):
                 assert f(flow.data_ptr(), values.data_ptr(), tips.data_ptr(),
@@ -296,11 +322,9 @@ def variants(tmp):
             call()
             torch.cuda.synchronize()
             assert not exact or torch.equal(votes.cpu(), want["k15"]), name
-            m = want["k15_model"]
+            steps = want["k15_steps"]
             got = stats.tolist()
-            assert got[:2] == [m["steps"], m["longest"]], (name, got, m)
-            if name == "k15_bricks":       # the brick rule as modelled
-                assert got[2:] == [m["waited"], m["ahead"]], (name, got, m)
+            assert got == [int(steps.sum()), int(steps.max())], (name, got)
             out[name + "_stats"] = got
             out[name + "_step_floor_us"] = step_floor_us(so)
             calls[name] = call
@@ -326,9 +350,8 @@ def variants(tmp):
         for k, fn in calls.items():
             ms[k].append(cuda_ms(fn, reps=21) if k.startswith("k15")
                          else gp.timed(fn) * 1e3)
-    out["k15_model"] = want["k15_model"]
-    print(json.dumps({"variants_ms": ms, "variants_checks": out}),
-          flush=True)
+    print(json.dumps({"variants_ms": ms, "variants_checks": out,
+                      "ptxas": registers}), flush=True)
 
 
 def main():
