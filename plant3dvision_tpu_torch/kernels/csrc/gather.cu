@@ -23,14 +23,19 @@
 // consecutive addresses, conflict-free in shared memory, one or two
 // 128-byte lines in L1/L2. The wrap is one compare and subtract a load
 // (the window's start advances by 32 and wraps once a load; L < 32 takes a
-// modulo a lookup). Each lane keeps 32 partial sums, one a column, and a
-// transpose reduction (31 shuffles) leaves column l's sum in lane l. The
-// first design (a thread 4 columns, a % L a lookup, 8 blocks of a row each
-// staging the whole row, 64 blocks on 132 SMs) issued ~20 instructions a
-// lookup. Two lanes by L: a row of L <= kStageMaxL (227 KB) is staged in
-// shared memory by one block an SM (floor(SMs / R) blocks a row, each
-// staging it once with 16-byte loads where aligned); a longer row is read
-// through L1/L2, where the lookups read no more bytes than staging would.
+// modulo a lookup). Each lane keeps 32 partial sums, one a column, in
+// registers, and a transpose reduction (31 shuffles) leaves column l's
+// sum in lane l. The first design (a thread 4 columns, a % L a lookup, 8
+// blocks of a row each staging the whole row, 64 blocks on 132 SMs)
+// issued ~20 instructions a lookup. Two lanes by L, chosen on the card
+// (tools/trace_gather_ab.py --variants): a row of L <= kStageMaxL is
+// staged in shared memory by one block an SM (floor(SMs / R) blocks a
+// row, each staging it once with 16-byte loads where aligned); a longer
+// row is read through L1/L2, where the lookups read about as many bytes
+// as the copies would (at L = 32K the copies of 128 blocks, 16.8 MB from
+// L2, cost more than the lookups saved). Sharing one copy of a row over
+// a thread-block cluster (multicast bulk copies into 2 or 8 blocks) was
+// measured slower at every probe size and dropped.
 //
 // K18's table does not fit a block at either probe size (R = 4K is 512 KB,
 // R = 32K 4 MB): a warp reads one 128-byte table row a lookup through
@@ -44,70 +49,9 @@
 
 namespace {
 
-constexpr int kMaxSmem = 232448;           // 227 KB a block on sm_90
-constexpr int kStageMaxL = 16384;          // the longest staged row
+constexpr int kStageMaxL = 16384;          // the longest staged row (64 KB)
 constexpr int kWarpsStaged = 16;           // warps a block, staged lane
 constexpr int kWarpsDirect = 8;            // warps a block, L1/L2 lane
-// blocks of a cluster that share a staged row by multicast bulk copies
-// (0: each block copies the whole row itself)
-constexpr int kClusterMax = 0;
-
-enum { kDirect = 0, kStaged = 1, kCluster = 2 };   // where a row is read
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(unsigned bar, unsigned parity) {
-  unsigned ok;
-  asm volatile(
-      "{\n .reg .pred p;\n"
-      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
-  return ok != 0;
-}
-
-// the cluster's blocks stage row `row` (L ints, 16-byte aligned, L % 4 ==
-// 0) into each one's rs: block k copies its share of the 16-byte chunks
-// to every block of the cluster with one multicast bulk copy, and each
-// block waits on its own barrier for all L * 4 bytes
-__device__ __forceinline__ void cluster_stage(const int* row, int* rs, int L,
-                                              unsigned long long* bar) {
-  const unsigned bar_s = (unsigned)__cvta_generic_to_shared(bar);
-  unsigned cs, rank;
-  asm("mov.u32 %0, %%cluster_nctarank;" : "=r"(cs));
-  asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar_s));
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  cluster_sync();                 // every barrier ready before any copy
-  if (threadIdx.x == 0) {
-    const unsigned bytes = (unsigned)L * 4u;
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-            bar_s),
-        "r"(bytes)
-        : "memory");
-    const unsigned chunks = bytes / 16, per = (chunks + cs - 1) / cs;
-    const unsigned c0 = min(chunks, rank * per), c1 = min(chunks, c0 + per);
-    if (c1 > c0) {
-      const unsigned dst = (unsigned)__cvta_generic_to_shared(rs) + c0 * 16;
-      const unsigned short mask = (unsigned short)((1u << cs) - 1u);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          ".multicast::cluster [%0], [%1], %2, [%3], %4;" ::"r"(dst),
-          "l"(row + c0 * 4), "r"((c1 - c0) * 16), "r"(bar_s), "h"(mask)
-          : "memory");
-    }
-  }
-  while (!mbar_try_wait(bar_s, 0)) {
-  }
-}
-
 // a level of the transpose reduction: lanes with bit OFF keep v[OFF..2 OFF)
 // and take their partner's, the others keep v[0..OFF); a template, so
 // every index is a constant and v stays in registers
@@ -130,22 +74,18 @@ __device__ __forceinline__ unsigned transpose_sum(unsigned (&v)[32],
   return v[0];
 }
 
-// grid (blocks a row, R): MODE kStaged copies row r into shared memory
-// first, kCluster shares the copy over a cluster, kDirect reads the row
-// through L1/L2; each warp then takes groups of 32 columns, strided over
-// the row's blocks
-template <int MODE>
+// grid (blocks a row, R): STAGED copies row r into shared memory first,
+// else the row is read through L1/L2; each warp then takes groups of 32
+// columns, strided over the row's blocks
+template <bool STAGED>
 __global__ void axis1_kernel(const int* __restrict__ tab,
                              const int* __restrict__ idx,
                              int* __restrict__ out, int L, int N, int reps) {
-  constexpr bool STAGED = MODE != kDirect;
   extern __shared__ int4 row_s4[];
-  __shared__ unsigned long long bar;
   int* rs = (int*)row_s4;
   const int r = blockIdx.y;
   const int* row = tab + (long long)r * L;
-  if (MODE == kCluster) cluster_stage(row, rs, L, &bar);
-  if (MODE == kStaged) {
+  if (STAGED) {
     if ((((uintptr_t)row) & 15) == 0) {
       const int n4 = L >> 2;
       for (int i = threadIdx.x; i < n4; i += blockDim.x)
@@ -203,7 +143,6 @@ __global__ void axis1_kernel(const int* __restrict__ tab,
     const unsigned s = transpose_sum(acc, lane);
     if (n < N) out[(long long)r * N + n] = (int)s;
   }
-  if (MODE == kCluster) cluster_sync();   // no block leaves before all land
 }
 
 // one warp per lookup row p: lane c sums column c
@@ -249,48 +188,26 @@ extern "C" int p3d_gather_axis1(const void* tab, const void* idx, void* out,
   const long long groups = (N + 31LL) / 32;        // 32 columns a warp
   if (L <= kStageMaxL) {
     int dev = 0, sms = 0;
+    const size_t smem = sizeof(int) * (size_t)L;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const size_t smem = sizeof(int) * (size_t)L;
-    const bool cluster = kClusterMax > 1 && L % 4 == 0 &&
-                         ((uintptr_t)tab & 15) == 0;
     if (e == cudaSuccess && smem > 48 * 1024)
-      e = cudaFuncSetAttribute(
-          cluster ? axis1_kernel<kCluster> : axis1_kernel<kStaged>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      e = cudaFuncSetAttribute(axis1_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (e != cudaSuccess) return (int)e;
     // a block an SM: each block of a row stages the row once
-    long long per_row = std::max(
+    const long long per_row = std::max(
         1LL, std::min((long long)(sms / R),
                       (groups + kWarpsStaged - 1) / kWarpsStaged));
-    if (cluster) {
-      const int cs = (int)std::min<long long>(kClusterMax, per_row);
-      per_row = (per_row + cs - 1) / cs * cs;
-      cudaLaunchConfig_t cfg = {};
-      cfg.gridDim = dim3((unsigned)per_row, (unsigned)R);
-      cfg.blockDim = dim3(32 * kWarpsStaged);
-      cfg.dynamicSmemBytes = smem;
-      cfg.stream = s;
-      cudaLaunchAttribute attr[1];
-      attr[0].id = cudaLaunchAttributeClusterDimension;
-      attr[0].val.clusterDim.x = (unsigned)cs;
-      attr[0].val.clusterDim.y = 1;
-      attr[0].val.clusterDim.z = 1;
-      cfg.attrs = attr;
-      cfg.numAttrs = 1;
-      e = cudaLaunchKernelEx(&cfg, axis1_kernel<kCluster>, (const int*)tab,
-                             (const int*)idx, (int*)out, L, N, reps);
-      if (e != cudaSuccess) return (int)e;
-    } else {
-      axis1_kernel<kStaged><<<dim3((unsigned)per_row, (unsigned)R),
-                              32 * kWarpsStaged, smem, s>>>(
-          (const int*)tab, (const int*)idx, (int*)out, L, N, reps);
-    }
+    axis1_kernel<true><<<dim3((unsigned)per_row, (unsigned)R),
+                         32 * kWarpsStaged, smem, s>>>(
+        (const int*)tab, (const int*)idx, (int*)out, L, N, reps);
   } else {
     const long long per_row = (groups + kWarpsDirect - 1) / kWarpsDirect;
-    axis1_kernel<kDirect><<<dim3((unsigned)per_row, (unsigned)R),
-                            32 * kWarpsDirect, 0, s>>>(
+    axis1_kernel<false><<<dim3((unsigned)per_row, (unsigned)R),
+                          32 * kWarpsDirect, 0, s>>>(
         (const int*)tab, (const int*)idx, (int*)out, L, N, reps);
   }
   return (int)cudaGetLastError();

@@ -30,9 +30,9 @@
 // Tried and dropped (PERF.md §6, tools/trace_gather_ab.py): a brick of the
 // volumes in shared memory a particle (8 x 8 x 16 voxels, the next brick
 // prefetched along the travel): its steps were quick (0.242 us on chip
-// against 0.276 through L1) but a warp issuing its own copies spent more
-// on staging than it saved (0.755 ms); prefetching the path ahead into L1
-// (0.355 ms against 0.322 without).
+// against 0.276 through L1 then) but a warp issuing its own copies spent
+// more on staging than it saved (0.755 ms); prefetching the path ahead
+// into L1 or L2 (slower in every form tried).
 //
 // Exactness: XLA's CPU arithmetic (the library is built with -fmad=false):
 // f = p - floor(p) before the corner is clipped to [0, n - 2]; each term
@@ -45,7 +45,10 @@
 
 namespace {
 
-constexpr int kWarps = 1;                   // particles a block
+// particles (warps) a block: one. With 2 or 4, ptxas held the kernel to
+// 32 registers, which serialised a step's 32 loads (0.31-0.33 ms against
+// 0.24-0.25 on phase 14, tools/trace_gather_ab.py --variants)
+constexpr int kWarps = 1;
 
 struct Corner {
   int x, y, z;      // the clipped corner (x0, y0, z0)

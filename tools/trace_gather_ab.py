@@ -89,17 +89,7 @@ VARIANTS = {
         "constexpr int kStageMaxL = 0;")], True),
     "k17_stage_max_56k": ("gather.cu", [(
         "constexpr int kStageMaxL = 16384;",
-        "constexpr int kStageMaxL = kMaxSmem / 4;")], True),
-    "k17_cluster_2": ("gather.cu", [("constexpr int kClusterMax = 0;",
-                                     "constexpr int kClusterMax = 2;")],
-                      True),
-    "k17_cluster_8": ("gather.cu", [("constexpr int kClusterMax = 0;",
-                                     "constexpr int kClusterMax = 8;")],
-                      True),
-    "k17_cluster_8_stage_max_56k": ("gather.cu", [
-        ("constexpr int kClusterMax = 0;", "constexpr int kClusterMax = 8;"),
-        ("constexpr int kStageMaxL = 16384;",
-         "constexpr int kStageMaxL = kMaxSmem / 4;")], True),
+        "constexpr int kStageMaxL = 58112;")], True),
 }
 
 
