@@ -19,14 +19,16 @@
 // position), and its warps waited on their slowest lane's misses.
 //
 // Design: a warp a particle (kWarps a block), so the particles spread
-// over the card and no particle waits on another's misses; every lane
-// runs the step (the loads are broadcasts) and lane 0 votes by atomicAdd
-// on int32 (exact in any order, off the chain). The corner of the new
-// position is the next step's flow corner (the particle moves there), so
-// a step loads the flow there together with the values and samples both
-// side by side: one round trip and one sampling time a step, the next
-// step's flow in hand. `stats` (optional) adds the steps evaluated and
-// the longest walk's.
+// over the card and no particle waits on another's misses. The corner of
+// the new position is the next step's flow corner (the particle moves
+// there), so a step samples the flow there together with the value: one
+// round trip a step, the next step's flow in hand. The four channels
+// (the flow's x, y, z and the value) go to four lanes (lane & 3), each
+// loading its 8 corners and running its own sum in JAX's order, and four
+// shuffles share them: a step is one instruction stream of 8 loads and
+// one 8-term sum, not 32 loads and four sums. Lane 0 votes by atomicAdd
+// on int32 (exact in any order, off the chain). `stats` (optional) adds
+// the steps evaluated and the longest walk's.
 // Tried and dropped (PERF.md §6, tools/trace_gather_ab.py): a brick of the
 // volumes in shared memory a particle (8 x 8 x 16 voxels, the next brick
 // prefetched along the travel): its steps were quick (0.242 us on chip
@@ -45,9 +47,11 @@
 
 namespace {
 
-// particles (warps) a block: one. With 2 or 4, ptxas held the kernel to
-// 32 registers, which serialised a step's 32 loads (0.31-0.33 ms against
-// 0.24-0.25 on phase 14, tools/trace_gather_ab.py --variants)
+// particles (warps) a block: one. With 2 or 4 ptxas holds the kernel to
+// 32 registers; when a lane summed all four channels that serialised a
+// step's 32 loads (0.31-0.33 ms against 0.24-0.25 on phase 14's inputs),
+// and it still costs 0.195-0.197 against 0.190-0.191 (H100 SXM,
+// tools/trace_gather_ab.py --variants)
 constexpr int kWarps = 1;
 
 struct Corner {
@@ -68,76 +72,60 @@ __device__ __forceinline__ Corner corner(float px, float py, float pz, int nx,
   return c;
 }
 
-// the NC channels of a (nx, ny, nz, NC) volume at the corner's 8
-// neighbours in JAX's term order, through L1, into raw[ch][t]
-template <int NC>
-__device__ __forceinline__ void gather8(const float* __restrict__ vol,
-                                        const Corner& c, int ny, int nz,
-                                        float (&raw)[NC][8]) {
+// the lane's channel of the trilinear sample at corner c, in JAX's term
+// order: `vol` points at the lane's first value (flow + ch, or values)
+// and `stride` is 3 for a flow channel, 1 for the values; the 8 corners
+// through L1
+__device__ __forceinline__ float sample_lane(const float* __restrict__ vol,
+                                             int stride, const Corner& c,
+                                             int ny, int nz) {
   const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
                        {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
-  const long long sx = (long long)ny * nz;
-  const float* base = vol + (((long long)c.x * ny + c.y) * nz + c.z) * NC;
+  const long long sx = (long long)ny * nz * stride, sy = (long long)nz * stride;
+  const float* base = vol + (((long long)c.x * ny + c.y) * nz + c.z) * stride;
+  float raw[8];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const float* v = base + (d[t][0] * sx + d[t][1] * nz + d[t][2]) * NC;
-#pragma unroll
-    for (int ch = 0; ch < NC; ++ch) raw[ch][t] = __ldg(v + ch);
-  }
-}
-
-// the trilinear sample of raw's NC channels at corner c, in JAX's order
-template <int NC>
-__device__ __forceinline__ void combine(const float (&raw)[NC][8],
-                                        const Corner& c, float* out) {
-  const int d[8][3] = {{0, 0, 0}, {1, 0, 0}, {0, 1, 0}, {0, 0, 1},
-                       {1, 1, 0}, {1, 0, 1}, {0, 1, 1}, {1, 1, 1}};
+  for (int t = 0; t < 8; ++t)
+    raw[t] = __ldg(base + d[t][0] * sx + d[t][1] * sy + d[t][2] * stride);
   const float wx[2] = {__fsub_rn(1.f, c.fx), c.fx};
   const float wy[2] = {__fsub_rn(1.f, c.fy), c.fy};
   const float wz[2] = {__fsub_rn(1.f, c.fz), c.fz};
+  float txy[8];
 #pragma unroll
-  for (int ch = 0; ch < NC; ++ch) {
-    float txy[8];
+  for (int t = 0; t < 8; ++t)
+    txy[t] = __fmul_rn(__fmul_rn(raw[t], wx[d[t][0]]), wy[d[t][1]]);
+  float s = __fmaf_rn(txy[0], wz[0], __fmul_rn(txy[1], wz[0]));
 #pragma unroll
-    for (int t = 0; t < 8; ++t)
-      txy[t] = __fmul_rn(__fmul_rn(raw[ch][t], wx[d[t][0]]), wy[d[t][1]]);
-    float s = __fmaf_rn(txy[0], wz[0], __fmul_rn(txy[1], wz[0]));
-#pragma unroll
-    for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[t], wz[d[t][2]], s);
-    out[ch] = s;
-  }
+  for (int t = 2; t < 8; ++t) s = __fmaf_rn(txy[t], wz[d[t][2]], s);
+  return s;
+}
+
+// the four channels at (px, py, pz), a lane each (lane & 3: the flow's
+// x, y, z, the value), shared with the warp: g the flow, returns the value
+__device__ __forceinline__ float sample_all(const float* __restrict__ vol,
+                                            int stride, float px, float py,
+                                            float pz, float (&g)[3], int nx,
+                                            int ny, int nz) {
+  const float s =
+      sample_lane(vol, stride, corner(px, py, pz, nx, ny, nz), ny, nz);
+  g[0] = __shfl_sync(0xffffffffu, s, 0);
+  g[1] = __shfl_sync(0xffffffffu, s, 1);
+  g[2] = __shfl_sync(0xffffffffu, s, 2);
+  return __shfl_sync(0xffffffffu, s, 3);
 }
 
 // one step from (px, py, pz), whose flow sample g is in hand: the new
-// position into (px, py, pz); its value and flow corners loaded together,
-// the value returned and the flow sampled into g (the next step's), the
-// two samples independent of each other
-__device__ __forceinline__ float step_once(
-    const float* __restrict__ flow, const float* __restrict__ values,
-    float& px, float& py, float& pz, float (&g)[3], int nx, int ny, int nz,
-    float step, float bx, float by, float bz) {
+// position into (px, py, pz), the flow there into g (the next step's,
+// loaded and sampled with the value); returns the value there
+__device__ __forceinline__ float step_once(const float* __restrict__ vol,
+                                           int stride, float& px, float& py,
+                                           float& pz, float (&g)[3], int nx,
+                                           int ny, int nz, float step,
+                                           float bx, float by, float bz) {
   px = fminf(bx, fmaxf(0.f, __fmaf_rn(-step, g[0], px)));
   py = fminf(by, fmaxf(0.f, __fmaf_rn(-step, g[1], py)));
   pz = fminf(bz, fmaxf(0.f, __fmaf_rn(-step, g[2], pz)));
-  const Corner c = corner(px, py, pz, nx, ny, nz);
-  float vr[1][8], fl[3][8];
-  gather8<1>(values, c, ny, nz, vr);
-  gather8<3>(flow, c, ny, nz, fl);
-  float val;
-  combine<1>(vr, c, &val);
-  combine<3>(fl, c, g);
-  return val;
-}
-
-// the flow sample at (px, py, pz)
-__device__ __forceinline__ void first_flow(const float* __restrict__ flow,
-                                           float px, float py, float pz,
-                                           float (&g)[3], int nx, int ny,
-                                           int nz) {
-  const Corner c = corner(px, py, pz, nx, ny, nz);
-  float fl[3][8];
-  gather8<3>(flow, c, ny, nz, fl);
-  combine<3>(fl, c, g);
+  return sample_all(vol, stride, px, py, pz, g, nx, ny, nz);
 }
 
 __global__ void __launch_bounds__(32 * kWarps)
@@ -148,15 +136,18 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= N || n_steps <= 0) return;
+  const int ch = lane & 3;
+  const float* vol = ch == 3 ? values : flow + ch;
+  const int stride = ch == 3 ? 1 : 3;
   float px = tips[3 * p], py = tips[3 * p + 1], pz = tips[3 * p + 2];
   float g[3];
-  first_flow(flow, px, py, pz, g, nx, ny, nz);
+  sample_all(vol, stride, px, py, pz, g, nx, ny, nz);
   float prev = 1e10f;
   int steps = 0;
   for (int s = 0; s < n_steps; ++s) {
     ++steps;
-    const float val = step_once(flow, values, px, py, pz, g, nx, ny, nz,
-                                step, bx, by, bz);
+    const float val = step_once(vol, stride, px, py, pz, g, nx, ny, nz, step,
+                                bx, by, bz);
     if (!(val < prev && val > step)) break;
     if (lane == 0) {
       const long long lin =
@@ -177,14 +168,15 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
 // the particle staying put, so every read after the first hits L1
 __global__ void step_floor_kernel(const float* __restrict__ vol, int iters,
                                   float* __restrict__ sink) {
-  const float* flow = vol;
-  const float* values = vol + 3 * 4096;
+  const int ch = threadIdx.x & 3;
+  const float* lv = ch == 3 ? vol + 3 * 4096 : vol + ch;
+  const int stride = ch == 3 ? 1 : 3;
   float px = 7.25f, py = 7.5f, pz = 7.75f, acc = 0.f;
   float g[3];
-  first_flow(flow, px, py, pz, g, 16, 16, 16);
+  sample_all(lv, stride, px, py, pz, g, 16, 16, 16);
   for (int s = 0; s < iters; ++s) {
-    const float val = step_once(flow, values, px, py, pz, g, 16, 16, 16,
-                                0.5f, 14.f, 14.f, 14.f);
+    const float val = step_once(lv, stride, px, py, pz, g, 16, 16, 16, 0.5f,
+                                14.f, 14.f, 14.f);
     if (val != val) break;
     acc = __fadd_rn(acc, val);
   }

@@ -6,9 +6,9 @@ clip(pos - step*g, 0, shape - 1.001), val = trilinear(values, new_pos); it
 goes on while val is below the previous value and above `step`, and each
 step it takes adds one vote at the voxel nearest new_pos (rounded half to
 even). On CUDA the hand-written kernel K15 (kernels/csrc/geodesics.cu: a
-warp a particle, each step's value corners loaded with the next step's flow
-corners, one round trip a step; int32 atomic votes, exact in any order);
-on the CPU `trace_geodesics_plain`.
+warp a particle, a lane a channel; each step's value corners loaded with
+the next step's flow corners, one round trip a step; int32 atomic votes,
+exact in any order); on the CPU `trace_geodesics_plain`.
 
 Arithmetic: XLA's CPU program's float32 operations (its optimized HLO and
 x86 code). `_trilinear` takes f = pts - floor(pts) before it clips the

@@ -1,12 +1,14 @@
 """K15's loop (kernels/csrc/geodesics.cu), modelled on the CPU.
 
 The kernel loads, each step, the value corners of the new position
-together with that position's flow corners, and samples both there: the
-value for this step's test, the flow for the next step. One round trip to
-memory a step. That is exact because a particle that goes on moves to the
-new position, whose corner is then the next step's flow corner. The
-kernel has no CPU mode, so its loop is written here in torch (the flow
-sample and its corner carried from step to step) and replayed on
+together with that position's flow corners, and samples both there (a
+lane a channel, each channel's sum in JAX's order): the value for this
+step's test, the flow for the next step. One round trip to memory a step.
+That is exact because a particle that goes on moves to the new position,
+whose corner is then the next step's flow corner. The kernel has no CPU
+mode, so its loop is written here in torch (the flow sample and its
+corner carried from step to step, the four channels summed alike) and
+replayed on
 tests/test_torch_eikonal.py's scenes, from the flow's leaves, tips on the
 grid's faces and tips past n - 2 (whose samples extrapolate): at every
 step the carried corner equals the one the plain walk reads at the

@@ -48,25 +48,20 @@ STEP, N_STEPS = 0.5, 2000
 
 def _k15_prefetch(level, a1, a2):
     """K15 with the path ahead prefetched each step: lane j asks `level`
-    for a line of the flow or value corners (a1 if j < 16 else a2) steps
-    ahead along the current flow."""
-    anchor = "  const Corner c = corner(px, py, pz, nx, ny, nz);\n  float vr"
+    for the line of its channel at corner row (x + (j >> 2 & 1), y + (j >>
+    3 & 1)), a1 (j < 16) or a2 steps ahead along the current flow."""
+    anchor = "  return sample_all(vol, stride, px, py, pz, g, nx, ny, nz);"
     code = (
-        "  const Corner c = corner(px, py, pz, nx, ny, nz);\n"
         "  {\n"
-        "    const int lane = threadIdx.x & 31;\n"
-        f"    const float ah = (float)(lane < 16 ? {a1} : {a2}) * step;\n"
+        "    const int grp = (threadIdx.x & 31) >> 2;\n"
+        f"    const float ah = (float)(grp & 4 ? {a2} : {a1}) * step;\n"
         "    const Corner a = corner(px - ah * g[0], py - ah * g[1],\n"
         "                            pz - ah * g[2], nx, ny, nz);\n"
-        "    const long long v = ((long long)(a.x + (lane & 1)) * ny +\n"
-        "                         (a.y + (lane >> 1 & 1))) * nz + a.z;\n"
-        "    const int last = lane >> 3 & 1;\n"
-        "    const void* q = (lane >> 2 & 1)\n"
-        "        ? (const void*)(values + v + last)\n"
-        "        : (const void*)(flow + 3 * v + 5 * last);\n"
-        f"    asm volatile(\"prefetch.global.{level} [%0];\" :: \"l\"(q));\n"
-        "  }\n"
-        "  float vr")
+        "    const long long v = ((long long)(a.x + (grp & 1)) * ny +\n"
+        "                         (a.y + (grp >> 1 & 1))) * nz + a.z;\n"
+        f"    asm volatile(\"prefetch.global.{level} [%0];\" ::\n"
+        "                 \"l\"(vol + v * stride));\n"
+        "  }\n" + anchor)
     return [(anchor, code)]
 
 
