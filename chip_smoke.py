@@ -140,7 +140,7 @@
    ms and `floor_ms`, the sweeps times a measured empty grid barrier.
    K15 runs once with the counts set to 0; its row gives the kernel's
    device time without the vote grid's zeroing and the zeroing's, the
-   steps (equal to the plain walk's), the longest and the mean, and
+   plain walk's steps, the longest and the mean, and
    `floor_ms`, the longest walk's steps times a measured dependent step
    whose reads all hit L1.
 15. Live carving: replays phase 2's scan (written here if phase 2 did not
@@ -2779,10 +2779,8 @@ def check_fim_kernels(scan, report, launches):
     leaves = (np.asarray(skel["points"])[deg == 1] - origin) / vs
     tips = torch.from_numpy(leaves.astype(np.float32)).cuda()
     # K15's own run: the counts set to 0, one call (no task calls it)
-    stats = torch.zeros(2, dtype=torch.int32, device=dev)
     kernels.reset_launches()
-    vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000,
-                         stats=stats)
+    vk = trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
     trace_launches = kernels.LAUNCHES["trace_geodesics"]
     t0 = time.perf_counter()
     vp, psteps = trace_geodesics_plain(flow, values, tips, step=0.5,
@@ -2791,9 +2789,7 @@ def check_fim_kernels(scan, report, launches):
     tplain_ms = (time.perf_counter() - t0) * 1e3
     vdiff = int((vk - vp).abs().sum())
     assert vdiff == 0, f"K15 votes differ from the plain version's by {vdiff}"
-    n_steps_all, longest = stats.tolist()
-    assert n_steps_all == int(psteps.sum()) and longest == int(
-        psteps.max()), "K15's step counts differ from the plain walk's"
+    n_steps_all, longest = int(psteps.sum()), int(psteps.max())
 
     def trace():
         return trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
@@ -2820,8 +2816,7 @@ def check_fim_kernels(scan, report, launches):
     # bytes: the tips read once, the dense votes written once, and each
     # step's two trilinear samples, 8 corners of the flow (12 B) and of the
     # values (4 B); operations: ~130 a step (the samples, the step, the
-    # clip, the tests); a step is taken for each vote and once more by
-    # each particle that stops
+    # clip, the tests)
     rows.append(kernel_row(
         "trace_geodesics", trace_launches, 0, tms, tplain_ms,
         tips.numel() * 4 + 4 * nvox + 8 * 16 * n_steps_all,

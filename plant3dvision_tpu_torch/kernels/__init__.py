@@ -138,9 +138,9 @@ _ARGTYPES = {
     # M, iters, stream
     "p3d_grid_barriers": [_I, _I, _P],
     # flow, values, tips, N, nx, ny, nz, step, n_steps, bx, by, bz, votes,
-    # stats (or null), stream
+    # stream
     "p3d_trace_geodesics": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _F, _F, _F,
-                            _P, _P, _P],
+                            _P, _P],
     # iters, scratch (4 x 16^3 float32 on the card), sink, stream
     "p3d_trace_step_floor": [_I, _P, _P, _P],
     # descriptors (host, n x 16 int64), n, arena, eps, stream

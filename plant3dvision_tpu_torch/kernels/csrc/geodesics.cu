@@ -27,8 +27,7 @@
 // loading its 8 corners and running its own sum in JAX's order, and four
 // shuffles share them: a step is one instruction stream of 8 loads and
 // one 8-term sum, not 32 loads and four sums. Lane 0 votes by atomicAdd
-// on int32 (exact in any order, off the chain). `stats` (optional) adds
-// the steps evaluated and the longest walk's.
+// on int32 (exact in any order, off the chain).
 // Tried and dropped (PERF.md §6, tools/trace_gather_ab.py): a brick of the
 // volumes in shared memory a particle (8 x 8 x 16 voxels, the next brick
 // prefetched along the travel): its steps were quick (0.242 us on chip
@@ -132,7 +131,7 @@ __global__ void __launch_bounds__(32 * kWarps)
 trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
              const float* __restrict__ tips, int N, int nx, int ny, int nz,
              float step, int n_steps, float bx, float by, float bz,
-             int* __restrict__ votes, int* __restrict__ stats) {
+             int* __restrict__ votes) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (p >= N || n_steps <= 0) return;
@@ -143,9 +142,7 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
   float g[3];
   sample_all(vol, stride, px, py, pz, g, nx, ny, nz);
   float prev = 1e10f;
-  int steps = 0;
   for (int s = 0; s < n_steps; ++s) {
-    ++steps;
     const float val = step_once(vol, stride, px, py, pz, g, nx, ny, nz, step,
                                 bx, by, bz);
     if (!(val < prev && val > step)) break;
@@ -156,10 +153,6 @@ trace_kernel(const float* __restrict__ flow, const float* __restrict__ values,
       atomicAdd(&votes[lin], 1);
     }
     prev = val;
-  }
-  if (stats != nullptr && lane == 0) {
-    atomicAdd(&stats[0], steps);
-    atomicMax(&stats[1], steps);
   }
 }
 
@@ -187,18 +180,17 @@ __global__ void step_floor_kernel(const float* __restrict__ vol, int iters,
 
 // K15: flow (nx, ny, nz, 3) f32, values (nx, ny, nz) f32, tips (N, 3) f32
 // -> votes (nx, ny, nz) int32, zero on entry; (bx, by, bz) the clip's
-// upper bounds; stats null or 2 int32 on the card (the steps evaluated,
-// the longest particle's steps), added to.
+// upper bounds.
 extern "C" int p3d_trace_geodesics(const void* flow, const void* values,
                                    const void* tips, int N, int nx, int ny,
                                    int nz, float step, int n_steps, float bx,
                                    float by, float bz, void* votes,
-                                   void* stats, void* stream) {
+                                   void* stream) {
   if (N <= 0) return 0;
   trace_kernel<<<(N + kWarps - 1) / kWarps, 32 * kWarps, 0,
                  (cudaStream_t)stream>>>(
       (const float*)flow, (const float*)values, (const float*)tips, N, nx, ny,
-      nz, step, n_steps, bx, by, bz, (int*)votes, (int*)stats);
+      nz, step, n_steps, bx, by, bz, (int*)votes);
   return (int)cudaGetLastError();
 }
 

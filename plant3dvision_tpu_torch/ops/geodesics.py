@@ -74,41 +74,27 @@ def _check(flow, values, tips):
 
 
 def trace_geodesics(flow, values, tips, step: float = 0.5,
-                    n_steps: int = 2000, stats=None):
+                    n_steps: int = 2000):
     """Trace particles from `tips` down `flow`, voting along the way.
 
     flow (nx, ny, nz, 3) float32 descent field, values (nx, ny, nz) float32
     distance map, tips (N, 3) start points in index coordinates, all on one
-    device. Returns the int32 (nx, ny, nz) votes. CUDA tensors go to K15,
-    CPU tensors to `trace_geodesics_plain`.
-
-    stats: None, or a contiguous (2,) int32 tensor on the card to which
-    the kernel adds the steps it evaluated and the longest particle's
-    steps (a max): `trace_geodesics_plain(..., return_steps=True)`'s sum
-    and max."""
+    device. Returns the int32 (nx, ny, nz) votes. CUDA tensors go to K15
+    (which reads the volumes in C order: others are copied into it first),
+    CPU tensors to `trace_geodesics_plain`."""
     tips = torch.as_tensor(tips, device=values.device).to(torch.float32)
     _check(flow, values, tips)
     if values.device.type == "cpu":
         return trace_geodesics_plain(flow, values, tips, step, n_steps)
-    tips = tips.contiguous()
+    flow, values, tips = (t.contiguous() for t in (flow, values, tips))
     kernels.require_cuda("trace_geodesics", flow, values, tips)
-    if not (flow.is_contiguous() and values.is_contiguous()):
-        raise ValueError("flow and values must be contiguous")
-    sp = 0
-    if stats is not None:
-        if stats.dtype != torch.int32 or stats.numel() != 2 \
-                or stats.device != values.device \
-                or not stats.is_contiguous():
-            raise ValueError("stats must be a contiguous (2,) int32 tensor "
-                             "on the volumes' device")
-        sp = stats.data_ptr()
     nx, ny, nz = (int(s) for s in values.shape)
     votes = torch.zeros((nx, ny, nz), dtype=torch.int32, device=values.device)
     bx, by, bz = (float(b) for b in upper_bounds(values.shape))
     rc = kernels.lib().p3d_trace_geodesics(
         flow.data_ptr(), values.data_ptr(), tips.data_ptr(), tips.shape[0],
         nx, ny, nz, float(np.float32(step)), int(n_steps), bx, by, bz,
-        votes.data_ptr(), sp, kernels.stream_ptr(values.device))
+        votes.data_ptr(), kernels.stream_ptr(values.device))
     kernels.LAUNCHES["trace_geodesics"] += 1
     kernels.check("trace_geodesics", rc)
     return votes
@@ -147,4 +133,3 @@ def trace_geodesics_plain(flow, values, tips, step: float = 0.5,
             break
     votes = votes.reshape(shape)
     return (votes, steps) if return_steps else votes
-

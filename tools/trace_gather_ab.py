@@ -20,7 +20,8 @@ The plain versions run once, in a process of their own (this checkout's;
 unchanged from the parent), K15's with each particle's steps. Each root
 holds its kernels equal to them and times each call:
 K15 with CUDA events (median, the vote grid's zeroing included) and as
-device time by kernel (torch.profiler); K17 as `gather_probe.timed`'s
+device time by kernel (torch.profiler, `chip_smoke.device_ms_by_kernel`);
+K17 as `gather_probe.timed`'s
 graph-replayed calls, and at reps = 0 (the floor). Prints one JSON line a
 root (or one for the variants), then the card's name and power limit.
 
@@ -158,20 +159,6 @@ def plain(tmp):
     torch.save(out, Path(tmp) / "plain.pt")
 
 
-def device_us_by_kernel(fn, reps=20):
-    """Mean device microseconds of fn() by kernel name (torch.profiler)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.self_device_time_total / reps
-            for e in prof.key_averages() if e.self_device_time_total > 0}
-
-
 def k15_bound(values, tips, steps):
     """chip_smoke phase 14's K15 bound: the tips, the dense votes, 8
     corners of flow and values (128 B) and ~130 operations a step."""
@@ -189,7 +176,7 @@ def measure(root, tmp):
     from plant3dvision_tpu_torch.tools import gather_probe as gp
     assert Path(kernels.__file__).resolve().is_relative_to(root)
     sys.path.append(str(ROOT))                      # the timing helpers
-    from chip_smoke import bound_ms, cuda_ms
+    from chip_smoke import bound_ms, cuda_ms, device_ms_by_kernel
 
     dev = torch.device("cuda")
     out = {"root": str(root)}
@@ -212,7 +199,7 @@ def measure(root, tmp):
                   "steps": int(steps.sum()), "longest_steps":
                   int(steps.max()), "votes_equal": True,
                   "launches_per_call": launches, "ms": cuda_ms(k15, reps=21),
-                  "device_us_by_kernel": device_us_by_kernel(k15),
+                  "device_ms_by_kernel": device_ms_by_kernel(k15, reps=20),
                   "bound_ms": b, "bound_by": by}
     for seed, L in K17_SIZES:
         tab, idx = k17_inputs(seed, L, dev)
@@ -248,10 +235,9 @@ def step_floor_us(so, iters=10000):
 
 def variants(tmp):
     """Build VARIANTS (edits of this checkout's sources), hold those that
-    compute the function equal to the plain results, hold each K15's
-    steps and longest walk to the plain walk's, time each K15's dependent
-    step on chip (`p3d_trace_step_floor`), and time each twice, in
-    turns."""
+    compute the function equal to the plain results, time each K15's
+    dependent step on chip (`p3d_trace_step_floor`), and time each twice,
+    in turns."""
     import torch
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops.geodesics import upper_bounds
@@ -295,22 +281,17 @@ def variants(tmp):
         if src == "geodesics.cu":
             f = so.p3d_trace_geodesics
             f.argtypes = [P_, P_, P_] + [I_] * 4 + [F_, I_] + [F_] * 3 + \
-                [P_, P_, P_]
+                [P_, P_]
             votes = torch.zeros(values.shape, dtype=torch.int32, device=dev)
-            stats = torch.zeros(2, dtype=torch.int32, device=dev)
 
-            def call(f=f, votes=votes, stats=stats):
+            def call(f=f, votes=votes):
                 assert f(flow.data_ptr(), values.data_ptr(), tips.data_ptr(),
                          len(tips), nx, ny, nz, STEP, N_STEPS, bx, by, bz,
-                         votes.data_ptr(), stats.data_ptr(), stream) == 0
+                         votes.data_ptr(), stream) == 0
                 return votes
             call()
             torch.cuda.synchronize()
             assert not exact or torch.equal(votes.cpu(), want["k15"]), name
-            steps = want["k15_steps"]
-            got = stats.tolist()
-            assert got == [int(steps.sum()), int(steps.max())], (name, got)
-            out[name + "_stats"] = got
             out[name + "_step_floor_us"] = step_floor_us(so)
             calls[name] = call
             continue
