@@ -602,19 +602,24 @@ def device_ms(fn, reps=10, tries=3):
     return None
 
 
-def device_ms_by_kernel(fn, reps=10):
+def device_ms_by_kernel(fn, reps=10, tries=3):
     """Mean device milliseconds of fn() by kernel name (torch.profiler),
-    after one warm-up call; {} when the profiler records no device time."""
+    after one warm-up call; None ("not measured") when `tries` profiler
+    sessions in a row record no device time, as `device_ms`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:80]: e.self_device_time_total / reps / 1e3
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {e.key[:80]: e.self_device_time_total / reps / 1e3
+               for e in prof.key_averages() if e.self_device_time_total > 0}
+        if out:
+            return out
+    return None
 
 
 def host_syncs(fn):
@@ -2795,8 +2800,8 @@ def check_fim_kernels(scan, report, launches):
         return trace_geodesics(flow, values, tips, step=0.5, n_steps=2000)
     tms = cuda_ms(trace)
     by_kernel = device_ms_by_kernel(trace)
-    trace_kernel_ms = sum(v for k, v in by_kernel.items()
-                          if "trace_kernel" in k)
+    trace_kernel_ms = next((v for k, v in (by_kernel or {}).items()
+                            if "trace_kernel" in k), None)
     zero_ms = cuda_ms(lambda: torch.zeros(values.shape, dtype=torch.int32,
                                           device=dev))
     # the floor: the longest walk's steps, each one warp's dependent step
