@@ -165,8 +165,9 @@
    over the weights. The pass makes one weight quantise launch.
 17. The gather probes K17-K19 at exp_pallas_gather.py:main's sizes, each
    equal to its plain version and to a torch.gather / index_select chain;
-   M lookups/s, bounds, and the three versions' times; K17's rows give
-   `floor_ms`, the same launch at reps = 0 (staging and output alone).
+   M lookups/s, bounds, and the three versions' times; every row gives
+   `floor_ms`, the same launch at reps = 0 (the indices, K17's staging
+   and the output alone).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3438,11 +3439,9 @@ def run_gather_probes(device_name):
         ms = gp.timed(lambda: fn(*args, 64)) * 1e3
         plain_ms = gp.timed(lambda: plain[name](*args, 64)) * 1e3
         lib_ms = gp.timed(lambda: library[name](*args, 64)) * 1e3
-        extra = {}
-        if name == "gather_axis1":
-            # the floor: the same launch with no lookups (the staging and
-            # the output alone)
-            extra["floor_ms"] = gp.timed(lambda: fn(*args, 0)) * 1e3
+        # the floor: the same launch with no lookups (the indices, K17's
+        # staging, the output)
+        extra = {"floor_ms": gp.timed(lambda: fn(*args, 0)) * 1e3}
         n_bytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
         b, by = bound_ms(n_bytes, 4 * lookups)
         where = ("registers (warp shuffle)" if name == "gather_select32"

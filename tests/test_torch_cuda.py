@@ -1560,23 +1560,54 @@ def test_gather_axis1_kernel_matches_plain(dev, L, N, reps):
 
 
 @pytest.mark.parametrize("R,P,reps", [(48, 100, 9), (4096, 4096, 64),
-                                      (32768, 4096, 64)])
+                                      (32768, 4096, 64),
+                                      (5, 37, 23), (48, 64, 200),  # reps > R
+                                      (300, 33, 0),                # reps = 0
+                                      (1, 10, 7), (3, 50, 13),     # R < 4
+                                      (4, 40, 6), (4096, 1001, 66),
+                                      (300, 17, 3),                # reps off 4
+                                      (300, 16, 298),      # the copy wraps
+                                      (4096, 20000, 64)])  # a long list
 def test_gather_rows_kernel_matches_plain(dev, R, P, reps):
+    """K18 equal to its plain version in both lanes (each block's windows
+    staged in shared memory, or read through L1/L2): from the probe's
+    table, with sums that wrap, and from a table whose base is off 16
+    bytes (the direct lane's four 4-byte loads); one launch a call."""
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.tools import gather_probe as gp
     np.random.seed(R)
     tab, rows = gp.rows_inputs(R, P, dev)
-    assert torch.equal(gp.rows_gather(tab, rows, reps),
-                       gp.rows_gather_plain(tab, rows, reps))
+    if P == 4096 and reps == 64:                 # the probe's sizes
+        assert gp.rows_staged(R, P, reps)
+    if reps > R or P == 20000:
+        assert not gp.rows_staged(R, P, reps)
+    off = torch.empty(R * 32 + 1, dtype=torch.int32, device=dev)[1:].view(
+        R, 32)
+    off.copy_(tab * 1000003 + 2 ** 30)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    # every window from one start: one block of the staged lane takes all
+    same = torch.full_like(rows, R // 2)
+    for t, r in ((tab, rows), (tab * 1000003 + 2 ** 30, rows), (off, rows),
+                 (tab, same)):
+        before = kernels.LAUNCHES["gather_rows"]
+        got = gp.rows_gather(t, r, reps)
+        assert kernels.LAUNCHES["gather_rows"] - before == 1
+        assert torch.equal(got, gp.rows_gather_plain(t, r, reps))
 
 
-@pytest.mark.parametrize("P,reps", [(1, 3), (1000, 40), (4096, 64)])
+@pytest.mark.parametrize("P,reps", [(1, 3), (1000, 40), (4096, 64),
+                                    (37, 0), (33, 1), (1000, 45),
+                                    (4096, 200)])
 def test_gather_select32_kernel_matches_plain(dev, P, reps):
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.tools import gather_probe as gp
     np.random.seed(P)
     T, dy = gp.select32_inputs(P, dev)
     T[0, :] = 2 ** 30                            # a row whose sum wraps
-    assert torch.equal(gp.select32(T, dy, reps),
-                       gp.select32_plain(T, dy, reps))
+    before = kernels.LAUNCHES["gather_select32"]
+    got = gp.select32(T, dy, reps)
+    assert kernels.LAUNCHES["gather_select32"] - before == 1
+    assert torch.equal(got, gp.select32_plain(T, dy, reps))
 
 
 # -- StreamingCarver on the card (K1) ----------------------------------------------
