@@ -167,7 +167,8 @@
    equal to its plain version and to a torch.gather / index_select chain;
    M lookups/s, bounds, and the three versions' times; every row gives
    `floor_ms`, the same launch at reps = 0 (the indices, K17's staging
-   and the output alone).
+   and the output alone), K18's `lookup_bytes` (128 a lookup, through
+   L1/L2).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3442,6 +3443,9 @@ def run_gather_probes(device_name):
         # the floor: the same launch with no lookups (the indices, K17's
         # staging, the output)
         extra = {"floor_ms": gp.timed(lambda: fn(*args, 0)) * 1e3}
+        if name == "gather_rows":
+            # a lookup is a 128-byte table row read through L1/L2
+            extra["lookup_bytes"] = 128 * lookups
         n_bytes = sum(a.numel() * 4 for a in args) + got.numel() * 4
         b, by = bound_ms(n_bytes, 4 * lookups)
         where = ("registers (warp shuffle)" if name == "gather_select32"

@@ -158,8 +158,6 @@ _ARGTYPES = {
     "p3d_gather_axis1_staged": [_I],
     # tab, rows, out, R, P, reps, stream
     "p3d_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
-    # R, P, reps -> 1 when an aligned table takes K18's staged lane
-    "p3d_gather_rows_staged": [_I, _I, _I],
     # T, dy, out, P, reps, stream
     "p3d_gather_select32": [_P, _P, _P, _I, _I, _P],
 }

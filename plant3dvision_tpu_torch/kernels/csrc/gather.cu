@@ -50,15 +50,22 @@
 // add the four rows of a group and lanes 0-7 store the 128-byte output
 // row, 16 bytes each. The first design (lane c column c, a runtime % R and
 // one 128-byte load a lookup, each feeding the sum before the next) had
-// about one load a warp in flight.
+// about one load a warp in flight. A lane that staged each block's
+// windows in shared memory (a block an SM, the p whose window starts in
+// its bucket of rows listed while the copies flew) was slower at R = 4K,
+// as fast at 32K, and 45x slower when every window starts in one bucket:
+// dropped (tools/trace_gather_ab.py --variants).
 //
 // K19 keeps each 32-wide row in the registers of one warp (a lane a
 // column) and picks a column with a warp shuffle, the register-file
 // counterpart of the Pallas 5-level select tree. The lanes split the
-// lookups: lane l takes i = l, l + 32, ... below reps, each a shuffle of
-// column (dy + i) % 32, and five xor-shuffle levels add the warp. The
-// first design had every lane take all reps shuffles, the warp doing 32
-// times the work, one shuffle waiting on the last.
+// lookups: in round m lane l takes i = 32 m + (l + m) % 32 below reps, a
+// shuffle of column (dy + i) % 32, and five xor-shuffle levels add the
+// warp. The rotation gives a lane a new column each round: with i = 32 m
+// + l a lane's column repeats every round and ptxas merged the repeats
+// (one shuffle for four rounds), reading a column once for several
+// lookups. The first design had every lane take all reps shuffles, the
+// warp doing 32 times the work, one shuffle waiting on the last.
 
 #include <algorithm>
 #include <cstdint>
@@ -71,9 +78,6 @@ constexpr int kWarpsStaged = 16;           // warps a block, staged lane
 constexpr int kWarpsDirect = 8;            // warps a block, L1/L2 lane
 constexpr int kRowsWarps = 8;              // K18: warps (rows p) a block
 constexpr int kRowsUnroll = 8;             // K18: loads a lane in flight
-constexpr int kRowsStagedWarps = 32;       // K18 staged lane: warps a block
-// K18 staged lane: the most shared memory a block (windows and list)
-constexpr int kRowsStageMaxBytes = 160 * 1024;
 constexpr int kSelectWarps = 8;            // K19: warps (rows p) a block
 // a level of the transpose reduction: lanes with bit OFF keep v[OFF..2 OFF)
 // and take their partner's, the others keep v[0..OFF); a template, so
@@ -181,34 +185,6 @@ __device__ __forceinline__ uint4 row_quad(const int* __restrict__ tab,
   return make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
 }
 
-// K18's end: the four rows of a column group added by two xor levels,
-// lanes 0-7 storing the 128-byte output row 16 bytes each
-__device__ __forceinline__ void rows_store(uint4 acc, int* __restrict__ out,
-                                           long long p, int sub, int g) {
-#pragma unroll
-  for (int off = 8; off <= 16; off <<= 1) {
-    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
-    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
-    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
-    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
-  }
-  if (sub == 0) ((uint4*)(out + p * 32))[g] = acc;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
 // a warp a lookup row p (MOD: R < 4, a modulo a load)
 template <bool VEC, bool MOD>
 __global__ void __launch_bounds__(32 * kRowsWarps)
@@ -243,81 +219,19 @@ rows_kernel(const int* __restrict__ tab, const int* __restrict__ rows,
       acc.w += v[u].w;
     }
   }
-  rows_store(acc, out, p, sub, g);
-}
-
-// K18's staged lane: block b takes the rows p whose window starts in its
-// bucket of S table rows, [b S, b S + S). It copies the bucket's windows,
-// table rows b S .. b S + n + reps - 2 (wrapping at R at most once), into
-// shared memory by 16-byte cp.async and lists its p while the copies fly;
-// then a warp a listed p reads its window from the copy, 4 rows a 16-byte
-// load as the direct lane does, without a wrap.
-__global__ void __launch_bounds__(32 * kRowsStagedWarps)
-rows_staged_kernel(const int* __restrict__ tab, const int* __restrict__ rows,
-                   int* __restrict__ out, int R, int P, int reps, int S) {
-  extern __shared__ int4 stage[];           // rows x 8, then the list
-  __shared__ int listed;
-  const int lo = blockIdx.x * S;
-  const int n = min(S, R - lo);             // window starts in the bucket
-  const int staged = reps > 0 ? n + reps - 1 : 0;
-  int2* list = (int2*)(stage + (size_t)(S + max(reps, 1) - 1) * 8);
-  if (threadIdx.x == 0) listed = 0;
-  for (int e = threadIdx.x; e < staged * 8; e += blockDim.x) {
-    int r = lo + (e >> 3);
-    if (r >= R) r -= R;
-    cp_async16(stage + e, (const int4*)(tab + (long long)r * 32) + (e & 7));
-  }
-  cp_async_commit();
-  __syncthreads();                          // listed = 0
-#pragma unroll 4
-  for (int q = threadIdx.x; q < P; q += blockDim.x) {
-    int k = rows[q];
-    if ((unsigned)k >= (unsigned)R) {       // the plain version's modulo
-      k %= R;
-      if (k < 0) k += R;
-    }
-    if (k >= lo && k < lo + n)
-      list[atomicAdd(&listed, 1)] = make_int2(q, k - lo);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-  const int lane = threadIdx.x & 31, sub = lane >> 3, g = lane & 7;
-  for (int j = threadIdx.x >> 5; j < listed; j += kRowsStagedWarps) {
-    const int2 e = list[j];
-    const int4* w = stage + (size_t)(e.y + sub) * 8 + g;
-    uint4 acc = make_uint4(0u, 0u, 0u, 0u);
-    for (int left = reps; left > 0; left -= 4 * kRowsUnroll) {
-      uint4 v[kRowsUnroll];
+  // the four rows of a column group added; lanes 0-7 store the row
 #pragma unroll
-      for (int u = 0; u < kRowsUnroll; ++u) {
-        int4 x = make_int4(0, 0, 0, 0);
-        if (4 * u + sub < left) x = w[32 * u];
-        v[u] = make_uint4(x.x, x.y, x.z, x.w);
-      }
-      w += 32 * kRowsUnroll;
-#pragma unroll
-      for (int u = 0; u < kRowsUnroll; ++u) {
-        acc.x += v[u].x;
-        acc.y += v[u].y;
-        acc.z += v[u].z;
-        acc.w += v[u].w;
-      }
-    }
-    rows_store(acc, out, e.x, sub, g);
+  for (int off = 8; off <= 16; off <<= 1) {
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
   }
+  if (sub == 0) ((uint4*)(out + p * 32))[g] = acc;
 }
 
-// a shuffle that reads lane src's v, volatile: a lane's column repeats
-// every 32 lookups, and ptxas merged __shfl_sync's repeats of one column
-// (one shuffle for four rounds where it unrolled the loop)
-__device__ __forceinline__ int shfl_lookup(int v, unsigned src) {
-  int r;
-  asm volatile("shfl.sync.idx.b32 %0, %1, %2, 0x1f, 0xffffffff;"
-               : "=r"(r) : "r"(v), "r"(src));
-  return r;
-}
-
-// a warp a row p: lane c holds T[p, c]; lane l looks up i = l, l + 32, ...
+// a warp a row p: lane c holds T[p, c]; in round m lane l looks up i =
+// 32 m + (l + m) % 32
 __global__ void __launch_bounds__(32 * kSelectWarps)
 select32_kernel(const int* __restrict__ T, const int* __restrict__ dy,
                 int* __restrict__ out, int P, int reps) {
@@ -330,10 +244,11 @@ select32_kernel(const int* __restrict__ T, const int* __restrict__ dy,
   unsigned acc = 0u;
   // every lane shuffles in every round (a full mask); lanes past the
   // last lookup drop what they got
-  unsigned i0 = 0u;
-  for (int left = reps; left > 0; left -= 32, i0 += 32u) {
-    const int got = shfl_lookup(v, (d + i0 + lane) & 31u);
-    if (lane < left) acc += (unsigned)got;
+  unsigned m = 0u;
+  for (int left = reps; left > 0; left -= 32, ++m) {
+    const unsigned j = (lane + m) & 31u;  // i = 32 m + j
+    const int got = __shfl_sync(0xffffffffu, v, (d + j) & 31u);
+    if ((int)j < left) acc += (unsigned)got;
   }
 #pragma unroll
   for (int off = 16; off >= 1; off >>= 1)
@@ -382,28 +297,6 @@ extern "C" int p3d_gather_axis1_staged(int L) {
   return L <= kStageMaxL ? 1 : 0;
 }
 
-// K18's staged lane's shared memory a block (0: the direct lane): one
-// block an SM, each a bucket of S = ceil(R / SMs) window starts, where the
-// windows wrap at most once (S + reps - 1 <= R) and the bucket's windows
-// and a list of all P fit kRowsStageMaxBytes
-static long long rows_stage_bytes(int R, int P, int reps, int* S) {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess || R < 4)
-    return 0;
-  *S = (R + sms - 1) / sms;
-  const long long smem = 128LL * (*S + std::max(reps, 1) - 1) + 8LL * P;
-  return (long long)*S + reps - 1 <= R && smem <= kRowsStageMaxBytes ? smem
-                                                                      : 0;
-}
-
-// 1 when p3d_gather_rows takes the staged lane for an aligned table
-extern "C" int p3d_gather_rows_staged(int R, int P, int reps) {
-  int S = 0;
-  return rows_stage_bytes(R, P, reps, &S) > 0 ? 1 : 0;
-}
-
 // tab (R, 32) int32, rows (P,) int32 -> out (P, 32) int32 (16-byte
 // aligned, as torch.empty gives it)
 extern "C" int p3d_gather_rows(const void* tab, const void* rows, void* out,
@@ -411,20 +304,6 @@ extern "C" int p3d_gather_rows(const void* tab, const void* rows, void* out,
   const cudaStream_t s = (cudaStream_t)stream;
   if (R < 1 || P < 1 || reps < 0 || (((uintptr_t)out) & 15) != 0)
     return (int)cudaErrorInvalidValue;
-  int S = 0;
-  const long long smem = rows_stage_bytes(R, P, reps, &S);
-  if ((((uintptr_t)tab) & 15) == 0 && smem > 0) {
-    cudaError_t e = cudaSuccess;
-    if (smem > 48 * 1024)
-      e = cudaFuncSetAttribute(rows_staged_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    rows_staged_kernel<<<(unsigned)((R + S - 1) / S), 32 * kRowsStagedWarps,
-                         (size_t)smem, s>>>(
-        (const int*)tab, (const int*)rows, (int*)out, R, P, reps, S);
-    return (int)cudaGetLastError();
-  }
   const unsigned blocks = (unsigned)((P + kRowsWarps - 1LL) / kRowsWarps);
   const bool vec = (((uintptr_t)tab) & 15) == 0;
   auto kernel = vec ? (R < 4 ? rows_kernel<true, true>

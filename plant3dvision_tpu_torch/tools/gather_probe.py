@@ -107,13 +107,6 @@ def rows_gather(tab, rows, reps):
     return out
 
 
-def rows_staged(R: int, P: int, reps: int) -> bool:
-    """Whether K18 stages each block's windows in shared memory for a
-    16-byte aligned (R, 32) table (else it reads them through L1/L2)."""
-    return bool(kernels.lib().p3d_gather_rows_staged(int(R), int(P),
-                                                     int(reps)))
-
-
 # -- K19 -----------------------------------------------------------------------
 
 def select32_plain(T, dy, reps):

@@ -216,10 +216,8 @@ def test_axis1_kernel_model_at_the_probe_size():
 # -- K18's windows and K19's split lookups, modelled ------------------------------
 
 #: kernels/csrc/gather.cu: K18's warps a block and loads a lane in flight,
-#: its staged lane's warps a block and shared memory limit, K19's warps a
-#: block
+#: K19's warps a block
 ROWS_WARPS, ROWS_UNROLL, SELECT_WARPS = 8, 8, 8
-ROWS_STAGED_WARPS, ROWS_STAGE_MAX_BYTES = 32, 160 * 1024
 
 
 def test_models_take_the_sources_constants():
@@ -229,164 +227,84 @@ def test_models_take_the_sources_constants():
     src = (kernels.CSRC / "gather.cu").read_text()
     want = {"kStageMaxL": STAGE_MAX_L, "kWarpsStaged": WARPS_STAGED,
             "kWarpsDirect": WARPS_DIRECT, "kRowsWarps": ROWS_WARPS,
-            "kRowsUnroll": ROWS_UNROLL, "kSelectWarps": SELECT_WARPS,
-            "kRowsStagedWarps": ROWS_STAGED_WARPS,
-            "kRowsStageMaxBytes": ROWS_STAGE_MAX_BYTES}
+            "kRowsUnroll": ROWS_UNROLL, "kSelectWarps": SELECT_WARPS}
     for name, value in want.items():
-        m = re.search(rf"constexpr int {name} = ([\d *]+);", src)
-        assert m and eval(m.group(1)) == value, name
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
 
 
 def _xor_levels(v, offs):
-    """Xor-shuffle levels over a warp's lanes (the last axis but one):
-    each lane adds its partner's value, in uint32."""
+    """Xor-shuffle levels over a warp's lanes (axis 1): each lane adds its
+    partner's value, in uint32."""
     lanes = np.arange(32)
     for off in offs:
-        v = v + v[..., lanes ^ off, :]
+        v = v + v[:, lanes ^ off]
     return v
 
 
-def rows_staged(R, P, reps, sms=132):
-    """The launcher's choice for a 16-byte aligned table: the staged lane's
-    bucket S and shared memory, or None (the direct lane)."""
-    if R < 4:
-        return None
-    S = -(-R // sms)
-    smem = 128 * (S + max(reps, 1) - 1) + 8 * P
-    ok = S + reps - 1 <= R and smem <= ROWS_STAGE_MAX_BYTES
-    return (S, smem) if ok else None
-
-
-def _walk(rows_at, reps, lanes):
-    """A warp's walk over its window, as both lanes run it: chunks of
-    ROWS_UNROLL loads, lane l's u-th load of a chunk on where 4 u + l / 8 <
-    the lookups left. rows_at(step) gives each warp's lane's row (warps,
-    32) at the step-th load and asserts it in range; returns the uint32
-    partial sums (warps, 32, 4) and the loads a warp issued."""
-    sub = lanes >> 3
-    acc, served, loads, step = None, 0, 0, 0
+def rows_kernel_model(tab, rows, reps, aligned=True):
+    """K18 as the kernel runs it, vectorised over the launch's warps: the
+    launcher's lane (16-byte loads where the table is aligned, else four
+    4-byte loads; a modulo a load where R < 4) and grid of ROWS_WARPS
+    warps a block; lane l's row of the window, 4 q + l / 8 past the
+    start, advanced 4 a load with one compare and subtract, asserting
+    every row index in [0, R); ROWS_UNROLL loads a chunk, each on where
+    4 u + l / 8 < the lookups left; four uint32 partial sums a lane, the
+    xor levels 8 and 16, lanes 0-7 writing columns 4 (l % 8) .. + 3.
+    Returns the output, the load instructions a warp issues and the
+    lookups each (p, l) served."""
+    tab = tab.numpy().astype(np.uint32)
+    R, P = tab.shape[0], rows.shape[0]
+    mod = R < 4
+    blocks = -(-P // ROWS_WARPS)
+    p = np.arange(blocks * ROWS_WARPS)
+    p = p[p < P]                               # warps past P leave
+    lanes = np.arange(32)
+    sub, g = lanes >> 3, lanes & 7
+    base = rows.numpy().astype(np.int64)[p] % R        # floor modulo
+    k = base[:, None] + sub[None, :]
+    k = k % R if mod else np.where(k >= R, k - R, k)
+    acc = np.zeros((len(p), 32, 4), np.uint32)
+    served = np.zeros((len(p), 32), np.int64)
+    loads = 0
+    cols = 4 * g[:, None] + np.arange(4)               # (lane, 4)
     left = reps
     while left > 0:
         for u in range(ROWS_UNROLL):
-            on = 4 * u + sub < left
-            got = rows_at(step, on)                  # (warps, 32, 4)
-            got = np.where(on[None, :, None], got, 0).astype(np.uint32)
-            acc = got if acc is None else acc + got
-            served = served + on
-            loads += 1
-            step += 1
-        left -= 4 * ROWS_UNROLL
-    return acc, served, loads
-
-
-def rows_kernel_model(tab, rows, reps, aligned=True, sms=132):
-    """K18 as the kernel runs it, vectorised over the launch's warps; the
-    launcher's lane for a card of `sms` SMs.
-
-    Direct lane (16-byte loads where the table is aligned, else four 4-byte
-    loads; a modulo a load where R < 4): ROWS_WARPS warps a block, a warp a
-    row p; lane l's row of the window, 4 q + l / 8 past the start, advanced
-    4 a load with one compare and subtract, asserted in [0, R).
-
-    Staged lane: a block a bucket of S window starts; its table rows lo ..
-    lo + n + reps - 2, wrapped once, asserted in [0, R); the p whose start
-    is in the bucket listed once; a warp a listed p, its rows read from
-    the staged copy at e + 4 q + l / 8, asserted inside the copy.
-
-    Both: ROWS_UNROLL loads a chunk, each on where 4 u + l / 8 < the
-    lookups left; four uint32 partial sums a lane, the xor levels 8 and
-    16, lanes 0-7 writing columns 4 (l % 8) .. + 3. Returns the output,
-    the load instructions a warp issues, the lookups each (p, l) served
-    and the lane (True: staged)."""
-    tab = tab.numpy().astype(np.uint32)
-    R, P = tab.shape[0], rows.shape[0]
-    lanes = np.arange(32)
-    sub, g = lanes >> 3, lanes & 7
-    cols = 4 * g[:, None] + np.arange(4)               # (lane, 4)
-    start = rows.numpy().astype(np.int64) % R          # floor modulo
-    stage = rows_staged(R, P, reps, sms) if aligned else None
-    out = np.zeros((P, 32), np.uint32)
-    served = np.zeros((P, 32), np.int64)
-    written = np.zeros((P, 8), int)
-    loads = 0
-
-    def store(p, acc):
-        acc = _xor_levels(acc, (8, 16))
-        for lane in lanes[sub == 0]:
-            out[p, 4 * lane:4 * lane + 4] = acc[:, lane]
-            np.add.at(written, (p, lane), 1)
-
-    if stage is None:
-        mod = R < 4
-        blocks = -(-P // ROWS_WARPS)
-        p = np.arange(blocks * ROWS_WARPS)
-        p = p[p < P]                                   # warps past P leave
-        k0 = start[p][:, None] + sub[None, :]
-        k0 = k0 % R if mod else np.where(k0 >= R, k0 - R, k0)
-        ks = [k0]
-
-        def rows_at(step, on):
-            k = ks[-1]
             assert ((k >= 0) & (k < R)).all()
-            nxt = k + 4
-            ks.append(nxt % R if mod else np.where(nxt >= R, nxt - R, nxt))
-            return tab[k[:, :, None], cols[None]]
-        acc, sv, loads = _walk(rows_at, reps, lanes)
-        if acc is not None:
-            store(p, acc)
-            served[p] = sv
-        else:
-            store(p, np.zeros((len(p), 32, 4), np.uint32))
-        loads *= 1 if aligned else 4
-    else:
-        S, _ = stage
-        listed = np.zeros(P, int)
-        for lo in range(0, R, S):
-            n = min(S, R - lo)
-            staged = n + reps - 1 if reps > 0 else 0
-            r = lo + np.arange(staged)
-            r = np.where(r >= R, r - R, r)
-            assert ((r >= 0) & (r < R)).all()
-            copy = tab[r]                              # (staged, 32)
-            p = np.flatnonzero((start >= lo) & (start < lo + n))
-            listed[p] += 1
-            e = (start[p] - lo)[:, None] + sub[None, :]
-
-            def rows_at(step, on, e=e, copy=copy, staged=staged):
-                j = e + 4 * step
-                assert ((j >= 0) & (j < staged))[:, on].all()
-                return copy[np.minimum(j, max(staged - 1, 0))[:, :, None],
-                            cols[None]]
-            acc, sv, loads = _walk(rows_at, reps, lanes) if len(p) else \
-                (None, 0, loads)
-            store(p, acc if acc is not None else
-                  np.zeros((len(p), 32, 4), np.uint32))
-            served[p] = sv
-        assert (listed == 1).all()
+            on = 4 * u + sub < left                    # (lane,)
+            got = tab[k[:, :, None], cols[None]]        # (p, lane, 4)
+            acc += np.where(on[None, :, None], got, 0).astype(np.uint32)
+            served += on[None, :]
+            loads += 1 if aligned else 4
+            k = k + 4
+            k = k % R if mod else np.where(k >= R, k - R, k)
+        left -= 4 * ROWS_UNROLL
+    acc = _xor_levels(acc, (8, 16))
+    out = np.zeros((P, 32), np.uint32)
+    written = np.zeros((P, 8), int)
+    for lane in lanes[sub == 0]:
+        out[p, 4 * lane:4 * lane + 4] = acc[:, lane]
+        written[p, lane] += 1
     assert (written == 1).all()
-    return (torch.from_numpy(out.view(np.int32)), loads, served,
-            stage is not None)
+    return torch.from_numpy(out.view(np.int32)), loads, served
 
 
-@pytest.mark.parametrize("R,P,reps,staged", [
-    (48, 100, 9, True),     # reps off 4, P off the warp's 32 and the block
-    (5, 37, 23, False),     # reps > R: the window wraps four times
-    (48, 64, 200, False),   # wraps 4 times, several chunks
-    (1, 10, 7, False), (3, 50, 13, False), (2, 9, 5, False),   # R < 4
-    (4, 40, 6, False), (5, 40, 64, False), (4, 40, 1, True),
-    (300, 33, 0, True), (300, 8, 1, True), (300, 17, 3, True),
-    (300, 16, 5, True), (300, 16, 298, True),    # the copy wraps at R
-    (64, 8, 32 * ROWS_UNROLL + 1, False),        # one load past a chunk
-    (500, 1, 33 + 32 * ROWS_UNROLL, True),
-    (4096, 20000, 64, False),                    # the list too long
+@pytest.mark.parametrize("R,P,reps", [
+    (48, 100, 9),           # reps off 4, P off the warp's 32 and the block
+    (5, 37, 23),            # reps > R: the window wraps four times
+    (48, 64, 200),          # wraps 4 times, several chunks
+    (1, 10, 7), (3, 50, 13), (2, 9, 5),   # R < 4: a modulo a load
+    (4, 40, 6), (5, 40, 64),              # R = 4, 5: compare and subtract
+    (300, 33, 0), (300, 8, 1), (300, 17, 3), (300, 16, 5),
+    (64, 8, 32 * ROWS_UNROLL + 1),        # one load past a whole chunk
 ])
 @pytest.mark.parametrize("aligned", [True, False])
-def test_rows_kernel_model_equals_plain(R, P, reps, staged, aligned):
+def test_rows_kernel_model_equals_plain(R, P, reps, aligned):
     np.random.seed(R + P + reps)
     tab, rows = gather_probe.rows_inputs(R, P, device="cpu")
     tab = tab * 1000003 + 2 ** 30                       # sums that wrap
-    got, loads, served, lane = rows_kernel_model(tab, rows, reps, aligned)
-    assert lane == (staged and aligned)
+    got, loads, served = rows_kernel_model(tab, rows, reps, aligned)
     torch.testing.assert_close(got, gather_probe.rows_gather_plain(
         tab, rows, reps), rtol=0, atol=0)
     # every lookup once: the 8 lanes of a column group serve reps rows
@@ -396,41 +314,37 @@ def test_rows_kernel_model_equals_plain(R, P, reps, staged, aligned):
         assert not got.any()
 
 
-@pytest.mark.parametrize("aligned", [True, False])
-def test_rows_kernel_model_takes_rows_outside_the_table(aligned):
+def test_rows_kernel_model_takes_rows_outside_the_table():
     """Row starts past R or negative start where the plain version's
     modulo puts them."""
     np.random.seed(7)
-    tab, _ = gather_probe.rows_inputs(50, 1, device="cpu")
-    rows = torch.tensor([-1, -51, 50, 125, 2 ** 31 - 1, -2 ** 31],
+    tab, _ = gather_probe.rows_inputs(11, 1, device="cpu")
+    rows = torch.tensor([-1, -12, 11, 25, 2 ** 31 - 1, -2 ** 31],
                         dtype=torch.int32)
-    got, _, _, staged = rows_kernel_model(tab, rows, 30, aligned)
-    assert staged == aligned
+    got, _, _ = rows_kernel_model(tab, rows, 30)
     torch.testing.assert_close(got, gather_probe.rows_gather_plain(
         tab, rows, 30), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("R", [4096, 32768])
 def test_rows_kernel_model_at_the_probe_sizes(R):
-    """The probe's (R, 32) tables at R = 4K and 32K, 4096 rows p, 64 reps,
-    on 132 SMs: the staged lane, one block a bucket of 32 / 249 starts
-    (128 / 132 blocks), 16 16-byte shared loads a lane."""
+    """The probe's (R, 32) tables at R = 4K and 32K, 4096 rows p, 64 reps:
+    512 blocks of 8 warps, 16 16-byte loads a lane."""
     np.random.seed(3 if R == 4096 else 4)
     tab, rows = gather_probe.rows_inputs(R, 4096, device="cpu")
-    assert rows_staged(R, 4096, 64)[0] == (32 if R == 4096 else 249)
-    got, loads, _, staged = rows_kernel_model(tab, rows, 64)
-    assert staged and loads == 16
+    got, loads, _ = rows_kernel_model(tab, rows, 64)
+    assert loads == 16
     torch.testing.assert_close(got, gather_probe.rows_gather_plain(
         tab, rows, 64), rtol=0, atol=0)
 
 
 def select32_kernel_model(T, dy, reps):
     """K19 as the kernel runs it, vectorised over the launch's warps: lane
-    c holds T[p, c]; in each round of 32 every lane shuffles column (dy +
-    i) & 31 (asserted in [0, 32)) for its lookup i = 32 m + l and keeps it
-    where i < reps; five xor levels, lane 0 writing. Returns the output,
-    the rounds (lookup shuffles a warp) and the lookups each (p, l)
-    served."""
+    c holds T[p, c]; in round m every lane shuffles, lane l for lookup
+    i = 32 m + (l + m) % 32 the column (dy + i) & 31 (asserted in [0,
+    32)), kept where i < reps; five xor levels, lane 0 writing. Returns
+    the output, the rounds (lookup shuffles a warp) and how often each
+    lookup i of each p was served."""
     T = T.numpy().astype(np.uint32)
     P = T.shape[0]
     blocks = -(-P // SELECT_WARPS)
@@ -438,23 +352,23 @@ def select32_kernel_model(T, dy, reps):
     p = p[p < P]
     lanes = np.arange(32)
     d = dy.numpy().astype(np.uint32)[p]
-    acc = np.zeros((len(p), 32, 1), np.uint32)
-    served = np.zeros((len(p), 32), np.int64)
-    rounds, left, i0 = 0, reps, 0
+    acc = np.zeros((len(p), 32), np.uint32)
+    served = np.zeros((len(p), reps), np.int64)
+    rounds, left = 0, reps
     while left > 0:
-        src = (d[:, None] + np.uint32(i0) + lanes) & 31
+        j = (lanes + rounds) & 31                      # i = 32 m + j
+        src = (d[:, None] + j) & 31
         assert ((src >= 0) & (src < 32)).all()
         got = T[p[:, None], src]                        # (p, lane)
-        on = lanes < left
-        acc[..., 0] += np.where(on[None], got, 0).astype(np.uint32)
-        served += on[None]
+        on = j < left
+        acc += np.where(on[None], got, 0).astype(np.uint32)
+        served[:, 32 * rounds + j[on]] += 1
         rounds += 1
         left -= 32
-        i0 += 32
     acc = _xor_levels(acc, (16, 8, 4, 2, 1))
     out = np.zeros(P, np.uint32)
     written = np.zeros(P, int)
-    out[p] = acc[:, 0, 0]
+    out[p] = acc[:, 0]
     written[p] += 1
     assert (written == 1).all()
     return torch.from_numpy(out.view(np.int32)), rounds, served
@@ -472,6 +386,4 @@ def test_select32_kernel_model_equals_plain(P, reps):
     torch.testing.assert_close(got, gather_probe.select32_plain(
         T, dy, reps), rtol=0, atol=0)
     assert rounds == -(-reps // 32)
-    assert (served.sum(1) == reps).all()
-    # lane l serves lookups l, l + 32, ...: reps // 32 or one more
-    assert (served == reps // 32 + (np.arange(32) < reps % 32)).all()
+    assert (served == 1).all()                # each lookup i < reps once

@@ -108,15 +108,6 @@ VARIANTS = {
     "k18_warps_16": ("gather.cu", [(
         "constexpr int kRowsWarps = 8;", "constexpr int kRowsWarps = 16;")],
         True),
-    "k18_direct": ("gather.cu", [(
-        "constexpr int kRowsStageMaxBytes = 160 * 1024;",
-        "constexpr int kRowsStageMaxBytes = 0;")], True),
-    "k18_staged_warps_8": ("gather.cu", [(
-        "constexpr int kRowsStagedWarps = 32;",
-        "constexpr int kRowsStagedWarps = 8;")], True),
-    "k18_staged_warps_16": ("gather.cu", [(
-        "constexpr int kRowsStagedWarps = 32;",
-        "constexpr int kRowsStagedWarps = 16;")], True),
     "k19": ("gather.cu", [], True),
     "k19_warps_4": ("gather.cu", [(
         "constexpr int kSelectWarps = 8;", "constexpr int kSelectWarps = 4;")],
@@ -124,6 +115,11 @@ VARIANTS = {
     "k19_warps_32": ("gather.cu", [(
         "constexpr int kSelectWarps = 8;",
         "constexpr int kSelectWarps = 32;")], True),
+    # lane l takes i = 32 m + l: its column repeats every round, and ptxas
+    # merges the repeated shuffles (the SASS counts show it)
+    "k19_column_a_lane": ("gather.cu", [(
+        "const unsigned j = (lane + m) & 31u;", "const unsigned j = lane;")],
+        True),
 }
 
 #: the variants' entry point by the kernel their name starts with
@@ -191,14 +187,6 @@ def k18_inputs(seed, R, dev):
     return gp.rows_inputs(R, GATHER_P, dev)
 
 
-def k18_skewed(dev):
-    """K18's R = 32K table with every window from one start (row 100): the
-    staged lane's worst case, one block taking every p."""
-    import torch
-    tab, rows = k18_inputs(*K18_SIZES[1], dev)
-    return tab, torch.full_like(rows, 100)
-
-
 def k19_inputs(dev):
     import numpy as np
     from plant3dvision_tpu_torch.tools import gather_probe as gp
@@ -225,8 +213,6 @@ def plain(tmp, with_k15):
     for seed, R in K18_SIZES:
         out[f"k18_{R}"] = gp.rows_gather_plain(
             *k18_inputs(seed, R, dev), GATHER_REPS).cpu()
-    out["k18_skew"] = gp.rows_gather_plain(*k18_skewed(dev),
-                                           GATHER_REPS).cpu()
     out["k19"] = gp.select32_plain(*k19_inputs(dev), GATHER_REPS).cpu()
     torch.save(out, Path(tmp) / plain_file(with_k15))
 
@@ -407,9 +393,7 @@ def variants(tmp, with_k15):
                 for seed, L in K17_SIZES],
         "k18": [(f"R{R}", k18_inputs(seed, R, dev), (GATHER_P, 32),
                  want[f"k18_{R}"], (R, GATHER_P, GATHER_REPS))
-                for seed, R in K18_SIZES] + [
-            ("R32768_skew", k18_skewed(dev), (GATHER_P, 32),
-             want["k18_skew"], (K18_SIZES[1][1], GATHER_P, GATHER_REPS))],
+                for seed, R in K18_SIZES],
         "k19": [("", k19_inputs(dev), (GATHER_P,), want["k19"],
                  (GATHER_P, GATHER_REPS))]}
     stream = torch.cuda.current_stream().cuda_stream
