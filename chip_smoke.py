@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (plant3dvision_tpu_torch) on one GPU.
 
-1. Builds the port's CUDA kernels from kernels/csrc (nvcc, in parallel).
+1. Builds the port's CUDA kernels from kernels/csrc (nvcc, in parallel),
+   and for phase 18 its native geometry library (native/geometry.cpp, g++).
 2. Drives the geometric main path through the port's task runtime:
    a synthetic 300-view 1440x1080 turntable scan at 1 mm,
    configs/geom_pipe_fast.toml, ImagesFilesetExists -> FusedCarving ->
@@ -169,13 +170,40 @@
    `floor_ms`, the same launch at reps = 0 (the indices, K17's staging
    and the output alone), K18's `lookup_bytes` (128 a lookup, through
    L1/L2).
+18. configs/geom_pipe_full.toml (full_config: Colmap -> Undistorted ->
+   Masks -> Voxels (carving at 1 mm in Colmap's auto box) -> PointCloud ->
+   TriangleMesh (IMLS) -> CurveSkeleton (graph, over the mesh) ->
+   RefineSkeleton -> TreeGraph -> AnglesAndInternodes; Colmap's
+   distance_threshold 5 in place of 0, FULL_DISTANCE_THRESHOLD says why)
+   on a 60-view 1440x1080 RGB scan of the north-star plant on phase 9's
+   ring through its lens (SIMPLE_RADIAL k1 = -0.08), written as a rig
+   logs it (CNC poses, no camera). The colmap binary is absent here: a
+   stand-in (STANDIN_COLMAP, written into the scratch directory and named
+   by COLMAP_EXE) plays a COLMAP that recovered the true cameras and a
+   sample of the plant's surface; everything after it is the port's. One
+   cold pass, one warm pass after Clean, one profiled warm pass. Checks
+   (after phase 19) that the cold pass failed at TriangleMesh with no image
+   undistorted and no mask with a camera (the JAX runtime's task order on
+   a fresh scan), that K1-K4 and K8-K10 were launched in the warm pass,
+   K2 by the mesh call too, that Colmap wrote its outputs and every view's
+   colmap_camera, that the warm pass undistorted every view, that the mesh
+   is non-empty and one component and that at least 10 angles come out;
+   prints how many images each pass undistorted (on a fresh scan
+   Undistorted runs before Colmap, as in the JAX runtime, and copies them
+   as they are), the Colmap task's seconds, the mesh's stage seconds
+   (occupancy, K2's call, the IMLS field, the extraction) and the angles'
+   DTW error (no angle bar).
+19. K2 on phase 18's mesh grid (the point cloud's occupancy padded by 4,
+   cap 8, as pcd2mesh calls it) against its plain version, bit for bit,
+   with its bound and the pass's launches; then CurveSkeleton(method="mcf")
+   once on phase 18's mesh (host C++ contraction), its seconds.
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when there is no CUDA device or any
 phase fails.
 
-Usage: python3 chip_smoke.py [--only 13,14]
+Usage: python3 chip_smoke.py [--only 13,14]  (--only 18,19: the new phases)
 """
 
 from __future__ import annotations
@@ -334,14 +362,16 @@ def frontend_angles(scan, report, plant):
 
 def write_distorted_scan(db, scan_id, plant, n_views, width, height, f,
                          k1=FRONTEND_K1, incorrect=FRONTEND_INCORRECT, seed=0,
-                         render_step=0.5):
+                         render_step=0.5, rig=False):
     """A turntable scan of RGB photos through a lens with OPENCV radial
     distortion k1, as TurntableCalibration leaves it: per image
     'colmap_camera' (OPENCV [fx, fy, cx, cy, k1, 0, 0, 0], rotmat, tvec)
     and 'pose_estimation' ("incorrect" for the views in `incorrect`).
     Phase 11 produces that metadata with the calibration itself
     (write_turntable_scan, then TurntableCalibration); this scan holds the
-    true cameras, for phases 9-10.
+    true cameras, for phases 9-10. rig=True writes the scan as a rig logs
+    it, for Colmap (phase 18): per image only the CNC 'pose' [X, Y, Z,
+    pan, tilt] (`selfcal_poses`, float32), no camera.
 
     Each view renders the plant's silhouette through the pinhole camera
     (synth.render_mask), and each distorted pixel samples it (bilinearly) at
@@ -376,6 +406,7 @@ def write_distorted_scan(db, scan_id, plant, n_views, width, height, f,
 
     scan = db.get_scan(scan_id, create=True)
     images = scan.get_fileset("images", create=True)
+    poses = selfcal_poses(n_views)
 
     def photo(view):
         Kv, R, t = cams[view]
@@ -391,6 +422,10 @@ def write_distorted_scan(db, scan_id, plant, n_views, width, height, f,
         fimg = images.create_file(f"{view:05d}_rgb")
         io.write_image(fimg, np.clip(np.rint(img), 0, 255).astype(np.uint8),
                        "png")
+        if rig:
+            fimg.set_metadata({"shot_id": f"{view:06d}", "channel": "rgb",
+                               "pose": poses[view].tolist()})
+            return
         fimg.set_metadata({
             "shot_id": f"{view:06d}", "channel": "rgb",
             "colmap_camera": {
@@ -3463,10 +3498,371 @@ def run_gather_probes(device_name):
     return rows
 
 
+#: phase 18: configs/geom_pipe_full.toml's angle chain (COLMAP poses, 1 mm,
+#: the skeleton over TriangleMesh's mesh)
+FULL_TASKS = ("Colmap", "Undistorted", "Masks", "Voxels", "PointCloud",
+              "TriangleMesh", "CurveSkeleton", "RefineSkeleton", "TreeGraph",
+              "AnglesAndInternodes")
+#: the one departure from geom_pipe_full.toml: Colmap's pose check keeps a
+#: view whose estimated centre is within distance_threshold of its CNC pose,
+#: and a centre computed from COLMAP's quaternion is never bit-equal to the
+#: logged pose, so the shipped 0 marks every view "incorrect" and the blind
+#: angle raises; 5 mm is geom_pipe_real.toml's
+FULL_DISTANCE_THRESHOLD = 5.0
+FULL_VIEWS, FULL_W, FULL_H, FULL_F = 60, 1440, 1080, 1400.0
+
+#: the stand-in for the colmap binary (written by write_standin_colmap,
+#: behind a `#!` line naming this interpreter): a COLMAP that recovered the
+#: cameras of `colmap_model.json` beside it. `-h` prints its version;
+#: `mapper` writes, through the port's colmap/read_model.py, the model's
+#: camera, the images found in --image_path with their true poses, and the
+#: model's points as points3D (a second model of two images as well when
+#: "extra_model" is set); `model_aligner` copies the model and, as COLMAP
+#: does, refuses the threshold option of the other version's spelling;
+#: `model_analyzer` prints the model's counts; every other subcommand
+#: succeeds without output.
+STANDIN_COLMAP = r'''
+import json
+import shutil
+import sys
+from pathlib import Path
+
+MODEL = json.loads(Path(__file__).with_name("colmap_model.json").read_text())
+VERSION = tuple(int(x) for x in MODEL["version"].split("."))
+
+if len(sys.argv) < 2 or sys.argv[1] in ("-h", "--help"):
+    print(f"COLMAP {MODEL['version']} -- Structure-from-Motion and "
+          "Multi-View Stereo (stand-in)")
+    sys.exit(0)
+sub, args = sys.argv[1], dict(zip(sys.argv[2::2], sys.argv[3::2]))
+
+
+def write_model(out, names):
+    sys.path.insert(0, MODEL["root"])
+    import numpy as np
+    from plant3dvision_tpu_torch.colmap import read_model as rm
+    cam = MODEL["camera"]
+    out.mkdir(parents=True, exist_ok=True)
+    rm.write_cameras_binary({1: rm.Camera(
+        1, cam["model"], cam["width"], cam["height"],
+        np.asarray(cam["params"], float))}, out / "cameras.bin")
+    images = {}
+    for i, name in enumerate(names, start=1):
+        im = MODEL["images"][name]
+        images[i] = rm.Image(i, rm.rotmat2qvec(np.asarray(im["rotmat"])),
+                             np.asarray(im["tvec"], float), 1, name,
+                             np.zeros((0, 2)), np.zeros(0, np.int64))
+    rm.write_images_binary(images, out / "images.bin")
+    rm.write_points3d_binary({j: rm.Point3D(
+        j, np.asarray(xyz, float), np.array([0, 200, 0], np.uint8), 0.3,
+        np.zeros(0, np.int32), np.zeros(0, np.int32))
+        for j, xyz in enumerate(MODEL["points"], start=1)},
+        out / "points3D.bin")
+
+
+if sub == "mapper":
+    staged = Path(args["--image_path"])
+    names = sorted(n for n in MODEL["images"] if (staged / n).exists())
+    write_model(Path(args["--output_path"]) / "0", names)
+    if MODEL.get("extra_model"):
+        write_model(Path(args["--output_path"]) / "1", names[:2])
+elif sub == "model_aligner":
+    want = ("--robust_alignment_max_error" if VERSION <= (3, 9)
+            else "--alignment_max_error")
+    if want not in args:
+        sys.exit(f"model_aligner: COLMAP {MODEL['version']} takes {want}; "
+                 f"got {sorted(args)}")
+    src, dst = Path(args["--input_path"]), Path(args["--output_path"])
+    dst.mkdir(parents=True, exist_ok=True)
+    for f in src.glob("*.bin"):
+        shutil.copy(f, dst / f.name)
+elif sub == "model_analyzer":
+    print(f"Cameras: 1\nImages: {len(MODEL['images'])}\n"
+          f"Points: {len(MODEL['points'])}")
+sys.exit(0)
+'''
+
+
+def write_standin_colmap(directory, camera, images, points, version="3.8",
+                         extra_model=False):
+    """Write the stand-in colmap (STANDIN_COLMAP) and its model into
+    `directory`; returns the executable's path, for COLMAP_EXE. `camera`
+    is {"model", "width", "height", "params"}, `images` {file name: (R,
+    t)} the cameras it recovers, `points` (N, 3) its sparse cloud."""
+    import numpy as np
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    model = {"root": str(ROOT), "version": version,
+             "extra_model": bool(extra_model), "camera": camera,
+             "images": {name: {"rotmat": np.asarray(R, float).tolist(),
+                               "tvec": np.asarray(t, float).tolist()}
+                        for name, (R, t) in images.items()},
+             "points": np.asarray(points, float).tolist()}
+    (directory / "colmap_model.json").write_text(json.dumps(model))
+    exe = directory / "colmap"
+    exe.write_text(f"#!{sys.executable}\n" + STANDIN_COLMAP)
+    exe.chmod(0o755)
+    return exe
+
+
+def full_scan_model(plant, n_views, width, height, f, n_points=4000,
+                    seed=0):
+    """The stand-in's model of a `write_distorted_scan(..., rig=True)`
+    scan: its SIMPLE_RADIAL camera [f, cx, cy, k1] (the scan's OPENCV
+    lens, k1 alone), the true cameras of phase 9's ring by image file name,
+    and `n_points` seeded samples of the plant's surface."""
+    import numpy as np
+    from plant3dvision_tpu_torch.synth import turntable_cameras
+    cams = turntable_cameras(n_views, dist=450.0, z=120.0,
+                             target=(0, 0, 70.0), f=f, width=width,
+                             height=height)
+    rng = np.random.default_rng(seed)
+    pts, _ = textured_surface(plant, 1.0, 2.0, rng)
+    pts = pts[rng.choice(len(pts), min(n_points, len(pts)), replace=False)]
+    camera = {"model": "SIMPLE_RADIAL", "width": width, "height": height,
+              "params": [f, width / 2.0, height / 2.0, FRONTEND_K1]}
+    images = {f"{v:05d}_rgb.png": (R, t) for v, (_, R, t) in enumerate(cams)}
+    return camera, images, pts
+
+
+def full_config():
+    """configs/geom_pipe_full.toml's angle chain (FULL_TASKS) with
+    FULL_DISTANCE_THRESHOLD, its one departure."""
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+    toml = load_toml(ROOT / "configs" / "geom_pipe_full.toml")
+    cfg = {t: dict(toml[t]) for t in FULL_TASKS if t in toml}
+    cfg["Colmap"]["distance_threshold"] = FULL_DISTANCE_THRESHOLD
+    cfg["Clean"] = {"no_confirm": True}
+    return cfg
+
+
+def undistorted_count(scan, fileset_id):
+    """How many of an Undistorted fileset's images differ from their input
+    images (the others were copied as they are: no camera yet)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from plant3dvision_tpu_torch.fsdb import io
+    raw = scan.get_fileset("images")
+    out = scan.get_fileset(fileset_id).get_files()
+
+    def differs(f):
+        return not np.array_equal(io.read_image(f),
+                                  io.read_image(raw.get_file(f.id)))
+    with ThreadPoolExecutor(8) as ex:
+        return int(sum(ex.map(differs, out)))
+
+
+def run_full_path(db, device_name):
+    """Phase 18: configs/geom_pipe_full.toml (full_config) on a 60-view
+    1440x1080 RGB scan of the north-star plant on phase 9's ring through
+    its lens (SIMPLE_RADIAL k1 = -0.08), written as a rig logs it (CNC
+    poses only), with the stand-in colmap: one cold pass, one warm pass
+    after Clean, one profiled warm pass. On the fresh scan the cold pass
+    runs Undistorted and Masks before Colmap (Voxels lists its masks before
+    its cameras), as the JAX runtime does: no mask has a camera when Voxels
+    carves, the volume is empty and TriangleMesh fails, as the JAX
+    package's does; the phase checks that and goes on (Colmap has written
+    every image's camera by then). Returns the scan, the warm pass's report
+    and launches and the checks, which main() asserts after phase 19."""
+    import os
+
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.ops import edt
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.runtime.runner import TaskFailure
+    from plant3dvision_tpu_torch.synth import SyntheticPlant
+
+    V, W, H, F = FULL_VIEWS, FULL_W, FULL_H, FULL_F
+    plant = SyntheticPlant(**NORTHSTAR_PLANT)
+    t0 = time.perf_counter()
+    scan = write_distorted_scan(db, "full", plant, V, W, H, F, rig=True)
+    gen_s = time.perf_counter() - t0
+    work = ROOT / ".smoke" / "colmap"
+    os.environ["COLMAP_EXE"] = str(write_standin_colmap(
+        work / "bin", *full_scan_model(plant, V, W, H, F)))
+    os.environ["COLMAP_WD"] = str(work / "wd")
+    cfg = full_config()
+    try:
+        ctx = RunContext(db, "full", cfg, device="cuda")
+        t0 = time.perf_counter()
+        try:
+            run_task(ctx, "AnglesAndInternodes", report=False)
+            cold_failure = cold_cause = None
+        except TaskFailure as e:
+            cold_failure, cold_cause = str(e), repr(e.__cause__)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        cold_undistorted = undistorted_count(
+            scan, ctx.get_task("Undistorted").output().fileset_id)
+        cold_masks_with_camera = sum(
+            bool(f.get_metadata("colmap_camera")) for f in scan.get_fileset(
+                ctx.get_task("Masks").output().fileset_id).get_files())
+
+        run_task(ctx, "Clean", report=False)
+        ctx = RunContext(db, "full", cfg, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        report = run_task(ctx, "AnglesAndInternodes", report=False)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        warm_undistorted = undistorted_count(
+            scan, report["Undistorted"]["fileset"])
+        prof = profile_pass(db, "full", cfg)
+    finally:
+        os.environ.pop("COLMAP_EXE", None)
+        os.environ.pop("COLMAP_WD", None)
+
+    files = scan.get_fileset("images").get_files()
+    cfs = scan.get_fileset(report["Colmap"]["fileset"])
+    dists = io.read_json(cfs.get_file("euclidean_distances"))
+    mfile = scan.get_fileset(report["TriangleMesh"]["fileset"]).get_files()[0]
+    mesh = io.read_triangle_mesh(mfile)
+    _, components = mesh.connected_components()
+    angles, internodes, dtw = frontend_angles(scan, report, plant)
+    mesh_stages = report["TriangleMesh"].get("stages", {})
+    # K2's launches a call, on the mesh's grid: the pass makes two calls
+    # (vol2pcd's and the mesh's)
+    occ = mesh_occupancy(scan, report)
+    before = kernels.LAUNCHES["signed_distance"]
+    edt.signed_distance(occ, 8)
+    k2_call = kernels.LAUNCHES["signed_distance"] - before
+    emit({"full_path": {
+        "device": device_name, "n_views": V, "image": [W, H],
+        "lens": "SIMPLE_RADIAL k1 = %g" % FRONTEND_K1,
+        "voxel_mm": cfg["Voxels"]["voxel_size"],
+        "departure": {"Colmap.distance_threshold": FULL_DISTANCE_THRESHOLD},
+        "scan_generation_s": gen_s, "cold_s": cold_s, "warm_s": warm_s,
+        "task_s": {k: v["seconds"] for k, v in report.items()},
+        "colmap_s": report["Colmap"]["seconds"],
+        "mesh_stages_s": mesh_stages,
+        "cold_pass": {"failure": cold_failure, "cause": cold_cause,
+                      "undistorted_images": cold_undistorted,
+                      "masks_with_camera": cold_masks_with_camera},
+        "undistorted_images": warm_undistorted,
+        "colmap_bounding_box": cfs.get_metadata("bounding_box"),
+        "pose_distance_mean_mm": dists["mean"],
+        "correct_views": sum(f.get_metadata("pose_estimation") == "correct"
+                             for f in files),
+        "mesh": {"vertices": len(mesh.vertices),
+                 "triangles": len(mesh.triangles),
+                 "components": len(components), "grid": list(occ.shape)},
+        "n_angles": int(len(angles)), "n_gt": len(plant.gt_angles),
+        "angles": angles.tolist(),
+        "mean_angle_error_deg": dtw["mean_angle_error"],
+        "dtw_normalized_cost": dtw["normalized_cost"],
+        "k2_launches_a_call": k2_call,
+        "max_memory_allocated_mb": peak_mb,
+        "launches_per_warm_pass": launches}})
+    emit({"full_path_profile": prof})
+    need = ("carve", "signed_distance", "gradient_gaussian", "band_compact",
+            "dilate_disk", "undistort", "mask_filter")
+    checks = {
+        "the cold pass failed at TriangleMesh, before any camera": (
+            cold_failure == "Task TriangleMesh failed after 1 attempt(s)"
+            and cold_undistorted == 0 and cold_masks_with_camera == 0),
+        "kernels launched in the warm pass": not [
+            k for k in need if launches[k] <= 0],
+        "K2 launched by the mesh call too": (
+            launches["signed_distance"] == 2 * k2_call
+            and "signed_distance" in mesh_stages),
+        "colmap_camera on every view": all(
+            f.get_metadata("colmap_camera") for f in files),
+        "Colmap outputs written": all(
+            cfs.get_file(n) is not None for n in
+            ("cameras", "images", "points3d", "sparse",
+             "euclidean_distances")),
+        "every view undistorted in the warm pass": warm_undistorted == V,
+        "a non-empty mesh of one component": (
+            len(mesh.triangles) > 0 and len(components) == 1),
+        "at least 10 angles": len(angles) >= 10,
+        "finite numbers": bool(np.isfinite(
+            [cold_s, warm_s, peak_mb, prof["device_idle_share"], *angles,
+             *internodes]).all()),
+    }
+    return scan, report, launches, checks
+
+
+def mesh_occupancy(scan, report):
+    """The occupancy grid that the pass's TriangleMesh gave K2
+    (proc3d.mesh_occupancy of its point cloud), on the card."""
+    import torch
+    from plant3dvision_tpu_torch import proc3d
+    from plant3dvision_tpu_torch.fsdb import io
+    pfile = scan.get_fileset(report["PointCloud"]["fileset"]).get_files()[0]
+    occ, _ = proc3d.mesh_occupancy(io.read_point_cloud(pfile).points,
+                                   float(pfile.get_metadata("voxel_size")))
+    return torch.from_numpy(occ).cuda()
+
+
+def check_full_kernels(db, scan, report, launches):
+    """Phase 19: K2 on phase 18's mesh grid at cap 8 (as pcd2mesh calls
+    it) against its plain version, bit for bit, with its bound and the
+    pass's launches; then CurveSkeleton(method="mcf") once on the pass's
+    mesh (host C++), its seconds."""
+    import torch
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.ops import edt
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+
+    occ = mesh_occupancy(scan, report)
+    n, cap = occ.numel(), 8
+    sd = edt.signed_distance(occ, cap)
+    sd_p = edt.signed_distance_plain(occ, cap)
+    torch.cuda.synchronize()
+    err = float((sd - sd_p).abs().max())
+    assert torch.equal(sd, sd_p), f"signed distance kernel != plain at the " \
+        f"mesh grid (max {err})"
+    del sd, sd_p
+    reads = [sum(2 * (occ.shape[a] - s) * (n // occ.shape[a])
+                 for s in range(1, min(cap, occ.shape[a] - 1) + 1))
+             for a in range(3)]
+    row = kernel_row(
+        "signed_distance", launches["signed_distance"], err,
+        cuda_ms(lambda: edt.signed_distance(occ, cap)),
+        cuda_ms(lambda: edt.signed_distance_plain(occ, cap), reps=5,
+                warmup=1),
+        8 * n, 2 * 2 * sum(reads),
+        extra={"path": "geom_pipe_full mesh (TriangleMesh)",
+               "shape": list(occ.shape), "cap": cap,
+               "lane": "16-bit" if edt.lane16(edt.axis_caps(occ.shape, cap))
+               else "32-bit",
+               "bound_ms_yz": bound_ms(8 * n, 2 * 2 * sum(reads[1:]))[0],
+               "calls_in_pass": "vol2pcd's and the mesh's"})
+
+    mfile = scan.get_fileset(report["TriangleMesh"]["fileset"]).get_files()[0]
+    mesh = io.read_triangle_mesh(mfile)
+    cfg = full_config()
+    cfg["CurveSkeleton"] = dict(cfg["CurveSkeleton"], method="mcf")
+    ctx = RunContext(db, scan.id, cfg, device="cuda")
+    t0 = time.perf_counter()
+    rep = run_task(ctx, "CurveSkeleton", report=False)
+    mcf_s = time.perf_counter() - t0
+    skel = io.read_json(ctx.scan.get_fileset(rep["CurveSkeleton"][
+        "fileset"]).get_files()[0])
+    emit({"full_kernel_checks": {
+        "mesh_grid": list(occ.shape), "k2_bit_equal": True,
+        "mcf": {"s": mcf_s, "task_s": rep["CurveSkeleton"]["seconds"],
+                "mesh_vertices": len(mesh.vertices),
+                "mesh_triangles": len(mesh.triangles),
+                "skeleton_nodes": len(skel["points"]),
+                "skeleton_lines": len(skel["lines"])}}})
+    assert len(skel["points"]) > 1, "mcf skeleton has no nodes"
+    return [row]
+
+
 PHASES = {"2": "main", "3": "main", "4": "real_grid", "5": "ml", "6": "ml",
           "7": "separate", "8": "separate", "9": "frontend",
           "10": "frontend", "11": "selfcal", "12": "selfcal", "13": "fim",
-          "14": "fim", "15": "live", "16": "int8", "17": "gather"}
+          "14": "fim", "15": "live", "16": "int8", "17": "gather",
+          "18": "full", "19": "full"}
 
 
 def main(argv=None):
@@ -3474,9 +3870,9 @@ def main(argv=None):
 
     import torch
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                 "GPU (phases 1-17, see the docstring)")
+                                 "GPU (phases 1-19, see the docstring)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (2-17; a kernel "
+                    help="comma-separated phases to run (2-19; a kernel "
                     "check phase runs with its path, e.g. 13,14); default "
                     "all")
     args = ap.parse_args(argv)
@@ -3494,6 +3890,11 @@ def main(argv=None):
           "cuda": torch.version.cuda})
     kernels.build()
     emit({"kernel_build_s": kernels.last_build_seconds})
+    if "full" in groups:
+        from plant3dvision_tpu_torch.native import mc
+        t0 = time.perf_counter()
+        mc.lib()
+        emit({"native_build_s": time.perf_counter() - t0})
 
     work = ROOT / ".smoke"
     db = make_db(work / "db")
@@ -3543,6 +3944,12 @@ def main(argv=None):
             rows += run_int8_path(db, name, bf16_pass)
         if "gather" in groups:
             rows += run_gather_probes(name)
+        if "full" in groups:
+            fu_scan, fu_report, fu_launches, fu_checks = run_full_path(
+                db, name)
+            rows += check_full_kernels(db, fu_scan, fu_report, fu_launches)
+            failed = [c for c, ok in fu_checks.items() if not ok]
+            assert not failed, f"geom_pipe_full path checks failed: {failed}"
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..camera import colmap_params_to_k_dist
 
 EPS = 1e-9
 
@@ -49,9 +50,18 @@ def pack_camera(intrinsics, rot, tvec) -> np.ndarray:
 
 def camera_from_metadata(cam_md: dict) -> np.ndarray:
     """Reference per-image camera metadata (cl.py:293-296):
-    {'camera_model': {'params': [fx,fy,cx,cy,...]}, 'rotmat': 3x3, 'tvec': 3}."""
-    return pack_camera(cam_md["camera_model"]["params"][0:4],
-                       cam_md["rotmat"], cam_md["tvec"])
+    {'camera_model': {'model', 'params'}, 'rotmat': 3x3, 'tvec': 3}; the
+    pinhole part [fx, fy, cx, cy] read by the model's parameter layout
+    (`camera.colmap_params_to_k_dist`), or the first four parameters when
+    no model is named. The JAX package reads the first four whatever the
+    model, so it misreads the SIMPLE_RADIAL camera its own Colmap task
+    writes (ROADMAP, Queue C)."""
+    cm = cam_md["camera_model"]
+    p = cm["params"][0:4]
+    if "model" in cm:
+        K, _ = colmap_params_to_k_dist(cm["model"], cm["params"])
+        p = [K[0, 0], K[1, 1], K[0, 2], K[1, 2]]
+    return pack_camera(p, cam_md["rotmat"], cam_md["tvec"])
 
 
 def pack_masks(masks) -> np.ndarray:

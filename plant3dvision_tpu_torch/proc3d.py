@@ -142,6 +142,131 @@ def vol2pcd(volume, origin, voxel_size, level_set_value=0, dist_cap=16,
     return PointCloud(pts, normals).normalize_normals()
 
 
+def pcd2vol(pcd_points, voxel_size, zero_padding=0):
+    """Voxelize a point cloud: counts per cell (reference proc3d.py:92-124),
+    the minimum point at index `zero_padding`."""
+    pcd_points = np.asarray(pcd_points)
+    origin = np.min(pcd_points, axis=0) - zero_padding * voxel_size
+    indices = point2index(pcd_points, origin, voxel_size)
+    shape = indices.max(axis=0) + zero_padding + 1
+    vol = np.zeros(tuple(shape), dtype=float)
+    np.add.at(vol, (indices[:, 0], indices[:, 1], indices[:, 2]), 1.0)
+    return vol, origin
+
+
+# -- point cloud -> mesh (reference proc3d.py:67-89, the Poisson role) -----
+
+def _imls_field(pts, normals, origin, shape, voxel_size, sigma=0.6,
+                cutoff=1.8):
+    """Normal-weighted implicit field on the voxel grid (IMLS), host numpy.
+
+    f(x) = sum_i w_i (x - p_i)·n_i / sum_i w_i with Gaussian distance
+    weights and a one-sided compatibility factor (contributions whose
+    normal disagrees with the direction point->cell are damped), so that
+    opposite sides of an organ thinner than a voxel do not cancel.
+    Positive outside (normals are outward). Splatted over the 27 cells
+    around each point and accumulated by one `bincount` each for the
+    weighted sums and the weights. Returns (F, W), both flat float32 of
+    prod(shape)."""
+    size = int(np.prod(shape))
+    g = (pts - origin) / voxel_size                    # float voxel coords
+    base = np.rint(g).astype(np.int64)
+    inv2s2 = 1.0 / (2.0 * sigma * sigma)
+    shape = np.asarray(shape)
+    stride = np.array([shape[1] * shape[2], shape[2], 1], np.int64)
+    flats, w_all, wp_all = [], [], []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                off = np.array([dx, dy, dz])
+                cell = base + off
+                ok = ((cell >= 0) & (cell < shape)).all(axis=1)
+                delta = cell - g                       # voxel units
+                d2 = np.einsum("ij,ij->i", delta, delta)
+                ok &= d2 < cutoff * cutoff
+                if not ok.any():
+                    continue
+                delta_w = delta[ok] * voxel_size       # world units
+                n = normals[ok]
+                plane = np.einsum("ij,ij->i", delta_w, n)
+                dist = np.sqrt(d2[ok]) * voxel_size
+                compat = np.where(
+                    dist > 0.2 * voxel_size,
+                    np.clip(0.5 * (1.0 + plane / np.maximum(dist, 1e-9)),
+                            0.05, 1.0),
+                    1.0)
+                w = np.exp(-d2[ok] * inv2s2) * compat
+                flats.append(cell[ok] @ stride)
+                w_all.append(w)
+                wp_all.append(w * plane)
+    flat = np.concatenate(flats)
+    F = np.bincount(flat, weights=np.concatenate(wp_all),
+                    minlength=size).astype(np.float32)
+    W = np.bincount(flat, weights=np.concatenate(w_all),
+                    minlength=size).astype(np.float32)
+    return F, W
+
+
+def mesh_occupancy(pts, voxel_size, depth_pad=4):
+    """pcd2mesh's grid: the points' occupancy on a grid padded by
+    `depth_pad` voxels, closed and hole-filled (scipy.ndimage, host).
+    Returns (float32 volume, origin)."""
+    from scipy.ndimage import binary_closing, binary_fill_holes
+
+    vol, origin = pcd2vol(pts, voxel_size, zero_padding=depth_pad)
+    # close small gaps between surface samples before extracting
+    occ = binary_fill_holes(binary_closing(vol > 0, iterations=2))
+    return occ.astype(np.float32), origin
+
+
+def pcd2mesh(pcd: PointCloud, voxel_size=1.0, depth_pad=4, sigma=0.6,
+             shrink=0.0, device="cuda"):
+    """Oriented point cloud -> watertight triangle mesh (the reference's
+    CGAL screened Poisson role, proc3d.py:67-89), as the JAX package:
+
+    the points' occupancy on a grid padded by `depth_pad` voxels, closed
+    and hole-filled (scipy.ndimage, host); its signed distance at cap 8
+    (K2, `ops/edt.signed_distance`, on `device`; the result comes back to
+    the host); the normal-weighted IMLS field (`_imls_field`, host),
+    blended into the signed distance (world units, positive outside) where
+    few points weigh in; the level set `shrink` world units inside the
+    points extracted by the native marching tetrahedra. Without normals
+    the signed distance alone is meshed. The stages (occupancy,
+    signed_distance, imls, extraction) are timed with runtime.runner.stage.
+    """
+    from .native import marching_cubes
+    from .ops.edt import signed_distance
+    from .runtime.config import resolve_device
+    from .runtime.runner import stage
+
+    pts = np.asarray(pcd.points if hasattr(pcd, "points") else pcd)
+    normals = getattr(pcd, "normals", None)
+    with stage("occupancy"):
+        occ, origin = mesh_occupancy(pts, voxel_size, depth_pad)
+    with stage("signed_distance"):
+        sd = signed_distance(torch.from_numpy(occ).to(resolve_device(device)),
+                             cap=8).cpu().numpy()
+    if normals is None or len(normals) != len(pts):
+        with stage("extraction"):
+            mesh = marching_cubes(sd, level=0.0)
+        mesh.vertices = index2point(mesh.vertices, origin, voxel_size)
+        return mesh
+
+    with stage("imls"):
+        F, W = _imls_field(pts, np.asarray(normals, np.float32), origin,
+                           occ.shape, voxel_size, sigma=sigma)
+        fallback = (-sd * voxel_size).ravel()          # positive outside
+        alpha = np.clip(W / 0.5, 0.0, 1.0)
+        f = alpha * (F / np.maximum(W, 1e-9)) + (1.0 - alpha) * fallback
+        # positive inside for the extraction; `shrink` moves the level set
+        # inside the points (compensates a known acquisition dilation)
+        field = (-f - shrink).reshape(occ.shape)
+    with stage("extraction"):
+        mesh = marching_cubes(field, level=0.0)
+    mesh.vertices = index2point(mesh.vertices, origin, voxel_size)
+    return mesh
+
+
 def skeletonize(points, root_index=None, bin_size=2.0, k=10, stem_axis=2):
     """Curve skeleton of a point set (role of reference proc3d.skeletonize,
     CGAL mean-curvature-flow): Xu distance-to-root clustering. Returns

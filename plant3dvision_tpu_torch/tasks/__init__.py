@@ -14,7 +14,12 @@ real-scan front end (configs/geom_pipe_real_selfcal.toml after its
 TurntableCalibration), Undistorted -> Masks -> Voxels (vote carving) ->
 PointCloud -> CurveSkeleton -> RefineSkeleton -> TreeGraph ->
 AnglesAndInternodes; and its TurntableCalibration (the self-calibrated
-cameras that the front end starts from).
+cameras that the front end starts from); and Colmap (the external binary)
+with the ChArUco calibration tasks, and the meshes (TriangleMesh,
+ClusteredMesh, CurveSkeleton "mcf"), so every shipped angle chain runs
+(configs/geom_pipe_full.toml: Colmap -> Undistorted -> Masks -> Voxels ->
+PointCloud -> TriangleMesh -> CurveSkeleton -> RefineSkeleton -> TreeGraph
+-> AnglesAndInternodes).
 """
 
 # Base/marker/utility tasks come with the runtime:
@@ -29,15 +34,25 @@ from ..runtime.task import (  # noqa: F401
     VirtualPlantObj,
 )
 from .cl import Voxels  # noqa: F401
-from .colmap import TurntableCalibration  # noqa: F401
+from .colmap import Colmap, TurntableCalibration  # noqa: F401
 from .fused import FusedCarving  # noqa: F401
 from .fused_ml import FusedSegmentationCarving  # noqa: F401
 from .proc2d import Masks, Segmentation2D, Undistorted  # noqa: F401
 from .proc3d import (  # noqa: F401
+    ClusteredMesh,
     CurveSkeleton,
     OrganSegmentation,
     PointCloud,
     RefineSkeleton,
     SegmentedPointCloud,
+    TriangleMesh,
 )
 from .arabidopsis import TreeGraph, AnglesAndInternodes  # noqa: F401
+from .calibration import (  # noqa: F401
+    CreateCharucoBoard,
+    DetectCharuco,
+    ExtrinsicCalibration,
+    ExtrinsicCalibrationExists,
+    IntrinsicCalibration,
+    IntrinsicCalibrationExists,
+)

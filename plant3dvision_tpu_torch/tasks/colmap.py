@@ -1,15 +1,21 @@
-"""TurntableCalibration: COLMAP-free camera recovery for turntable scans,
-on the run's device (port of plant3dvision_tpu/tasks/colmap.py; the
-external-binary `Colmap` task is not ported).
+"""Camera recovery tasks (port of plant3dvision_tpu/tasks/colmap.py):
+`Colmap`, which runs the external COLMAP binary, and TurntableCalibration,
+the COLMAP-free recovery on the run's device.
 
-From the CNC `approximate_pose` metadata, a silhouette-coherence CEM
-(ops/selfcal.py) recovers the roll quadrant, pan/tilt zero offsets and
-mount offsets; a feature bundle adjustment (ops/sfmlite.py) pins the focal
-length and per-view CNC jitter; a per-view silhouette polish re-aligns
-every view to the robust hull. Outputs mirror the Colmap task: per-image
-`colmap_camera` metadata, cameras/images JSON, the hull's `bounding_box`,
-per-image `pose_estimation` from the per-view silhouette coverage, and the
-blind-angle retry (reference tasks/colmap.py:792-834).
+Colmap (host code around the binary, colmap/runner.py) exports per-image
+`colmap_camera` and `pose_estimation` metadata, the model JSONs, the
+sparse point cloud and `euclidean_distances` (estimated camera centres
+against the CNC poses), and raises RetryableTaskError on a blind angle
+(reference tasks/colmap.py:792-834).
+
+TurntableCalibration starts from the CNC `approximate_pose` metadata: a
+silhouette-coherence CEM (ops/selfcal.py) recovers the roll quadrant,
+pan/tilt zero offsets and mount offsets; a feature bundle adjustment
+(ops/sfmlite.py) pins the focal length and per-view CNC jitter; a per-view
+silhouette polish re-aligns every view to the robust hull. Its outputs
+mirror Colmap's: per-image `colmap_camera` metadata, cameras/images JSON,
+the hull's `bounding_box`, per-image `pose_estimation` from the per-view
+silhouette coverage, and the blind-angle retry.
 """
 
 from __future__ import annotations
@@ -24,8 +30,96 @@ from ..runtime.task import Parameter, RetryableTaskError, RomiTask
 
 logger = configure_logger(__name__)
 
+COLMAP_SPARSE_ID = "sparse"
+COLMAP_POINTS_ID = "points3d"
 COLMAP_IMAGES_ID = "images"
 COLMAP_CAMERAS_ID = "cameras"
+COLMAP_DENSE_ID = "dense"
+
+
+def check_scan_parameters(scan, calibration_scan):
+    """Acquisition compatibility: both scans' `scan.toml` ScanPath sections
+    (class_name + kwargs) must match for calibrated poses to transfer
+    (reference tasks/colmap.py:315-387). A scan without a `scan.toml`
+    (virtual/synthetic datasets) cannot be checked: warn and pass.
+    """
+    import tomllib
+    sections = []
+    for s in (scan, calibration_scan):
+        p = s.path() / "scan.toml"
+        if not p.exists():
+            logger.warning(f"{s.id}: no scan.toml acquisition config — "
+                           "skipping ScanPath compatibility check")
+            return True
+        with open(p, "rb") as f:
+            sections.append(tomllib.load(f).get("ScanPath", {}))
+    cur, calib = sections
+    ok = True
+    if cur.get("class_name") != calib.get("class_name"):
+        logger.critical(
+            f"ScanPath.class_name differs: {scan.id} uses "
+            f"{cur.get('class_name')!r}, {calibration_scan.id} uses "
+            f"{calib.get('class_name')!r}")
+        ok = False
+    ka, kb = cur.get("kwargs", {}), calib.get("kwargs", {})
+    diff = sorted(k for k in set(ka) | set(kb) if ka.get(k) != kb.get(k))
+    if diff:
+        logger.critical(
+            f"ScanPath.kwargs differ between {scan.id} and "
+            f"{calibration_scan.id}: "
+            + ", ".join(f"{k}: {ka.get(k)!r} vs {kb.get(k)!r}" for k in diff))
+        ok = False
+    return ok
+
+
+def check_colmap_cfg(current_cfg, calibration_scan):
+    """The current Colmap parameters must match the ExtrinsicCalibration
+    section of the calibration scan's `pipeline.toml` config backup
+    (written by the CLI; reference tasks/colmap.py:389-427).
+
+    Raises ValueError on a missing backup or any mismatching parameter.
+    """
+    import tomllib
+    p = calibration_scan.path() / "pipeline.toml"
+    if not p.exists():
+        raise ValueError(
+            f"calibration scan '{calibration_scan.id}' has no pipeline.toml "
+            "config backup — cannot verify COLMAP compatibility")
+    with open(p, "rb") as f:
+        calib_cfg = tomllib.load(f).get("ExtrinsicCalibration", {})
+    bad = {k: (v, calib_cfg.get(k)) for k, v in current_cfg.items()
+           if calib_cfg.get(k) != v}
+    if bad:
+        detail = ", ".join(f"{k}: current {cur!r} vs calibration {cal!r}"
+                           for k, (cur, cal) in sorted(bad.items()))
+        raise ValueError(
+            f"cannot use calibration scan '{calibration_scan.id}': "
+            f"COLMAP parameters differ ({detail})")
+
+
+def camera_params_from_intrinsic_calibration(db, calibration_scan_id, model):
+    """Calibrated camera parameters (COLMAP layout) for `model` from a
+    calibration scan's IntrinsicCalibration camera_model.json (reference
+    tasks/colmap.py:614-648 `set_camera_params`, 'intrinsic' branch).
+    """
+    from ..utils import locate_task_filesets
+
+    scan = db.get_scan(calibration_scan_id)
+    if scan is None:
+        raise ValueError(f"intrinsic calibration scan not found: "
+                         f"{calibration_scan_id!r}")
+    fs_id = locate_task_filesets(scan, ["IntrinsicCalibration"]
+                                 )["IntrinsicCalibration"]
+    fs = scan.get_fileset(fs_id) if fs_id != "None" else None
+    if fs is None:
+        raise ValueError(f"scan '{calibration_scan_id}' has no "
+                         "IntrinsicCalibration fileset — run the "
+                         "IntrinsicCalibration task on it first")
+    results = io.read_json(fs.get_file("camera_model"))
+    if model not in results:
+        raise ValueError(f"IntrinsicCalibration of '{calibration_scan_id}' "
+                         f"has no {model!r} fit (has: {sorted(results)})")
+    return [float(p) for p in results[model]["params"]]
 
 
 def get_cnc_poses(scan, images_fileset=None):
@@ -66,6 +160,24 @@ def normalize_cnc_poses(poses):
         poses[:, 4] -= 90.0
         applied.append("euler rx->tilt")
     return poses, applied
+
+
+def check_blind_angle(statuses, max_blind_angle, what):
+    """Blind-angle failure detection (reference tasks/colmap.py:810-834):
+    the longest run of failed views around the circular scan, as an angle;
+    raises RetryableTaskError above `max_blind_angle` degrees."""
+    if len(statuses) <= 2:
+        return
+    run_len = max_run = 0
+    for ok in statuses + statuses:  # wrap-around
+        run_len = 0 if ok else run_len + 1
+        max_run = max(max_run, run_len)
+    max_run = min(max_run, len(statuses))
+    blind_angle = 360.0 * max_run / len(statuses)
+    if blind_angle > float(max_blind_angle):
+        raise RetryableTaskError(
+            f"Blind angle {blind_angle:.1f} deg exceeds {max_blind_angle} "
+            f"deg ({max_run}/{len(statuses)} {what})")
 
 
 def _rotmat_to_qvec(R):
@@ -401,16 +513,201 @@ class TurntableCalibration(RomiTask):
         })
         outfs.set_metadata("bounding_box", hull_bbox or bbox)
 
-        # blind-angle failure detection (reference tasks/colmap.py:810-834)
-        if statuses and len(statuses) > 2:
-            run_len = max_run = 0
-            for ok in statuses + statuses:
-                run_len = 0 if ok else run_len + 1
-                max_run = max(max_run, run_len)
-            max_run = min(max_run, len(statuses))
-            blind_angle = 360.0 * max_run / len(statuses)
-            if blind_angle > float(self.max_blind_angle):
-                raise RetryableTaskError(
-                    f"Blind angle {blind_angle:.1f} deg exceeds "
-                    f"{self.max_blind_angle} deg ({max_run}/{len(statuses)} "
-                    "consecutive low-coverage poses)")
+        check_blind_angle(statuses, self.max_blind_angle,
+                          "consecutive low-coverage poses")
+
+
+class Colmap(RomiTask):
+    """Structure from motion by the external COLMAP binary (`COLMAP_EXE`,
+    colmap/runner.py): fixed intrinsics from an IntrinsicCalibration scan,
+    or calibrated poses and camera from an ExtrinsicCalibration scan; the
+    model JSONs, the sparse cloud and the auto bounding box; per-image
+    `colmap_camera`; the pose check against the CNC poses
+    (`pose_estimation`, `euclidean_distances`, the blind-angle retry).
+    Host code only: nothing runs on the card."""
+
+    upstream_task = Parameter(default="ImagesFilesetExists")
+    matcher = Parameter(default="exhaustive")
+    camera_model = Parameter(default="SIMPLE_RADIAL")
+    compute_dense = Parameter(default=False)
+    align_pcd = Parameter(default=True)
+    use_gpu = Parameter(default=False)
+    single_camera = Parameter(default=True)
+    alignment_max_error = Parameter(default=10)
+    distance_threshold = Parameter(default=5.0)
+    max_blind_angle = Parameter(default=20.0)
+    cli_args = Parameter(default={})
+    bounding_box = Parameter(default=None)
+    query = Parameter(default={})
+    intrinsic_calibration_scan_id = Parameter(default="")
+    extrinsic_calibration_scan_id = Parameter(default="")
+    #: with an extrinsic calibration scan, also reuse its COLMAP camera as
+    #: fixed intrinsics (reference tasks/colmap.py:538, default True there)
+    use_calibration_camera = Parameter(default=True)
+
+    retry_count = 10  # blind-angle retries (reference tasks/colmap.py:529)
+
+    def run(self):
+        from ..colmap import runner as colmap_runner
+        from ..fsdb.geometry import PointCloud
+
+        images_fs = self.input()[0].get(create=False) if isinstance(
+            self.input(), (list, tuple)) else self.input().get(create=False)
+        files = images_fs.get_files(query=self.query or None)
+
+        cli_args = dict(self.cli_args or {})
+        if self.extrinsic_calibration_scan_id:
+            self._inject_calibrated_poses(files)
+            if self.use_calibration_camera:
+                # reuse the calibration run's COLMAP camera as fixed
+                # intrinsics (reference tasks/colmap.py:660-661 +
+                # camera.py:393-406)
+                from ..camera import get_colmap_cameras_from_calib_scan
+                calib_scan = self.ctx.db.get_scan(
+                    str(self.extrinsic_calibration_scan_id))
+                cam = next(iter(get_colmap_cameras_from_calib_scan(
+                    calib_scan).values()))
+                fe = cli_args.setdefault("feature_extractor", {})
+                fe["--ImageReader.camera_model"] = str(cam["model"])
+                fe["--ImageReader.camera_params"] = ",".join(
+                    str(float(p)) for p in cam["params"])
+                _freeze_intrinsics(cli_args)
+                logger.info("fixed camera from calibration scan "
+                            f"{calib_scan.id}: {cam['model']} {cam['params']}")
+        elif self.intrinsic_calibration_scan_id:
+            # the calibrated model's own COLMAP parameter layout, and the
+            # mapper's BA kept from refining it (reference
+            # tasks/colmap.py:662-664 + set_camera_params :614-648)
+            params = camera_params_from_intrinsic_calibration(
+                self.ctx.db, str(self.intrinsic_calibration_scan_id),
+                str(self.camera_model))
+            fe = cli_args.setdefault("feature_extractor", {})
+            fe["--ImageReader.camera_params"] = ",".join(
+                str(p) for p in params)
+            _freeze_intrinsics(cli_args)
+            logger.info("fixed intrinsics from calibration scan "
+                        f"{self.intrinsic_calibration_scan_id}: {params}")
+
+        runner = colmap_runner.ColmapRunner(
+            files, matcher=str(self.matcher),
+            compute_dense=bool(self.compute_dense),
+            all_cli_args=cli_args, align_pcd=bool(self.align_pcd),
+            use_gpu=bool(self.use_gpu), single_camera=bool(self.single_camera),
+            alignment_max_error=self.alignment_max_error,
+            camera_model=str(self.camera_model))
+        points, images, cameras, sparse, dense_path, auto_bbox = runner.run()
+
+        outfs = self.output().get()
+        io.write_json(outfs.get_file(COLMAP_POINTS_ID, create=True), points)
+        io.write_json(outfs.get_file(COLMAP_IMAGES_ID, create=True), images)
+        io.write_json(outfs.get_file(COLMAP_CAMERAS_ID, create=True), cameras)
+        io.write_point_cloud(outfs.get_file(COLMAP_SPARSE_ID, create=True),
+                             PointCloud(sparse))
+        if dense_path is not None:
+            from ..fsdb import ply as plyio
+            io.write_point_cloud(outfs.get_file(COLMAP_DENSE_ID, create=True),
+                                 plyio.read_ply(dense_path))
+
+        bbox = self.bounding_box or auto_bbox
+        if bbox is not None:
+            outfs.set_metadata("bounding_box", bbox)
+
+        # export per-image camera metadata (reference colmap.py:305-372)
+        from ..camera import compute_estimated_pose
+        by_name = {im["name"]: im for im in images.values()}
+        estimated = {}
+        for f in files:
+            im = by_name.get(f.filename) or by_name.get(f.id)
+            if im is None:
+                continue
+            cam = cameras[str(im["camera_id"])]
+            f.set_metadata("colmap_camera", {
+                "camera_model": {
+                    "model": cam["model"], "params": cam["params"],
+                    "width": cam["width"], "height": cam["height"],
+                },
+                "rotmat": im["rotmat"],
+                "tvec": im["tvec"],
+            })
+            estimated[f.id] = compute_estimated_pose(im["rotmat"], im["tvec"])
+
+        self._pose_quality_check(files, estimated, outfs)
+
+    def _inject_calibrated_poses(self, files):
+        """Copy calibrated_pose metadata from an ExtrinsicCalibration scan
+        after verifying the scans are compatible (reference
+        tasks/colmap.py:234-312 + 682-707)."""
+        calib_scan = self.ctx.db.get_scan(self.extrinsic_calibration_scan_id)
+        if calib_scan is None:
+            logger.warning("Extrinsic calibration scan not found: "
+                           f"{self.extrinsic_calibration_scan_id}")
+            return
+        if not check_scan_parameters(self.ctx.scan, calib_scan):
+            raise ValueError(
+                f"scan '{self.ctx.scan.id}' cannot be calibrated by "
+                f"'{calib_scan.id}': acquisition (ScanPath) parameters "
+                "differ")
+        if (calib_scan.path() / "pipeline.toml").exists():
+            check_colmap_cfg({"single_camera": bool(self.single_camera),
+                              "camera_model": str(self.camera_model)},
+                             calib_scan)
+        else:
+            logger.warning(f"{calib_scan.id}: no pipeline.toml config "
+                           "backup — skipping COLMAP parameter check")
+        calib_imgs = calib_scan.get_fileset("images")
+        if calib_imgs is None:
+            return
+        calib_files = calib_imgs.get_files()
+        n_injected = 0
+        for i, f in enumerate(files):
+            # id-matched when possible; the reference pairs order-based
+            src = calib_imgs.get_file(f.id)
+            if src is None and i < len(calib_files):
+                src = calib_files[i]
+            pose = src.get_metadata("calibrated_pose") if src else None
+            if pose is not None:
+                f.set_metadata("calibrated_pose", pose)
+                n_injected += 1
+        if n_injected == 0:
+            raise ValueError(
+                f"calibration scan '{calib_scan.id}' provided no "
+                "calibrated_pose metadata (run ExtrinsicCalibration or "
+                "TurntableCalibration on it first)")
+        logger.info(f"injected {n_injected}/{len(files)} calibrated poses "
+                    f"from {calib_scan.id}")
+
+    def _pose_quality_check(self, files, estimated, outfs):
+        """Compare COLMAP camera centres against the CNC poses: a view is
+        "correct" within `distance_threshold` (inclusive), or, without a
+        CNC pose, when COLMAP registered it; then the blind-angle check
+        (reference tasks/colmap.py:773-834)."""
+        cnc = get_cnc_poses(self.ctx.scan)
+        distances = {}
+        statuses = []
+        for f in sorted(files, key=lambda f: f.id):
+            if f.id in cnc and f.id in estimated:
+                d = float(np.linalg.norm(np.asarray(estimated[f.id])
+                                         - cnc[f.id]))
+                distances[f.id] = d
+                ok = d <= float(self.distance_threshold)
+            else:
+                ok = f.id in estimated
+            f.set_metadata("pose_estimation", "correct" if ok else "incorrect")
+            statuses.append(ok)
+
+        if distances:
+            vals = np.array(list(distances.values()))
+            io.write_json(outfs.get_file("euclidean_distances", create=True),
+                          {"mean": float(vals.mean()), "std": float(vals.std()),
+                           "distances": {k: float(v)
+                                         for k, v in distances.items()}})
+        check_blind_angle(statuses, self.max_blind_angle,
+                          "consecutive bad poses")
+
+
+def _freeze_intrinsics(cli_args):
+    """Keep the mapper's bundle adjustment from refining the camera."""
+    mapper = cli_args.setdefault("mapper", {})
+    mapper["--Mapper.ba_refine_focal_length"] = "0"
+    mapper["--Mapper.ba_refine_principal_point"] = "0"
+    mapper["--Mapper.ba_refine_extra_params"] = "0"

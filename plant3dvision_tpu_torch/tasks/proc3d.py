@@ -1,6 +1,7 @@
-"""3D tasks: PointCloud (single-class and multiclass), CurveSkeleton
-(method "graph"), SegmentedPointCloud, OrganSegmentation, RefineSkeleton
-(port of plant3dvision_tpu/tasks/proc3d.py; reference tasks/proc3d.py)."""
+"""3D tasks: PointCloud (single-class and multiclass), TriangleMesh,
+CurveSkeleton (methods "graph", "fim" and "mcf"), SegmentedPointCloud,
+ClusteredMesh, OrganSegmentation, RefineSkeleton (port of
+plant3dvision_tpu/tasks/proc3d.py; reference tasks/proc3d.py)."""
 
 from __future__ import annotations
 
@@ -91,20 +92,84 @@ class PointCloud(RomiTask):
                               "voxel_size": voxel_size})
 
 
+class TriangleMesh(RomiTask):
+    """Point cloud / volume -> surface mesh (the reference's open3d/CGAL
+    Poisson role, tasks/proc3d.py:299-345).
+
+    - library="marching_cubes" (default): `proc3d.pcd2mesh`, the normal
+      weighted IMLS field over the oriented PointCloud blended into its
+      occupancy's signed distance (K2, cap 8), extracted by the native
+      marching tetrahedra.
+    - library="volume_mc": the `Voxels` volume's signed distance (K2, cap
+      8) extracted at level -level_set_value (no normals: thin organs grow
+      by about a voxel a side).
+
+    filtering="most connected triangles" keeps the largest connected
+    component.
+    """
+
+    upstream_task = Parameter(default="PointCloud")
+    library = Parameter(default="marching_cubes")
+    filtering = Parameter(default="most connected triangles")
+    level_set_value = Parameter(default=0.0)
+    #: extract the implicit surface `shrink` world units inside the point
+    #: cloud — compensates acquisition dilation (any-coverage binary
+    #: silhouettes widen every thin organ by ~half a mask pixel per side)
+    shrink = Parameter(default=0.0)
+
+    def requires(self):
+        return [self._upstream(), self.ctx.get_task("Voxels")]
+
+    def run(self):
+        vfile = self.ctx.get_task("Voxels").output().get(
+            create=False).get_files()[0]
+        voxel_size = float(vfile.get_metadata("voxel_size"))
+
+        if str(self.library) == "volume_mc":
+            import torch
+
+            from ..fsdb import handoff
+            from ..native import marching_cubes
+            from ..ops.edt import signed_distance
+            vols = handoff.cache_get(vfile)
+            if vols is None:
+                vols = io.read_npz(vfile)
+            vol = torch.as_tensor(vols[list(vols.keys())[0]]).to(
+                self.ctx.device)
+            origin = np.array(vfile.get_metadata("origin"))
+            sd = signed_distance(vol, cap=8).cpu().numpy()
+            mesh = marching_cubes(sd, level=-float(self.level_set_value))
+            mesh.vertices = proc3d.index2point(mesh.vertices, origin,
+                                               voxel_size)
+        else:
+            pcd = io.read_point_cloud(
+                self.input()[0].get(create=False).get_files()[0])
+            mesh = proc3d.pcd2mesh(pcd, voxel_size=voxel_size,
+                                   shrink=float(self.shrink),
+                                   device=self.ctx.device)
+
+        if str(self.filtering) == "most connected triangles":
+            mesh = mesh.largest_connected_component()
+
+        outfile = self.output_file()
+        io.write_triangle_mesh(outfile, mesh)
+
+
 class CurveSkeleton(RomiTask):
     """Point cloud / carved volume -> curve skeleton {points, lines} JSON.
 
-    - method="graph" (default): the Xu distance-to-root-clusters method
-      (geodesic level sets over the point cloud, host Dijkstra; reference
+    - method="graph" (default, and any name but the two below, as in the
+      JAX package): the Xu distance-to-root-clusters method (geodesic
+      level sets over the point cloud, host Dijkstra; reference
       proc3d.py:392-426).
     - method="fim": the eikonal skeleton on the `Voxels` volume: geodesic
       distance from the root plane through the occupied voxels
       (ops/eikonal.py, K14 on the card), one cluster per connected
       component of each distance bin, 6-adjacency edges between clusters,
       their minimum spanning tree.
-
-    The JAX package's "mcf" (mesh contraction) is ported in a later slice;
-    its parameters are kept so fileset ids match.
+    - method="mcf": mean-curvature-flow contraction of the mesh (the
+      reference's primary method, CGAL's; native/mcf.py, host C++ and
+      scipy) from a mesh producer upstream (TriangleMesh).
     """
 
     upstream_task = Parameter(default="PointCloud")
@@ -121,7 +186,17 @@ class CurveSkeleton(RomiTask):
     def run(self):
         if str(self.method) == "fim":
             centers, lines = self._skeleton_fim()
-        elif str(self.method) == "graph":
+        elif str(self.method) == "mcf":
+            from ..native.mcf import skeletonize_mesh
+            mesh = io.read_triangle_mesh(self.input_file())
+            centers, lines = skeletonize_mesh(
+                mesh.vertices, mesh.triangles,
+                iterations=int(self.mcf_iterations),
+                bin_size=float(self.bin_size),
+                stem_axis=int(self.stem_axis),
+                stem_axis_inverted=bool(self.stem_axis_inverted),
+                min_branch=float(self.min_branch))
+        else:       # "graph", as the JAX task takes any other name
             obj = io.read_point_cloud(self.input_file())
             points = obj.points if hasattr(obj, "points") else obj.vertices
             if bool(self.stem_axis_inverted):
@@ -130,10 +205,6 @@ class CurveSkeleton(RomiTask):
                 root_index = int(np.argmin(points[:, int(self.stem_axis)]))
             centers, lines = proc3d.skeleton_from_distance_to_root_clusters(
                 points, root_index, float(self.bin_size), int(self.k))
-        else:
-            raise NotImplementedError(
-                f"CurveSkeleton method {self.method!r} is not ported yet "
-                "('graph' and 'fim' are); 'mcf' comes with the meshes")
         outfile = self.output_file()
         io.write_json(outfile, {"points": centers.tolist(),
                                 "lines": lines.tolist()})
@@ -326,6 +397,50 @@ class SegmentedPointCloud(RomiTask):
         vs = pcd_fs.get_files()[0].get_metadata("voxel_size")
         if vs is not None:
             outfile.set_metadata("voxel_size", vs)
+
+
+class ClusteredMesh(RomiTask):
+    """One mesh per label x connected component from a labelled point cloud
+    (reference tasks/proc3d.py:348-416): `proc3d.pcd2mesh` over each
+    label's points (with their normals when the cloud has them) on the
+    run's device, its components of at least 10 triangles."""
+
+    upstream_task = Parameter(default="SegmentedPointCloud")
+    min_vol = Parameter(default=1.0)
+    min_length = Parameter(default=10.0)
+    #: meshing resolution; empty = the upstream point cloud's own
+    #: voxel_size metadata
+    voxel_size = Parameter(default="")
+
+    def run(self):
+        from ..fsdb.geometry import PointCloud as PCD
+
+        infile = self.input_file()
+        pcd = io.read_point_cloud(infile)
+        labels = np.asarray(infile.get_metadata("labels"))
+        vs = (float(self.voxel_size) if str(self.voxel_size)
+              else float(infile.get_metadata("voxel_size") or 1.0))
+        has_normals = (getattr(pcd, "normals", None) is not None
+                       and len(pcd.normals) == len(pcd.points))
+        outfs = self.output().get()
+        for label in sorted(set(labels.tolist())):
+            sel = labels == label
+            pts = pcd.points[sel]
+            if len(pts) < 20:
+                continue
+            organ = PCD(pts, pcd.normals[sel]) if has_normals else PCD(pts)
+            mesh = proc3d.pcd2mesh(organ, voxel_size=vs,
+                                   device=self.ctx.device)
+            if len(mesh.triangles) == 0:
+                continue
+            tlabel, counts = mesh.connected_components()
+            for cc_id in range(len(counts)):
+                if counts[cc_id] < 10:
+                    continue
+                sub = mesh.select_triangles(tlabel == cc_id)
+                f = outfs.get_file(f"{label}_{cc_id:03d}", create=True)
+                io.write_triangle_mesh(f, sub)
+                f.set_metadata("label", label)
 
 
 class OrganSegmentation(RomiTask):

@@ -104,6 +104,19 @@ class Graph:
     def neighbors(self, n):
         return iter(self._adj[n])
 
+    def degree(self, n):
+        """The number of neighbours of n (a simple graph without
+        self-loops)."""
+        return len(self._adj[n])
+
+    def remove_nodes_from(self, nodes):
+        """networkx `remove_nodes_from`: each node and its edges; the other
+        nodes and neighbours keep their order."""
+        for n in nodes:
+            for nbr in self._adj.pop(n, {}):
+                self._adj.get(nbr, {}).pop(n, None)
+            self._node.pop(n, None)
+
     def edges(self, data=False):
         """Each edge once, as networkx's EdgeDataView reports it: nodes in
         order, each with the neighbours not reported yet."""

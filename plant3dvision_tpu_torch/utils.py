@@ -1,7 +1,10 @@
 """Small shared utilities (the part of plant3dvision_tpu/utils.py that the
-port uses: the runtime's prompt and Undistorted's fileset lookup)."""
+port uses: the runtime's prompt, the task filesets' lookup and
+ExtrinsicCalibration's circle fit and figure)."""
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def yes_no_choice(question: str, default: bool = False) -> bool:
@@ -31,3 +34,43 @@ def locate_task_filesets(scan, task_names):
                 break
         out[name] = match
     return out
+
+
+def fit_circle(x, y):
+    """Least-squares circle fit. Returns (xc, yc, radius, residuals).
+
+    Role of reference utils.py:132 (used by ExtrinsicCalibration to check the
+    turntable camera path is circular).
+    """
+    x = np.asarray(x, dtype=float)
+    y = np.asarray(y, dtype=float)
+    A = np.stack([x, y, np.ones_like(x)], axis=1)
+    b = x ** 2 + y ** 2
+    sol, *_ = np.linalg.lstsq(A, b, rcond=None)
+    xc, yc = sol[0] / 2.0, sol[1] / 2.0
+    r = np.sqrt(sol[2] + xc ** 2 + yc ** 2)
+    residuals = np.sqrt((x - xc) ** 2 + (y - yc) ** 2) - r
+    return xc, yc, r, residuals
+
+
+def plot_points_circle(x, y, cx, cy, r, figname=None):
+    """Scatter of 2D points + the fitted circle, saved to `figname`
+    (role of reference utils.py plot_points_circle — the visual companion
+    of fit_circle in the ExtrinsicCalibration QC). Needs matplotlib."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots()
+    ax.scatter(np.asarray(x, float), np.asarray(y, float), marker="x",
+               c="red", label="camera positions")
+    ax.add_artist(plt.Circle((cx, cy), radius=r, fill=False))
+    ax.set_aspect("equal")
+    ax.set_xlabel("X (mm)")
+    ax.set_ylabel("Y (mm)")
+    ax.legend(loc="upper right", fontsize=8)
+    if figname is not None:
+        fig.savefig(figname, dpi=100, bbox_inches="tight")
+        plt.close(fig)
+        return None
+    return fig

@@ -433,9 +433,17 @@ def test_curve_skeleton_fim_matches_jax(temp_db):
 
 
 def test_curve_skeleton_mcf_still_raises(temp_db):
+    """The port runs method "mcf" (tests/test_torch_mesh.py holds it to
+    JAX); without its upstream mesh it raises as the JAX task does, no
+    longer a NotImplementedError."""
+    from plant3dvision_tpu.runtime import RunContext as JaxRunContext
+    from plant3dvision_tpu.tasks.proc3d import CurveSkeleton as JaxSkeleton
     from plant3dvision_tpu_torch.runtime import RunContext
     from plant3dvision_tpu_torch.tasks.proc3d import CurveSkeleton
-    ctx = RunContext(temp_db, "s", {"CurveSkeleton": {"method": "mcf"}},
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="mcf"):
-        CurveSkeleton(ctx).run()
+    temp_db.get_scan("s", create=True)
+    cfg = {"CurveSkeleton": {"method": "mcf"}}
+    with pytest.raises(FileNotFoundError) as jax_err:
+        JaxSkeleton(JaxRunContext(temp_db, "s", cfg)).run()
+    with pytest.raises(FileNotFoundError) as err:
+        CurveSkeleton(RunContext(temp_db, "s", cfg, device="cpu")).run()
+    assert str(err.value) == str(jax_err.value)

@@ -21,8 +21,9 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_jax_package_imports_in_the_port():
     """AST scan of every module of the port (models/, synth_photo.py,
     evaluation.py, the separate-task ML route's, the real-scan front end's,
-    the calibration's and the eikonal skeleton's modules included), of
-    chip_smoke.py and of
+    the calibration's, the eikonal skeleton's, Colmap's, the ChArUco
+    calibration's and the meshes' modules included), of chip_smoke.py and
+    the stand-in colmap it writes (STANDIN_COLMAP), and of
     tools/frontend_angles.py and the A/B tools (dilate_filters_ab.py,
     edt_quant_ab.py, harris_reproject_ab.py, harris_reproject_variants.py,
     undistort_carve_ab.py, trace_gather_ab.py):
@@ -36,8 +37,16 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                  "tasks/proc2d.py", "tasks/cl.py", "ops/undistort.py",
                  "ops/carving.py", "utils.py", "ops/selfcal.py",
                  "ops/sfmlite.py", "tasks/colmap.py", "ops/eikonal.py",
-                 "ops/geodesics.py", "tasks/proc3d.py"):
+                 "ops/geodesics.py", "tasks/proc3d.py",
+                 "colmap/read_model.py", "colmap/runner.py",
+                 "calibration.py", "tasks/calibration.py", "native/mc.py",
+                 "native/mcf.py", "proc3d.py"):
         assert PORT / name in paths
+    smoke = ast.parse((ROOT / "chip_smoke.py").read_text())
+    standin, = [node.value.value for node in smoke.body
+                if isinstance(node, ast.Assign)
+                and getattr(node.targets[0], "id", None) == "STANDIN_COLMAP"]
+    sources = [(ROOT / "chip_smoke.py:STANDIN_COLMAP", standin)]
     for path in paths + [ROOT / "chip_smoke.py",
                          ROOT / "tools" / "frontend_angles.py",
                          ROOT / "tools" / "dilate_filters_ab.py",
@@ -46,7 +55,9 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                          ROOT / "tools" / "harris_reproject_variants.py",
                          ROOT / "tools" / "undistort_carve_ab.py",
                          ROOT / "tools" / "trace_gather_ab.py"]:
-        tree = ast.parse(path.read_text(), filename=str(path))
+        sources.append((path, path.read_text()))
+    for path, text in sources:
+        tree = ast.parse(text, filename=str(path))
         for node in ast.walk(tree):
             names = []
             if isinstance(node, ast.Import):
