@@ -198,12 +198,38 @@
    with its bound and the pass's launches; then CurveSkeleton(method="mcf")
    once on phase 18's mesh (host C++ contraction), its seconds.
 
+20. geom_pipe_virtual.toml's evaluation sections, as shipped, on phase 2's
+   scan after its warm pass (run_geom_evaluation): PointCloudGroundTruth
+   (100,000 samples of the VirtualPlant mesh), PointCloudEvaluation (2.0
+   mm), AnglesAndInternodesEvaluation (the plant's metadata, free_ends
+   0.4) and Visualization (300 images and thumbnails; without matplotlib
+   it raises at its figures after writing them, as the JAX task does,
+   and the phase checks that instead); virtual_cylinder.toml on a bare
+   scan; `python -m plant3dvision_tpu_torch.tools.robustness_evaluation`
+   in a subprocess over 3 replicates of a bare copy of the scan through
+   geom_pipe_fast.toml (each launching K1-K4), then compare_angles.
+   Checks the JSONs, the DTW error below 1 degree, a fitness above 0,
+   the cylinder's radius within 0.1, each replicate's angle count equal
+   to the warm pass's and the replicates' launches; prints each task's
+   seconds and the replicates' pairwise errors.
+21. ml_pipe_virtual.toml's seven evaluation sections, as shipped, on phase
+   5's scan after phase 7's warm pass (run_ml_evaluation; the ground truth
+   written first: the OBJ, write_virtual_plant_obj, and the organs' masks,
+   write_label_masks), then Segmentation2DEvaluation at dilation_amount 2 (K8
+   at radius 2 on 4 labels x 126 masks of 896x896, one launch a label).
+   Checks the outputs of the tasks that run and the JAX package's failure
+   of SegmentedPointCloudEvaluation on this data; prints each task's
+   seconds, the mIoU per label and VoxelsEvaluation's precision and recall
+   per label; then K8 at radius 2 on that stack against its plain version
+   and library_dilation (check_ml_evaluation_kernels).
+
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when there is no CUDA device or any
 phase fails.
 
-Usage: python3 chip_smoke.py [--only 13,14]  (--only 18,19: the new phases)
+Usage: python3 chip_smoke.py [--only 13,14]  (--only 2,20 or 5,7,21: the
+new phases with the paths they read)
 """
 
 from __future__ import annotations
@@ -3858,11 +3884,446 @@ def check_full_kernels(db, scan, report, launches):
     return [row]
 
 
+def tube_mesh(a, b, r, n=10):
+    """A closed tube from a to b of radius r, as (vertices, triangles): an
+    n-gon ring at each end, each end closed by a fan to a tip r beyond it
+    (a capsule's cap, coarsely)."""
+    import numpy as np
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    z = (b - a) / max(float(np.linalg.norm(b - a)), 1e-9)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    if np.linalg.norm(x) < 1e-6:
+        x = np.cross(z, [0.0, 1.0, 0.0])
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    th = 2 * np.pi * np.arange(n) / n
+    ring = r * (np.cos(th)[:, None] * x + np.sin(th)[:, None] * y)
+    verts = np.concatenate([a + ring, b + ring, [a - r * z, b + r * z]])
+    k = np.arange(n)
+    k2 = (k + 1) % n
+    tris = np.concatenate([
+        np.stack([k, k2, n + k], 1), np.stack([k2, n + k2, n + k], 1),
+        np.stack([np.full(n, 2 * n), k2, k], 1),
+        np.stack([np.full(n, 2 * n + 1), n + k, n + k2], 1)])
+    return verts, tris.astype(np.int64)
+
+
+def virtual_plant_organs(plant):
+    """{organ: [(vertices, triangles), ...]} in scanner axes: the generator's
+    own geometry (a ProceduralArabidopsis' stem polyline, pedicels, fruits
+    and leaf blades; a SyntheticPlant's stem, pedicel and fruit capsules,
+    synth.LABEL_CAPSULES)."""
+    if hasattr(plant, "stem_pts"):
+        p = plant.stem_pts
+        return {
+            "stem": [tube_mesh(p[i], p[i + 1], plant.stem_radius)
+                     for i in range(len(p) - 1)],
+            "pedicel": [tube_mesh(*c) for c in plant.pedicels],
+            "fruit": [tube_mesh(*c) for c in plant.fruits],
+            "leaf": list(plant.leaves)}
+    from plant3dvision_tpu_torch.synth import LABEL_CAPSULES
+    return {label: [tube_mesh(*c) for c in pick(plant)]
+            for label, pick in LABEL_CAPSULES.items()}
+
+
+def write_virtual_plant_obj(scan, organs):
+    """The ground truth that the reference's virtual_plant fixture ships:
+    one OBJ with a `usemtl` block per organ of `organs`
+    (virtual_plant_organs), in the L-system axes that VoxelsGroundTruth and
+    ClusteredMeshGroundTruth undo (scanner (X, Y, Z) written as (X, Z, -Y)),
+    as the file of the scan's VirtualPlant* fileset (its angle and
+    internode metadata kept). Returns the file."""
+    import numpy as np
+    lines, faces, off = [], [], 0
+    for label, parts in organs.items():
+        faces.append(f"usemtl {label}")
+        for verts, tris in parts:
+            v = np.asarray(verts, float)[:, [0, 2, 1]]
+            v[:, 2] *= -1
+            lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in v.tolist()]
+            faces += [f"f {i + 1} {j + 1} {k + 1}"
+                      for i, j, k in (np.asarray(tris) + off).tolist()]
+            off += len(v)
+    fs_id = next(i for i in scan.list_filesets()
+                 if i.startswith("VirtualPlant"))
+    f = scan.get_fileset(fs_id).get_files()[0]
+    if f.filename and f.path().exists():
+        f.path().unlink()
+    f.write_raw(("\n".join(lines + faces) + "\n").encode(), "obj")
+    return f
+
+
+#: phase 20: geom_pipe_virtual.toml's evaluation sections, as shipped
+GEOM_EVAL_TASKS = ("PointCloudGroundTruth", "PointCloudEvaluation",
+                   "AnglesAndInternodesEvaluation", "Visualization")
+#: phase 20: the robustness tool in a subprocess, run as `python -m` runs
+#: it, printing the kernels' launch counts of that process at its exit
+ROBUST_RUNNER = (
+    "import atexit, json, runpy\n"
+    "from plant3dvision_tpu_torch import kernels\n"
+    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(dict("
+    "kernels.LAUNCHES)), flush=True))\n"
+    "runpy.run_module('plant3dvision_tpu_torch.tools.robustness_evaluation',"
+    " run_name='__main__', alter_sys=True)\n")
+ROBUST_REPLICATES = 3
+
+
+def _timed_task(ctx, task):
+    """run_task(ctx, task) and its report entry's seconds."""
+    from plant3dvision_tpu_torch.runtime import run_task
+    rep = run_task(ctx, task, report=False)
+    return rep, rep[task]["seconds"]
+
+
+def _json_output(scan, report, task):
+    fs = scan.get_fileset(report[task]["fileset"])
+    return json.loads(fs.get_file(task).read_raw())
+
+
+def run_geom_evaluation(db, scan):
+    """Phase 20: geom_pipe_virtual.toml's evaluation sections
+    (GEOM_EVAL_TASKS, as shipped) on phase 2's north-star scan after its
+    warm pass (geom_pipe_fast.toml's chain, complete in the DB): the
+    ground-truth cloud (100,000 samples of the VirtualPlant mesh), the
+    point cloud's evaluation at 2.0 mm, the angles' DTW against the
+    plant's metadata and Visualization (300 images of 1440x1080 and their
+    thumbnails; where matplotlib does not import it raises at its figures
+    after writing them, as the JAX task does, and the phase checks that
+    instead); then virtual_cylinder.toml on a bare scan; then the
+    robustness tool (`python -m
+    plant3dvision_tpu_torch.tools.robustness_evaluation`, in a subprocess)
+    over 3 replicates of a bare copy of the scan through geom_pipe_fast.toml
+    (the main path: K1-K4 in each), with the launches of that process.
+    Returns the checks, which main() asserts."""
+    import importlib.util
+
+    import numpy as np
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+
+    cfg = load_toml(ROOT / "configs" / "geom_pipe_fast.toml")
+    virtual = load_toml(ROOT / "configs" / "geom_pipe_virtual.toml")
+    cfg.update({t: dict(virtual[t]) for t in GEOM_EVAL_TASKS})
+    cfg["Clean"] = {"no_confirm": True}
+    ctx = RunContext(db, scan.id, cfg, device="cuda")
+    n_angles = len(json.loads(ctx.scan.get_fileset(ctx.get_task(
+        "AnglesAndInternodes").output().fileset_id).get_file(
+        "AnglesAndInternodes").read_raw())["angles"])
+    seconds, results = {}, {}
+    for task in GEOM_EVAL_TASKS[:-1]:
+        rep, seconds[task] = _timed_task(ctx, task)
+        if task != "PointCloudGroundTruth":
+            results[task] = _json_output(ctx.scan, rep, task)
+    gt_points = len(io.read_point_cloud(ctx.scan.get_fileset(ctx.get_task(
+        "PointCloudGroundTruth").output().fileset_id).get_files()[0]))
+
+    # Visualization: whole with matplotlib, else up to its figures
+    vis = {"matplotlib": importlib.util.find_spec("matplotlib") is not None}
+    t0 = time.perf_counter()
+    if vis["matplotlib"]:
+        rep, _ = _timed_task(ctx, "Visualization")
+        files = ctx.scan.get_fileset(
+            rep["Visualization"]["fileset"]).get_files()
+        vis["outcome"] = "whole"
+    else:
+        task = ctx.get_task("Visualization")
+        try:
+            task.run()
+            vis["outcome"] = "whole without matplotlib"
+        except ImportError as e:
+            vis["outcome"] = f"failed at its figures: {e}"
+        files = task.output().get().get_files()
+    seconds["Visualization"] = time.perf_counter() - t0
+    ids = [f.id for f in files]
+    vis.update(images=sum(i.startswith("image_") for i in ids),
+               thumbnails=sum(i.startswith("thumbnail_") for i in ids),
+               files=len(ids))
+    if not vis["outcome"].startswith("whole"):
+        ctx.scan.delete_fileset(ctx.get_task("Visualization").output()
+                                .fileset_id)
+
+    # virtual_cylinder.toml on a bare scan
+    db.get_scan("cylinder", create=True)
+    cctx = RunContext(db, "cylinder", load_toml(
+        ROOT / "configs" / "virtual_cylinder.toml"), device="cuda")
+    rep, seconds["CylinderRadiusEstimation"] = _timed_task(
+        cctx, "CylinderRadiusEstimation")
+    seconds["CylinderRadiusGroundTruth"] = rep[
+        "CylinderRadiusGroundTruth"]["seconds"]
+    results["CylinderRadiusEstimation"] = cyl = _json_output(
+        cctx.scan, rep, "CylinderRadiusEstimation")
+
+    # the robustness tool on 3 replicates of a bare copy of the scan
+    shutil.copytree(scan.path(), db.path() / "rob")
+    db._load_scans()
+    run_task(RunContext(db, "rob", {"Clean": {"no_confirm": True}},
+                        device="cuda"), "Clean", report=False)
+    out_json = db.path().parent / "robustness.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", ROBUST_RUNNER, str(db.path() / "rob"),
+         "--task", "AnglesAndInternodes", "--config",
+         str(ROOT / "configs" / "geom_pipe_fast.toml"),
+         "-n", str(ROBUST_REPLICATES), "--out", str(out_json)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    robust_s = time.perf_counter() - t0
+    assert proc.returncode == 0, \
+        f"robustness_evaluation failed: {proc.stderr[-3000:]}"
+    sub_launches = json.loads(next(
+        line[len("LAUNCHES "):] for line in proc.stdout.splitlines()
+        if line.startswith("LAUNCHES ")))
+    robust = json.loads(out_json.read_text())["AnglesAndInternodes"][
+        "compare_angles"]
+    db._load_scans()
+    rep_angles = {}
+    for i in range(ROBUST_REPLICATES):
+        rid = f"rob_rep{i:02d}"
+        rctx = RunContext(db, rid, load_toml(
+            ROOT / "configs" / "geom_pipe_fast.toml"), device="cuda")
+        fs_id = rctx.get_task("AnglesAndInternodes").output().fileset_id
+        rep_angles[rid] = len(json.loads(rctx.scan.get_fileset(fs_id).get_file(
+            "AnglesAndInternodes").read_raw())["angles"])
+
+    dtw = results["AnglesAndInternodesEvaluation"]
+    pce = results["PointCloudEvaluation"]
+    emit({"geom_evaluation": {
+        "config": "configs/geom_pipe_virtual.toml's evaluation sections "
+                  "on phase 2's scan; virtual_cylinder.toml; "
+                  "robustness_evaluation -n 3",
+        "task_s": seconds, "gt_points": gt_points,
+        "point_cloud_evaluation": pce,
+        "dtw": {k: dtw[k] for k in ("mean_angle_error",
+                                    "mean_internode_error",
+                                    "normalized_cost")},
+        "dtw_pairs": len(dtw["pairs"]), "visualization": vis,
+        "cylinder": cyl, "robustness_s": robust_s,
+        "robustness_pairwise": robust,
+        "replicate_angles": rep_angles, "warm_pass_angles": n_angles,
+        "robustness_launches": {k: v for k, v in sub_launches.items()
+                                if v}}})
+    need = ("carve", "signed_distance", "gradient_gaussian", "band_compact")
+    vis_ok = (vis["images"] == vis["thumbnails"] == 300
+              and (vis["outcome"] == "whole" or (
+                  not vis["matplotlib"] and "matplotlib" in vis["outcome"])))
+    return {
+        "evaluation JSONs written": all(results.values()),
+        "DTW mean angle error < 1 deg": dtw["mean_angle_error"] is not None
+        and dtw["mean_angle_error"] < 1.0,
+        "point cloud fitness > 0": pce["fitness"] > 0,
+        "cylinder radius within 0.1": abs(
+            cyl["calculated_radius"] - cyl["gt_radius"]) < 0.1,
+        "every replicate as many angles as the warm pass": all(
+            n == n_angles for n in rep_angles.values()),
+        "robustness replicates launched K1-K4": all(
+            sub_launches.get(k, 0) >= ROBUST_REPLICATES for k in need),
+        "pairwise errors finite": bool(robust) and all(
+            np.isfinite(v["mean_angle_error"]) for v in robust.values()),
+        "Visualization wrote 300 images and thumbnails": vis_ok}
+
+
+#: phase 21: ml_pipe_virtual.toml's evaluation sections, as shipped
+ML_EVAL_TASKS = ("PointCloudGroundTruth", "PointCloudEvaluation",
+                 "VoxelsGroundTruth", "VoxelsEvaluation",
+                 "Segmentation2DEvaluation", "SegmentedPointCloudEvaluation",
+                 "AnglesAndInternodesEvaluation")
+#: the organs of phase 5's plant that have masks (generate_photo_scan's
+#: label channels: no flower)
+ML_GT_LABELS = ("fruit", "leaf", "pedicel", "stem")
+
+
+def write_label_masks(scan, plant, fileset_id, density=150.0, workers=8):
+    """The per-organ masks generate_photo_scan writes with its images
+    (with_gt_masks), for a scan written without them: each view's masks
+    rendered again (synth_photo.render_photo, from the plant's own
+    samples at the scan's density and the camera in each image's metadata;
+    the masks do not depend on the render's random draws) into the
+    `fileset_id` fileset, a file for each view and organ of ML_GT_LABELS
+    (zeros where an organ is not seen), with the image's shot_id, the
+    organ as its channel and the camera."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.synth_photo import render_photo
+
+    samples = plant.labeled_samples(density=density)
+    images = sorted(scan.get_fileset("images").get_files(
+        query={"channel": "rgb"}), key=lambda f: f.id)
+    out = scan.get_fileset(fileset_id, create=True)
+
+    def render(f):
+        cam = f.get_metadata("camera")
+        fx, fy, cx, cy = cam["camera_model"]["params"][:4]
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
+        img = io.read_image(f)
+        _, masks, _ = render_photo(samples, K, cam["rotmat"], cam["tvec"],
+                                   img.shape[1], img.shape[0])
+        return f, cam, {label: masks.get(label, np.zeros(
+            img.shape[:2], np.uint8)) for label in ML_GT_LABELS}
+
+    with ThreadPoolExecutor(workers) as ex:
+        rendered = list(ex.map(render, images))
+    for f, cam, masks in rendered:
+        shot = f.get_metadata("shot_id")
+        for label, m in masks.items():
+            fm = out.create_file(f.id.replace("_rgb", f"_{label}"))
+            io.write_image(fm, m, "png")
+            fm.set_metadata({"shot_id": shot, "channel": label,
+                             "camera": cam})
+    return out
+
+
+def run_ml_evaluation(db, scan):
+    """Phase 21: ml_pipe_virtual.toml's seven evaluation sections
+    (ML_EVAL_TASKS, as shipped) on phase 5's scan after phase 7's warm pass
+    of the separate route (complete in the DB). First the ground truth
+    that the reference's virtual_plant fixture ships: one OBJ, a usemtl
+    block for each of the plant's stem, pedicel, fruit and leaf meshes, in
+    the L-system axes (write_virtual_plant_obj), and the organs' masks
+    (phase 5 wrote its scan without them; write_label_masks renders them
+    again into the fileset that Segmentation2DGroundTruthFilesetExists
+    names by default). Then Segmentation2DEvaluation once more
+    at dilation_amount 2: K8 at radius 2, one launch a label's stack of
+    126 masks. On this data, as in the JAX package:
+    SegmentedPointCloudEvaluation fails (TypeError, 'iteration over a 0-d
+    array': PointCloudGroundTruth writes no labels), and
+    PointCloudEvaluation compares the prediction with a cloud sampled in
+    the L-system axes (PointCloudGroundTruth does not undo them). The
+    JAX package's PointCloudGroundTruth itself always fails (TypeError,
+    it indexes its one input as a list); the port's runs. Returns the
+    checks, the K8 launches of the dilated evaluation and the seconds."""
+    import numpy as np
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.runtime import RunContext
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+    from plant3dvision_tpu_torch.runtime.runner import TaskFailure
+    from plant3dvision_tpu_torch.synth_photo import ProceduralArabidopsis
+
+    cfg = separate_config()
+    virtual = load_toml(ROOT / "configs" / "ml_pipe_virtual.toml")
+    cfg.update({t: dict(virtual[t]) for t in ML_EVAL_TASKS})
+    ctx = RunContext(db, scan.id, cfg, device="cuda")
+    t0 = time.perf_counter()
+    obj = write_virtual_plant_obj(scan, virtual_plant_organs(
+        ProceduralArabidopsis(seed=1)))
+    seconds = {"ground truth OBJ": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    gt_masks = write_label_masks(scan, ProceduralArabidopsis(seed=1),
+                                 ctx.get_task(
+                                     "Segmentation2DGroundTruthFilesetExists")
+                                 .output().fileset_id)
+    seconds["ground truth masks"] = time.perf_counter() - t0
+    results, failures = {}, {}
+    for task in ML_EVAL_TASKS:
+        try:
+            rep, seconds[task] = _timed_task(ctx, task)
+        except TaskFailure as e:
+            failures[task] = repr(e.__cause__)
+            continue
+        if task.endswith("Evaluation"):
+            results[task] = _json_output(ctx.scan, rep, task)
+        else:
+            fs = ctx.scan.get_fileset(rep[task]["fileset"])
+            results[task] = {"files": [f.filename for f in fs.get_files()],
+                             **(fs.get_files()[0].get_metadata() or {})}
+    vgt = results.get("VoxelsGroundTruth", {})
+    vgt.pop("angles", None)
+    vgt.pop("internodes", None)
+
+    cfg["Segmentation2DEvaluation"]["dilation_amount"] = 2
+    dctx = RunContext(db, scan.id, cfg, device="cuda")
+    kernels.reset_launches()
+    rep, seconds["Segmentation2DEvaluation (dilation 2)"] = _timed_task(
+        dctx, "Segmentation2DEvaluation")
+    k8 = kernels.LAUNCHES["dilate_disk"]
+    dil = _json_output(dctx.scan, rep, "Segmentation2DEvaluation")
+
+    seg = results.get("Segmentation2DEvaluation", {})
+    vox = results.get("VoxelsEvaluation", {})
+    pick = ("tp", "fp", "fn", "precision", "recall", "miou")
+    emit({"ml_evaluation": {
+        "config": "configs/ml_pipe_virtual.toml's evaluation sections on "
+                  "phase 5's scan, then Segmentation2DEvaluation at "
+                  "dilation 2",
+        "ground_truth_obj": obj.filename,
+        "ground_truth_masks": [gt_masks.id, len(gt_masks.get_files())],
+        "task_s": seconds,
+        "failed": failures,
+        "voxels_ground_truth": vgt,
+        "miou": {l: r["miou"] for l, r in seg.get("label-results",
+                                                   {}).items()},
+        "miou_dilation_2": {l: r["miou"] for l, r in dil[
+            "label-results"].items()},
+        "segmentation_2d": {l: {k: r[k] for k in pick} for l, r in seg.get(
+            "label-results", {}).items()},
+        "voxels_evaluation": {l: {k: r[k] for k in ("precision", "recall",
+                                                    "tp", "fp", "fn")}
+                              for l, r in vox.items()},
+        "point_cloud_evaluation": results.get("PointCloudEvaluation"),
+        "dtw": {k: results.get("AnglesAndInternodesEvaluation", {}).get(k)
+                for k in ("mean_angle_error", "mean_internode_error",
+                          "normalized_cost")},
+        "k8_launches_dilation_2": k8}})
+    checks = {
+        "K8 launched, one a label": k8 == len(ML_GT_LABELS),
+        "the tasks that run on this data ran": set(failures) == {
+            "SegmentedPointCloudEvaluation"},
+        "SegmentedPointCloudEvaluation fails as the JAX package's":
+            "iteration over a 0-d array" in failures.get(
+                "SegmentedPointCloudEvaluation", ""),
+        "ground-truth volumes written at 0.15 mm":
+            bool(vgt.get("files")) and vgt.get("voxel_size") == 0.15,
+        "VoxelsEvaluation scores every organ": set(vox) == set(
+            ML_GT_LABELS) and all(r["tp"] + r["fn"] > 0
+                                  for r in vox.values()),
+        "Segmentation2DEvaluation over 5 labels, 126 views each":
+            list(seg.get("label-results", {})) == [
+                "flower", "fruit", "leaf", "pedicel", "stem"]
+            and len(seg.get("evaluation-results", {})) == 126 * 4,
+        "dilation keeps the predictions' true positives or more": all(
+            dil["label-results"][l]["tp"] >= seg["label-results"][l]["tp"]
+            for l in ML_GT_LABELS) if seg else False,
+        "point cloud evaluation written": results.get(
+            "PointCloudEvaluation") is not None,
+        "DTW aligned": results.get("AnglesAndInternodesEvaluation", {}).get(
+            "mean_angle_error") is not None,
+        "numbers finite": bool(np.isfinite([
+            r["miou"] for r in seg.get("label-results", {}).values()
+            if r["miou"] is not None]).all())}
+    return checks, k8, gt_masks.id
+
+
+def check_ml_evaluation_kernels(scan, k8, gt_id):
+    """Phase 21's K8 row: radius 2 on the stack Segmentation2DEvaluation
+    dilates, the 4 organs x 126 ground-truth masks of 896x896 (the
+    `gt_id` fileset), against its plain version bit for bit, timed beside
+    it and beside library_dilation; `launches` the dilated evaluation's
+    (one a label's stack)."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.fsdb import io
+
+    files = [f for f in scan.get_fileset(gt_id).get_files()
+             if f.get_metadata("channel") in ML_GT_LABELS]
+    files.sort(key=lambda f: (ML_GT_LABELS.index(f.get_metadata(
+        "channel")), f.id))
+    stack = np.stack([io.read_image(f) for f in files]) != 0
+    binm = torch.from_numpy(stack).to("cuda")
+    row = dilation_row(binm, 2, k8, {
+        "path": "phase 21 (Segmentation2DEvaluation, dilation_amount 2)",
+        "calls_a_evaluation": len(ML_GT_LABELS),
+        "masks_a_call": len(files) // len(ML_GT_LABELS)})
+    del binm
+    torch.cuda.empty_cache()
+    return [row]
+
+
 PHASES = {"2": "main", "3": "main", "4": "real_grid", "5": "ml", "6": "ml",
           "7": "separate", "8": "separate", "9": "frontend",
           "10": "frontend", "11": "selfcal", "12": "selfcal", "13": "fim",
           "14": "fim", "15": "live", "16": "int8", "17": "gather",
-          "18": "full", "19": "full"}
+          "18": "full", "19": "full", "20": "eval_geom", "21": "eval_ml"}
 
 
 def main(argv=None):
@@ -3870,9 +4331,9 @@ def main(argv=None):
 
     import torch
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                 "GPU (phases 1-19, see the docstring)")
+                                 "GPU (phases 1-21, see the docstring)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (2-19; a kernel "
+                    help="comma-separated phases to run (2-21; a kernel "
                     "check phase runs with its path, e.g. 13,14); default "
                     "all")
     args = ap.parse_args(argv)
@@ -3896,6 +4357,10 @@ def main(argv=None):
         mc.lib()
         emit({"native_build_s": time.perf_counter() - t0})
 
+    if "eval_geom" in groups and "main" not in groups:
+        raise SystemExit("phase 20 runs on phase 2's scan: --only 2,20")
+    if "eval_ml" in groups and "separate" not in groups:
+        raise SystemExit("phase 21 runs after phase 7: --only 5,7,21")
     work = ROOT / ".smoke"
     db = make_db(work / "db")
     rows = []
@@ -3903,6 +4368,10 @@ def main(argv=None):
         if "main" in groups:
             scan, vfile, launches = run_main_path(db, name)
             rows += check_kernels(scan, vfile, launches)
+        if "eval_geom" in groups:
+            failed = [c for c, ok in run_geom_evaluation(db, scan).items()
+                      if not ok]
+            assert not failed, f"geometric evaluation checks failed: {failed}"
         if "real_grid" in groups:
             run_real_grid()
         if "ml" in groups:
@@ -3919,6 +4388,11 @@ def main(argv=None):
             rows += check_separate_kernels(sep_scan, sep_report,
                                            sep_launches)
             bf16_pass = (sep_s, sep_report)
+        if "eval_ml" in groups:
+            ml_checks, k8, gt_id = run_ml_evaluation(db, sep_scan)
+            rows += check_ml_evaluation_kernels(sep_scan, k8, gt_id)
+            failed = [c for c, ok in ml_checks.items() if not ok]
+            assert not failed, f"ML evaluation checks failed: {failed}"
         if "frontend" in groups:
             fe_scan, fe_report, fe_launches, fe_checks = run_frontend_path(
                 db, name)

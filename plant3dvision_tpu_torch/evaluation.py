@@ -1,5 +1,7 @@
-"""Sequence alignment (port of plant3dvision_tpu/evaluation.py: the DTW
-alignment of angle/internode sequences and what it calls; numpy only).
+"""Sequence alignment and the synthetic cylinder (port of
+plant3dvision_tpu/evaluation.py: the DTW alignment of angle/internode
+sequences and what it calls, the cylinder's point cloud and its PCA
+radius; numpy only).
 
 Role of reference plant3dvision/evaluation.py + the `dtw` submodule
 (align_sequences with 'merge_split' constraint, mixed angular/linear
@@ -151,3 +153,35 @@ def align_sequences(pred_angles, pred_internodes, gt_angles, gt_internodes,
         "mean_angle_error": float(np.mean(angle_errors)) if pairs else None,
         "mean_internode_error": float(np.mean(internode_errors)) if pairs else None,
     }
+
+
+# -- synthetic cylinder (reference evaluation.py:8-104) --------------------
+
+def make_cylinder_pcd(radius=10.0, height=40.0, n_points=10000, noise=0.0,
+                      seed=0):
+    rng = np.random.default_rng(seed)
+    theta = rng.uniform(0, 2 * np.pi, n_points)
+    z = rng.uniform(0, height, n_points)
+    r = radius + noise * rng.standard_normal(n_points)
+    pts = np.stack([r * np.cos(theta), r * np.sin(theta), z], axis=1)
+    from .fsdb.geometry import PointCloud
+    return PointCloud(pts)
+
+
+def estimate_cylinder_radius(points):
+    """PCA + mean radial distance (reference evaluation.py:50-104).
+
+    The circle plane is the eigen-pair with the CLOSEST eigenvalues (the
+    two radial directions share the same variance r^2/2) — not the two
+    smallest: a squat cylinder (height < radius) has its axis on the
+    SMALLEST eigenvalue (reference `_find_two_closest`,
+    evaluation.py:95-106)."""
+    pts = np.asarray(points.points if hasattr(points, "points") else points)
+    c = pts.mean(axis=0)
+    x = pts - c
+    cov = x.T @ x / len(x)
+    w, v = np.linalg.eigh(cov)
+    pairs = [(0, 1), (0, 2), (1, 2)]
+    i, j = min(pairs, key=lambda p: abs(w[p[0]] - w[p[1]]))
+    radial = x @ v[:, [i, j]]
+    return float(np.linalg.norm(radial, axis=1).mean())

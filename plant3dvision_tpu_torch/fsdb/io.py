@@ -316,7 +316,7 @@ def read_obj(file: File):
     from .geometry import TriangleMesh
     import numpy as np
     verts, faces = [], []
-    with open(file.path() if isinstance(file, File) else file) as fh:
+    with open(file.path() if hasattr(file, "path") else file) as fh:
         for line in fh:
             parts = line.split()
             if not parts:
@@ -345,7 +345,7 @@ def read_obj_materials(file: File):
     verts = []
     faces_by_mtl = {}
     current = "default"
-    with open(file.path() if isinstance(file, File) else file) as fh:
+    with open(file.path() if hasattr(file, "path") else file) as fh:
         for line in fh:
             parts = line.split()
             if not parts:

@@ -1,5 +1,7 @@
-"""OpenCV's image resampling as Segmentation2D(resize=True) uses it, without
-cv2 (absent where the card is).
+"""OpenCV's image resampling as Segmentation2D(resize=True) and
+Visualization use it, in numpy and torch, so the port does not depend on
+cv2 for it (cv2 imports on the card's machine too, and
+tests/test_torch_resize.py holds these functions to it).
 
 The JAX task shrinks each uint8 image to the net's input with
 `cv2.resize(..., INTER_AREA)` (plant3dvision_tpu/tasks/proc2d.py:246-251)

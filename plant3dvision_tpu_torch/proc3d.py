@@ -278,6 +278,48 @@ def skeletonize(points, root_index=None, bin_size=2.0, k=10, stem_axis=2):
                                                    bin_size, k)
 
 
+def voxelize_surface(mesh, voxel_size, origin=None, shape=None):
+    """Mark voxels intersected by a triangle-mesh surface (host numpy, as
+    in the JAX package).
+
+    Role of trimesh's `.voxelized(voxel_size)` in the reference's
+    VoxelsGroundTruth (tasks/evaluation.py:108-110): every triangle is
+    sampled on a barycentric grid at voxel_size/2 spacing and the sample
+    points are binned into the grid — conservative surface occupancy.
+    Returns a bool array of `shape` (derived from the mesh bounds when
+    omitted) with `origin` at the grid's [0,0,0] corner.
+    """
+    verts = np.asarray(mesh.vertices, float)
+    tris = np.asarray(mesh.triangles, np.int64)
+    if origin is None:
+        origin = verts.min(axis=0)
+    origin = np.asarray(origin, float)
+    if shape is None:
+        shape = tuple(np.asarray(
+            (verts.max(axis=0) - origin) / voxel_size + 1, int) + 1)
+    vol = np.zeros(shape, dtype=bool)
+    if len(tris) == 0:
+        return vol
+    A, B, C = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    edge = np.maximum(np.linalg.norm(B - A, axis=1),
+                      np.maximum(np.linalg.norm(C - A, axis=1),
+                                 np.linalg.norm(C - B, axis=1)))
+    levels = np.clip(np.ceil(edge / (voxel_size * 0.5)), 1, 512).astype(int)
+    for n in np.unique(levels):
+        sel = levels == n
+        i, j = np.meshgrid(np.arange(n + 1), np.arange(n + 1), indexing="ij")
+        keep = (i + j) <= n
+        u = (i[keep] / n)[None, :, None]
+        v = (j[keep] / n)[None, :, None]
+        pts = (A[sel][:, None, :] * (1 - u - v) + B[sel][:, None, :] * u
+               + C[sel][:, None, :] * v).reshape(-1, 3)
+        idx = np.floor((pts - origin) / voxel_size).astype(np.int64)
+        ok = ((idx >= 0) & (idx < np.asarray(shape))).all(axis=1)
+        idx = idx[ok]
+        vol[idx[:, 0], idx[:, 1], idx[:, 2]] = True
+    return vol
+
+
 # -- graphs over point clouds --------------------------------------------
 
 def knn_query(points, k):

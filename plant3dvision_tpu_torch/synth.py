@@ -12,8 +12,10 @@ metadata on a VirtualPlant fileset). Generates:
 - ground-truth 'angles' (radians) / 'internodes' metadata on a
   VirtualPlant fileset, plus measures.json, for evaluation tasks.
 
-Used by the port's tests and chip_smoke.py. (The photo-domain scans of the
-ML path are in synth_photo.py.)
+Used by the port's tests and chip_smoke.py: `generate_scan` writes the
+geometric path's silhouette scan, `generate_ml_scan` the colour-coded ML
+scan with its ground-truth label masks. (The photo-domain scans of the ML
+path are in synth_photo.py.)
 """
 
 from __future__ import annotations
@@ -135,6 +137,114 @@ def turntable_cameras(n_views, dist=350.0, z=60.0, target=(0, 0, 45.0),
         R, t = pose_to_extrinsics(c, target)
         cams.append((K, R, t))
     return cams
+
+
+def _split_branch(capsule, frac=0.35):
+    """Split a fruit branch capsule into (pedicel, fruit) segments — the
+    reference's label taxonomy separates fruit instances via pedicels."""
+    a, b, r = capsule
+    mid = a + (b - a) * frac
+    return (a, mid, r * 0.6), (mid, b, r)
+
+
+LABEL_CAPSULES = {
+    "stem": lambda plant: [plant.capsules[0]],
+    "pedicel": lambda plant: [_split_branch(c)[0] for c in plant.capsules[1:]],
+    "fruit": lambda plant: [_split_branch(c)[1] for c in plant.capsules[1:]],
+}
+
+LABEL_RGB = {"stem": (40, 200, 60), "pedicel": (230, 220, 40),
+             "fruit": (220, 120, 30)}
+
+
+def _sub_plant(plant: SyntheticPlant, capsules):
+    sub = object.__new__(SyntheticPlant)
+    sub.capsules = list(capsules)
+    return sub
+
+
+def render_label_masks(plant: SyntheticPlant, K, R, t, width, height,
+                       step=0.25, with_background=True):
+    """Per-label binary masks, plus 'background' = complement of the plant
+    (the reference's label set always includes background — without it,
+    empty-space voxels argmax onto a plant label downstream)."""
+    out = {}
+    for label, pick in LABEL_CAPSULES.items():
+        out[label] = render_mask(_sub_plant(plant, pick(plant)), K, R, t,
+                                 width, height, step)
+    if with_background:
+        union = np.zeros((height, width), dtype=bool)
+        for m in out.values():
+            union |= m > 0
+        out["background"] = np.where(union, 0, 255).astype(np.uint8)
+    return out
+
+
+def compose_rgb(label_masks, width, height):
+    """Color-coded RGB render from label masks (white background)."""
+    img = np.full((height, width, 3), 255, dtype=np.uint8)
+    for label, mask in label_masks.items():
+        if label == "background":
+            continue
+        color = LABEL_RGB.get(label, (128, 128, 128))
+        sel = mask > 0
+        img[sel] = color
+    return img
+
+
+def generate_ml_scan(db, scan_id="synthetic_ml", n_views=24, width=256,
+                     height=256, f=320.0, plant: SyntheticPlant | None = None,
+                     workspace_margin=15.0):
+    """Synthetic scan for the ML pipeline: color-coded RGB images (input to
+    Segmentation2D) + ground-truth per-label masks in a 'gt_masks' fileset,
+    exact camera metadata, GT angles."""
+    from .fsdb import io
+
+    plant = plant or SyntheticPlant()
+    scan = db.get_scan(scan_id, create=True)
+    images = scan.get_fileset("images", create=True)
+    gt_masks = scan.get_fileset("gt_masks", create=True)
+
+    pts, rads = plant.surface_samples(step=1.0)
+    lo = pts.min(axis=0) - rads.max() - workspace_margin
+    hi = pts.max(axis=0) + rads.max() + workspace_margin
+    bbox = {"x": [float(lo[0]), float(hi[0])],
+            "y": [float(lo[1]), float(hi[1])],
+            "z": [float(lo[2]), float(hi[2])]}
+    scan.set_metadata("bounding_box", bbox)
+
+    extent = float(np.max(hi - lo))
+    cams = turntable_cameras(n_views, dist=2.5 * extent, z=float(hi[2]) * 0.7,
+                             target=(0, 0, float(lo[2] + hi[2]) / 2),
+                             f=f, width=width, height=height)
+    for v, (K, R, t) in enumerate(cams):
+        lmasks = render_label_masks(plant, K, R, t, width, height)
+        rgb = compose_rgb(lmasks, width, height)
+        cam_md = {
+            "camera_model": camera_model_to_metadata(
+                "OPENCV", [K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0, 0, 0, 0],
+                width, height),
+            "rotmat": np.asarray(R).tolist(),
+            "tvec": np.asarray(t).tolist(),
+        }
+        fimg = images.create_file(f"{v:05d}_rgb")
+        io.write_image(fimg, rgb, "png")
+        fimg.set_metadata({"shot_id": f"{v:06d}", "channel": "rgb",
+                           "camera": cam_md})
+        for label, m in lmasks.items():
+            fm = gt_masks.create_file(f"{v:05d}_{label}")
+            io.write_image(fm, m, "png")
+            fm.set_metadata({"shot_id": f"{v:06d}", "channel": label,
+                             "camera": cam_md})
+    gt_masks.set_metadata("label_names",
+                          ["background"] + list(LABEL_CAPSULES.keys()))
+
+    vp = scan.get_fileset("VirtualPlant_synthetic", create=True)
+    obj = vp.create_file("VirtualPlant")
+    io.write_triangle_mesh(obj, plant.to_mesh())
+    obj.set_metadata({"angles": plant.gt_angles.tolist(),
+                      "internodes": plant.gt_internodes.tolist()})
+    return scan
 
 
 def generate_scan(db, scan_id="synthetic", n_views=36, width=448, height=448,

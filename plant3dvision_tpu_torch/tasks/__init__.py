@@ -1,9 +1,10 @@
 """Pipeline tasks of the port. Importing this package registers every task
 with the port's TaskRegistry — the CLI relies on that.
 
-Ported so far: the geometric main path (configs/geom_pipe_fast.toml),
-ImagesFilesetExists -> FusedCarving -> PointCloud -> CurveSkeleton ->
-RefineSkeleton -> TreeGraph -> AnglesAndInternodes (+ Clean); and the fused
+Every task class of the JAX package is ported: the geometric main path
+(configs/geom_pipe_fast.toml), ImagesFilesetExists -> FusedCarving ->
+PointCloud -> CurveSkeleton -> RefineSkeleton -> TreeGraph ->
+AnglesAndInternodes (+ Clean); and the fused
 ML path, ImagesFilesetExists + ModelFilesetExists ->
 FusedSegmentationCarving -> PointCloud (multiclass) -> OrganSegmentation ->
 AnglesAndInternodes; and the separate-task ML route
@@ -19,7 +20,9 @@ with the ChArUco calibration tasks, and the meshes (TriangleMesh,
 ClusteredMesh, CurveSkeleton "mcf"), so every shipped angle chain runs
 (configs/geom_pipe_full.toml: Colmap -> Undistorted -> Masks -> Voxels ->
 PointCloud -> TriangleMesh -> CurveSkeleton -> RefineSkeleton -> TreeGraph
--> AnglesAndInternodes).
+-> AnglesAndInternodes); and the evaluation and ground-truth tasks,
+Visualization and VoxelsWithPrior, so every task of every shipped config
+runs.
 """
 
 # Base/marker/utility tasks come with the runtime:
@@ -31,9 +34,10 @@ from ..runtime.task import (  # noqa: F401
     ImagesFilesetExists,
     ModelFilesetExists,
     NamedFilesetExists,
+    Segmentation2DGroundTruthFilesetExists,
     VirtualPlantObj,
 )
-from .cl import Voxels  # noqa: F401
+from .cl import Voxels, VoxelsWithPrior  # noqa: F401
 from .colmap import Colmap, TurntableCalibration  # noqa: F401
 from .fused import FusedCarving  # noqa: F401
 from .fused_ml import FusedSegmentationCarving  # noqa: F401
@@ -56,3 +60,16 @@ from .calibration import (  # noqa: F401
     IntrinsicCalibration,
     IntrinsicCalibrationExists,
 )
+from .evaluation import (  # noqa: F401
+    AnglesAndInternodesEvaluation,
+    ClusteredMeshGroundTruth,
+    CylinderRadiusEstimation,
+    CylinderRadiusGroundTruth,
+    PointCloudEvaluation,
+    PointCloudGroundTruth,
+    Segmentation2DEvaluation,
+    SegmentedPointCloudEvaluation,
+    VoxelsEvaluation,
+    VoxelsGroundTruth,
+)
+from .visualization import Visualization  # noqa: F401

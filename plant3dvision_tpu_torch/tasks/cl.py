@@ -1,4 +1,5 @@
-"""Voxels task: space carving / multi-label averaging on the run's device
+"""Voxels task: space carving / multi-label averaging on the run's device,
+and VoxelsWithPrior, the detector-prior correction of its label volumes
 (port of plant3dvision_tpu/tasks/cl.py; reference tasks/cl.py — the
 bounding-box resolution order, displacement offsets, grid shape rule
 n = (max-min)/voxel_size + 1, label handling and log/exp averaging are the
@@ -128,3 +129,46 @@ class Voxels(RomiTask):
         else:
             io.write_volume(outfile, vol.cpu().numpy())
         outfile.set_metadata({"voxel_size": vs, "origin": origin.tolist()})
+
+
+class VoxelsWithPrior(RomiTask):
+    """Correct a multi-label averaged volume with per-label detector priors
+    (recall/specificity), reference tasks/proc3d.py:642-694: each label's
+    log-score gets the likelihood-ratio correction
+
+        score = n_views_hit * log(recall / (1 - specificity))
+              + (n_views - n_views_hit) * log((1 - recall) / specificity)
+
+    approximated here from the averaged volume (fraction of hitting views);
+    host numpy, as in the JAX package.
+    """
+
+    upstream_task = Parameter(default="Voxels")
+    recall = Parameter(default={})
+    specificity = Parameter(default={})
+    n_views = Parameter(default=0)
+
+    def run(self):
+        ifile = self.input_file()
+        vols = io.read_npz(ifile)
+        n_views = int(self.n_views)
+        if n_views <= 0:
+            images = self.ctx.scan.get_fileset("images")
+            n_views = len(images.get_files()) if images else 1
+
+        out = {}
+        for label, vol in vols.items():
+            rec = float(dict(self.recall).get(label, 0.9))
+            spe = float(dict(self.specificity).get(label, 0.9))
+            frac = np.clip(np.asarray(vol, dtype=np.float64), 0.0, 1.0)
+            hits = frac * n_views
+            lr_pos = np.log(max(rec, 1e-9) / max(1 - spe, 1e-9))
+            lr_neg = np.log(max(1 - rec, 1e-9) / max(spe, 1e-9))
+            out[label] = hits * lr_pos + (n_views - hits) * lr_neg
+
+        outfile = self.output_file()
+        io.write_npz(outfile, out)
+        outfile.set_metadata({
+            "voxel_size": ifile.get_metadata("voxel_size"),
+            "origin": ifile.get_metadata("origin"),
+        })

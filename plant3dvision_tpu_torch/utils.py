@@ -1,10 +1,44 @@
-"""Small shared utilities (the part of plant3dvision_tpu/utils.py that the
-port uses: the runtime's prompt, the task filesets' lookup and
-ExtrinsicCalibration's circle fit and figure)."""
+"""Small shared utilities (port of plant3dvision_tpu/utils.py: the
+runtime's prompt, the task filesets' lookup, ExtrinsicCalibration's circle
+fit and figure, and the evaluation's JSON and measures helpers)."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def flatten(nested):
+    """Flatten arbitrarily nested lists/tuples into a flat list."""
+    out = []
+    for x in nested:
+        if isinstance(x, (list, tuple)):
+            out.extend(flatten(x))
+        else:
+            out.append(x)
+    return out
+
+
+def jsonify(obj):
+    """Recursively convert numpy containers to JSON-serializable types."""
+    if isinstance(obj, dict):
+        return {k: jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [jsonify(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def auto_format_bytes(n_bytes: int) -> str:
+    units = ["B", "KB", "MB", "GB", "TB"]
+    v = float(n_bytes)
+    for u in units:
+        if v < 1024 or u == units[-1]:
+            return f"{v:.2f} {u}" if u != "B" else f"{int(v)} B"
+        v /= 1024.0
+    return f"{v:.2f} TB"
 
 
 def yes_no_choice(question: str, default: bool = False) -> bool:
@@ -74,3 +108,22 @@ def plot_points_circle(x, y, cx, cy, r, figname=None):
         plt.close(fig)
         return None
     return fig
+
+
+def is_radians(values) -> bool:
+    """Heuristic: a sequence of angles is in radians if its mean magnitude is
+    < pi-ish (reference utils.py:225 — used to auto-convert measures.json)."""
+    values = np.abs(np.asarray(values, dtype=float))
+    if len(values) == 0:
+        return False
+    return float(np.nanmean(values)) <= 2 * np.pi
+
+
+def read_measures(scan):
+    """Read the manual measurements file shipped with a scan (measures.json)."""
+    import json
+    path = scan.path() / "measures.json"
+    if not path.exists():
+        return {}
+    with open(path) as f:
+        return json.load(f)

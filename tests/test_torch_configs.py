@@ -1,11 +1,11 @@
 """Which shipped configs the port runs, and the fully ported chains through
 both packages on the CPU.
 
-- Every configs/*.toml with an AnglesAndInternodes section: the task
-  classes of its chain (AnglesAndInternodes and everything it requires, as
-  the JAX runtime resolves them) that the port's registry lacks must be
-  exactly the ones listed in MISSING (none now), so a task that goes
-  missing from the port shows here.
+- Every section of every configs/*.toml that names a task (of the JAX
+  package's registry): the task classes of its chain (the task and
+  everything it requires, as the JAX runtime resolves them) that the
+  port's registry lacks must be exactly the ones listed in MISSING (none
+  now), so a task that goes missing from the port shows here.
 - geom_pipe_synth, test_geom_pipe_virtual, ml_pipe_synth and
   geom_pipe_euler_virtual (every task of their chains is ported) through
   both packages on small synthetic scans, the port on the CPU: equal
@@ -31,6 +31,20 @@ both packages on the CPU.
   around this plant. On a fresh scan both packages run Undistorted and
   Masks before Colmap and fail at TriangleMesh (test_geom_pipe_full_on_a_
   fresh_scan_fails_as_jax), so the chains run after a first Colmap.
+- The evaluation sections of geom_pipe_virtual, ml_pipe_virtual and
+  virtual_cylinder through both packages, after the JAX runtime ran the
+  chain they read (on test_geom_pipe_virtual's small virtual-scale plant,
+  VIRTUAL_PLANT;
+  geom_pipe_virtual's Voxels reads "background" channels, so the scan
+  gets an inverted copy of each image; ml_pipe_virtual's scan is
+  synth.generate_ml_scan's of that plant, the net replaced by its label
+  masks as in the ml_pipe_synth test, the VirtualPlant an OBJ with one
+  usemtl block an organ, chip_smoke.write_virtual_plant_obj, and the
+  ground-truth masks its gt_masks fileset): equal fileset ids and
+  outputs task by task (tests/test_torch_evaluation.py's tolerances).
+  The JAX PointCloudGroundTruth always fails (TypeError), so the port's
+  runs and both read it; SegmentedPointCloudEvaluation fails in both
+  (its ground truth has no labels).
 """
 
 import json
@@ -52,14 +66,18 @@ torch.set_num_threads(1)
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
-#: per config, the task classes of its angle chain the port does not have
+#: per config, the task classes of its sections' chains the port does not
+#: have
 MISSING = {name: [] for name in (
-    "fast_geom_pipe_real.toml", "geom_pipe_euler_virtual.toml",
-    "geom_pipe_fast.toml", "geom_pipe_full.toml", "geom_pipe_real.toml",
+    "extrinsic_calibration.toml", "fast_geom_pipe_real.toml",
+    "geom_pipe_euler_virtual.toml", "geom_pipe_fast.toml",
+    "geom_pipe_full.toml", "geom_pipe_real.toml",
     "geom_pipe_real_selfcal.toml", "geom_pipe_synth.toml",
-    "geom_pipe_virtual.toml", "ml_pipe_full.toml", "ml_pipe_real.toml",
-    "ml_pipe_real_hybrid.toml", "ml_pipe_synth.toml", "ml_pipe_virtual.toml",
-    "test_geom_pipe_real.toml", "test_geom_pipe_virtual.toml")}
+    "geom_pipe_virtual.toml", "intrinsic_calibration.toml",
+    "ml_pipe_full.toml", "ml_pipe_real.toml", "ml_pipe_real_hybrid.toml",
+    "ml_pipe_synth.toml", "ml_pipe_virtual.toml",
+    "test_geom_pipe_real.toml", "test_geom_pipe_virtual.toml",
+    "training_seg.toml", "virtual_cylinder.toml")}
 
 
 def _chain(ctx, name="AnglesAndInternodes"):
@@ -78,18 +96,23 @@ def _chain(ctx, name="AnglesAndInternodes"):
 
 
 def test_every_config_chain_is_ported_or_listed():
-    """The angle chain of every config, resolved by the JAX runtime: the
-    classes missing from the port's registry are MISSING's, and every
-    chain's CurveSkeleton method is one the port runs (graph, fim, mcf)."""
-    import plant3dvision_tpu_torch.tasks  # noqa: F401 (registers the tasks)
+    """The chain of every task section of every config, resolved by the JAX
+    runtime: the classes missing from the port's registry are MISSING's,
+    and every CurveSkeleton method is one the port runs (graph, fim,
+    mcf)."""
+    import plant3dvision_tpu.tasks  # noqa: F401 (registers the tasks)
+    import plant3dvision_tpu_torch.tasks  # noqa: F401
+    from plant3dvision_tpu.runtime.task import TaskRegistry as JaxRegistry
     found = {}
     with TemporaryDB() as db:
         db.get_scan("s", create=True)
         for path in sorted(CONFIGS.glob("*.toml")):
             cfg = load_toml(path)
-            if "AnglesAndInternodes" not in cfg:
-                continue
-            chain = _chain(JaxRunContext(db, "s", cfg))
+            chain = {}
+            for section in cfg:
+                if section in JaxRegistry._registry:
+                    chain.update(_chain(JaxRunContext(db, "s", cfg),
+                                        section))
             found[path.name] = sorted(
                 n for n in chain if n not in TaskRegistry._registry)
             skel = chain.get("CurveSkeleton")
@@ -340,3 +363,202 @@ def test_simple_radial_camera_read_by_its_model():
     np.testing.assert_array_equal(
         jax_camera(simple)[:4],
         np.array([1400.0, 720.0, 540.0, -0.08], np.float32))
+
+
+# -- the evaluation sections -------------------------------------------------
+
+#: test_geom_pipe_virtual's plant, at the virtual_plant fixture's scale,
+#: its fruits 4 units long (geom_pipe_virtual's min_fruit_size 2.5 drops
+#: every carved 3-unit fruit of this scan)
+VIRTUAL_PLANT = dict(n_fruits=8, internode=0.6, stem_radius=0.2,
+                     fruit_radius=0.15, fruit_length=4.0, first_node=2.0,
+                     stem_height=10.5)
+
+
+def _outputs(scan, fs_id):
+    """{file id: (metadata, payload)} of a fileset: JSON decoded, images
+    decoded, other files' bytes."""
+    from plant3dvision_tpu.fsdb import io as jio
+    out = {}
+    for f in scan.get_fileset(fs_id).get_files():
+        ext = (f.filename or "").rsplit(".", 1)[-1]
+        if ext == "json":
+            data = json.loads(f.read_raw())
+        elif ext in ("png", "jpg") and not f.id.endswith("_figure"):
+            data = jio.read_image(f)
+        elif f.id.endswith("_figure") or ext == "zip":
+            data = f.path().stat().st_size > 0
+        else:
+            data = f.read_raw() if f.filename else None
+        out[f.id] = (f.get_metadata(), data)
+    return out
+
+
+def _evaluate_both(db, cfg, tasks, port_only=(), both_fail=()):
+    """Each of `tasks` in turn through the JAX runtime, then (its output
+    deleted) through the port's on the CPU, both reading what is in the DB:
+    equal fileset ids and outputs. A task of `port_only` fails in the JAX
+    package (pinned) and runs in the port alone; a task of `both_fail`
+    fails in both with the same cause. Returns {task: port outputs}."""
+    from plant3dvision_tpu.runtime.runner import TaskFailure as JaxFailure
+    from plant3dvision_tpu_torch.runtime.runner import TaskFailure
+    from tests.test_torch_evaluation import assert_same
+    out = {}
+    for task in tasks:
+        jctx = JaxRunContext(db, "s", cfg)
+        ctx = RunContext(db, "s", cfg, device="cpu")
+        fs_id = jctx.get_task(task).output().fileset_id
+        assert ctx.get_task(task).output().fileset_id == fs_id, task
+        if task in port_only or task in both_fail:
+            with pytest.raises(JaxFailure) as info:
+                jax_run_task(jctx, task, report=False)
+            cause = repr(info.value.__cause__)
+            if task in both_fail:
+                with pytest.raises(TaskFailure) as pinfo:
+                    run_task(ctx, task, report=False)
+                assert repr(pinfo.value.__cause__) == cause, task
+                continue
+            assert cause == ("TypeError(\"'FilesetTarget' object is not "
+                             "subscriptable\")"), task
+            run_task(ctx, task, report=False)
+            out[task] = _outputs(ctx.scan, fs_id)
+            continue
+        assert jax_run_task(jctx, task, report=False)[task]["status"] \
+            == "done", task
+        want = _outputs(jctx.scan, fs_id)
+        jctx.scan.delete_fileset(fs_id)
+        assert run_task(ctx, task, report=False)[task]["status"] == "done"
+        got = _outputs(ctx.scan, fs_id)
+        assert list(got) == list(want), task
+        for fid, (md, data) in want.items():
+            assert_same(got[fid][0], md)
+            if isinstance(data, np.ndarray):
+                np.testing.assert_array_equal(got[fid][1], data)
+            elif isinstance(data, (dict, list)):
+                assert_same(got[fid][1], data)
+            else:
+                assert got[fid][1] == data, (task, fid)
+        out[task] = got
+    return out
+
+
+def _result(outputs, task):
+    return outputs[task][task][1]
+
+
+def _fs_of(db, cfg, task):
+    return RunContext(db, "s", cfg, device="cpu").get_task(task) \
+        .output().fileset_id
+
+
+def test_geom_pipe_virtual_evaluation_through_both_packages(temp_db):
+    """geom_pipe_virtual.toml: its chain (the JAX runtime), then its
+    evaluation sections: PointCloudGroundTruth (the port's), the point
+    cloud's evaluation, the angles' DTW against the VirtualPlant metadata
+    and Visualization."""
+    from plant3dvision_tpu.fsdb import io as jio
+    from plant3dvision_tpu.synth import SyntheticPlant, generate_scan
+    cfg = load_toml(CONFIGS / "geom_pipe_virtual.toml")
+    generate_scan(temp_db, "s", n_views=18, width=256, height=256, f=272.0,
+                  plant=SyntheticPlant(**VIRTUAL_PLANT),
+                  workspace_margin=1.5, render_step=0.025)
+    images = temp_db.get_scan("s").get_fileset("images")
+    for f in list(images.get_files()):
+        b = images.create_file(f.id.replace("_rgb", "_background"))
+        jio.write_image(b, 255 - jio.read_image(f), "png")
+        b.set_metadata(dict(f.get_metadata(), channel="background"))
+    jax_run_task(JaxRunContext(temp_db, "s", cfg), "AnglesAndInternodes",
+                 report=False)
+    out = _evaluate_both(
+        temp_db, cfg, ["PointCloudGroundTruth", "PointCloudEvaluation",
+                       "AnglesAndInternodesEvaluation", "Visualization"],
+        port_only=("PointCloudGroundTruth",))
+    assert 0 < _result(out, "PointCloudEvaluation")["fitness"] <= 1
+    dtw = _result(out, "AnglesAndInternodesEvaluation")
+    assert dtw["mean_angle_error"] < 10.0 and len(dtw["pairs"]) >= 3
+    vis = out["Visualization"]
+    assert sum(k.startswith("thumbnail_") for k in vis) == 18
+    assert "PointCloud" in vis and "AnglesAndInternodes" in vis
+
+
+def test_ml_pipe_virtual_evaluation_through_both_packages(temp_db,
+                                                          monkeypatch):
+    """ml_pipe_virtual.toml's chain (the JAX runtime; the net's
+    probabilities the scan's label masks), then its seven evaluation
+    sections, Segmentation2DEvaluation also at dilation 2 (the port's
+    dilation of each label's stack in one call)."""
+    import chip_smoke
+    import plant3dvision_tpu.models.unet as jax_unet
+    from plant3dvision_tpu.fsdb import io as jio
+    from plant3dvision_tpu.synth import SyntheticPlant, generate_ml_scan
+    from tests.test_torch_seg import ML_LABELS, _save_tiny_resunet
+
+    cfg = load_toml(CONFIGS / "ml_pipe_virtual.toml")
+    cfg["Segmentation2DGroundTruthFilesetExists"] = {"fileset_id": "gt_masks"}
+    plant = SyntheticPlant(**VIRTUAL_PLANT)
+    generate_ml_scan(temp_db, "s", n_views=12, width=192, height=192,
+                     f=204.0, plant=plant, workspace_margin=1.5)
+    _save_tiny_resunet(temp_db)
+    scan = temp_db.get_scan("s")
+    gt = scan.get_fileset("gt_masks")
+
+    def mask(v, label):
+        f = gt.get_file(f"{v:05d}_{label}")
+        return (jio.read_image(f) if f is not None
+                else np.zeros((192, 192), np.uint8))
+    probs = np.stack([np.stack([mask(v, label) for label in ML_LABELS])
+                      for v in range(12)]).astype(np.uint8)
+    monkeypatch.setattr(jax_unet, "segmentation_inference",
+                        lambda model, params, batch, **kw: probs)
+    chip_smoke.write_virtual_plant_obj(
+        scan, chip_smoke.virtual_plant_organs(plant))
+    jax_run_task(JaxRunContext(temp_db, "s", cfg), "AnglesAndInternodes",
+                 report=False)
+    tasks = ["PointCloudGroundTruth", "PointCloudEvaluation",
+             "VoxelsGroundTruth", "VoxelsEvaluation",
+             "Segmentation2DEvaluation", "SegmentedPointCloudEvaluation",
+             "AnglesAndInternodesEvaluation"]
+    out = _evaluate_both(temp_db, cfg, tasks,
+                         port_only=("PointCloudGroundTruth",),
+                         both_fail=("SegmentedPointCloudEvaluation",))
+    seg = _result(out, "Segmentation2DEvaluation")["label-results"]
+    assert list(seg) == ["flower", "fruit", "leaf", "pedicel", "stem"]
+    assert seg["fruit"]["tp"] > 0 and seg["stem"]["tp"] > 0
+    # PointCloudGroundTruth samples the OBJ as it is, in the L-system axes
+    # that VoxelsGroundTruth undoes: PointCloudEvaluation compares clouds
+    # in different axes (a fault of both packages, ROADMAP Queue C); the
+    # same ground truth in the scanner's axes fits
+    from plant3dvision_tpu_torch.metrics import (
+        point_cloud_registration_fitness)
+    pce = _result(out, "PointCloudEvaluation")
+    assert pce["fitness"] < 0.2 and pce["chamfer"] > 10.0
+    from plant3dvision_tpu_torch.fsdb import io
+    pcd = scan.get_fileset(_fs_of(temp_db, cfg, "PointCloud")).get_files()[0]
+    gtf = scan.get_fileset(_fs_of(temp_db, cfg, "PointCloudGroundTruth")) \
+        .get_files()[0]
+    g = io.read_point_cloud(gtf).points[:, [0, 2, 1]] * [1, -1, 1]
+    assert point_cloud_registration_fitness(
+        g, io.read_point_cloud(pcd).points, 2.0)[0] > 0.9
+    vox = _result(out, "VoxelsEvaluation")
+    assert set(vox) == {"stem", "pedicel", "fruit"}
+    assert vox["fruit"]["tp"] > 0
+    cfg["Segmentation2DEvaluation"]["dilation_amount"] = 2
+    dil = _result(_evaluate_both(temp_db, cfg, ["Segmentation2DEvaluation"]),
+                  "Segmentation2DEvaluation")["label-results"]
+    # the predictions are the ground truth's own masks: a dilated ground
+    # truth keeps every true positive and adds false negatives
+    for label in seg:
+        assert dil[label]["tp"] == seg[label]["tp"]
+        assert dil[label]["fp"] == seg[label]["fp"] == 0
+    assert dil["stem"]["fn"] > seg["stem"]["fn"] == 0
+
+
+def test_virtual_cylinder_through_both_packages(temp_db):
+    """virtual_cylinder.toml on a bare scan: its random radius and height
+    from the task's seed, the estimate within 0.1 of the radius."""
+    temp_db.get_scan("s", create=True)
+    cfg = load_toml(CONFIGS / "virtual_cylinder.toml")
+    out = _evaluate_both(temp_db, cfg, ["CylinderRadiusGroundTruth",
+                                        "CylinderRadiusEstimation"])
+    res = _result(out, "CylinderRadiusEstimation")
+    assert abs(res["calculated_radius"] - res["gt_radius"]) < 0.1

@@ -561,6 +561,28 @@ def test_reproject_kernel_camera_runs(dev, order, L):
     assert runs == {"image_major": V, "label_major": F, "apart": V}[order]
 
 
+def test_dilate_kernel_at_the_evaluations_shape(dev):
+    """K8 at r 2 as Segmentation2DEvaluation(dilation_amount=2) calls it
+    (metrics.dilate_masks, one label's ground-truth stack in one call):
+    126 x 896x896 uint8 masks of scattered organ-sized blobs, equal to the
+    plain version on the card and to the CPU's dilation of the same
+    masks, with one launch."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.metrics import dilate_masks
+    from plant3dvision_tpu_torch.ops.masks import binary_dilation_plain
+    rng = np.random.default_rng(2)
+    small = rng.random((126, 56, 56)) > 0.97
+    masks = (np.repeat(np.repeat(small, 16, 1), 16, 2)
+             & (rng.random((126, 896, 896)) > 0.05)).astype(np.uint8) * 255
+    kernels.reset_launches()
+    got = dilate_masks(masks, 2, dev)
+    assert kernels.LAUNCHES["dilate_disk"] == 1
+    want = binary_dilation_plain(torch.from_numpy(masks != 0).to(dev), 2)
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    np.testing.assert_array_equal(got[:8], dilate_masks(masks[:8], 2, "cpu"))
+    assert got.sum() > (masks != 0).sum()
+
+
 DILATE_CASES = ([("radius", r) for r in (0, 1, 2, 3, 5, 6, 16, 35, 36)]
                 + [("width", w) for w in (31, 32, 33, 63, 64, 65, 1440, 2100,
                                           4100)]

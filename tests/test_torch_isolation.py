@@ -22,7 +22,8 @@ def test_no_jax_or_jax_package_imports_in_the_port():
     """AST scan of every module of the port (models/, synth_photo.py,
     evaluation.py, the separate-task ML route's, the real-scan front end's,
     the calibration's, the eikonal skeleton's, Colmap's, the ChArUco
-    calibration's and the meshes' modules included), of chip_smoke.py and
+    calibration's, the meshes' and the evaluation layer's modules and the
+    bin/ tools' ports included), of chip_smoke.py and
     the stand-in colmap it writes (STANDIN_COLMAP), and of
     tools/frontend_angles.py and the A/B tools (dilate_filters_ab.py,
     edt_quant_ab.py, harris_reproject_ab.py, harris_reproject_variants.py,
@@ -40,7 +41,14 @@ def test_no_jax_or_jax_package_imports_in_the_port():
                  "ops/geodesics.py", "tasks/proc3d.py",
                  "colmap/read_model.py", "colmap/runner.py",
                  "calibration.py", "tasks/calibration.py", "native/mc.py",
-                 "native/mcf.py", "proc3d.py"):
+                 "native/mcf.py", "proc3d.py", "metrics.py", "compare.py",
+                 "visu.py", "visu_plotly.py", "synth.py",
+                 "tasks/evaluation.py", "tasks/visualization.py",
+                 "tools/robustness_evaluation.py", "tools/check_measures.py",
+                 "tools/colmap_poses.py", "tools/create_charuco_board.py",
+                 "tools/volume_viewer.py",
+                 "tools/voronoi_texture_generator.py",
+                 "tools/dash_explorer.py"):
         assert PORT / name in paths
     smoke = ast.parse((ROOT / "chip_smoke.py").read_text())
     standin, = [node.value.value for node in smoke.body
@@ -98,6 +106,9 @@ assert TaskRegistry.get("AnglesAndInternodes").__module__.startswith(
     "plant3dvision_tpu_torch.")
 assert TaskRegistry.get("TurntableCalibration").__module__ == \
     "plant3dvision_tpu_torch.tasks.colmap"
+assert TaskRegistry.get("VoxelsEvaluation").__module__ == \
+    "plant3dvision_tpu_torch.tasks.evaluation"
+assert len(TaskRegistry._registry) == 47     # the JAX package's 47 tasks
 from plant3dvision_tpu_torch.ops import selfcal, sfmlite
 assert selfcal.cnc_to_cameras(np.zeros((2, 5), np.float32),
                               np.ones(9, np.float32), 64, 48).shape == (2, 16)
