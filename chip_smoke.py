@@ -24,7 +24,8 @@
    (K1 bit-equal to its plain version, with its launches, device time and
    bound) and vol2pcd on its result.
 5. Drives the ML path through the port's task runtime at full width: a
-   126-view 896x896 photo-domain scan (ProceduralArabidopsis(seed=1)), the
+   126-view 896x896 photo-domain scan (ProceduralArabidopsis(seed=1); its
+   organs' masks in ML_GT_FILESET, phase 21's ground truth), the
    committed TPUSegNet, FusedSegmentationCarving at 0.25 mm (165x146x504
    voxels, 6 labels, bilinear, batches of 32) -> multiclass PointCloud ->
    OrganSegmentation -> AnglesAndInternodes: one cold pass, one warm pass
@@ -205,23 +206,26 @@
    0.4) and Visualization (300 images and thumbnails; without matplotlib
    it raises at its figures after writing them, as the JAX task does,
    and the phase checks that instead); virtual_cylinder.toml on a bare
-   scan; `python -m plant3dvision_tpu_torch.tools.robustness_evaluation`
-   in a subprocess over 3 replicates of a bare copy of the scan through
-   geom_pipe_fast.toml (each launching K1-K4), then compare_angles.
+   scan; the main() of `python -m
+   plant3dvision_tpu_torch.tools.robustness_evaluation` over 3 replicates
+   of a bare copy of the scan through geom_pipe_fast.toml (each launching
+   K1-K4), then compare_angles.
    Checks the JSONs, the DTW error below 1 degree, a fitness above 0,
    the cylinder's radius within 0.1, each replicate's angle count equal
    to the warm pass's and the replicates' launches; prints each task's
    seconds and the replicates' pairwise errors.
 21. ml_pipe_virtual.toml's seven evaluation sections, as shipped, on phase
-   5's scan after phase 7's warm pass (run_ml_evaluation; the ground truth
-   written first: the OBJ, write_virtual_plant_obj, and the organs' masks,
-   write_label_masks), then Segmentation2DEvaluation at dilation_amount 2 (K8
-   at radius 2 on 4 labels x 126 masks of 896x896, one launch a label).
+   5's scan after phase 7's warm pass (run_ml_evaluation; the ground
+   truth: the organs' masks, which phase 5 wrote into ML_GT_FILESET, and
+   the OBJ, written first by write_virtual_plant_obj), then
+   Segmentation2DEvaluation at dilation_amount 2 (K8 at radius 2 on 4
+   labels x 126 masks of 896x896, one launch a label's 126 masks).
    Checks the outputs of the tasks that run and the JAX package's failure
    of SegmentedPointCloudEvaluation on this data; prints each task's
    seconds, the mIoU per label and VoxelsEvaluation's precision and recall
-   per label; then K8 at radius 2 on that stack against its plain version
-   and library_dilation (check_ml_evaluation_kernels).
+   per label; then K8 at radius 2 on each label's stack against its plain
+   version, and on one label's beside library_dilation
+   (check_ml_evaluation_kernels).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -300,6 +304,13 @@ KERNEL_INFO = {
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
 ML_VOXEL, ML_SIZE, ML_VIEWS, ML_BATCH = 0.25, 896, 126, 32
+#: where phase 5 writes its scan's per-organ masks: the fileset that
+#: Segmentation2DGroundTruthFilesetExists names by default (phase 21's
+#: ground truth), out of the way of the tasks that read every image and
+#: kept by the ML routes' Clean
+ML_GT_FILESET = "Segmentation2DGroundTruth"
+ML_CLEAN = {"no_confirm": True,
+            "keep": ["images", "models", "calibration", ML_GT_FILESET]}
 ML_CONFIG = {
     "ModelFilesetExists": {"scan_id": "models"},
     "FusedSegmentationCarving": {
@@ -316,7 +327,7 @@ ML_CONFIG = {
                             "min_elongation_ratio": 1.0,
                             "characteristic_length": 1.0, "stem_axis": 2,
                             "stem_axis_inverted": False},
-    "Clean": {"no_confirm": True},
+    "Clean": ML_CLEAN,
 }
 
 #: the separate-task ML route: configs/ml_pipe_virtual.toml's tasks (its
@@ -1180,7 +1191,7 @@ def run_ml_path(db, device_name):
     plant = ProceduralArabidopsis(seed=1)
     t0 = time.perf_counter()
     generate_photo_scan(db, "ml_northstar", n_views=ML_VIEWS, width=ML_SIZE,
-                        height=ML_SIZE, plant=plant, with_gt_masks=False)
+                        height=ML_SIZE, plant=plant, gt_fileset=ML_GT_FILESET)
     gen_s = time.perf_counter() - t0
     assert install_checkpoint(db, path=TPUSEGNET_CHECKPOINT,
                               model_id="tpusegnet_seg") is not None
@@ -1490,7 +1501,7 @@ def separate_config(**seg):
                                  **seg)
     cfg["Voxels"]["voxel_size"] = ML_VOXEL
     cfg["AnglesAndInternodes"] = dict(ML_CONFIG["AnglesAndInternodes"])
-    cfg["Clean"] = {"no_confirm": True}
+    cfg["Clean"] = ML_CLEAN
     return cfg
 
 
@@ -3956,15 +3967,6 @@ def write_virtual_plant_obj(scan, organs):
 #: phase 20: geom_pipe_virtual.toml's evaluation sections, as shipped
 GEOM_EVAL_TASKS = ("PointCloudGroundTruth", "PointCloudEvaluation",
                    "AnglesAndInternodesEvaluation", "Visualization")
-#: phase 20: the robustness tool in a subprocess, run as `python -m` runs
-#: it, printing the kernels' launch counts of that process at its exit
-ROBUST_RUNNER = (
-    "import atexit, json, runpy\n"
-    "from plant3dvision_tpu_torch import kernels\n"
-    "atexit.register(lambda: print('LAUNCHES ' + json.dumps(dict("
-    "kernels.LAUNCHES)), flush=True))\n"
-    "runpy.run_module('plant3dvision_tpu_torch.tools.robustness_evaluation',"
-    " run_name='__main__', alter_sys=True)\n")
 ROBUST_REPLICATES = 3
 
 
@@ -3990,17 +3992,20 @@ def run_geom_evaluation(db, scan):
     thumbnails; where matplotlib does not import it raises at its figures
     after writing them, as the JAX task does, and the phase checks that
     instead); then virtual_cylinder.toml on a bare scan; then the
-    robustness tool (`python -m
-    plant3dvision_tpu_torch.tools.robustness_evaluation`, in a subprocess)
-    over 3 replicates of a bare copy of the scan through geom_pipe_fast.toml
-    (the main path: K1-K4 in each), with the launches of that process.
+    robustness tool (the main() that `python -m
+    plant3dvision_tpu_torch.tools.robustness_evaluation` runs, with its
+    arguments) over 3 replicates of a bare copy of the scan through
+    geom_pipe_fast.toml (the main path: K1-K4 in each), with the launches
+    of that call.
     Returns the checks, which main() asserts."""
     import importlib.util
 
     import numpy as np
+    from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.fsdb import io
     from plant3dvision_tpu_torch.runtime import RunContext, run_task
     from plant3dvision_tpu_torch.runtime.config import load_toml
+    from plant3dvision_tpu_torch.tools import robustness_evaluation
 
     cfg = load_toml(ROOT / "configs" / "geom_pipe_fast.toml")
     virtual = load_toml(ROOT / "configs" / "geom_pipe_virtual.toml")
@@ -4060,19 +4065,14 @@ def run_geom_evaluation(db, scan):
     run_task(RunContext(db, "rob", {"Clean": {"no_confirm": True}},
                         device="cuda"), "Clean", report=False)
     out_json = db.path().parent / "robustness.json"
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", ROBUST_RUNNER, str(db.path() / "rob"),
-         "--task", "AnglesAndInternodes", "--config",
+    robustness_evaluation.main(
+        [str(db.path() / "rob"), "--task", "AnglesAndInternodes", "--config",
          str(ROOT / "configs" / "geom_pipe_fast.toml"),
-         "-n", str(ROBUST_REPLICATES), "--out", str(out_json)],
-        cwd=ROOT, capture_output=True, text=True, timeout=600)
+         "-n", str(ROBUST_REPLICATES), "--out", str(out_json)])
     robust_s = time.perf_counter() - t0
-    assert proc.returncode == 0, \
-        f"robustness_evaluation failed: {proc.stderr[-3000:]}"
-    sub_launches = json.loads(next(
-        line[len("LAUNCHES "):] for line in proc.stdout.splitlines()
-        if line.startswith("LAUNCHES ")))
+    sub_launches = dict(kernels.LAUNCHES)
     robust = json.loads(out_json.read_text())["AnglesAndInternodes"][
         "compare_angles"]
     db._load_scans()
@@ -4127,72 +4127,30 @@ ML_EVAL_TASKS = ("PointCloudGroundTruth", "PointCloudEvaluation",
                  "VoxelsGroundTruth", "VoxelsEvaluation",
                  "Segmentation2DEvaluation", "SegmentedPointCloudEvaluation",
                  "AnglesAndInternodesEvaluation")
-#: the organs of phase 5's plant that have masks (generate_photo_scan's
-#: label channels: no flower)
+#: the organs of phase 5's plant that have masks in ML_GT_FILESET
+#: (generate_photo_scan's label channels: no flower)
 ML_GT_LABELS = ("fruit", "leaf", "pedicel", "stem")
-
-
-def write_label_masks(scan, plant, fileset_id, density=150.0, workers=8):
-    """The per-organ masks generate_photo_scan writes with its images
-    (with_gt_masks), for a scan written without them: each view's masks
-    rendered again (synth_photo.render_photo, from the plant's own
-    samples at the scan's density and the camera in each image's metadata;
-    the masks do not depend on the render's random draws) into the
-    `fileset_id` fileset, a file for each view and organ of ML_GT_LABELS
-    (zeros where an organ is not seen), with the image's shot_id, the
-    organ as its channel and the camera."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
-    from plant3dvision_tpu_torch.fsdb import io
-    from plant3dvision_tpu_torch.synth_photo import render_photo
-
-    samples = plant.labeled_samples(density=density)
-    images = sorted(scan.get_fileset("images").get_files(
-        query={"channel": "rgb"}), key=lambda f: f.id)
-    out = scan.get_fileset(fileset_id, create=True)
-
-    def render(f):
-        cam = f.get_metadata("camera")
-        fx, fy, cx, cy = cam["camera_model"]["params"][:4]
-        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1.0]])
-        img = io.read_image(f)
-        _, masks, _ = render_photo(samples, K, cam["rotmat"], cam["tvec"],
-                                   img.shape[1], img.shape[0])
-        return f, cam, {label: masks.get(label, np.zeros(
-            img.shape[:2], np.uint8)) for label in ML_GT_LABELS}
-
-    with ThreadPoolExecutor(workers) as ex:
-        rendered = list(ex.map(render, images))
-    for f, cam, masks in rendered:
-        shot = f.get_metadata("shot_id")
-        for label, m in masks.items():
-            fm = out.create_file(f.id.replace("_rgb", f"_{label}"))
-            io.write_image(fm, m, "png")
-            fm.set_metadata({"shot_id": shot, "channel": label,
-                             "camera": cam})
-    return out
 
 
 def run_ml_evaluation(db, scan):
     """Phase 21: ml_pipe_virtual.toml's seven evaluation sections
     (ML_EVAL_TASKS, as shipped) on phase 5's scan after phase 7's warm pass
-    of the separate route (complete in the DB). First the ground truth
-    that the reference's virtual_plant fixture ships: one OBJ, a usemtl
-    block for each of the plant's stem, pedicel, fruit and leaf meshes, in
-    the L-system axes (write_virtual_plant_obj), and the organs' masks
-    (phase 5 wrote its scan without them; write_label_masks renders them
-    again into the fileset that Segmentation2DGroundTruthFilesetExists
-    names by default). Then Segmentation2DEvaluation once more
-    at dilation_amount 2: K8 at radius 2, one launch a label's stack of
-    126 masks. On this data, as in the JAX package:
+    of the separate route (complete in the DB). The ground truth is that
+    which the reference's virtual_plant fixture ships: the organs' masks,
+    which phase 5 wrote with its images into ML_GT_FILESET, the fileset
+    that Segmentation2DGroundTruthFilesetExists names by default, and one
+    OBJ, written here, a usemtl block for each of the plant's stem,
+    pedicel, fruit and leaf meshes, in the L-system axes
+    (write_virtual_plant_obj). Then Segmentation2DEvaluation once more at
+    dilation_amount 2: K8 at radius 2, one launch a label's stack of 126
+    masks. On this data, as in the JAX package:
     SegmentedPointCloudEvaluation fails (TypeError, 'iteration over a 0-d
     array': PointCloudGroundTruth writes no labels), and
     PointCloudEvaluation compares the prediction with a cloud sampled in
     the L-system axes (PointCloudGroundTruth does not undo them). The
     JAX package's PointCloudGroundTruth itself always fails (TypeError,
     it indexes its one input as a list); the port's runs. Returns the
-    checks, the K8 launches of the dilated evaluation and the seconds."""
+    checks and the K8 launches of the dilated evaluation."""
     import numpy as np
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.runtime import RunContext
@@ -4208,12 +4166,9 @@ def run_ml_evaluation(db, scan):
     obj = write_virtual_plant_obj(scan, virtual_plant_organs(
         ProceduralArabidopsis(seed=1)))
     seconds = {"ground truth OBJ": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    gt_masks = write_label_masks(scan, ProceduralArabidopsis(seed=1),
-                                 ctx.get_task(
-                                     "Segmentation2DGroundTruthFilesetExists")
-                                 .output().fileset_id)
-    seconds["ground truth masks"] = time.perf_counter() - t0
+    assert ctx.get_task("Segmentation2DGroundTruthFilesetExists").output(
+    ).fileset_id == ML_GT_FILESET
+    gt_masks = ctx.scan.get_fileset(ML_GT_FILESET)
     results, failures = {}, {}
     for task in ML_EVAL_TASKS:
         try:
@@ -4247,7 +4202,7 @@ def run_ml_evaluation(db, scan):
                   "phase 5's scan, then Segmentation2DEvaluation at "
                   "dilation 2",
         "ground_truth_obj": obj.filename,
-        "ground_truth_masks": [gt_masks.id, len(gt_masks.get_files())],
+        "ground_truth_masks": [ML_GT_FILESET, len(gt_masks.get_files())],
         "task_s": seconds,
         "failed": failures,
         "voxels_ground_truth": vgt,
@@ -4291,30 +4246,44 @@ def run_ml_evaluation(db, scan):
         "numbers finite": bool(np.isfinite([
             r["miou"] for r in seg.get("label-results", {}).values()
             if r["miou"] is not None]).all())}
-    return checks, k8, gt_masks.id
+    return checks, k8
 
 
-def check_ml_evaluation_kernels(scan, k8, gt_id):
-    """Phase 21's K8 row: radius 2 on the stack Segmentation2DEvaluation
-    dilates, the 4 organs x 126 ground-truth masks of 896x896 (the
-    `gt_id` fileset), against its plain version bit for bit, timed beside
-    it and beside library_dilation; `launches` the dilated evaluation's
-    (one a label's stack)."""
+def check_ml_evaluation_kernels(scan, k8):
+    """Phase 21's K8 row at radius 2 on the stacks Segmentation2DEvaluation
+    dilates: one label's 126 ground-truth masks of 896x896 (ML_GT_FILESET),
+    built as metrics.dilate_masks receives them. Each of the 4 labels'
+    stacks is held to the plain version bit for bit and timed; the row
+    gives the first label's call (its ms, plain ms, library ms and bound),
+    `launches` the dilated evaluation's (one a label's stack) and
+    `ms_a_evaluation` the 4 calls' ms added."""
     import numpy as np
     import torch
     from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.ops import masks as masks_ops
 
-    files = [f for f in scan.get_fileset(gt_id).get_files()
-             if f.get_metadata("channel") in ML_GT_LABELS]
-    files.sort(key=lambda f: (ML_GT_LABELS.index(f.get_metadata(
-        "channel")), f.id))
-    stack = np.stack([io.read_image(f) for f in files]) != 0
-    binm = torch.from_numpy(stack).to("cuda")
-    row = dilation_row(binm, 2, k8, {
-        "path": "phase 21 (Segmentation2DEvaluation, dilation_amount 2)",
-        "calls_a_evaluation": len(ML_GT_LABELS),
-        "masks_a_call": len(files) // len(ML_GT_LABELS)})
-    del binm
+    fs = scan.get_fileset(ML_GT_FILESET)
+    label_ms, row = {}, None
+    for label in ML_GT_LABELS:
+        files = sorted(fs.get_files(query={"channel": label}),
+                       key=lambda f: f.id)
+        binm = torch.from_numpy(np.ascontiguousarray(np.stack(
+            [io.read_image(f) for f in files]) != 0)).to("cuda")
+        if row is None:
+            row = dilation_row(binm, 2, k8, {
+                "path": "phase 21 (Segmentation2DEvaluation, "
+                        "dilation_amount 2)",
+                "label": label, "calls_a_evaluation": len(ML_GT_LABELS)})
+            label_ms[label] = row["ms"]
+        else:
+            got = masks_ops.binary_dilation(binm, 2)
+            assert torch.equal(got, masks_ops.binary_dilation_plain(
+                binm, 2)), f"dilate kernel != plain ({label} masks, r 2)"
+            label_ms[label] = cuda_ms(
+                lambda: masks_ops.binary_dilation(binm, 2))
+        del binm
+    row["label_ms"] = label_ms
+    row["ms_a_evaluation"] = sum(label_ms.values())
     torch.cuda.empty_cache()
     return [row]
 
@@ -4389,8 +4358,8 @@ def main(argv=None):
                                            sep_launches)
             bf16_pass = (sep_s, sep_report)
         if "eval_ml" in groups:
-            ml_checks, k8, gt_id = run_ml_evaluation(db, sep_scan)
-            rows += check_ml_evaluation_kernels(sep_scan, k8, gt_id)
+            ml_checks, k8 = run_ml_evaluation(db, sep_scan)
+            rows += check_ml_evaluation_kernels(sep_scan, k8)
             failed = [c for c, ok in ml_checks.items() if not ok]
             assert not failed, f"ML evaluation checks failed: {failed}"
         if "frontend" in groups:

@@ -142,38 +142,48 @@ class CompareMasks(SetMetrics):
 
 class CompareMaskFilesets:
     """Compare two mask filesets matched by (shot_id, channel)
-    (reference metrics.py:275-381). Each label's ground-truth masks are
-    dilated as one stack in one call on `device`; the counts per file and
-    per label, and the order they are summed in, are the JAX package's."""
+    (reference metrics.py:275-381). Without dilation a pair is read and
+    counted at a time. With it, one label's ground-truth masks at a time
+    are read and dilated as one stack (one call on `device` for each mask
+    shape), and its predictions read and counted one by one. The counts per
+    file and per label, and the order they are summed in, are the JAX
+    package's."""
 
     def __init__(self, groundtruth_fileset, prediction_fileset, labels,
                  dilation_amount=0, device="cuda"):
         from .fsdb import io
         self.results = {"evaluation-results": {}}
-        per_label = {label: SetMetrics() for label in labels}
         index = {}
         for f in groundtruth_fileset.get_files():
             key = (f.get_metadata("shot_id"), f.get_metadata("channel"))
             index[key] = f
-        pairs = []
+        pairs = []          # (prediction file, label, ground-truth file)
         for pf in prediction_fileset.get_files():
             key = (pf.get_metadata("shot_id"), pf.get_metadata("channel"))
-            if key[1] not in labels or key not in index:
-                continue
-            pairs.append((pf, key[1], io.read_image(index[key]),
-                          io.read_image(pf)))
-        gts = [gt for _, _, gt, _ in pairs]
+            if key[1] in labels and key in index:
+                pairs.append((pf, key[1], index[key]))
+        counts = [None] * len(pairs)
         if dilation_amount > 0:
-            stacks = {}     # (label, mask shape) -> indices into pairs
-            for i, (_, label, gt, _) in enumerate(pairs):
-                stacks.setdefault((label, gt.shape), []).append(i)
-            for sel in stacks.values():
-                stack = dilate_masks(np.stack([gts[i] for i in sel]),
-                                     dilation_amount, device)
+            by_label = {}
+            for i, (_, label, _) in enumerate(pairs):
+                by_label.setdefault(label, []).append(i)
+            for sel in by_label.values():
+                gts = [io.read_image(pairs[i][2]) for i in sel]
+                stacks = {}     # mask shape -> positions in sel
+                for j, gt in enumerate(gts):
+                    stacks.setdefault(gt.shape, []).append(j)
+                for js in stacks.values():
+                    stack = dilate_masks(np.stack([gts[j] for j in js]),
+                                         dilation_amount, device)
+                    for k, j in enumerate(js):
+                        gts[j] = stack[k]
                 for j, i in enumerate(sel):
-                    gts[i] = stack[j]
-        for (pf, label, _, pred), gt in zip(pairs, gts):
-            m = SetMetrics(gt, pred)
+                    counts[i] = SetMetrics(gts[j], io.read_image(pairs[i][0]))
+        else:
+            for i, (pf, _, gf) in enumerate(pairs):
+                counts[i] = SetMetrics(io.read_image(gf), io.read_image(pf))
+        per_label = {label: SetMetrics() for label in labels}
+        for (pf, label, _), m in zip(pairs, counts):
             per_label[label] = per_label[label] + m
             self.results["evaluation-results"][pf.id] = m.as_dict()
         self.results["label-results"] = {

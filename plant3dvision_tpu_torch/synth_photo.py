@@ -373,10 +373,13 @@ def fixture_like_cameras(n_views, radius=75.0, z=65.0, target=(4.6, 5.0, 55.0),
 
 def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
                         height=896, plant=None, seed=0, density=150.0,
-                        with_gt_masks=True):
+                        with_gt_masks=True, gt_fileset="images"):
     """Full photo-domain scan in the reference on-disk format: rgb images
     + per-organ GT channels (like the virtual_plant fixture's 7-channel
-    layout) + exact camera metadata + VirtualPlant GT angles fileset."""
+    layout) + exact camera metadata + VirtualPlant GT angles fileset.
+    The GT channels go into the `gt_fileset` fileset: "images", as the
+    fixture keeps them, or one of their own (an evaluation's ground truth,
+    out of the way of tasks that read every image)."""
     from .fsdb import io
 
     rng = np.random.default_rng(seed)
@@ -384,6 +387,7 @@ def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
     samples = plant.labeled_samples(density=density)
     scan = db.get_scan(scan_id, create=True)
     images = scan.get_fileset("images", create=True)
+    gt = scan.get_fileset(gt_fileset, create=True) if with_gt_masks else None
     bbox = plant.bounding_box()
     scan.set_metadata("bounding_box", bbox)
 
@@ -413,7 +417,7 @@ def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
                 m = masks.get(label)
                 if m is None:
                     m = np.zeros((height, width), np.uint8)
-                fm = images.create_file(f"{v:05d}_{label}")
+                fm = gt.create_file(f"{v:05d}_{label}")
                 io.write_image(fm, m, "png")
                 fm.set_metadata({"shot_id": f"{v:06d}", "channel": label,
                                  "camera": cam_md})

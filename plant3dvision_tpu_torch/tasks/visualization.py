@@ -128,14 +128,10 @@ def _register(outfs, scan, file_id, filename):
 
 def _resize_max(img, max_size):
     """cv2.resize(img, ..., INTER_AREA) to at most `max_size` a side, as the
-    JAX task calls it: uint8 images through ops/resize.py, others cv2."""
+    JAX task calls it, through ops/resize.py (the images decode to uint8)."""
+    from ..ops.resize import resize_area_u8
     h, w = img.shape[:2]
     scale = max_size / max(h, w)
     if scale >= 1.0:
         return img
-    size = (int(w * scale), int(h * scale))
-    if img.dtype == np.uint8:
-        from ..ops.resize import resize_area_u8
-        return resize_area_u8(img, size)
-    import cv2
-    return cv2.resize(img, size, interpolation=cv2.INTER_AREA)
+    return resize_area_u8(img, (int(w * scale), int(h * scale)))

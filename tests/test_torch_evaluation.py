@@ -7,6 +7,9 @@ and VoxelsWithPrior through both runtimes on small seeded inputs: equal
 fileset ids, equal JSON (integers exactly, floats within 1e-9), equal
 volumes. Where the JAX package fails on an input, the port fails the
 same way (SegmentedPointCloudEvaluation without ground-truth labels).
+The synthetic scans that carry ground-truth masks (synth.generate_ml_scan,
+synth_photo.generate_photo_scan's masks in a fileset of their own) equal
+the JAX package's file for file.
 """
 
 import json
@@ -152,10 +155,12 @@ def test_compare_masks_dilation_bit_equal(radius):
             np.asarray(binary_dilation(gt != 0, radius)))
 
 
-def _mask_filesets(db, seed, views=3, labels=("fruit", "stem", "leaf")):
+def _mask_filesets(db, seed, views=3, labels=("fruit", "stem", "leaf"),
+                   shapes=((29, 41),)):
     """A ground-truth and a prediction fileset of seeded masks, keyed by
     (shot_id, channel) as the task matches them; the prediction has one
-    extra view the ground truth lacks and one unlisted channel."""
+    extra view the ground truth lacks and one unlisted channel. View v's
+    masks have shape shapes[v % len(shapes)]."""
     scan = db.get_scan("s", create=True)
     rng = np.random.default_rng(seed)
     gt = scan.get_fileset("gt", create=True)
@@ -165,7 +170,8 @@ def _mask_filesets(db, seed, views=3, labels=("fruit", "stem", "leaf")):
             for fs, p in ((gt, 0.06), (pr, 0.1)):
                 if fs is gt and v == views:
                     continue
-                m = (rng.random((29, 41)) < p).astype(np.uint8) * 255
+                m = (rng.random(shapes[v % len(shapes)]) < p).astype(
+                    np.uint8) * 255
                 f = fs.create_file(f"{v:05d}_{label}")
                 jio.write_image(f, m, "png")
                 f.set_metadata({"shot_id": f"{v:06d}", "channel": label})
@@ -185,6 +191,31 @@ def test_compare_mask_filesets_bit_equal(temp_db, dilation):
     got = CompareMaskFilesets(gt, pr, labels, dilation, device="cpu").results
     assert len(got["evaluation-results"]) == 9
     assert_same(got, want, rtol=0)
+
+
+@pytest.mark.parametrize("dilation", [0, 2])
+def test_compare_mask_filesets_mixed_shapes_bit_equal(temp_db, monkeypatch,
+                                                      dilation):
+    """Masks of two shapes within a label: the port dilates a label's masks
+    of each shape as one stack, one call a (label, shape), and without
+    dilation reads and counts pair by pair, never dilating; counts per file
+    and per label, and the files' order, equal the JAX package's."""
+    from plant3dvision_tpu.metrics import CompareMaskFilesets as JaxCMF
+    from plant3dvision_tpu_torch import metrics
+    _, gt, pr = _mask_filesets(temp_db, 5, views=5,
+                               shapes=((29, 41), (17, 23)))
+    labels = ["stem", "fruit", "leaf"]
+    want = JaxCMF(gt, pr, labels, dilation).results
+    calls = []
+    dilate = metrics.dilate_masks
+    monkeypatch.setattr(metrics, "dilate_masks", lambda m, r, device: (
+        calls.append(np.shape(m)), dilate(m, r, device))[1])
+    got = metrics.CompareMaskFilesets(gt, pr, labels, dilation,
+                                      device="cpu").results
+    assert len(got["evaluation-results"]) == 15
+    assert_same(got, want, rtol=0)
+    assert sorted(calls) == ([] if dilation == 0 else sorted(
+        [(2, 17, 23), (3, 29, 41)] * 3))
 
 
 def _clouds(seed, n=(700, 900)):
@@ -596,3 +627,88 @@ def test_evaluation_task_is_abstract(temp_db):
     task = ctx.get_task(TaskRegistry.get("EvaluationTask"))
     with pytest.raises(NotImplementedError):
         task.evaluate()
+
+
+# -- synthetic scans with ground-truth masks ---------------------------------
+
+def _scan_contents(scan, read_image):
+    """{fileset id: (fileset metadata, [(file id, filename, metadata,
+    decoded image or raw bytes)])} and the scan's metadata."""
+    out = {}
+    for fs_id in sorted(scan.list_filesets()):
+        fs = scan.get_fileset(fs_id)
+        files = []
+        for f in sorted(fs.get_files(), key=lambda f: f.id):
+            data = (read_image(f) if f.filename.endswith(".png")
+                    else f.read_raw())
+            files.append((f.id, f.filename, f.get_metadata(), data))
+        out[fs_id] = (fs.get_metadata(), files)
+    return out, scan.get_metadata()
+
+
+def _assert_same_scans(got, want):
+    (gfs, gmd), (wfs, wmd) = got, want
+    assert gmd == wmd
+    assert list(gfs) == list(wfs)
+    for fs_id, (wfmd, wfiles) in wfs.items():
+        gfmd, gfiles = gfs[fs_id]
+        assert gfmd == wfmd, fs_id
+        assert [f[:3] for f in gfiles] == [f[:3] for f in wfiles], fs_id
+        for (fid, _, _, g), (_, _, _, w) in zip(gfiles, wfiles):
+            if isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype, fid
+                np.testing.assert_array_equal(g, w, err_msg=fid)
+            else:
+                assert g == w, fid
+
+
+def test_generate_ml_scan_bit_equal(temp_db):
+    """synth.generate_ml_scan (the colour-coded RGB scan with its gt_masks
+    fileset, the ML evaluation's ground truth): the port's and the JAX
+    package's scans of one plant have the same filesets, file ids,
+    metadata, decoded images and masks, and OBJ bytes."""
+    from plant3dvision_tpu.synth import SyntheticPlant as JaxPlant
+    from plant3dvision_tpu.synth import generate_ml_scan as jax_generate
+    from plant3dvision_tpu_torch.fsdb.testing import TemporaryDB
+    from plant3dvision_tpu_torch.synth import SyntheticPlant, generate_ml_scan
+    kw = dict(n_fruits=3, internode=8.0, fruit_length=12.0)
+    want = _scan_contents(jax_generate(
+        temp_db, "s", n_views=3, width=96, height=80, f=90.0,
+        plant=JaxPlant(**kw)), jio.read_image)
+    with TemporaryDB() as db:
+        got = _scan_contents(generate_ml_scan(
+            db, "s", n_views=3, width=96, height=80, f=90.0,
+            plant=SyntheticPlant(**kw)), io.read_image)
+    assert len(want[0]["gt_masks"][1]) == 3 * 4
+    _assert_same_scans(got, want)
+
+
+def test_generate_photo_scan_gt_fileset(temp_db):
+    """synth_photo.generate_photo_scan's `gt_fileset`: the organs' masks
+    written into a fileset of their own equal, file for file, those the
+    JAX package writes beside the images, and the images are the same."""
+    from plant3dvision_tpu.synth_photo import (
+        ProceduralArabidopsis as JaxPlant)
+    from plant3dvision_tpu.synth_photo import (
+        generate_photo_scan as jax_generate)
+    from plant3dvision_tpu_torch.fsdb.testing import TemporaryDB
+    from plant3dvision_tpu_torch.synth_photo import (ProceduralArabidopsis,
+                                                     generate_photo_scan)
+    kw = dict(n_views=2, width=72, height=64, density=40.0)
+    jfs, _ = _scan_contents(jax_generate(temp_db, "s", plant=JaxPlant(seed=1),
+                                         **kw), jio.read_image)
+    with TemporaryDB() as db:
+        pfs, _ = _scan_contents(generate_photo_scan(
+            db, "s", plant=ProceduralArabidopsis(seed=1),
+            gt_fileset="Segmentation2DGroundTruth", **kw), io.read_image)
+    jimages = jfs["images"][1]
+    rgb = [f for f in jimages if f[0].endswith("_rgb")]
+    masks = [f for f in jimages if not f[0].endswith("_rgb")]
+    assert len(masks) == 2 * 5
+    assert list(pfs) == sorted(["Segmentation2DGroundTruth"] + list(jfs))
+    for fs_id, want in (("images", rgb), ("Segmentation2DGroundTruth",
+                                          masks)):
+        got = pfs[fs_id][1]
+        assert [f[:3] for f in got] == [f[:3] for f in want], fs_id
+        for (fid, _, _, g), (_, _, _, w) in zip(got, want):
+            np.testing.assert_array_equal(g, w, err_msg=fid)

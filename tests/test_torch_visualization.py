@@ -75,10 +75,11 @@ def _assert_equal_visualizations(jax_out, port_out):
 
 
 def test_visualization_images_only_rgb(temp_db):
-    """An RGB scan (synth.generate_ml_scan, as both packages write it):
-    JPEG images shrunk to 100 px (INTER_AREA at a non-integer scale) and
-    48 px thumbnails, equal after decoding; nothing else to bundle."""
-    from plant3dvision_tpu.synth import SyntheticPlant, generate_ml_scan
+    """An RGB scan (the port's synth.generate_ml_scan, which writes what
+    the JAX package's does, tests/test_torch_evaluation.py): JPEG images
+    shrunk to 100 px (INTER_AREA at a non-integer scale) and 48 px
+    thumbnails, equal after decoding; nothing else to bundle."""
+    from plant3dvision_tpu_torch.synth import SyntheticPlant, generate_ml_scan
     generate_ml_scan(temp_db, "s", n_views=4, width=176, height=132, f=150.0,
                      plant=SyntheticPlant(n_fruits=3, internode=8.0,
                                           fruit_length=12.0))
