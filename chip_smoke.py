@@ -227,13 +227,38 @@
    version, and on one label's beside library_dilation
    (check_ml_evaluation_kernels).
 
+22. Training: models/train_synth.py's main() at the shipped ResUNet's
+   width (24, 48, 96, 192) x 2 blocks, crop 448, batch 8, lr 3e-3, on a
+   reduced procedural set (2 plants x 6 views, 24 crops; the recipe's
+   12 x 18), 200 steps (of 3000), the launch counts at 0 just before;
+   the float16 checkpoint through the port's load_model and
+   segmentation_inference on the held-out crops; a 3-chunk run
+   checkpointed every chunk, its middle chunk under torch.profiler (the
+   device's idle share), resumed from its chunk-0 state and held equal
+   bit for bit; a 50-step TPUSegNet run (128, 256, 256). Checks that the
+   loss falls and K20-K23 were launched; then K20-K23 against their plain
+   versions at its shapes, timed beside a PyTorch call or chain
+   (check_train_kernels).
+23. configs/training_seg.toml: `python -m plant3dvision_tpu_torch.models.
+   train` (main) on a copy of phase 5's first 32 views and organ masks,
+   widths 32, 64, 128 at 896x896, batch 4, 2 epochs (of 50); then the
+   config's Segmentation2D with the trained model (needs phase 5); then
+   K21 on the phase's first batch, (4, 5, 896, 896), against its plain
+   version (ce_rows).
+24. models/distill.py's distill_scan on phase 9's scan (its geometric
+   route read back), 200 steps (of 2000): pseudo-label stats, losses,
+   the held-out views' IoU (needs phase 9); then K21 with the ignored
+   label 255 on a batch of its crops, (8, 3, 448, 448), and K23 from a
+   held-out view's predictions with the ignored label, 1080x1440, against
+   their plain versions (ce_rows, iou_row).
+
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero without that line when there is no CUDA device or any
 phase fails.
 
-Usage: python3 chip_smoke.py [--only 13,14]  (--only 2,20 or 5,7,21: the
-new phases with the paths they read)
+Usage: python3 chip_smoke.py [--only 13,14]  (--only 2,20, 5,7,21, 5,23
+or 9,24: the phases with the paths they read)
 """
 
 from __future__ import annotations
@@ -300,6 +325,16 @@ KERNEL_INFO = {
                     "exp_pallas_gather.py:96"),
     "gather_select32": ("plant3dvision_tpu_torch/kernels/csrc/gather.cu",
                         "exp_pallas_gather.py:132"),
+    "batch_gather": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+                     "plant3dvision_tpu/models/train_synth.py:273"),
+    "weighted_ce": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+                    "plant3dvision_tpu/models/train_synth.py:257"),
+    "weighted_ce_backward": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+                             "plant3dvision_tpu/models/train_synth.py:288"),
+    "adamw": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+              "plant3dvision_tpu/models/train_synth.py:289"),
+    "iou_counts": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+                   "plant3dvision_tpu/models/train_synth.py:297"),
 }
 
 #: the ML path's configuration: bench_e2e.py:run_ml_northstar at 0.25 mm
@@ -4288,11 +4323,585 @@ def check_ml_evaluation_kernels(scan, k8):
     return [row]
 
 
+#: phase 22: models/train_synth.py's main() at the shipped ResUNet's width
+#: (24, 48, 96, 192) x 2 blocks, crop 448, batch 8, lr 3e-3, on a reduced
+#: procedural set (TRAIN_PLANTS plants x TRAIN_VIEWS views, 2 crops a
+#: view; the shipped recipe renders 12 x 18), TRAIN_STEPS steps; then a
+#: short TPUSegNet run (128, 256, 256)
+TRAIN_PLANTS, TRAIN_VIEWS, TRAIN_STEPS, SEGNET_STEPS = 2, 6, 200, 50
+#: the training kernels (K20-K23) and their launches a step
+TRAIN_KERNELS = ("batch_gather", "weighted_ce", "weighted_ce_backward",
+                 "adamw", "iou_counts")
+
+
+def _profiled_chunk(S, prof_at, marks, prof_box):
+    """A `_draw_batch` that starts torch.profiler (device activity only:
+    host tracing of the ~10^4 launches of a chunk doubles its wall time)
+    before draw `prof_at` and stops it before draw `prof_at +
+    STEPS_PER_CALL` (one chunk's steps), synchronising at both ends; the
+    draw itself is train_synth's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    orig = S._draw_batch
+    count = [0]
+
+    def draw(gen, n, batch_size):
+        i = count[0]
+        count[0] += 1
+        if i in (prof_at, prof_at + S.STEPS_PER_CALL):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if i == prof_at:
+                prof_box.append(profile(activities=[ProfilerActivity.CUDA]))
+                prof_box[0].__enter__()
+            else:
+                prof_box[0].__exit__(None, None, None)
+        return orig(gen, n, batch_size)
+    return draw
+
+
+def _idle_share(prof, wall):
+    """(busy s, idle share, top device entries) of a profiled window."""
+    from torch.autograd import DeviceType
+    dev = sorted(((e.key, e.self_device_time_total, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda r: -r[1])
+    busy = sum(r[1] for r in dev) / 1e6
+    return busy, 1.0 - busy / wall, [
+        {"name": k[:80], "s": t / 1e6, "calls": c} for k, t, c in dev[:8]]
+
+
+def run_train_synth(work, device_name):
+    """Phase 22: train_synth.main() at full width on the reduced procedural
+    set (its dataset cache written on the way), the float16 checkpoint
+    loaded by the port's load_model and run through segmentation_inference
+    on the held-out crops; a 3-chunk run checkpointed every chunk, its
+    middle chunk profiled (the device's idle share), resumed from its
+    chunk-0 state and held equal bit for bit; a short TPUSegNet run.
+    Returns (launches of the ResUNet run, the crops, the trained model's
+    held-out crops and labels, checks)."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import train_synth as S
+    from plant3dvision_tpu_torch.models.checkpoint import load_model
+    from plant3dvision_tpu_torch.models.unet import segmentation_inference
+    from plant3dvision_tpu_torch.models.zoo import install_checkpoint
+    from plant3dvision_tpu_torch.ops.training import iou_counts, iou_from_counts
+
+    tdir = work / "train_synth"
+    tdir.mkdir(parents=True, exist_ok=True)
+    cache, out = tdir / "crops.npz", tdir / "unet_seg.npz"
+    common = ["--n-procedural", str(TRAIN_PLANTS), "--views-per-plant",
+              str(TRAIN_VIEWS), "--dataset-cache", str(cache),
+              "--skip-fixture-eval", "--device", "cuda"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assert S.main(["--out", str(out), "--steps", str(TRAIN_STEPS),
+                   *common]) == 0
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    hist = json.loads(out.with_suffix(".history.json").read_text())
+    h, cfg = hist["history"], hist["config"]
+    build_s = cfg["dataset"]["build_seconds"]
+    step_s = ((h[-1]["seconds"] - h[0]["seconds"])
+              / (h[-1]["step"] - h[0]["step"]))
+
+    # the float16 checkpoint through the port's loader and inference
+    z = np.load(cache)
+    rgb, lab = z["rgb"], z["lab"]
+    sdb = make_db(tdir / "db")
+    f = install_checkpoint(sdb, scan_id="models", model_id="trained",
+                           path=out)
+    model, mcfg = load_model(f)
+    sdb.disconnect()
+    n = len(rgb)
+    val_idx = np.random.default_rng(0).permutation(n)[:max(int(n * 0.05), 2)]
+    probs = segmentation_inference(model, rgb[val_idx], batch_size=8,
+                                   device=torch.device("cuda"))
+    pred = probs.argmax(1).to(torch.uint8)
+    vlab = torch.from_numpy(lab[val_idx].astype(np.uint8)).cuda()
+    f16_iou = iou_from_counts(iou_counts(vlab, len(S.LABELS), preds=pred))
+    f16_iou = {S.LABELS[i]: float(v) for i, v in enumerate(f16_iou)
+               if v >= 0}
+
+    # resume: 3 chunks checkpointed every chunk, chunk 1 profiled
+    states, marks, box = {}, [], []
+    orig = S._draw_batch
+    S._draw_batch = _profiled_chunk(S, S.STEPS_PER_CALL, marks, box)
+    try:
+        full, _, fh = S.train_on_crops(
+            rgb, lab, steps=3 * S.STEPS_PER_CALL, checkpoint_every_chunks=1,
+            on_checkpoint=lambda b, ch: states.setdefault(ch, b),
+            device="cuda")
+    finally:
+        S._draw_batch = orig
+    window = marks[1] - marks[0]
+    busy, idle, top = _idle_share(box[0], window)
+    res, _, rh = S.train_on_crops(rgb, lab, steps=3 * S.STEPS_PER_CALL,
+                                  resume_state=states[0], device="cuda")
+    resume_equal = ([x["loss"] for x in rh] == [x["loss"] for x in fh]
+                    and all(torch.equal(a, b) for a, b in
+                            zip(full.parameters(), res.parameters())))
+    del full, res
+
+    # TPUSegNet, the TPU-shaped default widths
+    seg_out = tdir / "tpusegnet.npz"
+    t0 = time.perf_counter()
+    assert S.main(["--out", str(seg_out), "--steps", str(SEGNET_STEPS),
+                   "--arch", "tpusegnet", *common]) == 0
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    seg = json.loads(seg_out.with_suffix(".history.json").read_text())
+    emit({"train_synth": {
+        "device": device_name, "arch": cfg["arch"], "widths": cfg["widths"],
+        "blocks_per_stage": cfg["blocks_per_stage"], "crop": 448,
+        "batch_size": 8, "lr": 3e-3, "steps": TRAIN_STEPS,
+        "reduced": {"procedural_plants": [TRAIN_PLANTS, 12],
+                    "views_per_plant": [TRAIN_VIEWS, 18],
+                    "steps": [TRAIN_STEPS, 3000]},
+        "n_crops": int(n), "dataset_build_s": build_s, "run_s": run_s,
+        "s_a_warm_step": step_s, "history": h,
+        "val_iou_bf16": cfg["val_iou"],
+        "checkpoint_mb": out.stat().st_size / 1e6,
+        "f16_checkpoint_val_iou": f16_iou,
+        "params_m": cfg["train"]["params_m"],
+        "launches": {k: launches[k] for k in TRAIN_KERNELS},
+        "profiled_chunk": {"steps": S.STEPS_PER_CALL, "wall_s": window,
+                           "device_busy_s": busy,
+                           "device_idle_share": idle,
+                           # the busy time against the unprofiled steps
+                           "device_idle_share_at_warm_step": 1.0 - busy / (
+                               S.STEPS_PER_CALL * step_s),
+                           "top_device": top},
+        "resume_from_chunk_0_bit_identical": resume_equal,
+        "tpusegnet": {"widths": seg["config"]["widths"],
+                      "steps": SEGNET_STEPS, "run_s": seg_s,
+                      "history": seg["history"],
+                      "val_iou": seg["config"]["val_iou"],
+                      "params_m": seg["config"]["train"]["params_m"]}}})
+    checks = {
+        "loss falls": h[-1]["loss"] < h[0]["loss"],
+        "every training kernel launched": all(
+            launches[k] > 0 for k in TRAIN_KERNELS),
+        "K20 once a step, K22 twice": launches["batch_gather"] == TRAIN_STEPS
+        and launches["adamw"] == 2 * TRAIN_STEPS,
+        "float16 checkpoint loads and segments": mcfg["widths"] == [
+            24, 48, 96, 192] and "background" in f16_iou,
+        "resume from chunk 0 bit-identical": resume_equal,
+        "TPUSegNet loss finite": bool(np.isfinite(
+            [x["loss"] for x in seg["history"]]).all()),
+        "finite numbers": bool(np.isfinite(
+            [x["loss"] for x in h] + [step_s, idle]).all()),
+    }
+    va = torch.from_numpy(rgb[val_idx]).cuda()
+    return launches, (rgb, lab), model, (va, vlab), checks
+
+
+def ce_rows(path, logits, y, w, ignore, launches):
+    """K21's forward (within 2e-5 relative of the plain version, the sums'
+    order differing; its denominator equal) and backward (within 1e-6 of
+    the largest gradient; an ignored pixel's gradient zero) on a path's
+    own logits, labels and class weights, each timed beside its plain
+    version and F.cross_entropy (its sum and autograd's gradient of it):
+    two kernel rows."""
+    import torch
+    import torch.nn.functional as F
+    from plant3dvision_tpu_torch.ops import training as T
+
+    ig = -1 if ignore is None else ignore
+    B, C = logits.shape[:2]
+    npx = y.numel()
+    out = T.ce_forward(logits, y, w, ig)
+    ref = T.ce_forward_plain(logits, y, w, ig)
+    err = float((out[0] - ref[0]).abs())
+    assert err <= 2e-5 * float(ref[0].abs()) and out[1] == ref[1], \
+        f"K21 forward != plain on {path} ({err})"
+    y64 = y.long()
+    lib_kw = dict(weight=w, reduction="sum",
+                  ignore_index=-100 if ignore is None else ignore)
+    extra = {"path": path, "shape": list(logits.shape),
+             "ignore_index": ignore,
+             "ignored_px": 0 if ignore is None else int((y == ignore).sum())}
+    rows = [kernel_row(
+        "weighted_ce", launches["weighted_ce"], err,
+        cuda_ms(lambda: T.ce_forward(logits, y, w, ig)),
+        cuda_ms(lambda: T.ce_forward_plain(logits, y, w, ig)),
+        npx * C * 4 + npx + C * 4, npx * (4 * C + 6),
+        library=cuda_ms(lambda: F.cross_entropy(logits, y64, **lib_kw)),
+        extra={**extra, "tolerance": "2e-5 relative (sum order)"})]
+    g1 = torch.ones(1, device=logits.device)
+    d = T.ce_backward(logits, y, w, out, g1, ig)
+    pd = T.ce_backward_plain(logits, y, w, out, g1, ig)
+    derr = float((d - pd).abs().max())
+    assert derr <= 1e-6 * float(pd.abs().max()), \
+        f"K21 backward != plain on {path} ({derr})"
+    if ignore is not None:
+        assert not d.permute(1, 0, 2, 3)[:, y == ignore].any(), \
+            f"K21 backward: an ignored pixel has a gradient on {path}"
+    leaf = logits.clone().requires_grad_()
+    lib_loss = F.cross_entropy(leaf, y64, **lib_kw)
+    rows.append(kernel_row(
+        "weighted_ce_backward", launches["weighted_ce_backward"], derr,
+        cuda_ms(lambda: T.ce_backward(logits, y, w, out, g1, ig)),
+        cuda_ms(lambda: T.ce_backward_plain(logits, y, w, out, g1, ig)),
+        npx * C * 4 * 2 + npx + C * 4, npx * (4 * C + 4),
+        library=cuda_ms(lambda: torch.autograd.grad(
+            lib_loss, leaf, retain_graph=True)),
+        extra={**extra, "tolerance": "1e-6 of the largest"}))
+    return rows
+
+
+def iou_row(path, lab, C, ignore, launches, logits=None, preds=None):
+    """K23's counts on a path's own labels and logits or predictions,
+    equal to the plain version's, timed beside it and beside
+    torch.bincount of the kept (label, prediction) pairs: a kernel row."""
+    import torch
+    from plant3dvision_tpu_torch.ops import training as T
+
+    ig = -1 if ignore is None else ignore
+    k = T.iou_counts(lab, C, logits=logits, preds=preds, ignore_index=ignore)
+    assert torch.equal(k, T.iou_counts_plain(lab, C, logits, preds, ig)), \
+        f"K23 != plain on {path}"
+    nv = lab.numel()
+    l64 = lab.long().reshape(-1)
+    keep = None if ignore is None else l64 != ignore
+
+    def library():
+        p = (logits.argmax(1) if preds is None else preds).long().reshape(-1)
+        pairs = l64 * C + p
+        return torch.bincount(pairs if keep is None else pairs[keep],
+                              minlength=C * C)
+    src = nv * C * 4 if preds is None else nv
+    return kernel_row(
+        "iou_counts", launches["iou_counts"], 0.0,
+        cuda_ms(lambda: T.iou_counts(lab, C, logits=logits, preds=preds,
+                                     ignore_index=ignore)),
+        cuda_ms(lambda: T.iou_counts_plain(lab, C, logits, preds, ig)),
+        src + nv + 3 * C * 8, nv * (C + 4 if preds is None else 4),
+        library=cuda_ms(library),
+        extra={"path": path, "shape": list((logits if preds is None
+                                            else preds).shape),
+               "input": "logits" if preds is None else "predictions",
+               "ignore_index": ignore,
+               "ignored_px": 0 if ignore is None else int(
+                   (lab == ignore).sum())})
+
+
+def check_train_kernels(crops, model, val, launches):
+    """K20-K23 at phase 22's shapes against their plain versions, timed
+    beside them and beside one PyTorch call (or chain) computing the same
+    function: K20 on the resident crop set, batch 8; K21 forward and
+    backward on the trained model's logits of a batch (8, 6, 448, 448);
+    K22 over the ResUNet's 2.03 M parameters in both modes; K23 on the
+    held-out crops' logits."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.models import train_synth as S
+    from plant3dvision_tpu_torch.ops import training as T
+
+    rgb, lab = crops
+    dev = torch.device("cuda")
+    d_rgb = torch.from_numpy(rgb).to(dev)
+    d_lab = torch.from_numpy(lab.astype(np.uint8)).to(dev)
+    n, c = rgb.shape[:2]
+    B, C = 8, len(S.LABELS)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    idx, flip, gains = S._draw_batch(gen, n, B)
+    flip.fill_(1)
+    rows = []
+    path = "phase 22 (train_synth, ResUNet 24-192, crop 448, batch 8)"
+
+    # K20
+    x, y = T.gather_batch(d_rgb, d_lab, idx, flip, gains)
+    px, py = T.gather_batch_plain(d_rgb, d_lab, idx, flip, gains)
+    assert torch.equal(x, px) and torch.equal(y, py), "K20 != plain"
+    px_ = B * c * c
+    rows.append(kernel_row(
+        "batch_gather", launches["batch_gather"], 0.0,
+        cuda_ms(lambda: T.gather_batch(d_rgb, d_lab, idx, flip, gains)),
+        cuda_ms(lambda: T.gather_batch_plain(d_rgb, d_lab, idx, flip,
+                                             gains)),
+        px_ * 4 + px_ * 3 * 4 + px_ + B * 20, px_ * 3 * 4,
+        extra={"path": path, "shape": [B, 3, c, c], "crops_resident": n}))
+
+    # K21 on the model's logits
+    model = model.to(dev).float()
+    model.dtype = torch.bfloat16
+    with torch.no_grad():
+        logits = model(x).float().contiguous()
+    _, w = S.class_weights(lab, C)
+    w = torch.tensor(w, dtype=torch.float32, device=dev)
+    rows += ce_rows(path, logits, y, w, None, launches)
+
+    # K22 over the model's parameters (copies: the model is not stepped)
+    flat = torch.cat([p.detach().reshape(-1).float()
+                      for p in model.parameters()])
+    N = flat.numel()
+    gg = torch.Generator(device=dev).manual_seed(8)
+    grad = 0.01 * torch.randn(N, generator=gg, device=dev)
+    mu = 1e-3 * torch.randn(N, generator=gg, device=dev)
+    nu = 1e-6 * torch.rand(N, generator=gg, device=dev)
+    sc = dict(b1=0.9, b2=0.999, bc1=np.float32(0.1), bc2=np.float32(1e-3),
+              eps=1e-8, eps_root=0.0, wd=1e-4, neg_lr=-np.float32(3e-3),
+              max_norm=1.0)
+    errs = {}
+    for clip in (True, False):
+        a = [t.clone() for t in (flat, grad, mu, nu)]
+        b = [t.clone() for t in (flat, grad, mu, nu)]
+        T.adamw_update(*a, clip=clip, **sc)
+        T.adamw_update_plain(*b, clip=clip, **sc)
+        errs[clip] = max(float((u - v).abs().max()) for u, v in zip(a, b))
+    assert errs[False] == 0.0 and errs[True] <= 1e-6, f"K22 != plain {errs}"
+    arena = [t.clone() for t in (flat, grad, mu, nu)]
+    lp = [torch.nn.Parameter(p.detach().float().clone())
+          for p in model.parameters()]
+    gsrc = torch.split(grad, [p.numel() for p in lp])
+    for p, g in zip(lp, gsrc):
+        p.grad = g.view_as(p).clone()
+    opt = torch.optim.AdamW(lp, lr=3e-3, weight_decay=1e-4, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(lp, 1.0)
+        opt.step()
+    rows.append(kernel_row(
+        "adamw", launches["adamw"], errs[True],
+        cuda_ms(lambda: T.adamw_update(*arena, clip=True, **sc)),
+        cuda_ms(lambda: T.adamw_update_plain(
+            *[t.clone() for t in (flat, grad, mu, nu)], clip=True, **sc)),
+        N * 28, N * 22, library=cuda_ms(library_step),
+        extra={"path": path, "parameters": N, "mode": "clip + adamw",
+               "max_abs_err_no_clip": errs[False],
+               "launches_a_step": 2}))
+
+    # K23 on the held-out crops' logits
+    va, vlab = val
+    with torch.no_grad():
+        vx = (va.float() * T.INV255).permute(0, 3, 1, 2).contiguous()
+        vlog = model(vx).float().contiguous()
+    rows.append(iou_row(path, vlab, C, None, launches, logits=vlog))
+    del d_rgb, d_lab, logits, vlog
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: phase 23: configs/training_seg.toml on phase 5's scan (its first
+#: TRAIN_SEG_IMAGES views and their organ masks), 2 epochs; the labels:
+#: background and the organs that ML_GT_FILESET holds masks of
+TRAIN_SEG_IMAGES, TRAIN_SEG_EPOCHS = 32, 2
+TRAIN_SEG_LABELS = ["background", "fruit", "leaf", "pedicel", "stem"]
+
+
+def run_training_seg(work, ml_scan, device_name):
+    """Phase 23: `python -m plant3dvision_tpu_torch.models.train` (main)
+    with configs/training_seg.toml (widths 32, 64, 128 at 896x896, batch
+    4, lr 1e-4) on a copy of phase 5's first TRAIN_SEG_IMAGES views and
+    their organ masks (ML_GT_FILESET, label_names set on it) in a DB of
+    its own, 2 epochs (depth reduced from the config's 50); then the
+    config's Segmentation2D with the trained model, which
+    ModelFilesetExists(scan_id="models") finds in the scan itself (the DB
+    holds no "models" scan, as the config's pipeline expects); K21 held
+    against its plain version on the phase's first batch. Returns (checks,
+    kernel rows)."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.fsdb import io
+    from plant3dvision_tpu_torch.models import train as ptrain
+    from plant3dvision_tpu_torch.models.checkpoint import load_model
+    from plant3dvision_tpu_torch.runtime import RunContext, run_task
+    from plant3dvision_tpu_torch.runtime.config import load_toml
+
+    tdb = make_db(work / "db_training_seg")
+    src_img = ml_scan.get_fileset("images")
+    src_gt = ml_scan.get_fileset(ML_GT_FILESET)
+    scan = tdb.get_scan("train", create=True)
+    imgs = scan.get_fileset("images", create=True)
+    gt = scan.get_fileset(ML_GT_FILESET, create=True)
+    files = sorted(src_img.get_files(), key=lambda f: f.id)[:TRAIN_SEG_IMAGES]
+    shots = {f.get_metadata("shot_id") for f in files}
+    for f in files + [m for m in src_gt.get_files()
+                      if m.get_metadata("shot_id") in shots]:
+        g = (imgs if f.fileset.id == "images" else gt).create_file(f.id)
+        io.from_file(g, f.path())
+        g.set_metadata(f.get_metadata())
+    # the labels the masks cover: train.py weights a class absent from
+    # the data (flower here) with almost all the loss (ROADMAP Queue C)
+    gt.set_metadata("label_names", TRAIN_SEG_LABELS)
+    tdb.disconnect()
+
+    config = ROOT / "configs" / "training_seg.toml"
+    toml = load_toml(config)
+    model_id = toml["Training"]["model_id"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    assert ptrain.main([str(work / "db_training_seg" / "train"), "--config",
+                        str(config), "--gt-fileset", ML_GT_FILESET,
+                        "--epochs", str(TRAIN_SEG_EPOCHS),
+                        "--device", "cuda"]) == 0
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    from plant3dvision_tpu_torch.fsdb import FSDB
+    tdb = FSDB(work / "db_training_seg")
+    tdb.connect(unsafe=True)
+    scan = tdb.get_scan("train")
+    mf = scan.get_fileset("models").get_file(model_id)
+    mcfg = mf.get_metadata("model_config")
+    cfg = {k: dict(v) for k, v in toml.items() if k != "Training"}
+    t0 = time.perf_counter()
+    rep = run_task(RunContext(tdb, "train", cfg, device="cuda"),
+                   "Segmentation2D", report=False)
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    seg_fs = scan.get_fileset(rep["Segmentation2D"]["fileset"])
+    seg_files = seg_fs.get_files()
+    fruit = [f for f in seg_files if f.get_metadata("channel") == "fruit"]
+    cover = float(np.mean([io.read_image(f).astype(bool).mean()
+                           for f in fruit[:8]])) if fruit else None
+
+    # K21 on the phase's own first batch (train's batch order and class
+    # weights) through the trained model
+    images, labels_int, names = ptrain.load_dataset(scan, ML_GT_FILESET)
+    tdb.disconnect()
+    dev = torch.device("cuda")
+    bs = int(toml["Training"]["batch_size"])
+    sel = np.random.default_rng(0).permutation(len(images))[:bs]
+    x = torch.from_numpy(images[sel]).to(dev).permute(0, 3, 1, 2)
+    y = torch.from_numpy(labels_int[sel].astype(np.uint8)).to(dev)
+    w = torch.tensor(ptrain.class_weights(labels_int, len(names)),
+                     dtype=torch.float32, device=dev)
+    del images
+    model, _ = load_model(mf)
+    model = model.to(dev)
+    model.dtype = torch.bfloat16
+    with torch.no_grad():
+        logits = model(x.contiguous()).float().contiguous()
+    rows = ce_rows("phase 23 (training_seg.toml, ResUNet 32-128, 896x896, "
+                   f"batch {bs})", logits, y, w, None, launches)
+    del model, x, logits
+    torch.cuda.empty_cache()
+    emit({"training_seg": {
+        "device": device_name, "config": "configs/training_seg.toml",
+        "model_id": model_id, "widths": mcfg["widths"],
+        "label_names": mcfg["label_names"], "images": len(files),
+        "image": [896, 896], "batch_size": 4, "lr": 1e-4,
+        "epochs": [TRAIN_SEG_EPOCHS, 50],
+        "train_s": train_s, "launches": {
+            k: launches[k] for k in TRAIN_KERNELS},
+        "segmentation2d_s": seg_s, "segmented_files": len(seg_files),
+        "fruit_mask_cover_first_8": cover}})
+    return {
+        "trained model in the scan's models fileset": mcfg["widths"] == [
+            32, 64, 128],
+        "K21 and K22 launched in training": launches["weighted_ce"] > 0
+        and launches["adamw"] > 0,
+        "Segmentation2D wrote masks with the trained model": len(
+            seg_files) >= TRAIN_SEG_IMAGES}, rows
+
+
+#: phase 24: distill_scan on phase 9's scan, steps cut from 2000
+DISTILL_STEPS = 200
+
+
+def run_distill(db, device_name):
+    """Phase 24: models/distill.py's distill_scan on phase 9's front-end
+    scan (frontend_config: its tasks are complete from phase 9, so the
+    geometric route is read back), the ResUNet at (24, 48, 96, 192), crop
+    448, 10 crops a view, DISTILL_STEPS steps (cut from 2000), every 6th
+    view held out; K21 (with the ignored label) and K23 (from a held-out
+    view's predictions) held against their plain versions on the phase's
+    own inputs. Returns (checks, kernel rows)."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import distill
+    from plant3dvision_tpu_torch.runtime import RunContext
+
+    ctx = RunContext(db, "frontend", frontend_config(), device="cuda")
+    box = {}
+    build_crops, heldout_iou = distill.build_crops, distill._heldout_iou
+
+    def keep_crops(*a, **k):
+        box["crops"] = build_crops(*a, **k)
+        return box["crops"]
+
+    def keep_heldout(model, imgs, label_maps, **k):
+        box["heldout"] = (imgs, label_maps)
+        return heldout_iou(model, imgs, label_maps, **k)
+    distill.build_crops, distill._heldout_iou = keep_crops, keep_heldout
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        model, config, report = distill.distill_scan(ctx,
+                                                     steps=DISTILL_STEPS)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        distill.build_crops, distill._heldout_iou = build_crops, heldout_iou
+    emit({"distill": {
+        "device": device_name, "scan": "frontend (phase 9)",
+        "steps": [DISTILL_STEPS, 2000], "s": s,
+        "pseudo_labels": report["stats"], "history": report["history"],
+        "val_crop_iou": config["val_iou"],
+        "heldout_view_iou": report["heldout_iou"],
+        "launches": {k: launches[k] for k in TRAIN_KERNELS}}})
+    hist = report["history"]
+
+    # K21 with the ignored label on a batch of the phase's own crops (K20
+    # gathers it as the trainer does) and K23 from the predictions of its
+    # first held-out view, through the distilled model
+    from plant3dvision_tpu_torch.models import train_synth as S
+    from plant3dvision_tpu_torch.ops import training as T
+    path = "phase 24 (distill_scan, ResUNet 24-192, crop 448, batch 8)"
+    dev = torch.device("cuda")
+    rgb, lab = box["crops"]
+    C = len(distill.LABELS_REAL)
+    d_rgb = torch.from_numpy(rgb).to(dev)
+    d_lab = torch.from_numpy(lab.astype(np.uint8)).to(dev)
+    idx, flip, gains = S._draw_batch(
+        torch.Generator(device=dev).manual_seed(7), len(rgb), 8)
+    x, y = T.gather_batch(d_rgb, d_lab, idx, flip, gains)
+    _, w = S.class_weights(lab, C, distill.IGNORE)
+    w = torch.tensor(w, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        logits = model(x).float().contiguous()
+    rows = ce_rows(path, logits, y, w, distill.IGNORE, launches)
+    del d_rgb, d_lab, x, logits
+    imgs, label_maps = box["heldout"]
+    pred = distill._tiled_argmax(model, imgs[0], 448)
+    vlab = torch.from_numpy(np.ascontiguousarray(label_maps[0], np.uint8)
+                            ).to(dev)
+    rows.append(iou_row(path, vlab[None], C, distill.IGNORE, launches,
+                        preds=pred[None]))
+    del model
+    torch.cuda.empty_cache()
+    return {
+        "pseudo-labels with both organs": report["stats"][
+            "fruit_point_fraction"] > 0 and report["stats"][
+            "labeled_plant_px_per_view"] > 0,
+        "every training kernel launched": all(
+            launches[k] > 0 for k in TRAIN_KERNELS),
+        "held-out view IoU for stem and background": {
+            "background", "stem"} <= set(report["heldout_iou"]),
+        "finite loss": bool(np.isfinite([h["loss"] for h in hist]).all())}, \
+        rows
+
+
 PHASES = {"2": "main", "3": "main", "4": "real_grid", "5": "ml", "6": "ml",
           "7": "separate", "8": "separate", "9": "frontend",
           "10": "frontend", "11": "selfcal", "12": "selfcal", "13": "fim",
           "14": "fim", "15": "live", "16": "int8", "17": "gather",
-          "18": "full", "19": "full", "20": "eval_geom", "21": "eval_ml"}
+          "18": "full", "19": "full", "20": "eval_geom", "21": "eval_ml",
+          "22": "train_synth", "23": "training_seg", "24": "distill"}
 
 
 def main(argv=None):
@@ -4300,9 +4909,9 @@ def main(argv=None):
 
     import torch
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                 "GPU (phases 1-21, see the docstring)")
+                                 "GPU (phases 1-24, see the docstring)")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases to run (2-21; a kernel "
+                    help="comma-separated phases to run (2-24; a kernel "
                     "check phase runs with its path, e.g. 13,14); default "
                     "all")
     args = ap.parse_args(argv)
@@ -4330,6 +4939,10 @@ def main(argv=None):
         raise SystemExit("phase 20 runs on phase 2's scan: --only 2,20")
     if "eval_ml" in groups and "separate" not in groups:
         raise SystemExit("phase 21 runs after phase 7: --only 5,7,21")
+    if "training_seg" in groups and "ml" not in groups:
+        raise SystemExit("phase 23 trains on phase 5's scan: --only 5,23")
+    if "distill" in groups and "frontend" not in groups:
+        raise SystemExit("phase 24 distills phase 9's scan: --only 9,24")
     work = ROOT / ".smoke"
     db = make_db(work / "db")
     rows = []
@@ -4393,6 +5006,23 @@ def main(argv=None):
             rows += check_full_kernels(db, fu_scan, fu_report, fu_launches)
             failed = [c for c, ok in fu_checks.items() if not ok]
             assert not failed, f"geom_pipe_full path checks failed: {failed}"
+        if "train_synth" in groups:
+            ts_launches, crops, ts_model, ts_val, ts_checks = \
+                run_train_synth(work, name)
+            rows += check_train_kernels(crops, ts_model, ts_val, ts_launches)
+            del crops, ts_model, ts_val
+            failed = [c for c, ok in ts_checks.items() if not ok]
+            assert not failed, f"train_synth checks failed: {failed}"
+        if "training_seg" in groups:
+            tsg_checks, tsg_rows = run_training_seg(work, ml_scan, name)
+            rows += tsg_rows
+            failed = [c for c, ok in tsg_checks.items() if not ok]
+            assert not failed, f"training_seg checks failed: {failed}"
+        if "distill" in groups:
+            di_checks, di_rows = run_distill(db, name)
+            rows += di_rows
+            failed = [c for c, ok in di_checks.items() if not ok]
+            assert not failed, f"distill checks failed: {failed}"
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)

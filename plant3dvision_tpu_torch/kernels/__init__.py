@@ -31,8 +31,8 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 #: kernel name -> source file under csrc/ (K5-avg, "average", is a mode of
 #: the accumulate kernel, and K11, "count_kills", and K11b,
 #: "carve_candidates", kernels of carve.cu; K16's three entry points share
-#: int8conv.cu and K17-K19 gather.cu: one source each, their own launch
-#: counts)
+#: int8conv.cu, K17-K19 gather.cu and K20-K23 train.cu: one source each,
+#: their own launch counts)
 SOURCES = {
     "carve": "carve.cu",
     "signed_distance": "edt.cu",
@@ -57,6 +57,11 @@ SOURCES = {
     "gather_axis1": "gather.cu",
     "gather_rows": "gather.cu",
     "gather_select32": "gather.cu",
+    "batch_gather": "train.cu",
+    "weighted_ce": "train.cu",
+    "weighted_ce_backward": "train.cu",
+    "adamw": "train.cu",
+    "iou_counts": "train.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -160,6 +165,21 @@ _ARGTYPES = {
     "p3d_gather_rows": [_P, _P, _P, _I, _I, _I, _P],
     # T, dy, out, P, reps, stream
     "p3d_gather_select32": [_P, _P, _P, _I, _I, _P],
+    # rgb, lab, idx, flip, gains, x, y, B, c, inv255, stream
+    "p3d_gather_batch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
+    # n -> partial sums K21's forward and K22's norm write
+    "p3d_train_partials": [_L],
+    # logits, labels, w, C, HW, n, ignore, part, keep, out, stream
+    "p3d_ce_forward": [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P, _P],
+    # logits, labels, w, fwd, grad, C, HW, n, ignore, dlogits, stream
+    "p3d_ce_backward": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P, _P],
+    # p, g, mu, nu, n, part, clip, b1, b2, omb1, omb2, bc1, bc2, eps,
+    # eps_root, wd, neg_lr, max_norm, stream
+    "p3d_adamw": [_P, _P, _P, _P, _L, _P, _I, _F, _F, _F, _F, _F, _F, _F,
+                  _F, _F, _F, _F, _P],
+    # logits (or null), preds (or null), labels, C, HW, n, ignore, counts,
+    # stream
+    "p3d_iou_counts": [_P, _P, _P, _I, _L, _L, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""Model checkpoint loading (port of plant3dvision_tpu/models/checkpoint.py:
-the NPZ loader and the torch `.pt` path).
+"""Model checkpoints (port of plant3dvision_tpu/models/checkpoint.py: the
+NPZ writer and loader, the training states and the torch `.pt` path).
 
 Format: NPZ of '/'-joined flattened flax parameter paths (+ a JSON
 `__config__` entry), loadable with numpy alone. `state_dict_from_flax`
@@ -13,6 +13,14 @@ flax-layout tree, against a template that the port's module enumerates in
 flax's traversal order (`flax_template`), then through
 `state_dict_from_flax`; BatchNorm running statistics are folded into a
 `norm="affine"` ResUNet (`fold_batchnorm`).
+
+The way back, `flax_params`, gives a port module's weights as the flax
+tree (HWIO kernels, `scale`), so `params_to_npz_bytes` / `save_model`
+write checkpoints that the JAX package's `load_model` reads, and
+`training_state_to_npz_bytes` / `training_state_from_npz_bytes` the full
+training states of both packages: `p/<flax path>` parameters, `o/<i>`
+optimizer leaves in optax's order (models/optim.py:AdamW.state_leaves) and
+a JSON `__meta__`.
 """
 
 from __future__ import annotations
@@ -33,6 +41,63 @@ def params_from_npz_bytes(data: bytes):
         config = json.loads(bytes(loaded["__config__"]).decode())
     return _unflatten({k: loaded[k] for k in loaded.files
                        if k != "__config__"}), config
+
+
+def flax_params(model) -> dict:
+    """A port module's parameters as the flax tree {"params": {...}} of
+    float32 numpy arrays (conv weights OIHW -> HWIO kernels, norm weights
+    -> `scale`); the inverse of `state_dict_from_flax`."""
+    flat = {}
+    for (path, _), p in zip(flax_template(model).items(),
+                            model.parameters()):
+        a = p.detach().to("cpu", copy=True).float().numpy()
+        flat[path] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)) \
+            if a.ndim == 4 else a
+    return _unflatten(flat)
+
+
+def params_to_npz_bytes(params, config: dict) -> bytes:
+    """NPZ blob of a flax parameter tree ('/'-joined paths) and its JSON
+    config (`__config__`), the JAX package's checkpoint format."""
+    arrays = {k: np.asarray(v) for k, v in _flatten(params).items()}
+    arrays["__config__"] = np.frombuffer(json.dumps(config).encode(),
+                                         dtype=np.uint8)
+    buf = BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def save_model(file, params, config: dict):
+    """Write a model checkpoint (a flax tree, e.g. `flax_params(model)`)
+    into an fsdb File, with its label_names and config as metadata."""
+    file.write_raw(params_to_npz_bytes(params, config), "npz")
+    file.set_metadata("label_names", config.get("label_names"))
+    file.set_metadata("model_config", config)
+
+
+def training_state_to_npz_bytes(params, opt_leaves, meta: dict) -> bytes:
+    """One NPZ blob of a full training state: the flax parameter tree as
+    `p/<path>`, the optimizer's leaves in optax's order as `o/<i>`, and the
+    JSON-serialisable loop metadata `meta` (the JAX package's layout)."""
+    arrays = {"p/" + k: np.asarray(v) for k, v in _flatten(params).items()}
+    for i, leaf in enumerate(opt_leaves):
+        arrays[f"o/{i}"] = np.asarray(leaf)
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+    buf = BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def training_state_from_npz_bytes(data: bytes):
+    """(flax parameter tree, optimizer leaves in order, meta) of a
+    training state blob (either package's)."""
+    loaded = np.load(BytesIO(data), allow_pickle=False)
+    meta = json.loads(bytes(loaded["__meta__"]).decode())
+    params = _unflatten({k[2:]: loaded[k] for k in loaded.files
+                         if k.startswith("p/")})
+    n = sum(1 for k in loaded.files if k.startswith("o/"))
+    return params, [loaded[f"o/{i}"] for i in range(n)], meta
 
 
 def _upcast_f16(params):

@@ -24,12 +24,21 @@ Same architecture and the same numbers as the flax model, in NCHW:
 Submodules carry flax's auto-names (Conv_0, GroupNorm_0, ResBlock_3, ...),
 so a flax parameter path maps one to one onto a state_dict key
 (models/checkpoint.py:state_dict_from_flax).
+
+The backward (training, models/train_synth.py) is deterministic on the
+card under cuDNN's deterministic algorithms: GroupNorm broadcasts its
+statistics by an expand and the decoder's resize has its own backward
+(`upsample_bilinear`), where PyTorch's backward of `repeat_interleave`
+and of the bilinear resize accumulate with atomics; the forward's values
+are the same.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -109,8 +118,11 @@ class GroupNorm(nn.Module):
         xg = x.reshape(B, G, -1)
         mean = xg.mean(-1)
         var = torch.clamp((xg * xg).mean(-1) - mean * mean, min=0.0)
-        mean = mean.repeat_interleave(C // G, dim=1).view(B, C, 1, 1)
-        var = var.repeat_interleave(C // G, dim=1).view(B, C, 1, 1)
+        # a group's statistics broadcast to its channels (an expand: its
+        # backward is a sum, where repeat_interleave's is an index_add with
+        # atomics on the card)
+        mean = mean.view(B, G, 1).expand(B, G, C // G).reshape(B, C, 1, 1)
+        var = var.view(B, G, 1).expand(B, G, C // G).reshape(B, C, 1, 1)
         mul = torch.rsqrt(var + self.eps) * self.weight.float().view(1, C, 1, 1)
         return (x - mean) * mul + self.bias.float().view(1, C, 1, 1)
 
@@ -144,6 +156,50 @@ class ConvBlock(nn.Module):
     def forward(self, x, dtype):
         h = F.relu(self.GroupNorm_0(self.Conv_0(x, dtype)))
         return F.relu(self.GroupNorm_1(self.Conv_1(h, dtype)))
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n_out, n_in, device):
+    """(n_out, n_in) float32 matrix of F.interpolate's bilinear weights
+    along one axis (align_corners=False, scale n_in / n_out: source
+    (o + 0.5) * scale - 0.5 clamped at 0, neighbours i0 and min(i0 + 1,
+    n_in - 1)); built once a (n_out, n_in, device) and read only."""
+    scale = n_in / n_out
+    src = np.maximum((np.arange(n_out) + 0.5) * scale - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    l1 = (src - i0).astype(np.float32)
+    a = np.zeros((n_out, n_in), np.float32)
+    np.add.at(a, (np.arange(n_out), i0), 1.0 - l1)
+    np.add.at(a, (np.arange(n_out), i1), l1)
+    return torch.from_numpy(a).to(device)
+
+
+class _Bilinear(torch.autograd.Function):
+    """F.interpolate(bilinear, align_corners=False) as it is; its backward
+    as two products with the separable interpolation matrices (dx = A_h^T
+    g A_w), in a fixed order: PyTorch's own backward of the resize
+    accumulates with atomics on the card, and a resumed training run must
+    equal an uninterrupted one bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_hw = tuple(x.shape[2:])
+        return F.interpolate(x, size=size, mode="bilinear",
+                             align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ih, iw), (oh, ow) = ctx.in_hw, g.shape[2:]
+        ah = _interp_matrix(oh, ih, g.device)
+        aw = _interp_matrix(ow, iw, g.device)
+        return torch.matmul(torch.matmul(ah.t(), g), aw), None
+
+
+def upsample_bilinear(x, size):
+    """F.interpolate(x, size, bilinear, align_corners=False) of a float32
+    (B, C, H, W) tensor, with a deterministic backward (`_Bilinear`)."""
+    return _Bilinear.apply(x, tuple(int(v) for v in size))
 
 
 def _f32_head(conv, h):
@@ -193,8 +249,7 @@ class TPUSegNet(nn.Module):
                 skips.append(h)
         h = skips[-1]
         for k, skip in enumerate(reversed(skips[:-1])):
-            h = F.interpolate(h.to(torch.float32), size=skip.shape[2:],
-                              mode="bilinear", align_corners=False).to(dt)
+            h = upsample_bilinear(h.to(torch.float32), skip.shape[2:]).to(dt)
             h = torch.cat([h, skip], dim=1)        # promotes to float32
             h = getattr(self, f"ConvBlock_{k}")(h, dt)
         h = _f32_head(self.Conv_1, h)

@@ -30,7 +30,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .quant import int8_lane
-from .segnet import SEGMENTATION_LABELS, Conv, GroupNorm, _f32_head
+from .segnet import (SEGMENTATION_LABELS, Conv, GroupNorm, _f32_head,
+                     upsample_bilinear)
 
 
 #: float32(1/255): XLA turns `x / 255` into a product by it
@@ -141,12 +142,10 @@ class ResUNet(nn.Module):
                 skips.append(h)
         h = skips[-1]
         for k, skip in enumerate(reversed(skips[:-1])):
-            h = F.interpolate(h.to(torch.float32), size=skip.shape[2:],
-                              mode="bilinear", align_corners=False).to(dt)
+            h = upsample_bilinear(h.to(torch.float32), skip.shape[2:]).to(dt)
             h = torch.cat([h, skip.to(dt)], dim=1)
             h = getattr(self, f"ConvBlock_{k}")(h, dt)
-        h = F.interpolate(h.to(torch.float32), size=x.shape[2:],
-                          mode="bilinear", align_corners=False).to(dt)
+        h = upsample_bilinear(h.to(torch.float32), x.shape[2:]).to(dt)
         h = getattr(self, f"ConvBlock_{self.n_dec}")(h, dt)
         return _f32_head(self.Conv_1, h).to(torch.float32)
 

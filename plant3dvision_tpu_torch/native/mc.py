@@ -57,43 +57,55 @@ def build() -> Path:
     if not so.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("native geometry build failed:\n"
-                               + proc.stdout + proc.stderr)
+        compile_library(SOURCE, tmp)
         os.replace(tmp, so)
     return so
 
 
+def compile_library(source, so_path) -> Path:
+    """`source` compiled by CXX with CXX_FLAGS into `so_path`; raises
+    RuntimeError with the compiler's output if the build fails."""
+    proc = subprocess.run([CXX, *CXX_FLAGS, str(source), "-o", str(so_path)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError("native geometry build failed:\n"
+                           + proc.stdout + proc.stderr)
+    return Path(so_path)
+
+
+def load(so_path) -> ctypes.CDLL:
+    """The library at `so_path` (this module's build, or another build
+    of the same source), its entry points' argtypes set."""
+    so = ctypes.CDLL(str(so_path))
+    so.p3d_marching_tetrahedra.restype = ctypes.c_int
+    so.p3d_marching_tetrahedra.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float,
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
+        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
+        ctypes.POINTER(ctypes.c_longlong),
+    ]
+    so.p3d_mcf_contract.restype = ctypes.c_int
+    so.p3d_mcf_contract.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
+        ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float),
+    ]
+    so.p3d_free.restype = None
+    so.p3d_free.argtypes = [ctypes.c_void_p]
+    return so
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded library (built first if needed), its entry points'
-    argtypes set."""
+    """The loaded library (built first if needed)."""
     global _lib
     if _lib is not None:
         return _lib
     with _lock:
         if _lib is None:
-            so = ctypes.CDLL(str(build()))
-            so.p3d_marching_tetrahedra.restype = ctypes.c_int
-            so.p3d_marching_tetrahedra.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_float,
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_float)),
-                ctypes.POINTER(ctypes.c_longlong),
-                ctypes.POINTER(ctypes.POINTER(ctypes.c_int)),
-                ctypes.POINTER(ctypes.c_longlong),
-            ]
-            so.p3d_mcf_contract.restype = ctypes.c_int
-            so.p3d_mcf_contract.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_longlong,
-                ctypes.POINTER(ctypes.c_int), ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float),
-            ]
-            so.p3d_free.restype = None
-            so.p3d_free.argtypes = [ctypes.c_void_p]
-            _lib = so
+            _lib = load(build())
         return _lib
 
 

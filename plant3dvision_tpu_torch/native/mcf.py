@@ -34,10 +34,18 @@ def contract_mesh(vertices, triangles, iterations=12, wl_factor=2.0,
                   wh0=1.0, cg_iters=800):
     """Contract a triangle mesh toward its curve skeleton; returns the
     contracted vertex positions (same indexing/topology)."""
+    return contract_with(lib(), vertices, triangles, iterations, wl_factor,
+                         wh0, cg_iters)
+
+
+def contract_with(native, vertices, triangles, iterations=12, wl_factor=2.0,
+                  wh0=1.0, cg_iters=800):
+    """`contract_mesh` by `native`, a build of geometry.cpp loaded by
+    mc.load."""
     v = np.ascontiguousarray(vertices, dtype=np.float32)
     t = np.ascontiguousarray(triangles, dtype=np.int32)
     out = np.empty_like(v)
-    rc = lib().p3d_mcf_contract(
+    rc = native.p3d_mcf_contract(
         v.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(v),
         t.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), len(t),
         int(iterations), ctypes.c_float(wl_factor),

@@ -1,0 +1,337 @@
+"""The training kernels and their plain PyTorch versions.
+
+They replace the jitted training programs of the JAX package
+(plant3dvision_tpu/models/train.py:98 `step`, train_synth.py:273
+`run_chunk` and :297 `val_metrics`; the CUDA sources are in
+kernels/csrc/train.cu):
+
+- K20 `gather_batch`: a step's batch from the device-resident crop set:
+  the crops at `idx`, one horizontal flip for the whole batch, colour
+  gains, u8 * (gain * f32(1/255)) clipped to [0, 1] (NCHW float32; the
+  product order XLA compiles `x / 255 * gains` to), and the
+  labels gathered and flipped alike.
+- K21 `weighted_cross_entropy`: optax's softmax cross-entropy with integer
+  labels times the class weight, the mean, or with an ignored label the
+  kept pixels' sum over max(kept, 1); a `torch.autograd.Function` whose
+  backward is its own kernel.
+- K22 `adamw_update`: optax's clip_by_global_norm then adamw (or adamw
+  alone) over one flat arena of parameters, gradients and moments; the
+  per-step scalars (learning rate, bias corrections) are computed on the
+  host by models/optim.py.
+- K23 `iou_counts`: the first-max argmax of logits (or given predictions)
+  and per-class intersection, union and label counts with an ignored
+  label.
+
+Each wrapper sends CUDA tensors to its kernel and CPU tensors to the plain
+version, and raises on anything else; there is no fallback. The kernels
+count their launches in `kernels.LAUNCHES` where they launch. Labels are
+uint8 throughout (class indices below 255 and the ignored label 255). K21
+counts a label >= C that is not ignored as class C - 1, as XLA clamps the
+index of the JAX programs' `w[y]` (their cross-entropy gives NaN there);
+K23 counts such a label only in its prediction's union.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+
+#: float32(1/255): XLA turns `x / 255` into a product by it
+INV255 = float(np.float32(1.0 / 255.0))
+
+_F32 = torch.float32
+_U8 = torch.uint8
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+# ---------------------------------------------------------------- K20
+
+def gather_batch(data_rgb, data_lab, idx, flip, gains):
+    """data_rgb (N, c, c, 3) uint8, data_lab (N, c, c) uint8, idx (B,)
+    int64, flip (1,) uint8 (nonzero: flip the whole batch left-right),
+    gains (B, 3) float32 -> (x (B, 3, c, c) float32, y (B, c, c) uint8)."""
+    _check(data_rgb.dtype == _U8 and data_rgb.ndim == 4
+           and data_rgb.shape[-1] == 3 and data_rgb.shape[1] == data_rgb.shape[2],
+           "data_rgb must be (N, c, c, 3) uint8")
+    _check(data_lab.dtype == _U8 and data_lab.shape == data_rgb.shape[:3],
+           "data_lab must be (N, c, c) uint8")
+    B = idx.shape[0]
+    _check(idx.dtype == torch.int64 and idx.ndim == 1, "idx must be (B,) int64")
+    _check(flip.dtype == _U8 and flip.shape == (1,), "flip must be (1,) uint8")
+    _check(gains.dtype == _F32 and gains.shape == (B, 3),
+           "gains must be (B, 3) float32")
+    if data_rgb.device.type == "cpu":
+        return gather_batch_plain(data_rgb, data_lab, idx, flip, gains)
+    kernels.require_cuda("batch_gather", data_rgb, data_lab, idx, flip, gains)
+    c = data_rgb.shape[1]
+    x = torch.empty((B, 3, c, c), dtype=_F32, device=data_rgb.device)
+    y = torch.empty((B, c, c), dtype=_U8, device=data_rgb.device)
+    rc = kernels.lib().p3d_gather_batch(
+        data_rgb.data_ptr(), data_lab.data_ptr(), idx.data_ptr(),
+        flip.data_ptr(), gains.data_ptr(), x.data_ptr(), y.data_ptr(), B, c,
+        INV255, kernels.stream_ptr(data_rgb.device))
+    kernels.LAUNCHES["batch_gather"] += 1
+    kernels.check("batch_gather", rc)
+    return x, y
+
+
+def gather_batch_plain(data_rgb, data_lab, idx, flip, gains):
+    """Plain PyTorch version of K20 (run_chunk's gather and flip, then
+    loss_fn's `x.astype(f32) / 255 * gains` and clip)."""
+    x = data_rgb[idx]
+    y = data_lab[idx]
+    f = flip.reshape(()).bool()
+    x = torch.where(f, x.flip(2), x)
+    y = torch.where(f, y.flip(2), y)
+    B = x.shape[0]
+    # XLA compiles `x / 255 * gains` as x * (gains * f32(1/255))
+    xf = x.to(_F32) * (gains * INV255).view(B, 1, 1, 3)
+    xf = torch.clamp(xf, 0.0, 1.0)
+    return xf.permute(0, 3, 1, 2).contiguous(), y.contiguous()
+
+
+# ---------------------------------------------------------------- K21
+
+def _ce_args(logits, labels, weights, ignore_index):
+    _check(logits.dtype == _F32 and logits.ndim == 4,
+           "logits must be (B, C, H, W) float32")
+    B, C = logits.shape[:2]
+    _check(2 <= C <= 8, f"the cross-entropy takes 2-8 classes, got {C}")
+    _check(labels.dtype == _U8 and labels.shape == (B, *logits.shape[2:]),
+           "labels must be (B, H, W) uint8")
+    _check(weights.dtype == _F32 and weights.shape == (C,),
+           "weights must be (C,) float32")
+    _check(ignore_index is None or 0 <= int(ignore_index) <= 255,
+           "ignore_index must be None or a uint8 label")
+    return -1 if ignore_index is None else int(ignore_index)
+
+
+def ce_forward(logits, labels, weights, ignore):
+    """(2,) float32 [loss, denominator] of K21's forward (`ignore` -1 for
+    none): the kernel on the card (two launches), else the plain version."""
+    if logits.device.type == "cpu":
+        return ce_forward_plain(logits, labels, weights, ignore)
+    kernels.require_cuda("weighted_ce", logits, labels, weights)
+    B, C = logits.shape[:2]
+    HW = logits[0, 0].numel()
+    n = B * HW
+    lib = kernels.lib()
+    n_part = lib.p3d_train_partials(n)
+    part = torch.empty(n_part, dtype=_F32, device=logits.device)
+    keep = torch.empty(n_part, dtype=torch.int32, device=logits.device)
+    out = torch.empty(2, dtype=_F32, device=logits.device)
+    rc = lib.p3d_ce_forward(
+        logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), C, HW, n,
+        ignore, part.data_ptr(), keep.data_ptr(), out.data_ptr(),
+        kernels.stream_ptr(logits.device))
+    kernels.LAUNCHES["weighted_ce"] += 2
+    kernels.check("weighted_ce", rc)
+    return out
+
+
+def ce_forward_plain(logits, labels, weights, ignore):
+    """Plain PyTorch version of K21's forward: optax's
+    `logsumexp(l) - l[y]` (jax.nn.logsumexp: log(sum exp(l - max)) + max)
+    times w[y]; the mean, or with an ignored label the kept pixels' sum
+    over max(kept, 1)."""
+    B, C = logits.shape[:2]
+    lf = logits.reshape(B, C, -1)
+    y = labels.reshape(B, 1, -1).long()
+    keep = (y != ignore) if ignore >= 0 else None
+    ys = torch.where(keep, y, 0) if keep is not None else y
+    ys = ys.clamp(max=C - 1)
+    m = lf.amax(1, keepdim=True)
+    lse = torch.log(torch.exp(lf - m).sum(1, keepdim=True)) + m
+    t = (lse - lf.gather(1, ys)) * weights[ys]
+    if keep is None:
+        denom = torch.tensor(float(t.numel()), dtype=_F32, device=t.device)
+    else:
+        t = t * keep.to(_F32)
+        denom = torch.clamp(keep.sum().to(_F32), min=1.0)
+    return torch.stack([t.sum() / denom, denom])
+
+
+def ce_backward(logits, labels, weights, fwd, grad, ignore):
+    """d loss / d logits (B, C, H, W) of K21, given the forward's (2,)
+    output and the (1,) incoming gradient: the kernel on the card, else
+    the plain version."""
+    if logits.device.type == "cpu":
+        return ce_backward_plain(logits, labels, weights, fwd, grad, ignore)
+    kernels.require_cuda("weighted_ce_backward", logits, labels, weights,
+                         fwd, grad)
+    B, C = logits.shape[:2]
+    HW = logits[0, 0].numel()
+    d = torch.empty_like(logits)
+    rc = kernels.lib().p3d_ce_backward(
+        logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
+        fwd.data_ptr(), grad.data_ptr(), C, HW, B * HW, ignore, d.data_ptr(),
+        kernels.stream_ptr(logits.device))
+    kernels.LAUNCHES["weighted_ce_backward"] += 1
+    kernels.check("weighted_ce_backward", rc)
+    return d
+
+
+def ce_backward_plain(logits, labels, weights, fwd, grad, ignore):
+    """Plain PyTorch version of K21's backward: with sc = (g / denom) *
+    w[y] (0 where the label is ignored), exp(l - max) * (sc / sum) and
+    -sc added at the label (the terms of XLA's autodiff of the forward)."""
+    B, C = logits.shape[:2]
+    lf = logits.reshape(B, C, -1)
+    y = labels.reshape(B, 1, -1).long()
+    keep = (y != ignore) if ignore >= 0 else None
+    ys = torch.where(keep, y, 0) if keep is not None else y
+    ys = ys.clamp(max=C - 1)
+    sc = (grad.reshape(()) / fwd[1]) * weights[ys]
+    if keep is not None:
+        sc = torch.where(keep, sc, torch.zeros((), dtype=_F32,
+                                               device=sc.device))
+    e = torch.exp(lf - lf.amax(1, keepdim=True))
+    d = e * (sc / e.sum(1, keepdim=True))
+    onehot = torch.arange(C, device=lf.device).view(1, C, 1) == ys
+    d = torch.where(onehot, d + (-sc), d)
+    return d.reshape(logits.shape)
+
+
+class _WeightedCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels, weights, ignore):
+        out = ce_forward(logits, labels, weights, ignore)
+        ctx.save_for_backward(logits, labels, weights, out)
+        ctx.ignore = ignore
+        return out[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, labels, weights, out = ctx.saved_tensors
+        g = grad.reshape(1).to(_F32).contiguous()
+        return (ce_backward(logits, labels, weights, out, g, ctx.ignore),
+                None, None, None)
+
+
+def weighted_cross_entropy(logits, labels, weights, ignore_index=None):
+    """K21: the weighted softmax cross-entropy of (B, C, H, W) float32
+    logits against (B, H, W) uint8 labels, a 0-d float32 tensor with a
+    backward (its kernel on the card). `ignore_index` (a uint8 label, e.g.
+    255) drops those pixels from the loss and its gradient."""
+    ignore = _ce_args(logits, labels, weights, ignore_index)
+    return _WeightedCE.apply(logits.contiguous(), labels.contiguous(),
+                             weights.contiguous(), ignore)
+
+
+# ---------------------------------------------------------------- K22
+
+def adamw_update(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps, eps_root,
+                 wd, neg_lr, max_norm=1.0):
+    """K22, in place over flat float32 arenas p, g, mu, nu (one element a
+    parameter): with `clip`, optax's clip_by_global_norm(max_norm) first
+    (g_norm = sqrt(sum g^2) over the whole arena); then adamw's moments,
+    bias corrections (`bc1`, `bc2` = 1 - b^count), update, decayed weight
+    (`wd` * p) and the step `neg_lr` * u added to p. Scalars are float32
+    values (the caller rounds them). The kernel on the card (two launches
+    with `clip`, else one), else the plain version."""
+    n = p.numel()
+    for t in (p, g, mu, nu):
+        _check(t.dtype == _F32 and t.ndim == 1 and t.numel() == n,
+               "adamw_update takes flat float32 arenas of one length")
+    if p.device.type == "cpu":
+        return adamw_update_plain(p, g, mu, nu, clip=clip, b1=b1, b2=b2,
+                                  bc1=bc1, bc2=bc2, eps=eps,
+                                  eps_root=eps_root, wd=wd, neg_lr=neg_lr,
+                                  max_norm=max_norm)
+    kernels.require_cuda("adamw", p, g, mu, nu)
+    lib = kernels.lib()
+    part = torch.empty(lib.p3d_train_partials(n) if clip else 1, dtype=_F32,
+                       device=p.device)
+    f = lambda v: float(np.float32(v))          # noqa: E731
+    rc = lib.p3d_adamw(
+        p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
+        part.data_ptr(), int(bool(clip)), f(b1), f(b2), f(1 - b1), f(1 - b2),
+        f(bc1), f(bc2), f(eps), f(eps_root), f(wd), f(neg_lr), f(max_norm),
+        kernels.stream_ptr(p.device))
+    kernels.LAUNCHES["adamw"] += 2 if clip else 1
+    kernels.check("adamw", rc)
+
+
+def adamw_update_plain(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps,
+                       eps_root, wd, neg_lr, max_norm=1.0):
+    """Plain PyTorch version of K22 (optax's operations in their order)."""
+    dev = p.device
+
+    def s(v):
+        return torch.tensor(np.float32(v), device=dev)
+
+    if clip:
+        gnorm = torch.sqrt((g * g).sum())
+        g = torch.where(gnorm < s(max_norm), g, (g / gnorm) * s(max_norm))
+    m = s(1 - b1) * g + s(b1) * mu
+    v = s(1 - b2) * (g * g) + s(b2) * nu
+    u = (m / s(bc1)) / (torch.sqrt(v / s(bc2) + s(eps_root)) + s(eps))
+    u = u + s(wd) * p
+    p.add_(s(neg_lr) * u)
+    mu.copy_(m)
+    nu.copy_(v)
+
+
+# ---------------------------------------------------------------- K23
+
+def iou_counts(labels, n_cls, logits=None, preds=None, ignore_index=None):
+    """K23: (3, n_cls) int64 [intersection, union, label pixels] per class
+    of the first-max argmax of (B, C, H, W) float32 `logits` (or of (B, H,
+    W) uint8 `preds`) against (B, H, W) uint8 `labels`, pixels labelled
+    `ignore_index` left out."""
+    _check((logits is None) != (preds is None), "give logits or preds")
+    _check(labels.dtype == _U8, "labels must be uint8")
+    if logits is not None:
+        _check(logits.dtype == _F32 and logits.ndim == 4
+               and logits.shape[1] == n_cls
+               and labels.shape == (logits.shape[0], *logits.shape[2:]),
+               "logits must be (B, n_cls, H, W) float32 over the labels")
+    else:
+        _check(preds.dtype == _U8 and preds.shape == labels.shape,
+               "preds must be uint8 of the labels' shape")
+    _check(2 <= n_cls <= 8, f"iou_counts takes 2-8 classes, got {n_cls}")
+    ignore = -1 if ignore_index is None else int(ignore_index)
+    if labels.device.type == "cpu":
+        return iou_counts_plain(labels, n_cls, logits, preds, ignore)
+    src = logits if logits is not None else preds
+    kernels.require_cuda("iou_counts", labels, src)
+    counts = torch.zeros((3, n_cls), dtype=torch.int64, device=labels.device)
+    HW = labels[0].numel() if labels.ndim > 1 else labels.numel()
+    rc = kernels.lib().p3d_iou_counts(
+        logits.data_ptr() if logits is not None else None,
+        preds.data_ptr() if preds is not None else None,
+        labels.data_ptr(), n_cls, HW, labels.numel(), ignore,
+        counts.data_ptr(), kernels.stream_ptr(labels.device))
+    kernels.LAUNCHES["iou_counts"] += 1
+    kernels.check("iou_counts", rc)
+    return counts
+
+
+def iou_counts_plain(labels, n_cls, logits=None, preds=None, ignore=-1):
+    """Plain PyTorch version of K23 (val_metrics' per-class sums)."""
+    pred = logits.argmax(1) if logits is not None else preds.long()
+    lab = labels.long()
+    keep = lab != ignore if ignore >= 0 else torch.ones_like(lab,
+                                                             dtype=torch.bool)
+    rows = []
+    for c in range(n_cls):
+        sel = (lab == c) & keep
+        hit = (pred == c) & keep
+        rows.append(torch.stack([(sel & hit).sum(), (sel | hit).sum(),
+                                 sel.sum()]))
+    return torch.stack(rows, 1).to(torch.int64)
+
+
+def iou_from_counts(counts):
+    """val_metrics' IoU a class from K23's counts (numpy, float32): tp /
+    max(union, 1) where the class has pixels, else -1."""
+    c = np.asarray(counts.cpu() if torch.is_tensor(counts) else counts)
+    tp = c[0].astype(np.float32)
+    union = np.maximum(c[1], 1).astype(np.float32)
+    return np.where(c[2] > 0, tp / union, np.float32(-1.0)).astype(np.float32)

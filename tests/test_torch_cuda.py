@@ -1649,3 +1649,189 @@ def test_streaming_carver_on_the_card_matches_carve_plain(dev):
             assert torch.equal(sc.preview(), want == 1)
     assert kernels.LAUNCHES["carve"] == 8
     assert len(sc._packed) == 32 and sc._packed.device.type == "cuda"
+
+
+# ------------------------------------------------ training (K20-K23)
+
+@pytest.mark.parametrize("N,c,B", [(7, 24, 5), (20, 448, 8)])
+def test_batch_gather_kernel_matches_plain(dev, N, c, B):
+    """K20 bit for bit, both flips, gains that clip; one launch."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.training import (gather_batch,
+                                                      gather_batch_plain)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rgb = torch.randint(0, 256, (N, c, c, 3), generator=g, device=dev,
+                        dtype=torch.uint8)
+    lab = torch.randint(0, 6, (N, c, c), generator=g, device=dev,
+                        dtype=torch.uint8)
+    idx = torch.randint(0, N, (B,), generator=g, device=dev)
+    gains = 1 + 0.6 * torch.randn((B, 3), generator=g, device=dev)
+    for f in (0, 1):
+        flip = torch.tensor([f], dtype=torch.uint8, device=dev)
+        kernels.reset_launches()
+        x, y = gather_batch(rgb, lab, idx, flip, gains)
+        assert kernels.LAUNCHES["batch_gather"] == 1
+        px, py = gather_batch_plain(rgb, lab, idx, flip, gains)
+        torch.cuda.synchronize()
+        assert torch.equal(x, px) and torch.equal(y, py)
+        assert (x == 1).any() and (x == 0).any()
+
+
+@pytest.mark.parametrize("shape,ignore", [((3, 6, 17, 13), None),
+                                          ((3, 3, 17, 13), 255),
+                                          ((8, 6, 448, 448), None),
+                                          ((8, 3, 448, 448), 255)])
+def test_weighted_ce_kernels_match_plain(dev, shape, ignore):
+    """K21's forward within 2e-5 relative of the plain version (the sums'
+    order differs), its denominator equal; its backward within 1e-6 of the
+    largest gradient; ignored pixels' gradients zero."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
+    B, C, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = 3 * torch.randn(shape, generator=g, device=dev)
+    y = torch.randint(0, C, (B, H, W), generator=g, device=dev,
+                      dtype=torch.uint8)
+    if ignore is not None:
+        y[torch.rand((B, H, W), generator=g, device=dev) < 0.3] = ignore
+    w = torch.rand(C, generator=g, device=dev) + 0.2
+    ig = -1 if ignore is None else ignore
+    kernels.reset_launches()
+    out = T.ce_forward(logits, y, w, ig)
+    assert kernels.LAUNCHES["weighted_ce"] == 2
+    ref = T.ce_forward_plain(logits, y, w, ig)
+    torch.testing.assert_close(out[0], ref[0], rtol=2e-5, atol=0)
+    assert out[1] == ref[1]
+    grad = torch.full((1,), 0.7, device=dev)
+    d = T.ce_backward(logits, y, w, out, grad, ig)
+    assert kernels.LAUNCHES["weighted_ce_backward"] == 1
+    pd = T.ce_backward_plain(logits, y, w, out, grad, ig)
+    torch.testing.assert_close(d, pd, rtol=0,
+                               atol=1e-6 * float(pd.abs().max()))
+    if ignore is not None:
+        assert not d.permute(1, 0, 2, 3)[:, y == ignore].any()
+    lt = logits.clone().requires_grad_()
+    T.weighted_cross_entropy(lt, y, w, ignore).backward()
+    assert torch.equal(lt.grad, T.ce_backward(
+        logits, y, w, out, torch.ones(1, device=dev), ig))
+
+
+@pytest.mark.parametrize("ignore", [None, 255])
+def test_weighted_ce_kernel_label_past_classes(dev, ignore):
+    """A label >= C that is not ignored counts as C - 1 in K21's kernels
+    as in the plain versions (no read past the weights or the logits)."""
+    from plant3dvision_tpu_torch.ops import training as T
+    B, C, H, W = 2, 3, 33, 29
+    g = torch.Generator(device=dev).manual_seed(4)
+    logits = torch.randn((B, C, H, W), generator=g, device=dev)
+    y = torch.randint(0, C + 4, (B, H, W), generator=g, device=dev,
+                      dtype=torch.uint8)
+    if ignore is not None:
+        y[torch.rand((B, H, W), generator=g, device=dev) < 0.2] = ignore
+    w = torch.rand(C, generator=g, device=dev) + 0.2
+    ig = -1 if ignore is None else ignore
+    out = T.ce_forward(logits, y, w, ig)
+    ref = T.ce_forward_plain(logits, y, w, ig)
+    torch.testing.assert_close(out[0], ref[0], rtol=2e-5, atol=0)
+    assert out[1] == ref[1]
+    grad = torch.ones(1, device=dev)
+    pd = T.ce_backward_plain(logits, y, w, out, grad, ig)
+    torch.testing.assert_close(T.ce_backward(logits, y, w, out, grad, ig),
+                               pd, rtol=0, atol=1e-6 * float(pd.abs().max()))
+
+
+@pytest.mark.parametrize("clip", [False, True])
+@pytest.mark.parametrize("n", [1000, 2_030_000])
+def test_adamw_kernel_matches_plain(dev, clip, n):
+    """K22 over one arena: bit-equal to the plain version without the clip
+    (the same float32 operations in the same order) and when the norm is
+    under the threshold; clipped, within 1e-6 relative (the global norm's
+    sum runs in another order). Launches: 2 with the clip, 1 without;
+    repeated calls equal (no float atomics)."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
+    g = torch.Generator(device=dev).manual_seed(2)
+    sc = dict(clip=clip, b1=0.9, b2=0.999, bc1=np.float32(0.271),
+              bc2=np.float32(0.00299), eps=1e-8, eps_root=0.0, wd=1e-4,
+              neg_lr=-np.float32(2.9e-3), max_norm=1.0)
+    for gscale in (1e-6, 1.0):
+        p = torch.randn(n, generator=g, device=dev)
+        gr = gscale * torch.randn(n, generator=g, device=dev)
+        mu = 0.01 * torch.randn(n, generator=g, device=dev)
+        nu = 1e-4 * torch.rand(n, generator=g, device=dev)
+        runs = []
+        for _ in range(2):
+            a = [t.clone() for t in (p, gr, mu, nu)]
+            kernels.reset_launches()
+            T.adamw_update(*a, **sc)
+            assert kernels.LAUNCHES["adamw"] == (2 if clip else 1)
+            runs.append(a)
+        b = [t.clone() for t in (p, gr, mu, nu)]
+        T.adamw_update_plain(*b, **sc)
+        torch.cuda.synchronize()
+        for x, y in zip(runs[0], runs[1]):
+            assert torch.equal(x, y)
+        clipped = clip and float((gr * gr).sum().sqrt()) >= 1.0
+        for x, y in zip(runs[0], b):
+            if clipped:
+                torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-9)
+            else:
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("shape,ignore", [((3, 5, 16, 16), None),
+                                          ((2, 6, 448, 448), None),
+                                          ((1, 3, 1080, 1440), 255)])
+def test_iou_counts_kernel_matches_plain(dev, shape, ignore):
+    """K23's counts equal the plain version's, from logits (with ties)
+    and from predictions; one launch a call."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
+    B, C, H, W = shape
+    g = torch.Generator(device=dev).manual_seed(3)
+    logits = torch.round(torch.randn(shape, generator=g, device=dev), decimals=1)
+    lab = torch.randint(0, C, (B, H, W), generator=g, device=dev,
+                        dtype=torch.uint8)
+    if ignore is not None:
+        lab[torch.rand((B, H, W), generator=g, device=dev) < 0.25] = ignore
+    kernels.reset_launches()
+    k = T.iou_counts(lab, C, logits=logits, ignore_index=ignore)
+    assert kernels.LAUNCHES["iou_counts"] == 1
+    assert torch.equal(k, T.iou_counts_plain(lab, C, logits=logits,
+                                             ignore=-1 if ignore is None
+                                             else ignore))
+    pred = logits.argmax(1).to(torch.uint8)
+    assert torch.equal(T.iou_counts(lab, C, preds=pred, ignore_index=ignore),
+                       k)
+
+
+def test_train_on_crops_resume_bit_identical_on_card(dev):
+    """Two chunks on the card checkpointed after the first: the resumed
+    run equals the uninterrupted one bit for bit (deterministic cuDNN, the
+    resize's backward as products, no float atomics in K20-K23)."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.models import train_synth as S
+    rng = np.random.default_rng(0)
+    n, c = 16, 64
+    lab = np.zeros((n, c, c), np.int8)
+    for i in range(n):
+        r0, c0 = rng.integers(4, c - 24, 2)
+        lab[i, r0:r0 + 20, c0:c0 + 4] = 5
+        lab[i, r0:r0 + 6, c0 + 4:c0 + 14] = 2
+    rgb = np.full((n, c, c, 3), 40, np.uint8)
+    rgb[lab == 5] = (60, 160, 50)
+    rgb[lab == 2] = (190, 170, 60)
+    kw = dict(widths=(8, 16, 32), blocks_per_stage=1, steps=50,
+              batch_size=4, device="cuda")
+    states = {}
+    kernels.reset_launches()
+    full, _, fh = S.train_on_crops(
+        rgb, lab, checkpoint_every_chunks=1,
+        on_checkpoint=lambda b, ch: states.setdefault(ch, b), **kw)
+    for k in ("batch_gather", "weighted_ce", "weighted_ce_backward",
+              "adamw", "iou_counts"):
+        assert kernels.LAUNCHES[k] > 0, k
+    res, _, rh = S.train_on_crops(rgb, lab, resume_state=states[0], **kw)
+    assert [h["loss"] for h in rh] == [h["loss"] for h in fh]
+    for a, b in zip(full.parameters(), res.parameters()):
+        assert torch.equal(a, b)

@@ -7,7 +7,9 @@ plain version (numpy, geometry.cpp's float32 arithmetic) the same too.
 pcd2mesh's signed distance runs K2's plain version here (cap 8), which is
 bit-equal to the JAX package's; the IMLS blend and the extraction are the
 same host code. Tolerances: meshes equal triangles and vertices within
-1e-5, the MCF contraction 1e-5, skeleton points 1e-4 with equal lines.
+1e-5, the MCF contraction bit-equal to the JAX source built with the
+same flags (2.5e-3 to the committed binary), skeleton points 1e-4 with
+equal lines.
 """
 
 import json
@@ -166,18 +168,34 @@ def _mesh():
     return pcd2mesh(PointCloud(pts, nrm), voxel_size=1.0, device="cpu")
 
 
-def test_mcf_contraction_equals_jax():
-    """The native contraction within 1e-5 of the JAX package's library;
-    the plain version (scipy.sparse) equal to the JAX package's scipy
-    mirror of it."""
+def test_mcf_contraction_equals_jax(tmp_path):
+    """The native contraction bit-equal to the JAX package's own
+    geometry.cpp built by the same compiler with the port's flags
+    (native/mc.py:CXX_FLAGS), called through ctypes; within
+    COMMITTED_BINARY_ATOL of the JAX package's committed libp3dgeom.so,
+    which was compiled once on another machine; the plain version
+    (scipy.sparse) equal to the JAX package's scipy mirror of it.
+
+    Six iterations of the float32 CG solve amplify the last bits that two
+    compilations round differently: tools/mcf_build_spread.py measured
+    the port's build against the committed binary at 1.070e-3 on an
+    AVX-512 Xeon with g++ 12.2.0 and at 1.077e-3 on the H100 machine's
+    host with g++ 13.3.0, and 0.0 against the same source built with the
+    same flags on both."""
     from plant3dvision_tpu.native import mcf as jmcf
-    from plant3dvision_tpu_torch.native import mcf
+    from plant3dvision_tpu_torch.native import mc, mcf
 
     mesh = _mesh()
     v, t = mesh.vertices, mesh.triangles
     c = mcf.contract_mesh(v, t, iterations=6)
+    jax_source = ROOT / "plant3dvision_tpu" / "native" / "geometry.cpp"
+    same_flags = mcf.contract_with(
+        mc.load(mc.compile_library(jax_source, tmp_path / "libgeom.so")),
+        v, t, iterations=6)
+    np.testing.assert_array_equal(c, same_flags)
     np.testing.assert_allclose(c, jmcf.contract_mesh(v, t, iterations=6),
-                               rtol=0, atol=1e-5)
+                               rtol=0, atol=COMMITTED_BINARY_ATOL)
+    assert mc.CXX_FLAGS[:2] == ["-O3", "-march=native"]
     assert np.abs(c - v).max() > 0.5            # it contracted
     p = mcf._contract_scipy(v, t, iterations=3, cg_iters=200)
     np.testing.assert_allclose(
@@ -185,6 +203,12 @@ def test_mcf_contraction_equals_jax():
         rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="failed"):
         mcf.contract_mesh(np.zeros((0, 3)), np.zeros((0, 3), int))
+
+
+#: the port's build against the committed libp3dgeom.so (see
+#: test_mcf_contraction_equals_jax): 2.3 times the largest difference
+#: measured
+COMMITTED_BINARY_ATOL = 2.5e-3
 
 
 @pytest.mark.parametrize("kw", [
