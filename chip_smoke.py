@@ -236,21 +236,24 @@
    checkpointed every chunk, its middle chunk under torch.profiler (the
    device's idle share), resumed from its chunk-0 state and held equal
    bit for bit; a 50-step TPUSegNet run (128, 256, 256). Checks that the
-   loss falls and K20-K23 were launched; then K20-K23 against their plain
-   versions at its shapes, timed beside a PyTorch call or chain
-   (check_train_kernels).
+   loss falls, K20-K23 were launched, and a step launched K20, K21's pass,
+   its backward and K22 once each; then K20-K23 against their plain
+   versions at its shapes, timed beside a PyTorch call or chain, with
+   their device time by kernel (check_train_kernels; K21 also as the
+   trainers' call, weighted_cross_entropy then .backward()).
 23. configs/training_seg.toml: `python -m plant3dvision_tpu_torch.models.
    train` (main) on a copy of phase 5's first 32 views and organ masks,
    widths 32, 64, 128 at 896x896, batch 4, 2 epochs (of 50); then the
-   config's Segmentation2D with the trained model (needs phase 5); then
-   K21 on the phase's first batch, (4, 5, 896, 896), against its plain
-   version (ce_rows).
+   config's Segmentation2D with the trained model (needs phase 5); K21's
+   pass, its backward and K22 once a step; then K21 on the phase's first
+   batch, (4, 5, 896, 896), against its plain version (ce_rows).
 24. models/distill.py's distill_scan on phase 9's scan (its geometric
    route read back), 200 steps (of 2000): pseudo-label stats, losses,
-   the held-out views' IoU (needs phase 9); then K21 with the ignored
-   label 255 on a batch of its crops, (8, 3, 448, 448), and K23 from a
-   held-out view's predictions with the ignored label, 1080x1440, against
-   their plain versions (ce_rows, iou_row).
+   the held-out views' IoU (needs phase 9); K21's pass two launches a
+   step (its kept count first), its backward and K22 one; then K21 with
+   the ignored label 255 on a batch of its crops, (8, 3, 448, 448), and
+   K23 from a held-out view's predictions with the ignored label,
+   1080x1440, against their plain versions (ce_rows, iou_row).
 
 Prints one JSON object per line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -836,10 +839,12 @@ def run_main_path(db, device_name):
 
 
 def profile_pass(db, scan_id, cfg):
-    """A warm pass under torch.profiler: the card's busy time (sum
-    of the device time of its kernels and copies; one stream, so nothing
-    overlaps; the stage ranges' device spans left out) against the pass's
-    wall time, the top device entries and the tasks' stage seconds."""
+    """A warm pass under torch.profiler, device activity only: the card's
+    busy time (sum of the device time of its kernels and copies; one
+    stream, so nothing overlaps; the stage ranges' device spans left out)
+    against the pass's wall time, the top device entries and the tasks'
+    stage seconds. Host tracing is left off: it slowed a calibrated pass's
+    host code and took minutes to summarise, and nothing here reads it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -849,8 +854,7 @@ def profile_pass(db, scan_id, cfg):
              report=False)
     ctx = RunContext(db, scan_id, cfg, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         report = run_task(ctx, "AnglesAndInternodes", report=False)
         torch.cuda.synchronize()
@@ -4488,8 +4492,9 @@ def run_train_synth(work, device_name):
         "loss falls": h[-1]["loss"] < h[0]["loss"],
         "every training kernel launched": all(
             launches[k] > 0 for k in TRAIN_KERNELS),
-        "K20 once a step, K22 twice": launches["batch_gather"] == TRAIN_STEPS
-        and launches["adamw"] == 2 * TRAIN_STEPS,
+        "a step: K20 1 launch, K21's pass 1 and its backward 1, K22 1":
+        all(launches[k] == TRAIN_STEPS for k in (
+            "batch_gather", "weighted_ce", "weighted_ce_backward", "adamw")),
         "float16 checkpoint loads and segments": mcfg["widths"] == [
             24, 48, 96, 192] and "background" in f16_iou,
         "resume from chunk 0 bit-identical": resume_equal,
@@ -4502,13 +4507,47 @@ def run_train_synth(work, device_name):
     return launches, (rgb, lab), model, (va, vlab), checks
 
 
-def ce_rows(path, logits, y, w, ignore, launches):
-    """K21's forward (within 2e-5 relative of the plain version, the sums'
-    order differing; its denominator equal) and backward (within 1e-6 of
-    the largest gradient; an ignored pixel's gradient zero) on a path's
-    own logits, labels and class weights, each timed beside its plain
-    version and F.cross_entropy (its sum and autograd's gradient of it):
-    two kernel rows."""
+#: the kernels of train.cu, as the profiler names them
+TRAIN_CU_KERNELS = ("gather_batch_kernel", "ce_fused_kernel",
+                    "ce_keep_kernel", "ce_backward_kernel", "adamw_kernel",
+                    "iou_counts_kernel")
+
+
+def train_device_ms(fn, profile):
+    """(device ms by kernel, their sum over train.cu's kernels) of fn()
+    (torch.profiler), for `kernel_row`: (None, ...) where `profile` is off
+    (the row's kernel_ms is its call's), (None, None) where the profiler
+    recorded nothing (not measured)."""
+    if not profile:
+        return None, ...
+    by = device_ms_by_kernel(fn)
+    if by is None:
+        return None, None
+    return by, sum(v for k, v in by.items()
+                   if any(n in k for n in TRAIN_CU_KERNELS))
+
+
+def launches_a_call(fn, names):
+    """The launches one fn() call adds to each of `names`."""
+    from plant3dvision_tpu_torch import kernels
+    before = {k: kernels.LAUNCHES[k] for k in names}
+    fn()
+    return {k: kernels.LAUNCHES[k] - before[k] for k in names}
+
+
+def ce_rows(path, logits, y, w, ignore, launches, profile=False):
+    """K21 on a path's own logits, labels and class weights: the pass
+    alone (the loss; within 2e-5 relative of the plain version, the sums'
+    order differing; its denominator equal), the general backward (a fresh
+    gradient at incoming gradient 1; within 1e-6 of the largest gradient;
+    an ignored pixel's gradient zero) and the trainers' call,
+    weighted_cross_entropy then .backward() (the pass with its gradient,
+    then the backward's check of the incoming gradient on the card; the
+    gradient bit-equal to the general backward's), each timed beside its
+    plain version and F.cross_entropy (its sum, its autograd, or both),
+    the last also beside the pass and the general backward in turn (two
+    reads of the logits): three kernel rows. `profile`: each row's device
+    time by kernel too."""
     import torch
     import torch.nn.functional as F
     from plant3dvision_tpu_torch.ops import training as T
@@ -4527,13 +4566,22 @@ def ce_rows(path, logits, y, w, ignore, launches):
     extra = {"path": path, "shape": list(logits.shape),
              "ignore_index": ignore,
              "ignored_px": 0 if ignore is None else int((y == ignore).sum())}
+    names = ("weighted_ce", "weighted_ce_backward")
+
+    def loss_alone():
+        return T.ce_forward(logits, y, w, ig)
+    by, kms = train_device_ms(loss_alone, profile)
     rows = [kernel_row(
         "weighted_ce", launches["weighted_ce"], err,
-        cuda_ms(lambda: T.ce_forward(logits, y, w, ig)),
+        cuda_ms(loss_alone),
         cuda_ms(lambda: T.ce_forward_plain(logits, y, w, ig)),
         npx * C * 4 + npx + C * 4, npx * (4 * C + 6),
         library=cuda_ms(lambda: F.cross_entropy(logits, y64, **lib_kw)),
-        extra={**extra, "tolerance": "2e-5 relative (sum order)"})]
+        kernel_ms=kms,
+        extra={**extra, "mode": "the pass alone (the loss, no gradient)",
+               "launches_a_call": launches_a_call(loss_alone, names),
+               "device_ms_by_kernel": by,
+               "tolerance": "2e-5 relative (sum order)"})]
     g1 = torch.ones(1, device=logits.device)
     d = T.ce_backward(logits, y, w, out, g1, ig)
     pd = T.ce_backward_plain(logits, y, w, out, g1, ig)
@@ -4543,23 +4591,73 @@ def ce_rows(path, logits, y, w, ignore, launches):
     if ignore is not None:
         assert not d.permute(1, 0, 2, 3)[:, y == ignore].any(), \
             f"K21 backward: an ignored pixel has a gradient on {path}"
+
+    def general():
+        return T.ce_backward(logits, y, w, out, g1, ig)
+    by, kms = train_device_ms(general, profile)
     leaf = logits.clone().requires_grad_()
     lib_loss = F.cross_entropy(leaf, y64, **lib_kw)
     rows.append(kernel_row(
         "weighted_ce_backward", launches["weighted_ce_backward"], derr,
-        cuda_ms(lambda: T.ce_backward(logits, y, w, out, g1, ig)),
+        cuda_ms(general),
         cuda_ms(lambda: T.ce_backward_plain(logits, y, w, out, g1, ig)),
         npx * C * 4 * 2 + npx + C * 4, npx * (4 * C + 4),
         library=cuda_ms(lambda: torch.autograd.grad(
             lib_loss, leaf, retain_graph=True)),
-        extra={**extra, "tolerance": "1e-6 of the largest"}))
+        kernel_ms=kms,
+        extra={**extra, "mode": "the general backward, a fresh gradient",
+               "launches_a_call": launches_a_call(general, names),
+               "device_ms_by_kernel": by,
+               "tolerance": "1e-6 of the largest"}))
+
+    # the trainers' call: the pass with its gradient, then .backward()
+    lt = logits.clone().requires_grad_()
+
+    def trainers_call():
+        lt.grad = None
+        loss = T.weighted_cross_entropy(lt, y, w, ignore)
+        loss.backward()
+        return loss
+    loss = trainers_call()
+    ferr = float((loss.detach() - ref[0]).abs())
+    assert ferr <= 2e-5 * float(ref[0].abs()), \
+        f"K21 pass != plain on {path} ({ferr})"
+    assert torch.equal(lt.grad, d), \
+        f"K21 pass's gradient != the general backward's on {path}"
+    by, kms = train_device_ms(trainers_call, profile)
+    lib_leaf = logits.clone().requires_grad_()
+
+    def library_call():
+        lib_leaf.grad = None
+        F.cross_entropy(lib_leaf, y64, **lib_kw).backward()
+    rows.append(kernel_row(
+        "weighted_ce", launches["weighted_ce"], max(ferr, derr),
+        cuda_ms(trainers_call),
+        cuda_ms(lambda: T.ce_backward_plain(
+            logits, y, w, T.ce_forward_plain(logits, y, w, ig), g1, ig)),
+        npx * C * 4 * 2 + npx + C * 4, npx * (6 * C + 8),
+        library=cuda_ms(library_call),
+        kernel_ms=kms,
+        extra={**extra, "mode": "weighted_cross_entropy + .backward(): "
+               "the pass with its gradient, the backward's check",
+               "pair_ms": cuda_ms(lambda: T.ce_backward(
+                   logits, y, w, T.ce_forward(logits, y, w, ig), g1, ig)),
+               "launches_a_call": launches_a_call(trainers_call, names),
+               "backward_launches": launches["weighted_ce_backward"],
+               "device_ms_by_kernel": by,
+               "gradient": "bit-equal to the general backward's",
+               "tolerance": "2e-5 relative (loss), 1e-6 of the largest "
+               "(gradient)"}))
+    del lt, leaf, lib_leaf, lib_loss
     return rows
 
 
-def iou_row(path, lab, C, ignore, launches, logits=None, preds=None):
+def iou_row(path, lab, C, ignore, launches, logits=None, preds=None,
+            profile=False):
     """K23's counts on a path's own labels and logits or predictions,
     equal to the plain version's, timed beside it and beside
-    torch.bincount of the kept (label, prediction) pairs: a kernel row."""
+    torch.bincount of the kept (label, prediction) pairs: a kernel row
+    (`profile`: with its device time by kernel)."""
     import torch
     from plant3dvision_tpu_torch.ops import training as T
 
@@ -4577,14 +4675,18 @@ def iou_row(path, lab, C, ignore, launches, logits=None, preds=None):
         return torch.bincount(pairs if keep is None else pairs[keep],
                               minlength=C * C)
     src = nv * C * 4 if preds is None else nv
+
+    def call():
+        return T.iou_counts(lab, C, logits=logits, preds=preds,
+                            ignore_index=ignore)
+    by, kms = train_device_ms(call, profile)
     return kernel_row(
-        "iou_counts", launches["iou_counts"], 0.0,
-        cuda_ms(lambda: T.iou_counts(lab, C, logits=logits, preds=preds,
-                                     ignore_index=ignore)),
+        "iou_counts", launches["iou_counts"], 0.0, cuda_ms(call),
         cuda_ms(lambda: T.iou_counts_plain(lab, C, logits, preds, ig)),
         src + nv + 3 * C * 8, nv * (C + 4 if preds is None else 4),
-        library=cuda_ms(library),
-        extra={"path": path, "shape": list((logits if preds is None
+        library=cuda_ms(library), kernel_ms=kms,
+        extra={"device_ms_by_kernel": by,
+               "path": path, "shape": list((logits if preds is None
                                             else preds).shape),
                "input": "logits" if preds is None else "predictions",
                "ignore_index": ignore,
@@ -4621,13 +4723,17 @@ def check_train_kernels(crops, model, val, launches):
     px, py = T.gather_batch_plain(d_rgb, d_lab, idx, flip, gains)
     assert torch.equal(x, px) and torch.equal(y, py), "K20 != plain"
     px_ = B * c * c
+
+    def k20():
+        return T.gather_batch(d_rgb, d_lab, idx, flip, gains)
+    by, kms = train_device_ms(k20, True)
     rows.append(kernel_row(
-        "batch_gather", launches["batch_gather"], 0.0,
-        cuda_ms(lambda: T.gather_batch(d_rgb, d_lab, idx, flip, gains)),
+        "batch_gather", launches["batch_gather"], 0.0, cuda_ms(k20),
         cuda_ms(lambda: T.gather_batch_plain(d_rgb, d_lab, idx, flip,
                                              gains)),
-        px_ * 4 + px_ * 3 * 4 + px_ + B * 20, px_ * 3 * 4,
-        extra={"path": path, "shape": [B, 3, c, c], "crops_resident": n}))
+        px_ * 4 + px_ * 3 * 4 + px_ + B * 20, px_ * 3 * 4, kernel_ms=kms,
+        extra={"path": path, "shape": [B, 3, c, c], "crops_resident": n,
+               "device_ms_by_kernel": by}))
 
     # K21 on the model's logits
     model = model.to(dev).float()
@@ -4636,7 +4742,7 @@ def check_train_kernels(crops, model, val, launches):
         logits = model(x).float().contiguous()
     _, w = S.class_weights(lab, C)
     w = torch.tensor(w, dtype=torch.float32, device=dev)
-    rows += ce_rows(path, logits, y, w, None, launches)
+    rows += ce_rows(path, logits, y, w, None, launches, profile=True)
 
     # K22 over the model's parameters (copies: the model is not stepped)
     flat = torch.cat([p.detach().reshape(-1).float()
@@ -4668,22 +4774,37 @@ def check_train_kernels(crops, model, val, launches):
     def library_step():
         torch.nn.utils.clip_grad_norm_(lp, 1.0)
         opt.step()
+    # the trainers' call: the kernel bound to the arenas (models/optim.py)
+    per_step = {k: sc[k] for k in ("bc1", "bc2", "neg_lr")}
+    bound = T.adamw_launcher(*arena, clip=True, **{
+        k: v for k, v in sc.items() if k not in per_step})
+
+    def k22():
+        bound(**per_step)
+    by, kms = train_device_ms(k22, True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        k22()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
     rows.append(kernel_row(
-        "adamw", launches["adamw"], errs[True],
-        cuda_ms(lambda: T.adamw_update(*arena, clip=True, **sc)),
+        "adamw", launches["adamw"], errs[True], cuda_ms(k22),
         cuda_ms(lambda: T.adamw_update_plain(
             *[t.clone() for t in (flat, grad, mu, nu)], clip=True, **sc)),
-        N * 28, N * 22, library=cuda_ms(library_step),
+        N * 28, N * 22, library=cuda_ms(library_step), kernel_ms=kms,
         extra={"path": path, "parameters": N, "mode": "clip + adamw",
                "max_abs_err_no_clip": errs[False],
-               "launches_a_step": 2}))
+               "launches_a_step": launches_a_call(k22, ("adamw",))["adamw"],
+               "host_us_a_call": host_us,
+               "device_ms_by_kernel": by}))
 
     # K23 on the held-out crops' logits
     va, vlab = val
     with torch.no_grad():
         vx = (va.float() * T.INV255).permute(0, 3, 1, 2).contiguous()
         vlog = model(vx).float().contiguous()
-    rows.append(iou_row(path, vlab, C, None, launches, logits=vlog))
+    rows.append(iou_row(path, vlab, C, None, launches, logits=vlog,
+                        profile=True))
     del d_rgb, d_lab, logits, vlog
     torch.cuda.empty_cache()
     return rows
@@ -4800,8 +4921,9 @@ def run_training_seg(work, ml_scan, device_name):
     return {
         "trained model in the scan's models fileset": mcfg["widths"] == [
             32, 64, 128],
-        "K21 and K22 launched in training": launches["weighted_ce"] > 0
-        and launches["adamw"] > 0,
+        "a step: K21's pass 1 launch and its backward 1, K22 1": all(
+            launches[k] == TRAIN_SEG_EPOCHS * max(TRAIN_SEG_IMAGES // bs, 1)
+            for k in ("weighted_ce", "weighted_ce_backward", "adamw")),
         "Segmentation2D wrote masks with the trained model": len(
             seg_files) >= TRAIN_SEG_IMAGES}, rows
 
@@ -4890,6 +5012,10 @@ def run_distill(db, device_name):
             "labeled_plant_px_per_view"] > 0,
         "every training kernel launched": all(
             launches[k] > 0 for k in TRAIN_KERNELS),
+        "a step (one K20): K21's pass 2 launches (ignore 255) and its "
+        "backward 1, K22 1": launches["weighted_ce"] == 2 * launches[
+            "batch_gather"] and launches["weighted_ce_backward"] == launches[
+            "adamw"] == launches["batch_gather"],
         "held-out view IoU for stem and background": {
             "background", "stem"} <= set(report["heldout_iou"]),
         "finite loss": bool(np.isfinite([h["loss"] for h in hist]).all())}, \
@@ -4917,6 +5043,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     groups = ({PHASES[p] for p in args.only.split(",") if p}
               if args.only else set(PHASES.values()))
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script needs a CUDA device", file=sys.stderr)
@@ -4946,19 +5073,30 @@ def main(argv=None):
     work = ROOT / ".smoke"
     db = make_db(work / "db")
     rows = []
+    # each phase group's seconds, for the script's 1200 s budget
+    phase_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(group):
+        now = time.perf_counter()
+        phase_s[group] = now - t_lap[0]
+        t_lap[0] = now
     try:
         if "main" in groups:
             scan, vfile, launches = run_main_path(db, name)
             rows += check_kernels(scan, vfile, launches)
+            lap("main")
         if "eval_geom" in groups:
             failed = [c for c, ok in run_geom_evaluation(db, scan).items()
                       if not ok]
             assert not failed, f"geometric evaluation checks failed: {failed}"
+            lap("eval_geom")
         if "real_grid" in groups:
             run_real_grid()
+            lap("real_grid")
         if "ml" in groups:
             ml_scan, ml_vfile, ml_launches = run_ml_path(db, name)
             rows += check_ml_kernels(ml_scan, ml_vfile, ml_launches)
+            lap("ml")
         if ("separate" in groups or "int8" in groups) and \
                 "ml" not in groups:
             raise SystemExit("phases 7-8 and 16 run on phase 5's scan: "
@@ -4970,17 +5108,20 @@ def main(argv=None):
             rows += check_separate_kernels(sep_scan, sep_report,
                                            sep_launches)
             bf16_pass = (sep_s, sep_report)
+            lap("separate")
         if "eval_ml" in groups:
             ml_checks, k8 = run_ml_evaluation(db, sep_scan)
             rows += check_ml_evaluation_kernels(sep_scan, k8)
             failed = [c for c, ok in ml_checks.items() if not ok]
             assert not failed, f"ML evaluation checks failed: {failed}"
+            lap("eval_ml")
         if "frontend" in groups:
             fe_scan, fe_report, fe_launches, fe_checks = run_frontend_path(
                 db, name)
             rows += check_frontend_kernels(fe_scan, fe_report, fe_launches)
             failed = [c for c, ok in fe_checks.items() if not ok]
             assert not failed, f"front-end path checks failed: {failed}"
+            lap("frontend")
         if "selfcal" in groups:
             sc_scan, sc_report, sc_launches, _, sc_checks = run_selfcal_path(
                 db, name)
@@ -4988,24 +5129,30 @@ def main(argv=None):
             sc_checks.update(run_hybrid_pass(db, name))
             failed = [c for c, ok in sc_checks.items() if not ok]
             assert not failed, f"calibrated path checks failed: {failed}"
+            lap("selfcal")
         if "fim" in groups:
             fim_scan, fim_report, fim_launches, fim_checks = run_fim_path(
                 db, name)
             rows += check_fim_kernels(fim_scan, fim_report, fim_launches)
             failed = [c for c, ok in fim_checks.items() if not ok]
             assert not failed, f"eikonal skeleton path checks failed: {failed}"
+            lap("fim")
         if "live" in groups:
             run_live_path(db, name)
+            lap("live")
         if "int8" in groups:
             rows += run_int8_path(db, name, bf16_pass)
+            lap("int8")
         if "gather" in groups:
             rows += run_gather_probes(name)
+            lap("gather")
         if "full" in groups:
             fu_scan, fu_report, fu_launches, fu_checks = run_full_path(
                 db, name)
             rows += check_full_kernels(db, fu_scan, fu_report, fu_launches)
             failed = [c for c, ok in fu_checks.items() if not ok]
             assert not failed, f"geom_pipe_full path checks failed: {failed}"
+            lap("full")
         if "train_synth" in groups:
             ts_launches, crops, ts_model, ts_val, ts_checks = \
                 run_train_synth(work, name)
@@ -5013,19 +5160,23 @@ def main(argv=None):
             del crops, ts_model, ts_val
             failed = [c for c, ok in ts_checks.items() if not ok]
             assert not failed, f"train_synth checks failed: {failed}"
+            lap("train_synth")
         if "training_seg" in groups:
             tsg_checks, tsg_rows = run_training_seg(work, ml_scan, name)
             rows += tsg_rows
             failed = [c for c, ok in tsg_checks.items() if not ok]
             assert not failed, f"training_seg checks failed: {failed}"
+            lap("training_seg")
         if "distill" in groups:
             di_checks, di_rows = run_distill(db, name)
             rows += di_rows
             failed = [c for c, ok in di_checks.items() if not ok]
             assert not failed, f"distill checks failed: {failed}"
+            lap("distill")
     finally:
         db.disconnect()
         shutil.rmtree(work, ignore_errors=True)
+    emit({"phase_s": phase_s, "script_s": time.perf_counter() - t_start})
     emit({"kernels": rows})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -167,12 +167,16 @@ _ARGTYPES = {
     "p3d_gather_select32": [_P, _P, _P, _I, _I, _P],
     # rgb, lab, idx, flip, gains, x, y, B, c, inv255, stream
     "p3d_gather_batch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P],
-    # n -> partial sums K21's forward and K22's norm write
-    "p3d_train_partials": [_L],
-    # logits, labels, w, C, HW, n, ignore, part, keep, out, stream
-    "p3d_ce_forward": [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P, _P],
-    # logits, labels, w, fwd, grad, C, HW, n, ignore, dlogits, stream
-    "p3d_ce_backward": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _P, _P],
+    # n -> blocks (partial sums) of K21's pass
+    "p3d_ce_blocks": [_L],
+    # logits, labels, w, C, HW, n, ignore, ctl, part, out, dlogits (or
+    # null), stream
+    "p3d_ce": [_P, _P, _P, _I, _L, _L, _I, _P, _P, _P, _P, _P],
+    # logits, labels, w, fwd, grad, C, HW, n, ignore, skip_one, dlogits,
+    # stream
+    "p3d_ce_backward": [_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _P, _P],
+    # n -> chunk sums K22's norm writes
+    "p3d_adamw_partials": [_L],
     # p, g, mu, nu, n, part, clip, b1, b2, omb1, omb2, bc1, bc2, eps,
     # eps_root, wd, neg_lr, max_norm, stream
     "p3d_adamw": [_P, _P, _P, _P, _L, _P, _I, _F, _F, _F, _F, _F, _F, _F,

@@ -1,5 +1,6 @@
-// The training kernels: K20 batch gather, K21 weighted cross-entropy (its
-// forward and its backward), K22 clipped AdamW, K23 IoU counts.
+// The training kernels: K20 batch gather, K21 weighted cross-entropy (the
+// loss and its gradient in one pass, and the general backward), K22
+// clipped AdamW in one launch, K23 IoU counts.
 //
 // They replace the jitted training programs of the JAX package
 // (ROADMAP Queue B, Q22), which XLA fused on the TPU:
@@ -17,28 +18,32 @@
 //
 // What bounds them on this card: bytes. Each is an elementwise pass or a
 // reduction at a few operations a byte (K22: ~20 float32 operations for 28
-// bytes an element; K21: ~4C + 8 operations and one exp a class for 4C + 1
-// bytes a pixel), far below the ~20 operations a byte where float32 math
-// would start to bound.
+// bytes an element; K21: ~6C + 8 operations and one exp a class for 8C + 1
+// bytes a pixel, the logits read and the gradient written), far below the
+// ~20 operations a byte where float32 math would start to bound.
 //
 // Determinism: no float atomics. Every float sum runs in a fixed order
 // (a thread's fixed run of elements, then a fixed shared-memory tree, then
-// the per-block partials in block order), so two runs on one card give the
-// same bits and a resumed training run equals an uninterrupted one. K23's
-// counts are integers (integer atomics are exact in any order). Every
+// the per-block or per-chunk partials in their order), so two runs on one
+// card give the same bits and a resumed training run equals an
+// uninterrupted one. Integer counts (K21's kept pixels, K23) use integer
+// atomics, exact in any order. Every
 // float operation is written out (__fmul_rn, __fadd_rn, __fdiv_rn,
 // __fsqrt_rn; the library builds with -fmad=false), in the order of the
 // JAX program's operations, so the kernels equal their plain versions
 // elementwise; the sums differ from the plain versions' only by order.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-// elements a thread sums in order before the block's tree (K21, K22)
+// elements a thread sums in order before the block's tree (K22's norm)
 constexpr int kRun = 16;
 constexpr int kChunk = kThreads * kRun;
 
@@ -53,13 +58,15 @@ __device__ __forceinline__ void block_tree_sum(float* s) {
   __syncthreads();
 }
 
-// Sum of `n` partials in a fixed order (thread t adds t, t + kThreads, ...
-// in order, then the tree), broadcast to every thread of the block.
-__device__ float sum_partials(const float* __restrict__ part, int n,
-                              float* s) {
+// Sum of `n` partials that other blocks of the launch wrote, in a fixed
+// order (thread t adds t, t + kThreads, ... in order, then the tree),
+// broadcast to every thread of the block; read from L2 (__ldcg), the
+// loop unrolled so that a thread's loads are in flight together.
+__device__ float sum_partials(const float* part, int n, float* s) {
   float acc = 0.0f;
+#pragma unroll 8
   for (int i = threadIdx.x; i < n; i += kThreads)
-    acc = __fadd_rn(acc, part[i]);
+    acc = __fadd_rn(acc, __ldcg(part + i));
   s[threadIdx.x] = acc;
   block_tree_sum(s);
   const float r = s[0];
@@ -102,95 +109,228 @@ __global__ void gather_batch_kernel(const uint8_t* __restrict__ rgb,
 }
 
 // ------------------------------------------------------------------ K21
-// Per pixel (b, s) of logits (B, C, HW): lse = log(sum_c exp(l_c - m)) + m
-// with m the largest logit (jax.nn.logsumexp), ce = lse - l_y, term =
-// ce * w[y]; a pixel whose label is `ignore` adds nothing and is not
-// counted, and a label >= C that is not ignored counts as C - 1 (as XLA
-// clamps the index of w[y]; nothing is read past w or the C logits). Each block sums a chunk of kChunk pixels (thread t its pixels
-// t, t + kThreads, ... in order, then the tree) into part[block] and
-// counts its kept pixels into keep[block].
-template <int C>
-__global__ void ce_partial_kernel(const float* __restrict__ logits,
-                                  const uint8_t* __restrict__ labels,
-                                  const float* __restrict__ w, long long HW,
-                                  long long n, int ignore,
-                                  float* __restrict__ part,
-                                  int* __restrict__ keep) {
+// One pass over the logits (B, C, HW) gives the loss and, at incoming
+// gradient 1, its gradient, as the JAX step's value_and_grad computes both
+// in one program. Per pixel: m = max_c l_c, e_c = exp(l_c - m), sum = the
+// e_c added in class order, lse = log(sum) + m (jax.nn.logsumexp), term =
+// (lse - l_y) * w[y]; with sc = (1 / denom) * w[y], d_c = e_c * (sc / sum)
+// - [c == y] sc: the operations of ce_backward_kernel at grad = 1, so the
+// gradient equals that kernel's bit for bit. A pixel whose label is
+// `ignore` adds nothing and gets a zero gradient; a label >= C that is not
+// ignored counts as C - 1 (as XLA clamps the index of w[y]; nothing is
+// read past w or the C logits). denom = n, or with an ignored label
+// max(kept, 1), kept counted before the pass by ce_keep_kernel (labels
+// only; integer atomics, exact in any order).
+//
+// A thread takes kCeQuads quads of 4 consecutive pixels, quad q = block *
+// kThreads * kCeQuads + r * kThreads + thread, r = 0 .. kCeQuads - 1, and
+// issues every load of its quads before it computes: C 16-byte loads and
+// one 4-byte label load a quad where HW % 4 == 0 and the tensors are
+// aligned (the VEC lane), else one pixel at a time. The loss's sum order
+// is fixed: a thread's pixels in (r, pixel) order, the block's tree, then
+// the blocks' partials in block order. The last block to finish (a ticket:
+// an atomic count taken after __threadfence) adds the partials, writes
+// out = [loss, denom] and resets the ticket and the kept count to 0 for
+// the next call on the stream: one launch without an ignored label, two
+// with one, and no float atomics. One quad a thread (60 registers at C =
+// 6, four blocks an SM): 2 and 4 quads took 9-12 % longer at phase 22's
+// shape on the H100 (tools/train_kernels_ab.py --variants).
+constexpr int kCeQuads = 1;
+constexpr int kCeChunk = kThreads * kCeQuads * 4;   // pixels a block
+
+// The logits and labels of pixels p0 .. p0 + 3 (y = -1 past n).
+template <int C, bool VEC>
+__device__ __forceinline__ void ce_load_quad(
+    const float* __restrict__ logits, const uint8_t* __restrict__ labels,
+    long long HW, long long n, long long p0, float (&x)[4][C], int (&y)[4]) {
+  if (VEC) {
+    // n % 4 == 0 and HW % 4 == 0: a quad is whole and in one image
+    if (p0 >= n) {
+      y[0] = y[1] = y[2] = y[3] = -1;
+      return;
+    }
+    const long long b = p0 / HW;
+    const float* l = logits + b * C * HW + (p0 - b * HW);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float4 v = *reinterpret_cast<const float4*>(l + c * HW);
+      x[0][c] = v.x;
+      x[1][c] = v.y;
+      x[2][c] = v.z;
+      x[3][c] = v.w;
+    }
+    const uchar4 lb = *reinterpret_cast<const uchar4*>(labels + p0);
+    y[0] = lb.x;
+    y[1] = lb.y;
+    y[2] = lb.z;
+    y[3] = lb.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = p0 + k;
+      y[k] = -1;
+      if (i < n) {
+        const long long b = i / HW;
+        const float* l = logits + b * C * HW + (i - b * HW);
+#pragma unroll
+        for (int c = 0; c < C; ++c) x[k][c] = l[c * HW];
+        y[k] = labels[i];
+      }
+    }
+  }
+}
+
+template <int C, bool VEC>
+__device__ __forceinline__ void ce_store_quad(float* __restrict__ dlogits,
+                                              long long HW, long long n,
+                                              long long p0,
+                                              const float (&d)[4][C]) {
+  if (VEC) {
+    if (p0 >= n) return;
+    const long long b = p0 / HW;
+    float* o = dlogits + b * C * HW + (p0 - b * HW);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      *reinterpret_cast<float4*>(o + c * HW) =
+          make_float4(d[0][c], d[1][c], d[2][c], d[3][c]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = p0 + k;
+      if (i >= n) continue;
+      const long long b = i / HW;
+      float* o = dlogits + b * C * HW + (i - b * HW);
+#pragma unroll
+      for (int c = 0; c < C; ++c) o[c * HW] = d[k][c];
+    }
+  }
+}
+
+// ctl[0] the ticket, ctl[1] the kept count (both 0 between calls); part
+// one float a block; dlogits null when no gradient is wanted (GRAD false).
+template <int C, bool VEC, bool GRAD>
+__global__ void __launch_bounds__(kThreads)
+    ce_fused_kernel(const float* __restrict__ logits,
+                    const uint8_t* __restrict__ labels,
+                    const float* __restrict__ w, long long HW, long long n,
+                    int ignore, unsigned long long* ctl, float* part,
+                    float* __restrict__ out, float* __restrict__ dlogits) {
   __shared__ float s[kThreads];
-  __shared__ int k[kThreads];
-  const long long base = (long long)blockIdx.x * kChunk;
+  __shared__ bool last;
+  const float denom =
+      ignore >= 0 ? fmaxf((float)__ldcg(ctl + 1), 1.0f) : (float)n;
+  const float inv = __fdiv_rn(1.0f, denom);
+  const long long q0 =
+      (long long)blockIdx.x * (kThreads * kCeQuads) + threadIdx.x;
+  float x[kCeQuads][4][C];
+  int y[kCeQuads][4];
+#pragma unroll
+  for (int r = 0; r < kCeQuads; ++r)
+    ce_load_quad<C, VEC>(logits, labels, HW, n, (q0 + r * kThreads) * 4,
+                         x[r], y[r]);
   float acc = 0.0f;
-  int kept = 0;
-  for (int r = 0; r < kRun; ++r) {
-    const long long i = base + r * kThreads + threadIdx.x;
-    if (i >= n) break;
-    int y = labels[i];
-    if (y == ignore) continue;
-    y = min(y, C - 1);
-    const long long b = i / HW;
-    const long long px = i - b * HW;
-    const float* l = logits + b * C * HW + px;
-    float v[C];
-    float m = -CUDART_INF_F;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      v[c] = l[c * HW];
-      m = fmaxf(m, v[c]);
-    }
-    float sum = 0.0f;
-    float ly = 0.0f;
+  for (int r = 0; r < kCeQuads; ++r) {
+    float d[4][C];
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      sum = __fadd_rn(sum, expf(__fsub_rn(v[c], m)));
-      if (c == y) ly = v[c];
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) d[k][c] = 0.0f;
+      if (y[r][k] < 0 || y[r][k] == ignore) continue;
+      const int yy = min(y[r][k], C - 1);
+      const float(&v)[C] = x[r][k];
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int c = 0; c < C; ++c) m = fmaxf(m, v[c]);
+      float e[C];
+      float sum = 0.0f;
+      float ly = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        e[c] = expf(__fsub_rn(v[c], m));
+        sum = __fadd_rn(sum, e[c]);
+        if (c == yy) ly = v[c];
+      }
+      const float wy = __ldg(w + yy);
+      const float lse = __fadd_rn(logf(sum), m);
+      acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(lse, ly), wy));
+      if (GRAD) {
+        const float sc = __fmul_rn(inv, wy);
+        const float q = __fdiv_rn(sc, sum);
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float t = __fmul_rn(e[c], q);
+          if (c == yy) t = __fadd_rn(t, -sc);
+          d[k][c] = t;
+        }
+      }
     }
-    const float lse = __fadd_rn(logf(sum), m);
-    acc = __fadd_rn(acc, __fmul_rn(__fsub_rn(lse, ly), w[y]));
-    ++kept;
+    if (GRAD)
+      ce_store_quad<C, VEC>(dlogits, HW, n, (q0 + r * kThreads) * 4, d);
   }
   s[threadIdx.x] = acc;
-  k[threadIdx.x] = kept;
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < h) {
-      s[threadIdx.x] = __fadd_rn(s[threadIdx.x], s[threadIdx.x + h]);
-      k[threadIdx.x] += k[threadIdx.x + h];
-    }
-  }
+  block_tree_sum(s);
   if (threadIdx.x == 0) {
     part[blockIdx.x] = s[0];
-    keep[blockIdx.x] = k[0];
-  }
-}
-
-// One block: the partials in block order -> out[0] = loss = sum / denom,
-// out[1] = denom (n as float, or max(kept, 1) with an ignore label).
-__global__ void ce_final_kernel(const float* __restrict__ part,
-                                const int* __restrict__ keep, int n_part,
-                                long long n, int has_ignore,
-                                float* __restrict__ out) {
-  __shared__ float s[kThreads];
-  __shared__ long long k[kThreads];
-  const float total = sum_partials(part, n_part, s);
-  long long kept = 0;
-  for (int i = threadIdx.x; i < n_part; i += kThreads) kept += keep[i];
-  k[threadIdx.x] = kept;
-  for (int h = kThreads / 2; h > 0; h >>= 1) {
-    __syncthreads();
-    if (threadIdx.x < h) k[threadIdx.x] += k[threadIdx.x + h];
+    __threadfence();
+    last = atomicAdd(ctl, 1ull) == gridDim.x - 1;
   }
   __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float total = sum_partials(part, gridDim.x, s);
   if (threadIdx.x == 0) {
-    const float denom =
-        has_ignore ? fmaxf((float)k[0], 1.0f) : (float)n;
     out[0] = __fdiv_rn(total, denom);
     out[1] = denom;
+    ctl[0] = 0;
+    ctl[1] = 0;
   }
 }
 
-// dlogits (B, C, HW): with g = grad[0] and sc = (g / denom) * w[y] (0 for
-// an ignored pixel), d_c = exp(l_c - m) * (sc / sum) - [c == y] sc, the
-// terms of XLA's autodiff of the forward in its order. A thread a pixel.
+// ctl[1] += the pixels whose label is not `ignore`: 16 labels a load
+// (__vcmpeq4 marks the ignored bytes), the bytes before the first 16-byte
+// boundary and after the last whole word one a thread; a block's count
+// through shared memory, then one integer atomic a block.
+__global__ void __launch_bounds__(kThreads)
+    ce_keep_kernel(const uint8_t* __restrict__ labels, long long n,
+                   int ignore, unsigned long long* ctl) {
+  __shared__ unsigned long long warp_sum[kThreads / 32];
+  const long long head =
+      min((long long)((16 - ((uintptr_t)labels & 15)) & 15), n);
+  const long long words = (n - head) / 16;
+  const long long tail0 = head + words * 16;
+  const unsigned pat = 0x01010101u * (unsigned)ignore;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const uint4* w16 = reinterpret_cast<const uint4*>(labels + head);
+  unsigned long long kept = 0;
+  for (long long j = t; j < words; j += stride) {
+    const uint4 v = w16[j];
+    const int same = __popc(__vcmpeq4(v.x, pat)) + __popc(__vcmpeq4(v.y, pat)) +
+                     __popc(__vcmpeq4(v.z, pat)) + __popc(__vcmpeq4(v.w, pat));
+    kept += 16 - same / 8;
+  }
+  if (t < head) kept += labels[t] != ignore;
+  if (t < n - tail0) kept += labels[tail0 + t] != ignore;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    kept += __shfl_down_sync(0xffffffffu, kept, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = kept;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long b = 0;
+    for (int i = 0; i < kThreads / 32; ++i) b += warp_sum[i];
+    if (b) atomicAdd(ctl + 1, b);
+  }
+}
+
+// The general backward, dlogits (B, C, HW): with g = grad[0] and sc = (g /
+// denom) * w[y] (0 for an ignored pixel), d_c = exp(l_c - m) * (sc / sum)
+// - [c == y] sc, the terms of XLA's autodiff of the forward in its order.
+// A grid-stride loop, a thread a pixel at a time. With skip_one, dlogits
+// holds the fused pass's gradient at g = 1: the kernel leaves it as it is
+// when g == 1 (read on the card, no host read) and recomputes it in place
+// otherwise.
 template <int C>
 __global__ void ce_backward_kernel(const float* __restrict__ logits,
                                    const uint8_t* __restrict__ labels,
@@ -198,63 +338,68 @@ __global__ void ce_backward_kernel(const float* __restrict__ logits,
                                    const float* __restrict__ fwd,
                                    const float* __restrict__ grad,
                                    long long HW, long long n, int ignore,
+                                   int skip_one,
                                    float* __restrict__ dlogits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int y = labels[i];
-  const long long b = i / HW;
-  const long long px = i - b * HW;
-  const float* l = logits + b * C * HW + px;
-  float* d = dlogits + b * C * HW + px;
-  if (y == ignore) {
+  const float g = grad[0];
+  if (skip_one && g == 1.0f) return;
+  const float scale = __fdiv_rn(g, fwd[1]);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    int y = labels[i];
+    const long long b = i / HW;
+    const long long px = i - b * HW;
+    const float* l = logits + b * C * HW + px;
+    float* d = dlogits + b * C * HW + px;
+    if (y == ignore) {
 #pragma unroll
-    for (int c = 0; c < C; ++c) d[c * HW] = 0.0f;
-    return;
-  }
-  y = min(y, C - 1);
-  const float sc = __fmul_rn(__fdiv_rn(grad[0], fwd[1]), w[y]);
-  float e[C];
-  float m = -CUDART_INF_F;
+      for (int c = 0; c < C; ++c) d[c * HW] = 0.0f;
+      continue;
+    }
+    y = min(y, C - 1);
+    const float sc = __fmul_rn(scale, w[y]);
+    float e[C];
+    float m = -CUDART_INF_F;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    e[c] = l[c * HW];
-    m = fmaxf(m, e[c]);
-  }
-  float sum = 0.0f;
+    for (int c = 0; c < C; ++c) {
+      e[c] = l[c * HW];
+      m = fmaxf(m, e[c]);
+    }
+    float sum = 0.0f;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    e[c] = expf(__fsub_rn(e[c], m));
-    sum = __fadd_rn(sum, e[c]);
-  }
-  const float q = __fdiv_rn(sc, sum);
+    for (int c = 0; c < C; ++c) {
+      e[c] = expf(__fsub_rn(e[c], m));
+      sum = __fadd_rn(sum, e[c]);
+    }
+    const float q = __fdiv_rn(sc, sum);
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    float v = __fmul_rn(e[c], q);
-    if (c == y) v = __fadd_rn(v, -sc);
-    d[c * HW] = v;
+    for (int c = 0; c < C; ++c) {
+      float v = __fmul_rn(e[c], q);
+      if (c == y) v = __fadd_rn(v, -sc);
+      d[c * HW] = v;
+    }
   }
 }
 
 // ------------------------------------------------------------------ K22
-// Pass 1: part[block] = sum of g^2 over the block's chunk of kChunk
-// elements of the gradient arena (fixed order).
-__global__ void sqnorm_partial_kernel(const float* __restrict__ g,
-                                      long long n,
-                                      float* __restrict__ part) {
-  __shared__ float s[kThreads];
-  const long long base = (long long)blockIdx.x * kChunk;
-  float acc = 0.0f;
-  for (int r = 0; r < kRun; ++r) {
-    const long long i = base + r * kThreads + threadIdx.x;
-    if (i >= n) break;
-    const float v = g[i];
-    acc = __fadd_rn(acc, __fmul_rn(v, v));
-  }
-  s[threadIdx.x] = acc;
-  block_tree_sum(s);
-  if (threadIdx.x == 0) part[blockIdx.x] = s[0];
-}
-
+// optax's chain, clip_by_global_norm then adamw, in one launch over the
+// four arenas (parameters p, gradients g, moments mu, nu), per element:
+//   g' = g if g_norm < max_norm else (g / g_norm) * max_norm   (clip mode)
+//   mu = (1 - b1) g' + b1 mu;  nu = (1 - b2) g'^2 + b2 nu
+//   u = (mu / bc1) / (sqrt(nu / bc2 + eps_root) + eps) + wd p
+//   p = p + (-lr) u
+// The arena is cut into chunks of kChunk elements, and each block of the
+// grid (every block resident at once, kAdamBlocksPerSm an SM at most)
+// takes a fixed, contiguous run of chunks. In clip mode the launch is
+// cooperative: each block first writes each of its chunks' sum of g^2
+// (thread t adds elements t, t + kThreads, ... of the chunk in order, then
+// the block's tree) to part[chunk]; grid.sync(); then every block adds
+// the chunks' sums in one fixed order (sum_partials) to the same g_norm:
+// an order that does not depend on the grid or the card's SM count. Then
+// each block updates its chunks, 16 bytes a load and a store where every
+// arena is 16-byte aligned (else, and in the last, partial chunk, one
+// element at a time), g read again from L2. Without the clip the same
+// kernel skips the sums and the barrier, and is launched normally.
 struct AdamScalars {
   float b1, b2, omb1, omb2;     // decays and f32(1 - decay)
   float bc1, bc2;               // 1 - b^count, computed by the caller
@@ -263,42 +408,96 @@ struct AdamScalars {
   float max_norm;               // clip threshold (clip mode only)
 };
 
-// Pass 2 over the arenas (grid-stride; the grid is fixed by the caller):
-// every block first reduces pass 1's partials in the same fixed order
-// (g_norm = sqrt(sum)), then, per element, optax's chain:
-//   g' = g if g_norm < max_norm else (g / g_norm) * max_norm   (clip mode)
-//   mu = (1 - b1) g' + b1 mu;  nu = (1 - b2) g'^2 + b2 nu
-//   u = (mu / bc1) / (sqrt(nu / bc2 + eps_root) + eps) + wd p
-//   p = p + (-lr) u
-__global__ void adamw_kernel(float* __restrict__ p,
-                             const float* __restrict__ g,
-                             float* __restrict__ mu, float* __restrict__ nu,
-                             long long n, const float* __restrict__ part,
-                             int n_part, AdamScalars a) {
+// the 16-byte lane's 96 registers hold an SM to two blocks of kThreads
+// anyway; one block an SM took 25 % longer (--variants)
+constexpr int kAdamBlocksPerSm = 2;
+
+__device__ __forceinline__ void adam_element(float& p, float g, float& mu,
+                                             float& nu, bool clip,
+                                             float gnorm,
+                                             const AdamScalars& a) {
+  if (clip) g = __fmul_rn(__fdiv_rn(g, gnorm), a.max_norm);
+  const float m = __fadd_rn(__fmul_rn(a.omb1, g), __fmul_rn(a.b1, mu));
+  const float v = __fadd_rn(__fmul_rn(a.omb2, __fmul_rn(g, g)),
+                            __fmul_rn(a.b2, nu));
+  const float mh = __fdiv_rn(m, a.bc1);
+  const float vh = __fdiv_rn(v, a.bc2);
+  float u = __fdiv_rn(mh, __fadd_rn(__fsqrt_rn(__fadd_rn(vh, a.eps_root)),
+                                    a.eps));
+  u = __fadd_rn(u, __fmul_rn(a.wd, p));
+  p = __fadd_rn(p, __fmul_rn(a.neg_lr, u));
+  mu = m;
+  nu = v;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
+                 float* __restrict__ mu, float* __restrict__ nu, long long n,
+                 float* part, int clip, AdamScalars a) {
   __shared__ float s[kThreads];
-  bool clip = false;
+  const long long chunks = (n + kChunk - 1) / kChunk;
+  const long long c0 = chunks * blockIdx.x / gridDim.x;
+  const long long c1 = chunks * (blockIdx.x + 1) / gridDim.x;
+  bool clipped = false;
   float gnorm = 0.0f;
-  if (n_part > 0) {
-    gnorm = __fsqrt_rn(sum_partials(part, n_part, s));
-    clip = !(gnorm < a.max_norm);
+  if (clip) {
+    for (long long c = c0; c < c1; ++c) {
+      const long long base = c * kChunk + threadIdx.x;
+      float v[kRun];
+#pragma unroll
+      for (int r = 0; r < kRun; ++r) {
+        const long long i = base + r * kThreads;
+        v[r] = i < n ? g[i] : 0.0f;
+      }
+      // past n the square is +0: adding it leaves the sum's bits as they are
+      float acc = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kRun; ++r)
+        acc = __fadd_rn(acc, __fmul_rn(v[r], v[r]));
+      s[threadIdx.x] = acc;
+      block_tree_sum(s);
+      if (threadIdx.x == 0) part[c] = s[0];
+    }
+    cg::this_grid().sync();
+    gnorm = __fsqrt_rn(sum_partials(part, (int)chunks, s));
+    clipped = !(gnorm < a.max_norm);
   }
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    float gi = g[i];
-    if (clip) gi = __fmul_rn(__fdiv_rn(gi, gnorm), a.max_norm);
-    const float m = __fadd_rn(__fmul_rn(a.omb1, gi), __fmul_rn(a.b1, mu[i]));
-    const float v = __fadd_rn(__fmul_rn(a.omb2, __fmul_rn(gi, gi)),
-                              __fmul_rn(a.b2, nu[i]));
-    const float mh = __fdiv_rn(m, a.bc1);
-    const float vh = __fdiv_rn(v, a.bc2);
-    float u = __fdiv_rn(mh, __fadd_rn(__fsqrt_rn(__fadd_rn(vh, a.eps_root)),
-                                      a.eps));
-    const float pi = p[i];
-    u = __fadd_rn(u, __fmul_rn(a.wd, pi));
-    p[i] = __fadd_rn(pi, __fmul_rn(a.neg_lr, u));
-    mu[i] = m;
-    nu[i] = v;
+  for (long long c = c0; c < c1; ++c) {
+    const long long base = c * kChunk;
+    if (VEC && base + kChunk <= n) {
+      float4 pv[kRun / 4], gv[kRun / 4], mv[kRun / 4], vv[kRun / 4];
+#pragma unroll
+      for (int r = 0; r < kRun / 4; ++r) {
+        const long long e = base + (long long)(r * kThreads + threadIdx.x) * 4;
+        pv[r] = *reinterpret_cast<const float4*>(p + e);
+        gv[r] = *reinterpret_cast<const float4*>(g + e);
+        mv[r] = *reinterpret_cast<const float4*>(mu + e);
+        vv[r] = *reinterpret_cast<const float4*>(nu + e);
+      }
+#pragma unroll
+      for (int r = 0; r < kRun / 4; ++r) {
+        const long long e = base + (long long)(r * kThreads + threadIdx.x) * 4;
+        adam_element(pv[r].x, gv[r].x, mv[r].x, vv[r].x, clipped, gnorm, a);
+        adam_element(pv[r].y, gv[r].y, mv[r].y, vv[r].y, clipped, gnorm, a);
+        adam_element(pv[r].z, gv[r].z, mv[r].z, vv[r].z, clipped, gnorm, a);
+        adam_element(pv[r].w, gv[r].w, mv[r].w, vv[r].w, clipped, gnorm, a);
+        *reinterpret_cast<float4*>(p + e) = pv[r];
+        *reinterpret_cast<float4*>(mu + e) = mv[r];
+        *reinterpret_cast<float4*>(nu + e) = vv[r];
+      }
+    } else {
+      // an unaligned arena, or the last, partial chunk
+      for (int j = threadIdx.x; j < kChunk; j += kThreads) {
+        const long long i = base + j;
+        if (i >= n) break;
+        float pi = p[i], m = mu[i], v = nu[i];
+        adam_element(pi, g[i], m, v, clipped, gnorm, a);
+        p[i] = pi;
+        mu[i] = m;
+        nu[i] = v;
+      }
+    }
   }
 }
 
@@ -360,11 +559,54 @@ int grid_for(long long n, int per_block, int cap) {
 }
 
 int sm_count() {
+  static int cached[64] = {0};
   int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (cudaGetDevice(&dev) != cudaSuccess) return sms;
+  if (dev < 64 && cached[dev] > 0) return cached[dev];
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev < 64) cached[dev] = sms;
   return sms;
 }
+
+// K21's fused pass for one class count, in its lane.
+template <int C>
+void launch_ce(bool vec, bool grad, int nb, cudaStream_t st,
+               const float* logits, const uint8_t* labels, const float* w,
+               long long HW, long long n, int ignore,
+               unsigned long long* ctl, float* part, float* out,
+               float* dlogits) {
+  if (vec && grad)
+    ce_fused_kernel<C, true, true><<<nb, kThreads, 0, st>>>(
+        logits, labels, w, HW, n, ignore, ctl, part, out, dlogits);
+  else if (vec)
+    ce_fused_kernel<C, true, false><<<nb, kThreads, 0, st>>>(
+        logits, labels, w, HW, n, ignore, ctl, part, out, dlogits);
+  else if (grad)
+    ce_fused_kernel<C, false, true><<<nb, kThreads, 0, st>>>(
+        logits, labels, w, HW, n, ignore, ctl, part, out, dlogits);
+  else
+    ce_fused_kernel<C, false, false><<<nb, kThreads, 0, st>>>(
+        logits, labels, w, HW, n, ignore, ctl, part, out, dlogits);
+}
+
+// K22's blocks for `chunks` chunks: at most kAdamBlocksPerSm an SM, and
+// no more than the card holds at once (a cooperative launch's limit).
+template <bool VEC>
+cudaError_t adamw_blocks(long long chunks, int* blocks) {
+  static int per_sm = 0;
+  if (per_sm == 0) {
+    int occ = 0;
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, adamw_kernel<VEC>, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    per_sm = occ < kAdamBlocksPerSm ? occ : kAdamBlocksPerSm;
+  }
+  const long long most = (long long)per_sm * sm_count();
+  *blocks = (int)(chunks < most ? (chunks > 0 ? chunks : 1) : most);
+  return cudaSuccess;
+}
+
+bool aligned16(const void* q) { return ((uintptr_t)q & 15) == 0; }
 
 }  // namespace
 
@@ -384,57 +626,69 @@ extern "C" int p3d_gather_batch(const void* rgb, const void* lab,
   return (int)cudaGetLastError();
 }
 
-// Number of partials K21's forward and K22's norm write for n elements.
-extern "C" int p3d_train_partials(long long n) {
-  return grid_for(n, kChunk, 0);
-}
-
 #define P3D_BY_C(MACRO) \
   MACRO(2) MACRO(3) MACRO(4) MACRO(5) MACRO(6) MACRO(7) MACRO(8)
 
-// K21 forward. logits (B, C, HW) f32, labels (B, HW) u8, w (C,) f32;
-// ignore = the ignored label or -1; part (p3d_train_partials(B*HW)) f32
-// and keep int32 scratch; out (2,) f32 = [loss, denom]. Two launches.
-extern "C" int p3d_ce_forward(const void* logits, const void* labels,
-                              const void* w, int C, long long HW,
-                              long long n, int ignore, void* part,
-                              void* keep, void* out, void* stream) {
+// Number of partials (blocks) K21's pass writes for n pixels.
+extern "C" int p3d_ce_blocks(long long n) {
+  return grid_for(n, kCeChunk, 0);
+}
+
+// K21 in one pass. logits (B, C, HW) f32, labels (B, HW) u8, w (C,) f32;
+// ignore = the ignored label or -1; ctl (2,) uint64 zero between calls
+// (the kernel leaves it so), part p3d_ce_blocks(n) floats; out (2,) f32 =
+// [loss, denom]; dlogits (B, C, HW) f32 for the gradient at incoming
+// gradient 1, or null for the loss alone. One launch, two with an ignored
+// label (its kept count first).
+extern "C" int p3d_ce(const void* logits, const void* labels, const void* w,
+                      int C, long long HW, long long n, int ignore, void* ctl,
+                      void* part, void* out, void* dlogits, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nb = grid_for(n, kChunk, 0);
+  if (C < 2 || C > 8) return (int)cudaErrorInvalidValue;
+  unsigned long long* c = (unsigned long long*)ctl;
+  if (ignore >= 0) {
+    ce_keep_kernel<<<grid_for(n / 16 + 1, kThreads, 2 * sm_count()),
+                     kThreads, 0, st>>>((const uint8_t*)labels, n, ignore, c);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  const bool vec = HW % 4 == 0 && aligned16(logits) &&
+                   ((uintptr_t)labels & 3) == 0 &&
+                   (dlogits == nullptr || aligned16(dlogits));
+  const bool grad = dlogits != nullptr;
+  const int nb = p3d_ce_blocks(n);
   switch (C) {
-#define P3D_CE(NC)                                                         \
-  case NC:                                                                 \
-    ce_partial_kernel<NC><<<nb, kThreads, 0, st>>>(                        \
-        (const float*)logits, (const uint8_t*)labels, (const float*)w, HW, \
-        n, ignore, (float*)part, (int*)keep);                              \
+#define P3D_CE(NC)                                                          \
+  case NC:                                                                  \
+    launch_ce<NC>(vec, grad, nb, st, (const float*)logits,                  \
+                  (const uint8_t*)labels, (const float*)w, HW, n, ignore, c, \
+                  (float*)part, (float*)out, (float*)dlogits);              \
     break;
     P3D_BY_C(P3D_CE)
 #undef P3D_CE
-    default:
-      return (int)cudaErrorInvalidValue;
   }
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ce_final_kernel<<<1, kThreads, 0, st>>>((const float*)part,
-                                          (const int*)keep, nb, n,
-                                          ignore >= 0, (float*)out);
-  return (int)cudaGetLastError();
+  // a pass that did not launch leaves the kept count for the next call
+  if (e != cudaSuccess && ignore >= 0) cudaMemsetAsync(ctl, 0, 16, st);
+  return (int)e;
 }
 
-// K21 backward. fwd = the forward's out (2,), grad (1,) = d loss.
+// K21's general backward. fwd = the pass's out (2,), grad (1,) = d loss;
+// skip_one: dlogits holds the pass's gradient at 1, kept as it is when
+// grad == 1 and recomputed in place otherwise.
 extern "C" int p3d_ce_backward(const void* logits, const void* labels,
                                const void* w, const void* fwd,
                                const void* grad, int C, long long HW,
-                               long long n, int ignore, void* dlogits,
-                               void* stream) {
+                               long long n, int ignore, int skip_one,
+                               void* dlogits, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int nb = grid_for(n, kThreads, 0);
+  const int nb = grid_for(n, kThreads, 8 * sm_count());
   switch (C) {
 #define P3D_CEB(NC)                                                          \
   case NC:                                                                   \
     ce_backward_kernel<NC><<<nb, kThreads, 0, st>>>(                         \
         (const float*)logits, (const uint8_t*)labels, (const float*)w,       \
-        (const float*)fwd, (const float*)grad, HW, n, ignore,                \
+        (const float*)fwd, (const float*)grad, HW, n, ignore, skip_one,      \
         (float*)dlogits);                                                    \
     break;
     P3D_BY_C(P3D_CEB)
@@ -445,9 +699,16 @@ extern "C" int p3d_ce_backward(const void* logits, const void* labels,
   return (int)cudaGetLastError();
 }
 
-// K22. Arenas p, g, mu, nu of n f32 each; part scratch of
-// p3d_train_partials(n) floats; clip = 1 runs pass 1 (two launches), 0
-// skips it (one launch). Scalars as AdamScalars, in its order.
+// Number of chunk sums K22's norm writes for n elements.
+extern "C" int p3d_adamw_partials(long long n) {
+  return grid_for(n, kChunk, 0);
+}
+
+// K22. Arenas p, g, mu, nu of n f32 each; part p3d_adamw_partials(n)
+// floats (clip mode; else unused, may be null); clip = 1: the cooperative
+// launch with the norm, 0: a plain launch without it. One launch either
+// way; a cooperative launch the card refuses returns its error. Scalars
+// as AdamScalars, in its order.
 extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
                          long long n, void* part, int clip, float b1,
                          float b2, float omb1, float omb2, float bc1,
@@ -455,20 +716,35 @@ extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
                          float neg_lr, float max_norm, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (n == 0) return 0;
-  int n_part = 0;
-  if (clip) {
-    n_part = grid_for(n, kChunk, 0);
-    sqnorm_partial_kernel<<<n_part, kThreads, 0, st>>>((const float*)g, n,
-                                                       (float*)part);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
   AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
                 max_norm};
-  adamw_kernel<<<grid_for(n, kThreads, 4 * sm_count()), kThreads, 0, st>>>(
-      (float*)p, (const float*)g, (float*)mu, (float*)nu, n,
-      (const float*)part, n_part, a);
-  return (int)cudaGetLastError();
+  const bool vec = aligned16(p) && aligned16(g) && aligned16(mu) &&
+                   aligned16(nu);
+  const long long chunks = grid_for(n, kChunk, 0);
+  int blocks = 0;
+  cudaError_t err = vec ? adamw_blocks<true>(chunks, &blocks)
+                        : adamw_blocks<false>(chunks, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  float* pp = (float*)p;
+  const float* pg = (const float*)g;
+  float* pm = (float*)mu;
+  float* pv = (float*)nu;
+  float* ppart = (float*)part;
+  if (!clip) {
+    if (vec)
+      adamw_kernel<true><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
+                                                      ppart, 0, a);
+    else
+      adamw_kernel<false><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
+                                                       ppart, 0, a);
+    return (int)cudaGetLastError();
+  }
+  void* args[] = {(void*)&pp, (void*)&pg, (void*)&pm, (void*)&pv,
+                  (void*)&n,  (void*)&ppart, (void*)&clip, (void*)&a};
+  err = cudaLaunchCooperativeKernel(
+      vec ? (const void*)adamw_kernel<true> : (const void*)adamw_kernel<false>,
+      dim3(blocks), dim3(kThreads), args, 0, st);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // K23. logits (B, C, HW) f32 or null, preds (B, HW) u8 (when logits is

@@ -13,10 +13,11 @@ that plant3dvision_tpu/models/train.py and train_synth.py use (optax
   parameters are re-seated as views of one flat float32 arena and their
   gradients as views of a second (autograd accumulates into existing
   gradients in place), with the moments in two more; the step is K22
-  (ops/training.py:adamw_update), one launch for the norm and one for the
-  update. The per-step scalars (the learning rate at the schedule's count,
-  the bias corrections 1 - b^count) are float32 numbers computed here on
-  the host, which knows the counts, so a step needs no host read.
+  (ops/training.py:adamw_launcher, bound to the arenas once), one launch
+  for the norm and the update. The per-step scalars (the learning rate at
+  the schedule's count, the bias corrections 1 - b^count) are float32
+  numbers computed here on the host, which knows the counts, so a step
+  needs no host read.
 - `state_leaves` / `load_state_leaves`: the optimizer state as optax's
   leaves in their order (the Adam count, the first moments, the second
   moments in flax's sorted parameter order, then the schedule's count
@@ -29,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.training import adamw_update
+from ..ops.training import adamw_launcher
 
 _f32 = np.float32
 
@@ -79,8 +80,7 @@ class AdamW:
         self.model = model
         self.params = list(model.parameters())
         self.lr, self.clip = lr, clip
-        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
-        self.wd = weight_decay
+        self.b1, self.b2 = _f32(b1), _f32(b2)
         dev = self.params[0].device
         n = sum(p.numel() for p in self.params)
         self.arena = torch.empty(n, dtype=torch.float32, device=dev)
@@ -103,6 +103,10 @@ class AdamW:
         #: optax's counts: scale_by_adam's and scale_by_schedule's
         self.count = 0
         self.sched_count = 0
+        self._step = adamw_launcher(
+            self.arena, self.grad, self.mu, self.nu, clip=clip is not None,
+            b1=b1, b2=b2, eps=eps, eps_root=eps_root, wd=weight_decay,
+            max_norm=1.0 if clip is None else clip)
 
     def zero_grad(self):
         self.grad.zero_()
@@ -110,15 +114,10 @@ class AdamW:
     def step(self):
         """One optimizer update from the gradients in the arena (K22)."""
         count_inc = self.count + 1
-        b1, b2 = _f32(self.b1), _f32(self.b2)
-        bc1 = _f32(1) - b1 ** _f32(count_inc)
-        bc2 = _f32(1) - b2 ** _f32(count_inc)
+        bc1 = _f32(1) - self.b1 ** _f32(count_inc)
+        bc2 = _f32(1) - self.b2 ** _f32(count_inc)
         lr = self.lr(self.sched_count) if callable(self.lr) else _f32(self.lr)
-        adamw_update(self.arena, self.grad, self.mu, self.nu,
-                     clip=self.clip is not None, b1=self.b1, b2=self.b2,
-                     bc1=bc1, bc2=bc2, eps=self.eps, eps_root=self.eps_root,
-                     wd=self.wd, neg_lr=-_f32(lr),
-                     max_norm=1.0 if self.clip is None else self.clip)
+        self._step(bc1, bc2, -_f32(lr))
         self.count = count_inc
         if callable(self.lr):
             self.sched_count += 1

@@ -12,12 +12,17 @@ kernels/csrc/train.cu):
   labels gathered and flipped alike.
 - K21 `weighted_cross_entropy`: optax's softmax cross-entropy with integer
   labels times the class weight, the mean, or with an ignored label the
-  kept pixels' sum over max(kept, 1); a `torch.autograd.Function` whose
-  backward is its own kernel.
-- K22 `adamw_update`: optax's clip_by_global_norm then adamw (or adamw
-  alone) over one flat arena of parameters, gradients and moments; the
-  per-step scalars (learning rate, bias corrections) are computed on the
-  host by models/optim.py.
+  kept pixels' sum over max(kept, 1); a `torch.autograd.Function`. On the
+  card one pass over the logits (`ce_fused`) gives the loss and the
+  gradient at incoming gradient 1, as the JAX step's value_and_grad
+  computes both; the backward's kernel reads the incoming gradient on the
+  card and recomputes only when it is not 1 (`ce_backward`, also the
+  general entry point). No host read either way.
+- K22 `adamw_update` / `adamw_launcher`: optax's clip_by_global_norm then
+  adamw (or adamw alone) over one flat arena of parameters, gradients and
+  moments, one launch a step (cooperative with the clip); the per-step
+  scalars (learning rate, bias corrections) are computed on the host by
+  models/optim.py.
 - K23 `iou_counts`: the first-max argmax of logits (or given predictions)
   and per-class intersection, union and label counts with an ignored
   label.
@@ -112,27 +117,53 @@ def _ce_args(logits, labels, weights, ignore_index):
     return -1 if ignore_index is None else int(ignore_index)
 
 
+#: K21's scratch a device, kept between calls: (n of the last call, the
+#: blocks' partial sums (float32, grown as a call needs more), ctl =
+#: [ticket, kept count] (int64, zero between calls: the pass's last block
+#: resets it)). Each device's training kernels run on one stream; two
+#: passes in flight on two streams of one device would share it.
+_CE_SCRATCH = {}
+
+
+def _ce_scratch(dev, n):
+    s = _CE_SCRATCH.get(dev)
+    if s is None or s[0] != n:
+        nb = kernels.lib().p3d_ce_blocks(n)
+        part = s[1] if s is not None and s[1].numel() >= nb else \
+            torch.empty(nb, dtype=_F32, device=dev)
+        ctl = s[2] if s is not None else \
+            torch.zeros(2, dtype=torch.int64, device=dev)
+        s = _CE_SCRATCH[dev] = (n, part, ctl)
+    return s[1], s[2]
+
+
+def ce_fused(logits, labels, weights, ignore, grad=True):
+    """K21's pass on the card: ((2,) float32 [loss, denominator], d loss /
+    d logits at incoming gradient 1, or None without `grad`), from one
+    read of the logits; one launch, two with an ignored label (`ignore` >=
+    0: its kept pixels counted first)."""
+    kernels.require_cuda("weighted_ce", logits, labels, weights)
+    dev = logits.device
+    B, C, H, W = logits.shape
+    n = B * H * W
+    part, ctl = _ce_scratch(dev, n)
+    out = torch.empty(2, dtype=_F32, device=dev)
+    d = torch.empty_like(logits) if grad else None
+    rc = kernels.lib().p3d_ce(
+        logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), C, H * W,
+        n, ignore, ctl.data_ptr(), part.data_ptr(), out.data_ptr(),
+        d.data_ptr() if grad else None, kernels.stream_ptr(dev))
+    kernels.LAUNCHES["weighted_ce"] += 1 if ignore < 0 else 2
+    kernels.check("weighted_ce", rc)
+    return out, d
+
+
 def ce_forward(logits, labels, weights, ignore):
-    """(2,) float32 [loss, denominator] of K21's forward (`ignore` -1 for
-    none): the kernel on the card (two launches), else the plain version."""
+    """(2,) float32 [loss, denominator] of K21 (`ignore` -1 for none): the
+    pass without its gradient on the card, else the plain version."""
     if logits.device.type == "cpu":
         return ce_forward_plain(logits, labels, weights, ignore)
-    kernels.require_cuda("weighted_ce", logits, labels, weights)
-    B, C = logits.shape[:2]
-    HW = logits[0, 0].numel()
-    n = B * HW
-    lib = kernels.lib()
-    n_part = lib.p3d_train_partials(n)
-    part = torch.empty(n_part, dtype=_F32, device=logits.device)
-    keep = torch.empty(n_part, dtype=torch.int32, device=logits.device)
-    out = torch.empty(2, dtype=_F32, device=logits.device)
-    rc = lib.p3d_ce_forward(
-        logits.data_ptr(), labels.data_ptr(), weights.data_ptr(), C, HW, n,
-        ignore, part.data_ptr(), keep.data_ptr(), out.data_ptr(),
-        kernels.stream_ptr(logits.device))
-    kernels.LAUNCHES["weighted_ce"] += 2
-    kernels.check("weighted_ce", rc)
-    return out
+    return ce_fused(logits, labels, weights, ignore, grad=False)[0]
 
 
 def ce_forward_plain(logits, labels, weights, ignore):
@@ -157,20 +188,23 @@ def ce_forward_plain(logits, labels, weights, ignore):
     return torch.stack([t.sum() / denom, denom])
 
 
-def ce_backward(logits, labels, weights, fwd, grad, ignore):
+def ce_backward(logits, labels, weights, fwd, grad, ignore, stash=None):
     """d loss / d logits (B, C, H, W) of K21, given the forward's (2,)
-    output and the (1,) incoming gradient: the kernel on the card, else
-    the plain version."""
+    output and the (1,) incoming gradient: the kernel on the card (one
+    launch), else the plain version. `stash` (card only) is K21's pass's
+    gradient at incoming gradient 1: the kernel reads the incoming
+    gradient on the card, leaves `stash` as it is when that is 1 and
+    recomputes it in place otherwise; it is returned."""
     if logits.device.type == "cpu":
         return ce_backward_plain(logits, labels, weights, fwd, grad, ignore)
     kernels.require_cuda("weighted_ce_backward", logits, labels, weights,
                          fwd, grad)
-    B, C = logits.shape[:2]
-    HW = logits[0, 0].numel()
-    d = torch.empty_like(logits)
+    B, C, H, W = logits.shape
+    d = torch.empty_like(logits) if stash is None else stash
     rc = kernels.lib().p3d_ce_backward(
         logits.data_ptr(), labels.data_ptr(), weights.data_ptr(),
-        fwd.data_ptr(), grad.data_ptr(), C, HW, B * HW, ignore, d.data_ptr(),
+        fwd.data_ptr(), grad.data_ptr(), C, H * W, B * H * W, ignore,
+        int(stash is not None), d.data_ptr(),
         kernels.stream_ptr(logits.device))
     kernels.LAUNCHES["weighted_ce_backward"] += 1
     kernels.check("weighted_ce_backward", rc)
@@ -200,62 +234,93 @@ def ce_backward_plain(logits, labels, weights, fwd, grad, ignore):
 
 class _WeightedCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, logits, labels, weights, ignore):
-        out = ce_forward(logits, labels, weights, ignore)
+    def forward(ctx, logits, labels, weights, ignore, want_grad):
+        if logits.device.type == "cpu":
+            out, d = ce_forward_plain(logits, labels, weights, ignore), None
+        else:
+            out, d = ce_fused(logits, labels, weights, ignore, want_grad)
         ctx.save_for_backward(logits, labels, weights, out)
         ctx.ignore = ignore
+        ctx.stash = d
         return out[0]
 
     @staticmethod
     def backward(ctx, grad):
         logits, labels, weights, out = ctx.saved_tensors
         g = grad.reshape(1).to(_F32).contiguous()
-        return (ce_backward(logits, labels, weights, out, g, ctx.ignore),
-                None, None, None)
+        # the pass's gradient is handed out once: a second backward of the
+        # graph (retain_graph) computes its own
+        stash, ctx.stash = ctx.stash, None
+        return (ce_backward(logits, labels, weights, out, g, ctx.ignore,
+                            stash=stash), None, None, None, None)
 
 
 def weighted_cross_entropy(logits, labels, weights, ignore_index=None):
     """K21: the weighted softmax cross-entropy of (B, C, H, W) float32
     logits against (B, H, W) uint8 labels, a 0-d float32 tensor with a
-    backward (its kernel on the card). `ignore_index` (a uint8 label, e.g.
-    255) drops those pixels from the loss and its gradient."""
+    backward. On the card one pass gives the loss and, when the logits
+    need a gradient, the gradient at incoming gradient 1, which the
+    backward hands on (recomputed by its kernel for any other incoming
+    gradient). `ignore_index` (a uint8 label, e.g. 255) drops those pixels
+    from the loss and its gradient."""
     ignore = _ce_args(logits, labels, weights, ignore_index)
+    want_grad = torch.is_grad_enabled() and logits.requires_grad
     return _WeightedCE.apply(logits.contiguous(), labels.contiguous(),
-                             weights.contiguous(), ignore)
+                             weights.contiguous(), ignore, want_grad)
 
 
 # ---------------------------------------------------------------- K22
 
-def adamw_update(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps, eps_root,
-                 wd, neg_lr, max_norm=1.0):
-    """K22, in place over flat float32 arenas p, g, mu, nu (one element a
-    parameter): with `clip`, optax's clip_by_global_norm(max_norm) first
-    (g_norm = sqrt(sum g^2) over the whole arena); then adamw's moments,
-    bias corrections (`bc1`, `bc2` = 1 - b^count), update, decayed weight
-    (`wd` * p) and the step `neg_lr` * u added to p. Scalars are float32
-    values (the caller rounds them). The kernel on the card (two launches
-    with `clip`, else one), else the plain version."""
+def adamw_launcher(p, g, mu, nu, *, clip, b1, b2, eps, eps_root, wd,
+                   max_norm=1.0):
+    """K22 bound to flat float32 arenas p, g, mu, nu (one element a
+    parameter): checks them and rounds the constant scalars to float32
+    once, and returns step(bc1, bc2, neg_lr), which updates the arenas in
+    place: with `clip`, optax's clip_by_global_norm(max_norm) first (g_norm
+    = sqrt(sum g^2) over the whole arena); then adamw's moments, bias
+    corrections (`bc1`, `bc2` = 1 - b^count), update, decayed weight (`wd`
+    * p) and the step `neg_lr` * u added to p. The kernel on the card (one
+    launch in both modes), else the plain version. The step holds the
+    arenas and its own scratch."""
     n = p.numel()
     for t in (p, g, mu, nu):
         _check(t.dtype == _F32 and t.ndim == 1 and t.numel() == n,
                "adamw_update takes flat float32 arenas of one length")
     if p.device.type == "cpu":
-        return adamw_update_plain(p, g, mu, nu, clip=clip, b1=b1, b2=b2,
-                                  bc1=bc1, bc2=bc2, eps=eps,
-                                  eps_root=eps_root, wd=wd, neg_lr=neg_lr,
-                                  max_norm=max_norm)
+        def plain_step(bc1, bc2, neg_lr):
+            adamw_update_plain(p, g, mu, nu, clip=clip, b1=b1, b2=b2,
+                               bc1=bc1, bc2=bc2, eps=eps, eps_root=eps_root,
+                               wd=wd, neg_lr=neg_lr, max_norm=max_norm)
+        return plain_step
     kernels.require_cuda("adamw", p, g, mu, nu)
+    dev = p.device
     lib = kernels.lib()
-    part = torch.empty(lib.p3d_train_partials(n) if clip else 1, dtype=_F32,
-                       device=p.device)
+    fn = lib.p3d_adamw
     f = lambda v: float(np.float32(v))          # noqa: E731
-    rc = lib.p3d_adamw(
-        p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
-        part.data_ptr(), int(bool(clip)), f(b1), f(b2), f(1 - b1), f(1 - b2),
-        f(bc1), f(bc2), f(eps), f(eps_root), f(wd), f(neg_lr), f(max_norm),
-        kernels.stream_ptr(p.device))
-    kernels.LAUNCHES["adamw"] += 2 if clip else 1
-    kernels.check("adamw", rc)
+    # the norm's chunk sums, owned by the step (clip mode only)
+    part = torch.empty(lib.p3d_adamw_partials(n), dtype=_F32,
+                       device=dev) if clip else None
+    decays = (int(bool(clip)), f(b1), f(b2), f(1 - b1), f(1 - b2))
+    rest = (f(eps), f(eps_root), f(wd))
+    norm = f(max_norm)
+
+    def step(bc1, bc2, neg_lr):
+        rc = fn(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
+                part.data_ptr() if clip else None, *decays, float(bc1),
+                float(bc2), *rest, float(neg_lr), norm,
+                kernels.stream_ptr(dev))
+        kernels.LAUNCHES["adamw"] += 1
+        kernels.check("adamw", rc)
+    return step
+
+
+def adamw_update(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps, eps_root,
+                 wd, neg_lr, max_norm=1.0):
+    """K22 once over the arenas (`adamw_launcher`'s step); scalars are
+    float32 values (the caller rounds them)."""
+    adamw_launcher(p, g, mu, nu, clip=clip, b1=b1, b2=b2, eps=eps,
+                   eps_root=eps_root, wd=wd, max_norm=max_norm)(
+        bc1, bc2, neg_lr)
 
 
 def adamw_update_plain(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps,

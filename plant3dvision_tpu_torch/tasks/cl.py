@@ -28,8 +28,8 @@ class Voxels(RomiTask):
     invert = Parameter(default=False)
     labels = Parameter(default=[])
     bounding_box = Parameter(default=None)
-    #: carve vote tolerance (views allowed to dissent per voxel); > 0 is
-    #: not ported yet (ops/carving.py:Backprojection)
+    #: carve vote tolerance (views allowed to dissent per voxel); > 0
+    #: counts each voxel's kills (K11, ops/carving.py:Backprojection)
     kill_tolerance = Parameter(default=0)
     #: "auto" or "sharded" (the JAX package's multi-chip lane); the port
     #: runs either on the run's one device

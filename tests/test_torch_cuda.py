@@ -1677,28 +1677,40 @@ def test_batch_gather_kernel_matches_plain(dev, N, c, B):
         assert (x == 1).any() and (x == 0).any()
 
 
-@pytest.mark.parametrize("shape,ignore", [((3, 6, 17, 13), None),
-                                          ((3, 3, 17, 13), 255),
-                                          ((8, 6, 448, 448), None),
-                                          ((8, 3, 448, 448), 255)])
-def test_weighted_ce_kernels_match_plain(dev, shape, ignore):
-    """K21's forward within 2e-5 relative of the plain version (the sums'
-    order differs), its denominator equal; its backward within 1e-6 of the
-    largest gradient; ignored pixels' gradients zero."""
-    from plant3dvision_tpu_torch import kernels
-    from plant3dvision_tpu_torch.ops import training as T
+CE_SHAPES = [((3, 6, 17, 13), None), ((3, 3, 17, 13), 255),
+             ((8, 6, 448, 448), None), ((8, 3, 448, 448), 255)]
+
+
+def _ce_inputs(dev, shape, ignore, seed=1, ignored_share=0.3):
     B, C, H, W = shape
-    g = torch.Generator(device=dev).manual_seed(1)
+    g = torch.Generator(device=dev).manual_seed(seed)
     logits = 3 * torch.randn(shape, generator=g, device=dev)
     y = torch.randint(0, C, (B, H, W), generator=g, device=dev,
                       dtype=torch.uint8)
     if ignore is not None:
-        y[torch.rand((B, H, W), generator=g, device=dev) < 0.3] = ignore
+        y[torch.rand((B, H, W), generator=g, device=dev)
+          < ignored_share] = ignore
     w = torch.rand(C, generator=g, device=dev) + 0.2
+    return logits, y, w
+
+
+@pytest.mark.parametrize("shape,ignore", CE_SHAPES)
+def test_weighted_ce_kernels_match_plain(dev, shape, ignore):
+    """K21's pass within 2e-5 relative of the plain version (the sums'
+    order differs), its denominator equal; its backward within 1e-6 of the
+    largest gradient; ignored pixels' gradients zero. The pass's gradient
+    (loss.backward()) equals the general backward at incoming gradient 1
+    bit for bit. Launches: the pass 1 (2 with an ignored label: its kept
+    count first), the backward 1 (the check of the incoming gradient on
+    the card)."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
+    logits, y, w = _ce_inputs(dev, shape, ignore)
     ig = -1 if ignore is None else ignore
+    pass_launches = 1 if ignore is None else 2
     kernels.reset_launches()
     out = T.ce_forward(logits, y, w, ig)
-    assert kernels.LAUNCHES["weighted_ce"] == 2
+    assert kernels.LAUNCHES["weighted_ce"] == pass_launches
     ref = T.ce_forward_plain(logits, y, w, ig)
     torch.testing.assert_close(out[0], ref[0], rtol=2e-5, atol=0)
     assert out[1] == ref[1]
@@ -1711,9 +1723,73 @@ def test_weighted_ce_kernels_match_plain(dev, shape, ignore):
     if ignore is not None:
         assert not d.permute(1, 0, 2, 3)[:, y == ignore].any()
     lt = logits.clone().requires_grad_()
-    T.weighted_cross_entropy(lt, y, w, ignore).backward()
+    kernels.reset_launches()
+    loss = T.weighted_cross_entropy(lt, y, w, ignore)
+    loss.backward()
+    assert kernels.LAUNCHES["weighted_ce"] == pass_launches
+    assert kernels.LAUNCHES["weighted_ce_backward"] == 1
+    assert torch.equal(loss.detach(), out[0])
     assert torch.equal(lt.grad, T.ce_backward(
         logits, y, w, out, torch.ones(1, device=dev), ig))
+
+
+@pytest.mark.parametrize("shape,ignore", CE_SHAPES)
+def test_weighted_ce_fused_any_incoming_gradient(dev, shape, ignore):
+    """Through autograd, an incoming 0.7 (and 2, inside a sum) gives the
+    general backward's gradient at that value bit for bit; a second
+    backward of the same graph (retain_graph) gives the first one's; under
+    torch.no_grad the pass writes no gradient (no logits-sized
+    allocation) and gives the same loss; the scalar lane (logits 4 bytes
+    off 16) equals the 16-byte lane bit for bit."""
+    from plant3dvision_tpu_torch.ops import training as T
+    logits, y, w = _ce_inputs(dev, shape, ignore, seed=5)
+    ig = -1 if ignore is None else ignore
+    out = T.ce_forward(logits, y, w, ig)
+    for outer, g in ((lambda l: l.backward(torch.tensor(0.7, device=dev)),
+                      0.7), (lambda l: (2 * l).backward(), 2.0)):
+        lt = logits.clone().requires_grad_()
+        outer(T.weighted_cross_entropy(lt, y, w, ignore))
+        assert torch.equal(lt.grad, T.ce_backward(
+            logits, y, w, out, torch.full((1,), g, device=dev), ig))
+    lt = logits.clone().requires_grad_()
+    loss = T.weighted_cross_entropy(lt, y, w, ignore)
+    loss.backward(retain_graph=True)
+    first = lt.grad.clone()
+    lt.grad = None
+    loss.backward()
+    assert torch.equal(lt.grad, first)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        quiet = T.weighted_cross_entropy(lt, y, w, ignore)
+    assert torch.cuda.max_memory_allocated() - base < logits.numel() * 2
+    assert torch.equal(quiet, out[0])
+    off = torch.empty(logits.numel() + 1, device=dev)[1:].view(shape)
+    off.copy_(logits)
+    assert off.data_ptr() % 16 == 4
+    lo = off.requires_grad_()
+    loss_off = T.weighted_cross_entropy(lo, y, w, ignore)
+    loss_off.backward()
+    assert torch.equal(loss_off.detach(), out[0])
+    assert torch.equal(lo.grad, first)
+
+
+def test_weighted_ce_every_pixel_ignored(dev):
+    """A batch whose every pixel is ignored: [loss, denom] = [0, 1], a
+    zero gradient, and the kept count reset for the next call (a second
+    batch after it gives the plain version's denominator)."""
+    from plant3dvision_tpu_torch.ops import training as T
+    logits, y, w = _ce_inputs(dev, (8, 3, 448, 448), 255, seed=6)
+    y_all = torch.full_like(y, 255)
+    lt = logits.clone().requires_grad_()
+    loss = T.weighted_cross_entropy(lt, y_all, w, 255)
+    loss.backward()
+    assert float(loss) == 0.0 and not lt.grad.any()
+    out = T.ce_forward(logits, y_all, w, 255)
+    assert out.tolist() == [0.0, 1.0]
+    after = T.ce_forward(logits, y, w, 255)
+    assert after[1] == T.ce_forward_plain(logits, y, w, 255)[1]
 
 
 @pytest.mark.parametrize("ignore", [None, 255])
@@ -1736,24 +1812,38 @@ def test_weighted_ce_kernel_label_past_classes(dev, ignore):
     assert out[1] == ref[1]
     grad = torch.ones(1, device=dev)
     pd = T.ce_backward_plain(logits, y, w, out, grad, ig)
-    torch.testing.assert_close(T.ce_backward(logits, y, w, out, grad, ig),
-                               pd, rtol=0, atol=1e-6 * float(pd.abs().max()))
+    d = T.ce_backward(logits, y, w, out, grad, ig)
+    torch.testing.assert_close(d, pd, rtol=0,
+                               atol=1e-6 * float(pd.abs().max()))
+    lt = logits.clone().requires_grad_()
+    loss = T.weighted_cross_entropy(lt, y, w, ignore)
+    loss.backward()
+    torch.testing.assert_close(loss.detach(), ref[0], rtol=2e-5, atol=0)
+    assert torch.equal(lt.grad, d)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("clip", [False, True])
-@pytest.mark.parametrize("n", [1000, 2_030_000])
-def test_adamw_kernel_matches_plain(dev, clip, n):
-    """K22 over one arena: bit-equal to the plain version without the clip
-    (the same float32 operations in the same order) and when the norm is
-    under the threshold; clipped, within 1e-6 relative (the global norm's
-    sum runs in another order). Launches: 2 with the clip, 1 without;
-    repeated calls equal (no float atomics)."""
+@pytest.mark.parametrize("n", [1000, 1001, 2_030_000, 7_550_000])
+def test_adamw_kernel_matches_plain(dev, clip, n, offset):
+    """K22 over one arena (the ResUNet's 2.03 M parameters, TPUSegNet's
+    7.55 M, lengths off 4 and off the chunk, arenas as views 4 bytes off
+    16 when `offset`: the one-element lane): bit-equal to the plain
+    version without the clip (the same float32 operations in the same
+    order) and when the norm is under the threshold; clipped, within 1e-6
+    relative (the global norm's sum runs in another order). One launch in
+    both modes; repeated calls equal (no float atomics)."""
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops import training as T
     g = torch.Generator(device=dev).manual_seed(2)
     sc = dict(clip=clip, b1=0.9, b2=0.999, bc1=np.float32(0.271),
               bc2=np.float32(0.00299), eps=1e-8, eps_root=0.0, wd=1e-4,
               neg_lr=-np.float32(2.9e-3), max_norm=1.0)
+    def arena(t):
+        a = torch.empty(n + offset, device=dev)[offset:]
+        assert (a.data_ptr() % 16 == 0) == (offset == 0)
+        return a.copy_(t)
+
     for gscale in (1e-6, 1.0):
         p = torch.randn(n, generator=g, device=dev)
         gr = gscale * torch.randn(n, generator=g, device=dev)
@@ -1761,10 +1851,10 @@ def test_adamw_kernel_matches_plain(dev, clip, n):
         nu = 1e-4 * torch.rand(n, generator=g, device=dev)
         runs = []
         for _ in range(2):
-            a = [t.clone() for t in (p, gr, mu, nu)]
+            a = [arena(t) for t in (p, gr, mu, nu)]
             kernels.reset_launches()
             T.adamw_update(*a, **sc)
-            assert kernels.LAUNCHES["adamw"] == (2 if clip else 1)
+            assert kernels.LAUNCHES["adamw"] == 1
             runs.append(a)
         b = [t.clone() for t in (p, gr, mu, nu)]
         T.adamw_update_plain(*b, **sc)

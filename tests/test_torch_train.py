@@ -148,6 +148,96 @@ def test_cross_entropy_label_past_classes_counts_as_last(ignore):
     assert torch.equal(out[0][1], out[1][1])
 
 
+def _ce_case(seed, ignore, ignored_share=0.3, shape=(3, 6, 17, 13)):
+    """Seeded logits, labels (a share ignored) and class weights, and the
+    JAX loss of train_synth's loss_fn over them as a function of the
+    logits (NCHW)."""
+    rng = np.random.default_rng(seed)
+    B, C, H, W = shape
+    logits = (rng.standard_normal(shape) * 3).astype(np.float32)
+    y = rng.integers(0, C, (B, H, W)).astype(np.uint8)
+    if ignore is not None:
+        y[rng.random((B, H, W)) < ignored_share] = ignore
+    w = (rng.random(C) + 0.2).astype(np.float32)
+
+    def jloss(lg):
+        lg = jnp.transpose(lg, (0, 2, 3, 1))
+        yy = jnp.asarray(y, jnp.int32)
+        if ignore is None:
+            ce = optax.softmax_cross_entropy_with_integer_labels(lg, yy)
+            return (ce * jnp.asarray(w)[yy]).mean()
+        keep = (yy != ignore).astype(jnp.float32)
+        ys = jnp.where(yy == ignore, 0, yy)
+        ce = optax.softmax_cross_entropy_with_integer_labels(lg, ys)
+        return (ce * jnp.asarray(w)[ys] * keep).sum() / jnp.maximum(
+            keep.sum(), 1.0)
+    return logits, y, w, jloss
+
+
+@pytest.mark.parametrize("ignore", [None, 255])
+@pytest.mark.parametrize("outer", ["one", "0.7", "twice"])
+def test_cross_entropy_gradient_at_any_incoming_gradient(outer, ignore):
+    """The gradient through weighted_cross_entropy at incoming gradient
+    1.0 (`loss.backward()`, the pass's own gradient on the card), 0.7
+    (`loss.backward(0.7)`) and inside a sum (`(2 * loss).backward()`)
+    against jax.grad of the same outer function: within 2e-6 of the
+    largest gradient (XLA's and PyTorch's CPU exp and log; the same order
+    of operations); ignored pixels' gradients zero."""
+    logits, y, w, jloss = _ce_case(5, ignore)
+    scale = {"one": 1.0, "0.7": 0.7, "twice": 2.0}[outer]
+    jg = np.asarray(jax.jit(jax.grad(
+        lambda lg: scale * jloss(lg)))(jnp.asarray(logits)))
+    lt = torch.from_numpy(logits).requires_grad_()
+    loss = T.weighted_cross_entropy(lt, torch.from_numpy(y),
+                                    torch.from_numpy(w), ignore)
+    if outer == "0.7":
+        loss.backward(torch.tensor(0.7))
+    elif outer == "twice":
+        (2 * loss).backward()
+    else:
+        loss.backward()
+    g = lt.grad.numpy()
+    np.testing.assert_allclose(g, jg, rtol=0, atol=2e-6 * np.abs(jg).max())
+    if ignore is not None:
+        assert np.all(g.transpose(1, 0, 2, 3)[:, y == ignore] == 0)
+
+
+def test_cross_entropy_every_pixel_ignored():
+    """A batch whose every pixel is ignored: the denominator max(0, 1) =
+    1, the loss 0 as JAX's, and a zero gradient."""
+    logits, y, w, jloss = _ce_case(6, 255, ignored_share=1.1)
+    assert np.all(y == 255)
+    jl, jg = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(logits))
+    lt = torch.from_numpy(logits).requires_grad_()
+    out = T.ce_forward(lt.detach(), torch.from_numpy(y),
+                       torch.from_numpy(w), 255)
+    assert float(out[1]) == 1.0 and float(out[0]) == 0.0 == float(jl)
+    loss = T.weighted_cross_entropy(lt, torch.from_numpy(y),
+                                    torch.from_numpy(w), 255)
+    loss.backward()
+    assert float(loss) == 0.0
+    assert not lt.grad.any() and not np.asarray(jg).any()
+
+
+@pytest.mark.parametrize("ignore", [None, 255])
+def test_cross_entropy_under_no_grad(ignore):
+    """Under torch.no_grad the loss equals the one with a gradient (and
+    JAX's within 2e-6 relative), and no graph or gradient is kept."""
+    logits, y, w, jloss = _ce_case(7, ignore)
+    lt = torch.from_numpy(logits).requires_grad_()
+    args = (torch.from_numpy(y), torch.from_numpy(w), ignore)
+    with torch.no_grad():
+        quiet = T.weighted_cross_entropy(lt, *args)
+    assert quiet.grad_fn is None and not quiet.requires_grad
+    loss = T.weighted_cross_entropy(lt, *args)
+    assert loss.grad_fn is not None
+    assert torch.equal(quiet, loss.detach())
+    np.testing.assert_allclose(float(quiet),
+                               float(jax.jit(jloss)(jnp.asarray(logits))),
+                               rtol=2e-6)
+    assert lt.grad is None
+
+
 # ------------------------------------------------------------- K22
 
 def _params_and_grads(rng, scale):
