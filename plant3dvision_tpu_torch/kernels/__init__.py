@@ -79,11 +79,11 @@ _F = ctypes.c_float
 #: returns the cudaError_t of its launches as an int)
 _ARGTYPES = {
     # packed, row_bytes, cams, valid, V, H, W, ox, oy, oz, vs,
-    # nx, ny, nz, out, stream
+    # x_start, nx, ny, nz, out, stream
     "p3d_carve": [_P, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F,
-                  _I, _I, _I, _P, _P],
-    # p3d_carve's arguments up to nz, then max_kills, kills, seen, vol,
-    # stream
+                  _I, _I, _I, _I, _P, _P],
+    # p3d_carve's arguments up to vs, then nx, ny, nz, max_kills, kills,
+    # seen, vol, stream
     "p3d_count_kills": [_P, _L, _P, _P, _I, _I, _I, _F, _F, _F, _F,
                         _I, _I, _I, _I, _P, _P, _P, _P],
     # vol, words, nx, ny, nz, c0, nonzero, wide, stream

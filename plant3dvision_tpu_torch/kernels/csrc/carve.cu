@@ -531,8 +531,9 @@ __global__ void __launch_bounds__(kCarveThreads)
     carve_kernel(const uint8_t* __restrict__ packed, long long row_bytes,
                  const float* __restrict__ cams,
                  const uint8_t* __restrict__ valid, int V, int H, int W,
-                 float ox, float oy, float oz, float vs, int nx, int ny,
-                 int nz, int stride, int tiles, int8_t* __restrict__ vol) {
+                 float ox, float oy, float oz, float vs, int x_start, int nx,
+                 int ny, int nz, int stride, int tiles,
+                 int8_t* __restrict__ vol) {
   extern __shared__ float4 cam4_s[];        // min(V, kCarveThreads) x 4
   __shared__ int view_s[kCarveThreads];
   __shared__ float lx[kCarveList], ly[kCarveList], lz[kCarveList];
@@ -561,7 +562,8 @@ __global__ void __launch_bounds__(kCarveThreads)
     const int j = col - i * ny;
     const int z0 = zc * ZR;
     const int nq = live ? min(ZR, nz - z0) : 0;
-    const float x = __fadd_rn(ox, __fmul_rn(vs, (float)i));
+    // the voxel's global x index: a slab's rows are those of the grid
+    const float x = __fadd_rn(ox, __fmul_rn(vs, (float)(x_start + i)));
     const float y = __fadd_rn(oy, __fmul_rn(vs, (float)j));
     float z[ZR];
 #pragma unroll
@@ -780,11 +782,15 @@ extern "C" int p3d_count_kills(const void* packed, long long row_bytes,
 // K1: vol (nx, ny, nz) int8, -1 where an in-frame valid view misses the
 // voxel, else 1 where one hits it, else 0: packed (V, row_bytes) mask rows,
 // cams (V, 16), valid (V,) 0/1 bytes, all contiguous on the card;
-// nx ny nz <= 2^31 - 256 (32-bit voxel indexes). One launch.
+// nx ny nz <= 2^31 - 256 (32-bit voxel indexes). x_start is the global x
+// index of the first row: the voxel centres are those of rows [x_start,
+// x_start + nx) of a larger grid at the same origin (a slab of a sharded
+// carve). One launch.
 extern "C" int p3d_carve(const void* packed, long long row_bytes,
                          const void* cams, const void* valid, int V, int H,
                          int W, float ox, float oy, float oz, float vs,
-                         int nx, int ny, int nz, void* out, void* stream) {
+                         int x_start, int nx, int ny, int nz, void* out,
+                         void* stream) {
   const int zr = kCarveRun;
   const long long runs = (long long)nx * ny * ((nz + zr - 1) / zr);
   const long long tiles = (runs + kCarveThreads - 1) / kCarveThreads;
@@ -807,8 +813,8 @@ extern "C" int p3d_carve(const void* packed, long long row_bytes,
   carve_kernel<kCarveRun>
       <<<(unsigned)blocks, kCarveThreads, smem, (cudaStream_t)stream>>>(
           (const uint8_t*)packed, row_bytes, (const float*)cams,
-          (const uint8_t*)valid, V, H, W, ox, oy, oz, vs, nx, ny, nz,
-          spread_stride(V), (int)tiles, (int8_t*)out);
+          (const uint8_t*)valid, V, H, W, ox, oy, oz, vs, x_start, nx, ny,
+          nz, spread_stride(V), (int)tiles, (int8_t*)out);
   return (int)cudaGetLastError();
 }
 

@@ -27,6 +27,8 @@ that plant3dvision_tpu/models/train.py and train_synth.py use (optax
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,19 +37,20 @@ from ..ops.training import adamw_launcher
 _f32 = np.float32
 
 
+def _cosine(init_value, decay_steps, alpha, count):
+    c = np.minimum(_f32(count), _f32(decay_steps))
+    cos = 0.5 * (1 + np.cos(_f32(np.pi) * c / _f32(decay_steps)))
+    decayed = _f32(1 - alpha) * _f32(cos) + _f32(alpha)
+    return _f32(_f32(init_value) * decayed)
+
+
 def cosine_decay_schedule(init_value, decay_steps, alpha=0.0):
-    """optax.cosine_decay_schedule (exponent 1): count -> float32 lr."""
+    """optax.cosine_decay_schedule (exponent 1): count -> float32 lr (a
+    partial, so that a mesh's ranks receive it by pickle)."""
     if not decay_steps > 0:
         raise ValueError("cosine_decay_schedule needs decay_steps > 0, got "
                          f"{decay_steps}")
-
-    def schedule(count):
-        c = np.minimum(_f32(count), _f32(decay_steps))
-        cos = 0.5 * (1 + np.cos(_f32(np.pi) * c / _f32(decay_steps)))
-        decayed = _f32(1 - alpha) * _f32(cos) + _f32(alpha)
-        return _f32(_f32(init_value) * decayed)
-
-    return schedule
+    return functools.partial(_cosine, init_value, decay_steps, alpha)
 
 
 def _flax_to_port(a, ndim):

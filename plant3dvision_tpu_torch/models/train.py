@@ -7,8 +7,9 @@ the JAX package's, so a training state of either package resumes in the
 other with the same batches. A step: the batch uploaded, the ResUNet (bf16
 convolutions, float32 parameters), the class-weighted cross-entropy and
 its backward (K21), `optax.adamw(lr)` over one parameter arena (K22),
-with cuDNN's deterministic algorithms (models/train_synth.py). The
-multi-device mesh of the JAX package (`use_mesh`) is not ported here.
+with cuDNN's deterministic algorithms (models/train_synth.py). With more
+than one rank (`use_mesh`, the JAX package's default) the step runs the
+dp policy of parallel/train.py.
 
 CLI:
     python -m plant3dvision_tpu_torch.models.train <db>/<scan> \
@@ -79,7 +80,8 @@ def _create_unet(seed, widths, blocks_per_stage, n_classes, dtype):
 def train(images, labels_int, label_names, widths=(32, 64, 128),
           blocks_per_stage=1, epochs=20, batch_size=4, lr=3e-3, seed=0,
           log_every=10, checkpoint_every=0, on_checkpoint=None,
-          resume_state=None, device="cuda", dtype=torch.bfloat16):
+          resume_state=None, device="cuda", dtype=torch.bfloat16,
+          use_mesh=True, mesh=None):
     """Train a ResUNet; returns (model, config, history).
 
     Every `checkpoint_every` epochs, `on_checkpoint(state_bytes, epoch)`
@@ -87,22 +89,42 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
     moments + epoch + numpy RNG state, the JAX package's layout). Pass
     such a blob back as `resume_state` to continue: the RNG state replays
     the same batch order, so an interrupted-and-resumed run is
-    bit-identical to an uninterrupted one."""
+    bit-identical to an uninterrupted one.
+
+    `use_mesh` with more than one rank (those of `mesh`, else one a card
+    on the card, one on the CPU) runs each step over a "dp" mesh of
+    min(ranks, batch_size) ranks (parallel/train.py; the JAX package's
+    {"dp", "tp"} split would only replicate the step over tp here): the
+    batch split over dp in contiguous parts, the parameters and moments
+    resident on the ranks; the controller sends each step's batch."""
     from ..runtime.config import resolve_device
     from .checkpoint import (flax_params, state_dict_from_flax,
                              training_state_from_npz_bytes,
                              training_state_to_npz_bytes)
     from .optim import AdamW
+    from ..parallel.mesh import default_ranks, make_mesh
     from .train_synth import deterministic_backward
 
     dev = resolve_device(device)
     n = images.shape[0]
     model = _create_unet(seed, tuple(widths), blocks_per_stage,
-                         len(label_names), dtype).to(dev)
-    opt = AdamW(model, lr)
-
+                         len(label_names), dtype)
     w = torch.tensor(class_weights(labels_int, len(label_names)),
                      dtype=torch.float32, device=dev)
+    ranks = mesh.size if mesh is not None else default_ranks(dev)
+    dp = min(ranks, int(batch_size))
+    trainer = own_mesh = None
+    if use_mesh and dp > 1:
+        from ..parallel.train import MeshTrainer
+        layout = {"dp": dp}
+        if mesh is None:
+            mesh = own_mesh = make_mesh(layout, device=dev)
+        elif mesh.shape != layout:
+            mesh = mesh.view(layout)
+        logger.info(f"sharded trainer: mesh {mesh.shape}")
+        trainer = MeshTrainer(mesh, model, dict(lr=lr), weights=w.cpu())
+    model.to(dev)
+    opt = AdamW(model, lr) if trainer is None else None
 
     history = []
     rng = np.random.default_rng(seed)
@@ -110,10 +132,13 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
     if resume_state is not None:
         r_params, r_leaves, meta = training_state_from_npz_bytes(
             resume_state)
-        with torch.no_grad():
-            for k, v in state_dict_from_flax(r_params).items():
-                model.get_parameter(k).copy_(v.to(dev))
-        opt.load_state_leaves(r_leaves)
+        if trainer is not None:
+            trainer.load_state(r_params, r_leaves)
+        else:
+            with torch.no_grad():
+                for k, v in state_dict_from_flax(r_params).items():
+                    model.get_parameter(k).copy_(v.to(dev))
+            opt.load_state_leaves(r_leaves)
         rng.bit_generator.state = meta["rng_state"]
         start_epoch = int(meta["epoch"]) + 1
         history = list(meta.get("history", []))
@@ -126,13 +151,18 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
                 sel = order[s * batch_size:(s + 1) * batch_size]
                 if len(sel) < batch_size:
                     sel = np.concatenate([sel, order[: batch_size - len(sel)]])
-                x = torch.from_numpy(images[sel]).to(dev).permute(0, 3, 1, 2)
-                y = torch.from_numpy(labels_int[sel].astype(np.uint8)).to(dev)
+                x = torch.from_numpy(images[sel]).permute(0, 3, 1, 2)
+                y = torch.from_numpy(labels_int[sel].astype(np.uint8))
+                if trainer is not None:
+                    loss = trainer.step(x.contiguous(), y)
+                    continue
+                x, y = x.to(dev), y.to(dev)
                 opt.zero_grad()
                 loss = weighted_cross_entropy(model(x.contiguous()), y, w)
                 loss.backward()
                 opt.step()
-            history.append(float(loss.detach()))
+                loss = loss.detach()
+            history.append(float(loss))
             if epoch % log_every == 0 or epoch == epochs - 1:
                 logger.info(f"epoch {epoch}: loss={history[-1]:.4f}")
             if (checkpoint_every and on_checkpoint is not None
@@ -141,8 +171,15 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
                 meta = {"epoch": epoch,
                         "rng_state": rng.bit_generator.state,
                         "history": history}
-                on_checkpoint(training_state_to_npz_bytes(
-                    flax_params(model), opt.state_leaves(), meta), epoch)
+                state = (trainer.state() if trainer is not None
+                         else (flax_params(model), opt.state_leaves()))
+                on_checkpoint(training_state_to_npz_bytes(*state, meta),
+                              epoch)
+    if trainer is not None:
+        trainer.params_into(model)
+        trainer.close()
+        if own_mesh is not None:
+            own_mesh.close()
 
     config = {"label_names": label_names, "widths": list(widths),
               "blocks_per_stage": blocks_per_stage}

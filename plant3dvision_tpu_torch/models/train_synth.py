@@ -227,10 +227,11 @@ def class_weights(lab, n_cls, ignore_index=None):
 
 def deterministic_backward():
     """cuDNN flags for a reproducible training step: deterministic
-    algorithms, no autotuning (a context manager)."""
+    algorithms, no autotuning, and float32 convolutions in float32 (no
+    TF32; the bfloat16 convolutions are unaffected) (a context manager)."""
     cud = torch.backends.cudnn
     return cud.flags(enabled=cud.enabled, benchmark=False,
-                     deterministic=True, allow_tf32=cud.allow_tf32)
+                     deterministic=True, allow_tf32=False)
 
 
 @torch.no_grad()
@@ -252,7 +253,8 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
                    val_fraction=0.05, arch="resunet", labels=None,
                    ignore_index=None, checkpoint_every_chunks=0,
                    on_checkpoint=None, resume_state=None, device="cuda",
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, use_mesh="auto", mesh=None,
+                   on_chunk=None):
     """Device-resident training loop; returns (model, config, history).
 
     `labels` defaults to the synthetic-scan label set; `ignore_index`
@@ -266,14 +268,47 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
     `resume_state` to continue bit-identically (the draws are seeded by
     the step's number). A state that the JAX package wrote resumes too,
     with the port's stream from its next step.
+
+    `use_mesh` ("auto" / True / False): with more than one rank (the
+    ranks of `mesh`, else one a card on the card and one on the CPU;
+    "auto" asks for exactly that) the trainer runs the dp policy of
+    parallel/train.py with every rank on "dp" (`mesh` is viewed so; the
+    JAX package's {"dp", "tp"} split would only replicate the step over
+    tp here): the crop set, the parameters and the optimizer state
+    resident on the ranks, each rank drawing the step's batch as one
+    device draws it and taking its dp part, the batch size rounded up to
+    a multiple of dp. A resumed run at the same
+    rank count equals the uninterrupted one bit for bit; the state is the
+    one-device layout, so a state resumes at any rank count.
+
+    `on_chunk(chunk, losses)`, when given, receives each chunk's per-step
+    losses ((STEPS_PER_CALL,) float32, on the CPU).
     """
     from ..runtime.config import resolve_device
     from .checkpoint import (flax_params, state_dict_from_flax,
                              training_state_from_npz_bytes,
                              training_state_to_npz_bytes)
+    from ..parallel.mesh import default_ranks, make_mesh
     from .optim import AdamW, cosine_decay_schedule
 
     dev = resolve_device(device)
+    ranks = mesh.size if mesh is not None else default_ranks(dev)
+    if use_mesh == "auto":
+        use_mesh = ranks > 1
+    sharded = bool(use_mesh) and ranks > 1
+    own_mesh = None
+    if sharded:
+        layout = {"dp": ranks}
+        if mesh is None:
+            mesh = own_mesh = make_mesh(layout, device=dev)
+        elif mesh.shape != layout:
+            mesh = mesh.view(layout)
+        dp = mesh.shape["dp"]
+        if batch_size % dp:
+            batch_size = -(-batch_size // dp) * dp
+            logger.info(f"batch_size rounded to {batch_size} (multiple of "
+                        f"dp={dp})")
+        logger.info(f"sharded trainer: mesh {mesh.shape}")
     labels = list(labels) if labels is not None else list(LABELS)
     n, c = rgb.shape[:2]
     n_val = max(int(n * val_fraction), 2)
@@ -290,29 +325,38 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
     freq, w = class_weights(lab, n_cls, ignore_index)
     logger.info(f"class freq={freq.tolist()} weights={np.round(w, 3).tolist()}")
     w = torch.tensor(w, dtype=torch.float32, device=dev)
+    opt_kw = dict(lr=cosine_decay_schedule(lr, steps, alpha=0.02), clip=1.0,
+                  weight_decay=1e-4)
 
-    model.to(dev)
-    opt = AdamW(model, cosine_decay_schedule(lr, steps, alpha=0.02),
-                clip=1.0, weight_decay=1e-4)
-
-    # the crop set, uploaded once
-    d_rgb = torch.from_numpy(np.ascontiguousarray(rgb[train_idx])).to(dev)
-    d_lab = torch.from_numpy(np.ascontiguousarray(
-        lab[train_idx].astype(np.uint8))).to(dev)
-    d_vrgb = torch.from_numpy(np.ascontiguousarray(rgb[val_idx])).to(dev)
-    d_vlab = torch.from_numpy(np.ascontiguousarray(
-        lab[val_idx].astype(np.uint8))).to(dev)
+    # the crop set, uploaded once (to every rank on a mesh)
+    crops = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        rgb[train_idx], lab[train_idx].astype(np.uint8), rgb[val_idx],
+        lab[val_idx].astype(np.uint8))]
     n_train = len(train_idx)
+    trainer = None
+    if sharded:
+        from ..parallel.train import MeshTrainer
+        trainer = MeshTrainer(mesh, model, opt_kw, weights=w.cpu(),
+                              ignore_index=ignore_index)
+        trainer.load_data(*crops)
+        model.to(dev)
+    else:
+        model.to(dev)
+        opt = AdamW(model, **opt_kw)
+        d_rgb, d_lab, d_vrgb, d_vlab = (t.to(dev) for t in crops)
 
     history = []
     start_chunk = 0
     if resume_state is not None:
         r_params, r_leaves, meta = training_state_from_npz_bytes(
             resume_state)
-        with torch.no_grad():
-            for k, v in state_dict_from_flax(r_params).items():
-                model.get_parameter(k).copy_(v.to(dev))
-        opt.load_state_leaves(r_leaves)
+        if trainer is not None:
+            trainer.load_state(r_params, r_leaves)
+        else:
+            with torch.no_grad():
+                for k, v in state_dict_from_flax(r_params).items():
+                    model.get_parameter(k).copy_(v.to(dev))
+            opt.load_state_leaves(r_leaves)
         start_chunk = int(meta["chunk"]) + 1
         history = list(meta.get("history", []))
         logger.info(f"resumed training at chunk {start_chunk} "
@@ -320,21 +364,32 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
     gen = torch.Generator(device=dev)
     t0 = time.time()
     n_chunks = steps // STEPS_PER_CALL
+
+    def local_chunk(chunk):
+        losses = []
+        for s in range(STEPS_PER_CALL):
+            gen.manual_seed(_step_seed(seed, chunk * STEPS_PER_CALL + s))
+            idx, flip, gains = _draw_batch(gen, n_train, batch_size)
+            x, y = gather_batch(d_rgb, d_lab, idx, flip,
+                                gains.to(torch.float32).contiguous())
+            opt.zero_grad()
+            loss = weighted_cross_entropy(model(x), y, w, ignore_index)
+            loss.backward()
+            opt.step()
+            losses.append(loss.detach())
+        return torch.stack(losses)
+
     with deterministic_backward():
         for chunk in range(start_chunk, n_chunks):
-            losses = []
-            for s in range(STEPS_PER_CALL):
-                gen.manual_seed(_step_seed(seed, chunk * STEPS_PER_CALL + s))
-                idx, flip, gains = _draw_batch(gen, n_train, batch_size)
-                x, y = gather_batch(d_rgb, d_lab, idx, flip,
-                                    gains.to(torch.float32).contiguous())
-                opt.zero_grad()
-                loss = weighted_cross_entropy(model(x), y, w, ignore_index)
-                loss.backward()
-                opt.step()
-                losses.append(loss.detach())
+            if trainer is not None:
+                losses = trainer.run_chunk(chunk, STEPS_PER_CALL, seed,
+                                           batch_size, _draw_batch)
+            else:
+                losses = local_chunk(chunk)
+            if on_chunk is not None:
+                on_chunk(chunk, losses.cpu())
             if chunk % 10 == 0 or chunk == n_chunks - 1:
-                loss = float(torch.stack(losses).mean())
+                loss = float(losses.mean())
                 history.append({"step": (chunk + 1) * STEPS_PER_CALL,
                                 "loss": loss,
                                 "seconds": round(time.time() - t0, 1)})
@@ -348,10 +403,19 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
                         # valid one, not the port's stream
                         "prng_key": [0, (chunk + 1) * STEPS_PER_CALL],
                         "history": history}
-                on_checkpoint(training_state_to_npz_bytes(
-                    flax_params(model), opt.state_leaves(), meta), chunk)
-    iou = iou_from_counts(_val_counts(model, d_vrgb, d_vlab, n_cls,
-                                      ignore_index))
+                state = (trainer.state() if trainer is not None
+                         else (flax_params(model), opt.state_leaves()))
+                on_checkpoint(training_state_to_npz_bytes(*state, meta),
+                              chunk)
+    if trainer is not None:
+        iou = iou_from_counts(trainer.val_counts(n_cls, ignore_index))
+        trainer.params_into(model)
+        trainer.close()
+        if own_mesh is not None:
+            own_mesh.close()
+    else:
+        iou = iou_from_counts(_val_counts(model, d_vrgb, d_vlab, n_cls,
+                                          ignore_index))
     val = {labels[i]: round(float(iou[i]), 4) for i in range(n_cls)
            if iou[i] >= 0}
     logger.info(f"held-out crop IoU: {val}")

@@ -24,6 +24,8 @@ TPUSegNet's (models/segnet.py).
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn as nn
@@ -192,10 +194,48 @@ def quantize_probs(probs):
     return (probs * 255.0 + 0.5).to(torch.uint8)
 
 
+def _dp_forward(rt, model, parts, tta, dtype, output_dtype, conv_mode):
+    """One rank of dp serving: its part of each batch through its replica
+    of the model; the stacked outputs on the CPU."""
+    model = model.to(rt.device)
+    outs = []
+    with int8_lane(model, on=conv_mode == "int8"):
+        for part in parts:
+            probs = forward_probs(model, part.to(rt.device), tta=tta,
+                                  dtype=dtype)
+            outs.append(quantize_probs(probs) if output_dtype == "uint8"
+                        else probs)
+    return torch.stack(outs).cpu()
+
+
+def _data_parallel_inference(model, imgs, batch_size, cdt, output_dtype,
+                             tta, conv_mode, mesh, device):
+    """Each batch of `batch_size` (a multiple of the ranks) split over the
+    mesh's "dp" ranks, the model replicated; the outputs in order."""
+    from ..parallel.launch import shared
+
+    n = mesh.size
+    N = len(imgs)
+    nb = -(-N // batch_size)
+    per = batch_size // n
+    pad = np.zeros((nb * batch_size,) + imgs.shape[1:], np.uint8)
+    pad[:N] = imgs
+    # (batch, rank, per, H, W, 3): rank r takes [:, r]
+    parts = shared(pad.reshape(nb, n, per, *imgs.shape[1:]))
+    replica = copy.deepcopy(model).cpu()
+    outs = mesh.run(_dp_forward, [(replica, parts[:, r], tta, cdt,
+                                   output_dtype, conv_mode)
+                                  for r in range(n)])
+    # (rank, batch, per, C, H, W) -> batch-major image order
+    out = torch.stack(outs).transpose(0, 1).reshape(nb * batch_size,
+                                                   *outs[0].shape[2:])
+    return out[:N].to(device)
+
+
 def segmentation_inference(model, images, batch_size=8,
                            compute_dtype="bfloat16", output_dtype="uint8",
                            tta=False, data_parallel="auto", conv_mode="bf16",
-                           device=None):
+                           device=None, mesh=None):
     """Batched softmax inference over (N, H, W, 3) uint8 images (numpy) with
     `model` (an `nn.Module` holding its weights); returns the (N, n_classes,
     H, W) probabilities as a tensor on `device` (the model's by default), in
@@ -204,8 +244,17 @@ def segmentation_inference(model, images, batch_size=8,
 
     Every float parameter is cast to `compute_dtype` first (GroupNorm and
     the head included, as the JAX package casts its parameter tree); each
-    layer then computes in its stated dtype. `data_parallel` shards batches
-    over devices in the JAX package; the port runs on the one device.
+    layer then computes in its stated dtype.
+
+    `data_parallel` shards each batch over the ranks of a "dp" mesh,
+    the weights replicated (the serving half of the JAX package's
+    multi-device mapping): "auto" is on only with more than one card, and
+    never on the CPU; True with more than one rank. The ranks are those
+    of `mesh` (a parallel.mesh.Mesh, or a callable that starts one, as
+    `RunContext.mesh`); without a mesh the call runs on the one device.
+    The batch is rounded up to a multiple of the rank count, and the
+    outputs come back in order, equal to the one-device run's.
+
     `conv_mode` "bf16" and "float" run the model as it is; "int8" runs every
     compute convolution (all but the float32 head) in the dynamic int8
     serving lane (models/quant.py; K16 on the card), its weights quantised
@@ -224,6 +273,16 @@ def segmentation_inference(model, images, batch_size=8,
         device = next(model.parameters()).device
     model = model.to(device=device, dtype=cdt).eval()
     N, H, W, _ = imgs.shape
+    dev = torch.device(device)
+    if data_parallel == "auto":
+        data_parallel = dev.type == "cuda" and torch.cuda.device_count() > 1
+    if data_parallel and mesh is not None:
+        m = mesh() if callable(mesh) else mesh
+        if m.size > 1:
+            bs = int(-(-int(batch_size) // m.size) * m.size)
+            return _data_parallel_inference(model, imgs, bs, cdt,
+                                            output_dtype, tta, conv_mode, m,
+                                            dev)
     out = None
     with int8_lane(model, on=conv_mode == "int8"):
         for i in range(0, N, int(batch_size)):

@@ -35,6 +35,9 @@ import torch
 
 from .. import kernels
 from ..camera import colmap_params_to_k_dist
+from ..runtime.log import configure_logger
+
+logger = configure_logger(__name__)
 
 EPS = 1e-9
 
@@ -93,18 +96,24 @@ def _check_masks_and_grid(packed, shape, hw):
         raise ValueError(f"bad grid shape {shape}")
 
 
-def carve(packed, cameras, valid, origin, voxel_size, shape, hw):
+def carve(packed, cameras, valid, origin, voxel_size, shape, hw,
+          x_start=0):
     """Carve a voxel grid from bit-packed binary masks.
 
     packed (V, ceil(HW/8)) uint8, cameras (V, 16) float32
     [fx,fy,cx,cy, rotmat(9) row-major, tvec(3)], valid (V,) bool, all on one
     device; origin (3,), voxel_size float, shape (nx, ny, nz), hw (H, W).
+    `x_start` is the global x index of the first row: the result is rows
+    [x_start, x_start + nx) of the carve of a larger grid at the same
+    origin, bit for bit (a slab of parallel/carving.py's sharded carves).
     Returns the int8 (nx, ny, nz) volume on that device.
     """
     _check_args(packed, cameras, valid, shape, hw)
+    if int(x_start) < 0:
+        raise ValueError(f"x_start must be >= 0, got {x_start}")
     if packed.device.type == "cpu":
         return carve_plain(packed, cameras, valid, origin, voxel_size, shape,
-                           hw)
+                           hw, x_start=x_start)
     # the kernel reads (V, row_bytes) rows, (V, 16) cameras and V flags
     # in C order: any other layout is copied into it first
     packed, cameras, valid = (t.contiguous() for t in (packed, cameras,
@@ -121,8 +130,8 @@ def carve(packed, cameras, valid, origin, voxel_size, shape, hw):
     rc = kernels.lib().p3d_carve(
         packed.data_ptr(), packed.shape[1], cameras.data_ptr(),
         valid.data_ptr(), packed.shape[0], H, W, float(o[0]), float(o[1]),
-        float(o[2]), float(np.float32(voxel_size)), nx, ny, nz,
-        out.data_ptr(), kernels.stream_ptr(packed.device))
+        float(o[2]), float(np.float32(voxel_size)), int(x_start), nx, ny,
+        nz, out.data_ptr(), kernels.stream_ptr(packed.device))
     kernels.LAUNCHES["carve"] += 1
     kernels.check("carve", rc)
     return out
@@ -199,16 +208,19 @@ def project(cam, origin, voxel_size, x_start, shape, hw, grid_fma=True):
     return px, py, in_img
 
 
-def _view_tests(packed, cameras, valid, origin, voxel_size, shape, hw):
-    """(in_img, hit, lin) of every valid view over the whole grid, in the
-    carve kernel's f32 operations (fused multiply-adds at the same places)."""
+def _view_tests(packed, cameras, valid, origin, voxel_size, shape, hw,
+                x_start=0):
+    """(in_img, hit, lin) of every valid view over the whole grid (the x
+    rows from global index `x_start`), in the carve kernel's f32 operations
+    (fused multiply-adds at the same places)."""
     H, W = hw
     nx, ny, nz = (int(s) for s in shape)
     dev = packed.device
     f32 = torch.float32
     o = torch.as_tensor(np.asarray(origin, np.float32), device=dev)
     vs = torch.tensor(voxel_size, dtype=f32, device=dev)
-    x = (o[0] + vs * torch.arange(nx, dtype=f32, device=dev)).view(nx, 1, 1)
+    x = (o[0] + vs * torch.arange(x_start, x_start + nx, dtype=f32,
+                                  device=dev)).view(nx, 1, 1)
     y = (o[1] + vs * torch.arange(ny, dtype=f32, device=dev)).view(1, ny, 1)
     z = (o[2] + vs * torch.arange(nz, dtype=f32, device=dev)).view(1, 1, nz)
     for v in range(packed.shape[0]):
@@ -221,10 +233,11 @@ def _view_tests(packed, cameras, valid, origin, voxel_size, shape, hw):
         px = fma_f32(numx / pz, c[0], c[2])
         py = fma_f32(numy / pz, c[1], c[3])
         # trunc(p) in [0, W-1]  <=>  -1 < p < W  (for non-NaN p); the clamp
-        # keeps the int cast defined outside the frame
+        # (of a NaN from a voxel in the camera's plane too) keeps the int
+        # cast defined outside the frame
         in_img = (pz > 0) & (px > -1) & (px < W) & (py > -1) & (py < H)
-        pxi = px.clamp(0, W - 1).to(torch.int64)
-        pyi = py.clamp(0, H - 1).to(torch.int64)
+        pxi = torch.nan_to_num(px).clamp(0, W - 1).to(torch.int64)
+        pyi = torch.nan_to_num(py).clamp(0, H - 1).to(torch.int64)
         lin = pyi * W + pxi
         byte = packed[v][lin >> 3].to(torch.int64)
         hit = ((byte >> (7 - (lin & 7))) & 1) == 1
@@ -232,10 +245,10 @@ def _view_tests(packed, cameras, valid, origin, voxel_size, shape, hw):
 
 
 def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
-                count_work=False):
+                count_work=False, x_start=0):
     """Plain PyTorch version of the carve kernel (the same f32 operations,
     fused multiply-adds at the same places; one view at a time over the
-    whole grid).
+    whole grid; `x_start` as `carve`'s).
 
     count_work=True returns (volume, tests, mask_bytes): the work that a
     kernel which stops at a voxel's first kill has to do on these inputs,
@@ -247,7 +260,7 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
     seen = torch.zeros_like(killed)
     tests = mask_bytes = 0
     for in_img, hit, lin in _view_tests(packed, cameras, valid, origin,
-                                           voxel_size, shape, hw):
+                                           voxel_size, shape, hw, x_start):
         if count_work:
             tests += int((~killed).sum())
             mask_bytes += int(torch.unique(
@@ -259,7 +272,7 @@ def carve_plain(packed, cameras, valid, origin, voxel_size, shape, hw,
 
 
 def carve_least_work(vol, packed, cameras, valid, origin, voxel_size, shape,
-                     hw):
+                     hw, x_start=0):
     """The least work that any view order needs for `vol`, the carve of
     these inputs, as (tests, mask_bytes): one voxel-view test for each
     killed voxel (one of its misses) and one for each valid view of each
@@ -271,7 +284,7 @@ def carve_least_work(vol, packed, cameras, valid, origin, voxel_size, shape,
     mask_bytes = 0
     done = torch.zeros_like(killed)
     for in_img, hit, lin in _view_tests(packed, cameras, valid, origin,
-                                           voxel_size, shape, hw):
+                                           voxel_size, shape, hw, x_start):
         miss = in_img & ~hit & ~done
         mask_bytes += int(torch.unique(
             (lin >> 3)[(in_img & kept) | miss]).numel())
@@ -563,13 +576,21 @@ class Backprojection:
     sends two-valued masks to its tile engine (ops/averaging_tiled.py),
     which computes the same function; here they take the same call.
 
-    `engine` ("auto" or "sharded", the JAX package's multi-chip lane) runs
-    on the one device. Values are tensors on `device` (the card by default;
-    "cpu" runs the plain versions)."""
+    `engine` "auto" runs on the one device; "sharded" (the JAX package's
+    multi-chip lane) with more than one rank (`ranks`) shards over the
+    mesh that `mesh` (a parallel.mesh.Mesh, or a callable that starts one)
+    gives: the carve view-sharded (parallel/carving_mp.py:
+    carve_sharded_hierarchical), the averaging volume in x-slabs
+    (parallel/carving.py:average_grid_sharded, x padded to a multiple of
+    the rank count and cropped); the vote carve (`kill_tolerance` > 0)
+    stays on the one device, with the JAX package's warning. Values are
+    tensors on `device` (the card by default; "cpu" runs the plain
+    versions)."""
 
     def __init__(self, shape, origin, voxel_size, type="carving",
                  default_value=0, labels=None, log=False,
-                 kill_tolerance=0, engine="auto", device="cuda"):
+                 kill_tolerance=0, engine="auto", device="cuda", ranks=1,
+                 mesh=None):
         self.shape = tuple(int(s) for s in shape)
         self.origin = np.asarray(origin, dtype=np.float32)
         self.voxel_size = float(voxel_size)
@@ -578,6 +599,9 @@ class Backprojection:
         self.labels = labels
         self.log = log
         self.kill_tolerance = int(kill_tolerance)
+        self.engine = str(engine)
+        self.ranks = int(ranks)
+        self._mesh_src = mesh
         self.device = torch.device(device)
         if type not in ("carving", "averaging"):
             raise ValueError(
@@ -588,6 +612,16 @@ class Backprojection:
         self._values = None
         self._kills = None
         self._seen = None
+
+    def _sharded(self) -> bool:
+        return self.engine == "sharded" and self.ranks > 1
+
+    def _mesh(self):
+        m = self._mesh_src
+        if m is None:
+            raise ValueError("engine='sharded' with more than one rank needs "
+                             "a mesh")
+        return m() if callable(m) else m
 
     def process_view(self, intrinsics, rot, tvec, mask):
         self._pending_masks.append(np.asarray(mask))
@@ -604,9 +638,14 @@ class Backprojection:
         cams = torch.from_numpy(np.stack(self._pending_cams)).to(dev)
         valid = torch.ones(len(masks), dtype=torch.bool, device=dev)
         if self.type == "carving":
-            packed = torch.from_numpy(pack_masks(masks)).to(dev)
-            args = (packed, cams, valid, self.origin, self.voxel_size,
-                    self.shape, masks.shape[1:])
+            if self._sharded() and self.kill_tolerance > 0:
+                logger.warning(
+                    "Backprojection: engine='sharded' has no "
+                    "kill-tolerance lane — vote carving runs "
+                    "single-device (count_kills)")
+            packed = torch.from_numpy(pack_masks(masks))
+            args = (packed.to(dev), cams, valid, self.origin,
+                    self.voxel_size, self.shape, masks.shape[1:])
             if self.kill_tolerance > 0:
                 kills, seen = count_kills(*args)
                 if self._kills is not None:
@@ -615,6 +654,14 @@ class Backprojection:
                 self._kills, self._seen = kills, seen
                 vol = tolerance_verdict(kills, seen, self.kill_tolerance).to(
                     torch.int32)
+            elif self._sharded():
+                # view-sharded over the ranks, bit-equal to K1 on one
+                # device
+                from ..parallel.carving_mp import carve_sharded_hierarchical
+                vol = carve_sharded_hierarchical(
+                    None, cams, valid, self.origin, self.voxel_size,
+                    self.shape, self._mesh(), packed=packed,
+                    hw=masks.shape[1:]).to(dev, torch.int32)
             else:
                 vol = carve(*args).to(torch.int32)
             if self._values is not None and self.kill_tolerance <= 0:
@@ -629,14 +676,24 @@ class Backprojection:
                 fmasks = fmasks / 255.0
             if self.log:
                 fmasks = np.log(EPS + fmasks)
-            fm = torch.from_numpy(fmasks).to(dev)
-            if dev.type != "cuda" and \
+            fm = torch.from_numpy(fmasks)
+            if self._sharded():
+                # x-slabs over the ranks (no volume collective); slabs
+                # index voxels globally, so the padding is inert
+                from ..parallel.carving import average_grid_sharded
+                n = self.ranks
+                nx, ny, nz = self.shape
+                nxp = -(-nx // n) * n
+                vol = average_grid_sharded(
+                    fm, cams, valid, self.origin, self.voxel_size,
+                    (nxp, ny, nz), self._mesh())[:nx].to(dev)
+            elif dev.type != "cuda" and \
                     int(np.prod(self.shape)) > _avg_chunk_voxels():
-                vol = average_chunked(fm, cams, valid, self.origin,
+                vol = average_chunked(fm.to(dev), cams, valid, self.origin,
                                       self.voxel_size, self.shape)
             else:
-                vol = average(fm, cams, valid, self.origin, self.voxel_size,
-                              self.shape)
+                vol = average(fm.to(dev), cams, valid, self.origin,
+                              self.voxel_size, self.shape)
             if self._values is not None:
                 vol = self._values + vol
         self._values = vol

@@ -48,6 +48,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device the tasks compute on (default: cuda; "
                          "'cpu' runs the kernels' plain PyTorch versions)")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks of the multi-device lanes (engine="
+                         "'sharded', data_parallel); default one a card "
+                         "on cuda, 1 on cpu")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="their process group's backend (default nccl on "
+                         "cuda, gloo on cpu; ranks sharing a card: gloo)")
     ap.add_argument("--log-level", default="INFO")
     args = ap.parse_args(argv)
 
@@ -63,7 +70,8 @@ def main(argv=None):
             f"Unknown task '{args.task}'. Known tasks:\n  "
             + "\n  ".join(TaskRegistry.known()))
     ctx = RunContext.from_paths(db_path, scan_id, args.config,
-                                device=args.device)
+                                device=args.device, ranks=args.ranks,
+                                backend=args.backend)
     for override in args.param:
         try:
             key, value = override.split("=", 1)
@@ -95,6 +103,7 @@ def main(argv=None):
     try:
         run_task(ctx, args.task, workers=max(1, args.workers))
     finally:
+        ctx.close()
         ctx.db.disconnect()
     return 0
 

@@ -67,23 +67,56 @@ def resolve_device(device="cuda"):
 
 class RunContext:
     """`device` is where the tasks put their tensors: the card by default,
-    the CPU only when the caller asks for it."""
+    the CPU only when the caller asks for it.
+
+    `ranks` is the number of ranks the multi-device lanes may use (the
+    counterpart of `len(jax.devices())`): by default one a card on the
+    card, one on the CPU. A lane whose JAX condition is "more than one
+    device" (`engine="sharded"`, `data_parallel`) shards when it is above
+    1. Its mesh (parallel/mesh.py, axis "dp") is started at first use with
+    `backend` (by default "nccl" on the card, "gloo" on the CPU; ranks
+    that share a card need "gloo") and lives until `close()`; a `mesh`
+    given here is used instead, and its size is the rank count."""
 
     def __init__(self, db: FSDB, scan_id: str, config: dict | None = None,
-                 device="cuda"):
+                 device="cuda", ranks: int | None = None,
+                 backend: str | None = None, mesh=None):
+        from ..parallel.mesh import default_ranks
+
         self.device = resolve_device(device)
         self.db = db
         self.scan = db.get_scan(scan_id, create=True)
         self.config = config or {}
         self._tasks: dict[str, object] = {}
+        self.ranks = (mesh.size if mesh is not None else int(ranks)
+                      if ranks is not None else default_ranks(self.device))
+        self.backend = backend
+        self._mesh = mesh
+        self._own_mesh = False
+
+    def mesh(self):
+        """The run's mesh of `ranks` ranks on axis "dp" (started once)."""
+        if self._mesh is None:
+            from ..parallel.mesh import make_mesh
+            self._mesh = make_mesh({"dp": self.ranks}, device=self.device,
+                                   backend=self.backend)
+            self._own_mesh = True
+        return self._mesh
+
+    def close(self):
+        """Stop the mesh this context started, if any."""
+        if self._own_mesh and self._mesh is not None:
+            self._mesh.close()
+        self._mesh, self._own_mesh = None, False
 
     @classmethod
     def from_paths(cls, db_path, scan_id, config_path=None, unsafe=True,
-                   device="cuda"):
+                   device="cuda", ranks=None, backend=None):
         db = FSDB(db_path)
         db.connect(unsafe=unsafe)
         config = load_toml(config_path) if config_path else {}
-        return cls(db, scan_id, config, device=device)
+        return cls(db, scan_id, config, device=device, ranks=ranks,
+                   backend=backend)
 
     def task_config(self, task_name: str) -> dict:
         cfg = dict(self.config.get(task_name, {}))

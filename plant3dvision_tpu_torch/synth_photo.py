@@ -25,6 +25,10 @@ camera, fsdb and io). Used by the port's ML-path tests and chip_smoke.py.
 
 from __future__ import annotations
 
+import os
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from .camera import camera_model_to_metadata, pose_to_extrinsics
@@ -371,6 +375,21 @@ def fixture_like_cameras(n_views, radius=75.0, z=65.0, target=(4.6, 5.0, 55.0),
 
 # ---------------------------------------------------------------- scans
 
+class _Draws:
+    """The normal draws of one `render_photo` call (light, colour jitter,
+    noise), taken from the scan's generator in its order, handed back in
+    that order: the views render in threads and the images equal a
+    sequential render's."""
+
+    def __init__(self, rng, shape):
+        self._values = deque([rng.standard_normal(3), rng.standard_normal(),
+                              rng.standard_normal(), rng.standard_normal(),
+                              rng.standard_normal(shape)])
+
+    def standard_normal(self, size=None):
+        return self._values.popleft()
+
+
 def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
                         height=896, plant=None, seed=0, density=150.0,
                         with_gt_masks=True, gt_fileset="images"):
@@ -379,7 +398,10 @@ def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
     layout) + exact camera metadata + VirtualPlant GT angles fileset.
     The GT channels go into the `gt_fileset` fileset: "images", as the
     fixture keeps them, or one of their own (an evaluation's ground truth,
-    out of the way of tasks that read every image)."""
+    out of the way of tasks that read every image). The views render in
+    threads (numpy releases the GIL in the splat's heavy steps); their
+    draws come from `rng` in view order, so the scan is the same as a
+    sequential render's."""
     from .fsdb import io
 
     rng = np.random.default_rng(seed)
@@ -396,9 +418,13 @@ def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
         n_views, radius=1.55 * (bbox["z"][1] - bbox["z"][0]),
         z=cz + 10.0, target=(0.0, 0.0, cz), width=width, height=height,
         rng=rng)
-    for v, (K, R, t) in enumerate(cams):
-        rgb, masks, _ = render_photo(samples, K, R, t, width, height,
-                                     rng=rng, color_jitter=0.05)
+
+    def render(K, R, t, draws):
+        return render_photo(samples, K, R, t, width, height, rng=draws,
+                            color_jitter=0.05)[:2]
+
+    def write(v, K, R, t, fut):
+        rgb, masks = fut.result()
         cam_md = {
             "camera_model": camera_model_to_metadata(
                 "OPENCV", [K[0, 0], K[1, 1], K[0, 2], K[1, 2], 0, 0, 0, 0],
@@ -421,6 +447,18 @@ def generate_photo_scan(db, scan_id="photo_plant", n_views=20, width=896,
                 io.write_image(fm, m, "png")
                 fm.set_metadata({"shot_id": f"{v:06d}", "channel": label,
                                  "camera": cam_md})
+
+    workers = min(8, os.cpu_count() or 1)
+    pending = deque()
+    with ThreadPoolExecutor(workers) as ex:
+        for v, (K, R, t) in enumerate(cams):
+            pending.append((v, K, R, t, ex.submit(
+                render, K, R, t, _Draws(rng, (height, width, 3)))))
+            # at most 2 x workers views in flight (a view's noise: 19 MB)
+            if len(pending) == 2 * workers:
+                write(*pending.popleft())
+        while pending:
+            write(*pending.popleft())
 
     vp = scan.get_fileset("VirtualPlant_photo", create=True)
     obj = vp.create_file("VirtualPlant")

@@ -31,8 +31,10 @@ class Voxels(RomiTask):
     #: carve vote tolerance (views allowed to dissent per voxel); > 0
     #: counts each voxel's kills (K11, ops/carving.py:Backprojection)
     kill_tolerance = Parameter(default=0)
-    #: "auto" or "sharded" (the JAX package's multi-chip lane); the port
-    #: runs either on the run's one device
+    #: "auto" = the run's one device; "sharded" = shard over the run's
+    #: ranks when there is more than one (RunContext.ranks; the view-
+    #: sharded carve, the x-slab averaging volume: ops/carving.py:
+    #: Backprojection)
     engine = Parameter(default="auto", significant=False)
 
     # RomiTask glue: upstream_task unused, requirements are mask (+ colmap)
@@ -107,7 +109,8 @@ class Voxels(RomiTask):
             shape=[nx, ny, nz], origin=[x_min, y_min, z_min], voxel_size=vs,
             type=str(self.type), labels=labels, log=bool(self.log),
             kill_tolerance=int(self.kill_tolerance),
-            engine=str(self.engine), device=self.ctx.device)
+            engine=str(self.engine), device=self.ctx.device,
+            ranks=self.ctx.ranks, mesh=self.ctx.mesh)
         vol = bp.process_fileset(masks_files, str(self.camera_metadata),
                                  bool(self.invert))
 

@@ -50,8 +50,11 @@ class FusedCarving(RomiTask):
 
     #: carve engine of the JAX package ("fused", "pv", "vb", "fp",
     #: "sharded" — all bit-exact with one another). The port has one carve
-    #: kernel; every engine name is accepted and runs it. Not significant,
-    #: so fileset ids are the same for every engine.
+    #: kernel, which every engine name runs on the run's device; "sharded"
+    #: with more than one rank (RunContext.ranks) carves each group
+    #: view-sharded over the run's mesh (parallel/carving_mp.py:
+    #: carve_sharded_hierarchical, the same volume). Not significant, so
+    #: fileset ids are the same for every engine.
     engine = Parameter(default="fused", significant=False)
     #: decode/upload chunk: the decode+threshold+pack of chunk i+1 overlaps
     #: the (asynchronous, pinned-memory) upload of chunk i
@@ -90,10 +93,20 @@ class FusedCarving(RomiTask):
         valid = torch.ones(len(items), dtype=torch.bool, device=dev)
         return packed, cams, valid
 
+    def _carve_group(self, packed, cams, valid, origin, vs, shape, hw):
+        from ..ops.carving import carve
+
+        if str(self.engine) == "sharded" and self.ctx.ranks > 1:
+            from ..parallel.carving_mp import carve_sharded_hierarchical
+            return carve_sharded_hierarchical(
+                None, cams, valid, origin, vs, shape, self.ctx.mesh(),
+                packed=packed, hw=hw).to(packed.device)
+        return carve(packed, cams, valid, origin, vs, shape, hw)
+
     def run(self):
         from concurrent.futures import ThreadPoolExecutor
 
-        from ..ops.carving import camera_from_metadata, carve, pack_masks
+        from ..ops.carving import camera_from_metadata, pack_masks
         from ..ops.masks import compute_mask_numpy
 
         images_fs = self.input()[0].get(create=False) if isinstance(
@@ -160,7 +173,8 @@ class FusedCarving(RomiTask):
                     logger.info(f"FusedCarving: {n} views at {W}x{H}"
                                 + (f" in {groups} overlapped groups"
                                    if groups > 1 else ""))
-                v = carve(packed, cams, valid, origin, vs, shape, (H, W))
+                v = self._carve_group(packed, cams, valid, origin, vs,
+                                      shape, (H, W))
                 if vol is None:
                     vol = v
                 else:

@@ -250,8 +250,9 @@ class Segmentation2D(Masks):
     #: "bf16", "float", or "int8": the dynamic int8 serving lane
     #: (models/quant.py; K16 on the card)
     conv_mode = Parameter(default="bf16", significant=False)
-    #: the JAX package's multi-device sharding switch; the port runs on
-    #: the run's one device whatever it says
+    #: dp serving over the run's ranks (models/unet.py:
+    #: segmentation_inference): "auto" only with more than one card, true
+    #: with more than one rank (RunContext.ranks)
     data_parallel = Parameter(default="auto", significant=False)
 
     def requires(self):
@@ -300,12 +301,15 @@ class Segmentation2D(Masks):
             loaded = list(ex.map(_load, files))
         batch = np.stack([im for im, _ in loaded])
 
-        probs = segmentation_inference(model, batch,
-                                       batch_size=int(self.batch_size),
-                                       tta=bool(self.tta),
-                                       conv_mode=str(self.conv_mode),
-                                       data_parallel=self.data_parallel,
-                                       device=self.ctx.device)  # uint8 NCHW
+        dp = self.data_parallel
+        if not isinstance(dp, bool):
+            dp = {"auto": "auto", "true": True, "false": False}[
+                str(dp).lower()]
+        probs = segmentation_inference(
+            model, batch, batch_size=int(self.batch_size),
+            tta=bool(self.tta), conv_mode=str(self.conv_mode),
+            data_parallel=dp, device=self.ctx.device,
+            mesh=self.ctx.mesh if self.ctx.ranks > 1 else None)  # u8 NCHW
         pred = div_f32(probs.to(torch.float32), 255.0)
         if resize:
             # each image's probabilities back to its own size; its

@@ -57,6 +57,54 @@ def test_carve_kernel_matches_plain(dev, shape, vs):
     assert (k == 1).any() and (k == -1).any()
 
 
+@pytest.mark.parametrize("x_start,nx", [(0, 10), (13, 11), (30, 10)])
+def test_carve_kernel_x_start_matches_plain_and_the_grid(dev, x_start, nx):
+    """K1 with a global x offset (a slab of a sharded carve): bit-equal to
+    its plain version and to rows [x_start, x_start + nx) of the whole
+    grid's carve."""
+    from plant3dvision_tpu_torch.ops.carving import carve, carve_plain
+    rng = np.random.default_rng(1)
+    packed, cams, hw = _scene(rng)
+    shape, vs = (40, 37, 45), 0.5
+    origin = -(np.array(shape) - 1) * vs / 2 + 0.3
+    args = (torch.from_numpy(packed).to(dev), torch.from_numpy(cams).to(dev),
+            torch.ones(len(cams), dtype=torch.bool, device=dev), origin, vs)
+    whole = carve(*args, shape, hw)
+    slab = (nx, *shape[1:])
+    k = carve(*args, slab, hw, x_start=x_start)
+    assert torch.equal(k, carve_plain(*args, slab, hw, x_start=x_start))
+    assert torch.equal(k, whole[x_start:x_start + nx])
+
+
+def test_carve_sharded_two_ranks_share_the_card(dev):
+    """parallel.carving's view-sharded and grid-sharded carves with 2 ranks
+    on the one card over gloo: bit-equal to K1 on one device; the ranks'
+    K1 launches are merged into the controller's counts."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops.carving import carve
+    from plant3dvision_tpu_torch.parallel.carving import (carve_grid_sharded,
+                                                          carve_sharded)
+    from plant3dvision_tpu_torch.parallel.mesh import make_mesh
+    rng = np.random.default_rng(2)
+    packed, cams, hw = _scene(rng)
+    valid = np.ones(len(cams), bool)
+    valid[5] = False
+    shape, vs = (40, 37, 45), 0.5
+    origin = -(np.array(shape) - 1) * vs / 2
+    one = carve(torch.from_numpy(packed).to(dev),
+                torch.from_numpy(cams).to(dev), torch.from_numpy(valid).to(dev),
+                origin, vs, shape, hw)
+    with make_mesh({"dp": 2}, device="cuda", backend="gloo",
+                   timeout_s=120) as mesh:
+        kernels.reset_launches()
+        v = carve_sharded(packed, cams, valid, origin, vs, shape, mesh, hw=hw)
+        assert kernels.LAUNCHES["carve"] == 2
+        g = carve_grid_sharded(packed, cams, valid, origin, vs, shape, mesh,
+                               hw=hw)
+    assert v.device.type == "cuda" and torch.equal(v, one)
+    assert torch.equal(g, one)
+
+
 def _carve_case(rng, case):
     """(packed, cams, valid, origin, vs, shape, hw) of a K1 case, on the
     CPU (see test_carve_kernel_matches_plain_cases)."""

@@ -683,6 +683,31 @@ def test_generate_ml_scan_bit_equal(temp_db):
     _assert_same_scans(got, want)
 
 
+def test_generate_photo_scan_threads_equal_the_jax_scan(temp_db):
+    """More views than the renderer keeps in flight (2 x its threads): the
+    port's threaded render writes the JAX package's sequential scan,
+    image for image."""
+    from plant3dvision_tpu.synth_photo import (
+        ProceduralArabidopsis as JaxPlant)
+    from plant3dvision_tpu.synth_photo import (
+        generate_photo_scan as jax_generate)
+    from plant3dvision_tpu_torch.fsdb.testing import TemporaryDB
+    from plant3dvision_tpu_torch.synth_photo import (ProceduralArabidopsis,
+                                                     generate_photo_scan)
+    kw = dict(n_views=19, width=40, height=32, density=20.0)
+    jfs, _ = _scan_contents(jax_generate(temp_db, "s", plant=JaxPlant(seed=2),
+                                         **kw), jio.read_image)
+    with TemporaryDB() as db:
+        pfs, _ = _scan_contents(generate_photo_scan(
+            db, "s", plant=ProceduralArabidopsis(seed=2), **kw),
+            io.read_image)
+    want, got = jfs["images"][1], pfs["images"][1]
+    assert len(got) == 19 * 6
+    assert [f[:3] for f in got] == [f[:3] for f in want]
+    for (fid, _, _, g), (_, _, _, w) in zip(got, want):
+        np.testing.assert_array_equal(g, w, err_msg=fid)
+
+
 def test_generate_photo_scan_gt_fileset(temp_db):
     """synth_photo.generate_photo_scan's `gt_fileset`: the organs' masks
     written into a fileset of their own equal, file for file, those the

@@ -4,6 +4,7 @@ so it runs where JAX is not installed.
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -120,6 +121,48 @@ print("ok")
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+RANKS_SCRIPT = r"""
+import sys
+
+
+def loaded(rt):
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("jax", "jaxlib", "flax", "sklearn",
+                                         "plant3dvision_tpu"))
+
+
+if __name__ == "__main__":
+    import numpy as np
+    from plant3dvision_tpu_torch.parallel import carve_sharded, make_mesh
+    from plant3dvision_tpu_torch.parallel.carving import average_grid_sharded
+    with make_mesh({"dp": 2}, device="cpu", timeout_s=120) as mesh:
+        masks = np.zeros((2, 8, 8), np.uint8)
+        cams = np.zeros((2, 16), np.float32)
+        cams[:, 15] = 10.0
+        cams[:, 4] = cams[:, 8] = cams[:, 12] = 1.0
+        carve_sharded(masks, cams, np.ones(2, bool), [0, 0, 0], 1.0,
+                      (2, 2, 2), mesh)
+        average_grid_sharded(masks.astype(np.float32), cams, np.ones(2, bool),
+                             [0, 0, 0], 1.0, (2, 2, 2), mesh)
+        assert mesh.run(loaded, ()) == [[], []], mesh.run(loaded, ())
+    assert loaded(None) == [], loaded(None)
+    print("ok")
+"""
+
+
+def test_spawned_ranks_load_no_jax(tmp_path):
+    """A mesh's ranks (spawned processes, parallel/launch.py) run the
+    sharded carve and averaging without loading jax or anything of
+    plant3dvision_tpu, and neither does their controller."""
+    script = tmp_path / "ranks.py"
+    script.write_text(RANKS_SCRIPT)
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
 

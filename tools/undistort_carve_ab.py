@@ -275,7 +275,7 @@ def variants(tmp):
             calls[name] = call
             continue
         f = so.p3d_carve
-        f.argtypes = [P_, L_, P_, P_] + [I_] * 3 + [F_] * 4 + [I_] * 3 + \
+        f.argtypes = [P_, L_, P_, P_] + [I_] * 3 + [F_] * 4 + [I_] * 4 + \
             [P_, P_]
         for key, (pk, cm, va, o, vs, shape, hw) in k1.items():
             out = torch.empty(shape, dtype=torch.int8, device=dev)
@@ -285,7 +285,7 @@ def variants(tmp):
                 assert f(pk.data_ptr(), pk.shape[1], cm.data_ptr(),
                          va.data_ptr(), pk.shape[0], hw[0], hw[1],
                          float(o[0]), float(o[1]), float(o[2]), float(vs),
-                         *shape, out.data_ptr(), stream) == 0
+                         0, *shape, out.data_ptr(), stream) == 0
                 return out
             call()
             torch.cuda.synchronize()
