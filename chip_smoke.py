@@ -360,6 +360,8 @@ KERNEL_INFO = {
                              "plant3dvision_tpu/models/train_synth.py:288"),
     "adamw": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
               "plant3dvision_tpu/models/train_synth.py:289"),
+    "adamw_tp": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
+                 "plant3dvision_tpu/models/train_synth.py:289"),
     "iou_counts": ("plant3dvision_tpu_torch/kernels/csrc/train.cu",
                    "plant3dvision_tpu/models/train_synth.py:297"),
 }
@@ -5069,9 +5071,15 @@ def run_distill(db, device_name):
 #: "ranks share one card: not a speed-up"
 PAR_RANKS, PAR_SEG_IMAGES, PAR_TRAIN_STEPS, PAR_CURVE_STEPS = 8, 32, 50, 20
 PAR_CHECK_STEPS = 3
+#: the trainer's layouts: every rank on dp, and the JAX package's
+#: best_dp_tp(8), which train_on_crops(use_mesh=True) lays
+PAR_DP, PAR_TP = {"dp": 8}, {"dp": 2, "tp": 4}
+#: train_on_crops at PAR_TP runs on the centres of phase 22's 448 crops:
+#: over gloo a tp step at 448 all-gathers ~1.2 GB into each rank (bf16)
+PAR_TP_CROP = 224
 PAR_NOTE = "ranks share one card: not a speed-up"
 PAR_KERNELS = ("carve", "average", "batch_gather", "weighted_ce",
-               "weighted_ce_backward", "adamw", "iou_counts")
+               "weighted_ce_backward", "adamw", "adamw_tp", "iou_counts")
 
 
 def _timed(fn):
@@ -5105,24 +5113,13 @@ def _par_crops(work):
     return rgb, lab
 
 
-def _par_step_check(mesh, rgb, lab, dev):
-    """PAR_CHECK_STEPS float32 steps of phase 22's ResUNet with the
-    trainer's optimizer (AdamW, the clip by the global norm, weight decay
-    1e-4, lr 1e-3) on the first draws of train_on_crops (K20), through
-    the MeshTrainer that train_on_crops lays over the mesh (every rank on
-    dp, one image a rank), against one device computing the ranks'
-    decomposition itself: each image's backward, x its share of the
-    loss' denominator, summed in rank order, then the one-device K22
-    step. The clip is set to half the first step's gradient norm, so that
-    every step scales the gradient. Returns the losses, the gathered
-    parameters' and both moments' largest differences (0 where the mesh
-    computes the same arithmetic) and their scales."""
+def _par_check_batches(rgb, lab, dev):
+    """The first PAR_CHECK_STEPS draws of train_on_crops (K20) from
+    phase 22's crop set, on the card, and its class weights (CPU)."""
     import numpy as np
     import torch
     from plant3dvision_tpu_torch.models import train_synth as S
-    from plant3dvision_tpu_torch.models.optim import AdamW
     from plant3dvision_tpu_torch.ops import training as T
-    from plant3dvision_tpu_torch.parallel.train import MeshTrainer
 
     n = len(rgb)
     perm = np.random.default_rng(0).permutation(n)
@@ -5137,54 +5134,127 @@ def _par_step_check(mesh, rgb, lab, dev):
         idx, flip, gains = S._draw_batch(gen, len(tr_idx), 8)
         batches.append(T.gather_batch(d_rgb, d_lab, idx, flip,
                                       gains.contiguous()))
-    del d_rgb, d_lab
     w = torch.tensor(S.class_weights(lab, len(S.LABELS))[1],
                      dtype=torch.float32)
-    wd = w.to(dev)
-    dp = mesh.size
-    per = 8 // dp
+    return batches, w
 
-    def make():
-        return S._make_model("resunet", 0, (24, 48, 96, 192), 2,
-                             dtype=torch.float32)
+
+def _par_make():
+    import torch
+    from plant3dvision_tpu_torch.models import train_synth as S
+    return S._make_model("resunet", 0, (24, 48, 96, 192), 2,
+                         dtype=torch.float32)
+
+
+def _par_reference(layout, batches, w, dev, clip=None):
+    """PAR_CHECK_STEPS float32 steps of phase 22's ResUNet with the
+    trainer's optimizer (AdamW, the clip by the global norm, weight decay
+    1e-4, lr 1e-3) on one device computing the decomposition of
+    `layout`'s ranks itself: the convolutions split over tp
+    (parallel/tp.py:decompose: each split conv's Cout slices one after
+    the other, the input's gradients summed in rank order), each dp
+    part's backward x its share of the loss' denominator, summed in rank
+    order, then K22 over the ranks' arena layout (at tp > 1 its tp lane,
+    the chunk sums in the ranks' order). `clip` None: half the first
+    step's gradient norm at this layout, so that every step scales the
+    gradient. Returns the spec, the losses, the one-device layout's state
+    (flattened flax params, optimizer leaves) and a step's conv
+    multiply-adds."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.models import train_synth as S
+    from plant3dvision_tpu_torch.models.checkpoint import _flatten
+    from plant3dvision_tpu_torch.models.optim import AdamW
+    from plant3dvision_tpu_torch.ops import training as T
+    from plant3dvision_tpu_torch.parallel import tp as tpm
+
+    dp, tp = layout.get("dp", 1), layout.get("tp", 1)
+    per = 8 // dp
+    wd = w.to(dev)
+
+    def build(spec):
+        m = _par_make()
+        if tp > 1:
+            m = tpm.decompose(m, tp)
+        m = m.to(dev)
+        kw = dict(regions=tpm.regions(m), gather_sums=lambda p: [p]) \
+            if tp > 1 else {}
+        return m, AdamW(m, **spec, **kw)
 
     def grad_into(one, opt, x, y):
         """The ranks' gradient on one device; the global loss."""
         parts, total = [], None
-        for r in range(dp):
-            h = slice(r * per, (r + 1) * per)
-            opt.zero_grad()
-            lh = T.weighted_cross_entropy(one(x[h]), y[h], wd)
-            lh.backward()
-            share = torch.tensor(1.0 / dp, device=dev)  # equal pixel counts
-            parts.append(opt.grad * share)
-            t = lh.detach() * share
-            total = t if total is None else total + t
+        with tpm.conv_macs(one) as macs:
+            for r in range(dp):
+                h = slice(r * per, (r + 1) * per)
+                opt.zero_grad()
+                lh = T.weighted_cross_entropy(one(x[h]), y[h], wd)
+                lh.backward()
+                share = torch.tensor(1.0 / dp, device=dev)  # equal pixels
+                parts.append(opt.grad * share)
+                t = lh.detach() * share
+                total = t if total is None else total + t
         opt.grad.copy_(parts[0])
         for g in parts[1:]:
             opt.grad.add_(g)
-        return float(total)
+        return float(total), macs
 
     with S.deterministic_backward():
-        probe = make().to(dev)
-        popt = AdamW(probe, 0.0)
-        grad_into(probe, popt, *batches[0])
-        clip = float(torch.sqrt((popt.grad * popt.grad).sum())) / 2
-        del probe, popt
+        if clip is None:
+            probe, popt = build({"lr": 0.0})
+            grad_into(probe, popt, *batches[0])
+            clip = float(torch.sqrt((popt.grad * popt.grad).sum())) / 2
+            del probe, popt
         spec = {"lr": 1e-3, "clip": clip, "weight_decay": 1e-4}
-        one = make().to(dev)
-        opt = AdamW(one, **spec)
-        want_loss = []
+        one, opt = build(spec)
+        losses = []
         for x, y in batches:
-            want_loss.append(grad_into(one, opt, x, y))
+            loss, macs = grad_into(one, opt, x, y)
             opt.step()
-        want_leaves = opt.state_leaves()
-    tr = MeshTrainer(mesh, make(), spec, weights=w)
-    got_loss = [tr.step(x.cpu(), y.cpu()) for x, y in batches]
-    _, got_leaves = tr.state()
-    mesh_model = tr.params_into(make())
+            losses.append(loss)
+    if tp > 1:
+        params, leaves = tpm.decomposed_state(one, opt)
+    else:
+        from plant3dvision_tpu_torch.models.checkpoint import flax_params
+        params, leaves = flax_params(one), opt.state_leaves()
+    n_params = sum(int(np.prod(np.shape(v)))
+                   for v in _flatten(params).values())
+    del one, opt
+    torch.cuda.empty_cache()
+    return {"spec": spec, "loss": losses, "params": _flatten(params),
+            "leaves": leaves, "conv_macs": dict(macs),
+            "n_params": n_params}
+
+
+def _par_mesh_steps(mesh, layout, spec, batches, w):
+    """The same steps through the MeshTrainer that train_on_crops lays
+    over `layout` (a view of `mesh`): losses, seconds a step, the state in
+    the one-device layout (the tp slices gathered) and each rank's share
+    (`MeshTrainer.rank_stats`)."""
+    from plant3dvision_tpu_torch.models.checkpoint import _flatten
+    from plant3dvision_tpu_torch.parallel.train import MeshTrainer
+
+    tr = MeshTrainer(mesh.view(layout), _par_make(), spec, weights=w)
+    losses, secs = [], []
+    for x, y in batches:
+        loss, s = _timed(lambda: tr.step(x.cpu(), y.cpu()))
+        losses.append(loss)
+        secs.append(s)
+    params, leaves = tr.state()
+    stats = tr.rank_stats()
     tr.close()
-    k = len(list(one.parameters()))
+    return {"loss": losses, "step_s": secs, "params": _flatten(params),
+            "leaves": leaves, "ranks": stats}
+
+
+def _par_compare(layout, ref, got):
+    """The mesh's steps against one device's decomposition: the losses,
+    the parameters' and both moments' largest differences (0 where the
+    mesh computes the same arithmetic) and their scales, and each rank's
+    share against one device's (parameters, conv multiply-adds a step,
+    bytes all-gathered into a rank)."""
+    import numpy as np
+    k = len(ref["params"])
 
     def diff(a, b):
         return float(max(np.abs(np.asarray(p) - np.asarray(q)).max()
@@ -5192,23 +5262,131 @@ def _par_step_check(mesh, rgb, lab, dev):
 
     def scale(a):
         return float(max(np.abs(np.asarray(p)).max() for p in a))
-    params_want = [p.detach().cpu().numpy() for p in one.parameters()]
-    params_got = [p.detach().numpy() for p in mesh_model.parameters()]
-    return {"steps": PAR_CHECK_STEPS, "ranks": dp, "images_a_rank": per,
-            "spec": spec, "first_grad_norm": 2 * clip,
-            "loss_one_device": want_loss, "loss_mesh": got_loss,
-            "loss_max_abs_diff": float(np.abs(np.subtract(
-                got_loss, want_loss)).max()),
-            "params_max_abs_diff": diff(params_got, params_want),
-            "params_scale": scale(params_want),
-            "mu_max_abs_diff": diff(got_leaves[1:1 + k],
-                                    want_leaves[1:1 + k]),
-            "mu_scale": scale(want_leaves[1:1 + k]),
-            "nu_max_abs_diff": diff(got_leaves[1 + k:1 + 2 * k],
-                                    want_leaves[1 + k:1 + 2 * k]),
-            "nu_scale": scale(want_leaves[1 + k:1 + 2 * k]),
-            "count_equal": int(got_leaves[0]) == int(want_leaves[0])
-            == PAR_CHECK_STEPS}
+    pw, pg = ref["params"], got["params"]
+    lw, lg = ref["leaves"], got["leaves"]
+    r0 = got["ranks"][0]
+    return {
+        "layout": layout, "steps": PAR_CHECK_STEPS,
+        "images_a_rank": 8 // layout.get("dp", 1), "spec": ref["spec"],
+        "first_grad_norm": 2 * ref["spec"]["clip"],
+        "loss_one_device": ref["loss"], "loss_mesh": got["loss"],
+        "step_s": got["step_s"], "note": PAR_NOTE,
+        "loss_max_abs_diff": float(np.abs(np.subtract(
+            got["loss"], ref["loss"])).max()),
+        "same_leaves": list(pg) == list(pw) and len(lg) == len(lw),
+        "params_max_abs_diff": diff([pg[n] for n in pw], pw.values()),
+        "params_scale": scale(pw.values()),
+        "mu_max_abs_diff": diff(lg[1:1 + k], lw[1:1 + k]),
+        "mu_scale": scale(lw[1:1 + k]),
+        "nu_max_abs_diff": diff(lg[1 + k:1 + 2 * k], lw[1 + k:1 + 2 * k]),
+        "nu_scale": scale(lw[1 + k:1 + 2 * k]),
+        "count_equal": int(lg[0]) == int(lw[0]) == PAR_CHECK_STEPS,
+        "params_one_device": ref["n_params"],
+        "params_a_rank": [r["params"] for r in got["ranks"]],
+        "arena_a_rank": [r["arena"] for r in got["ranks"]],
+        "conv_macs_a_step_one_device": ref["conv_macs"],
+        "conv_macs_a_step_rank_0": r0["conv_macs"],
+        "conv_macs_equal_on_every_rank": all(
+            r["conv_macs"] == r0["conv_macs"] for r in got["ranks"]),
+        "gathered_bytes_a_step_rank_0": r0["gathered_bytes"]}
+
+
+def _par_exact(c):
+    return (c["same_leaves"] and c["loss_max_abs_diff"] == 0
+            and c["params_max_abs_diff"] == 0 and c["mu_max_abs_diff"] == 0
+            and c["nu_max_abs_diff"] == 0 and c["count_equal"])
+
+
+def par_k22_tp_row(launches, tp=4):
+    """K22's tp lane at the shapes the ranks of phase 25's dp 2 x tp 4
+    layout give it: a rank's arena of phase 22's ResUNet (the replicated
+    parameters, then its Cout rows of the split kernels, each region
+    padded to K22's chunk, the padding 0), the replicated gradient equal
+    on the 4 ranks and their slices their own. Each rank's first launch
+    (the chunk sums) against the plain version; the sums gathered as the
+    trainer gathers them (rank 0's replicated chunks, then each rank's
+    slice chunks); rank 0's two launches with them against the plain
+    version on the same inputs."""
+    import numpy as np
+    import torch
+    from plant3dvision_tpu_torch.ops import training as T
+    from plant3dvision_tpu_torch.parallel import tp as tpm
+
+    dev = torch.device("cuda")
+    m = _par_make()
+    tpm.shard(m, tpm.ColumnParallel(0, tp, None))
+    rep, mine = (sum(p.numel() for p in r) for r in tpm.regions(m))
+    C = T.ADAMW_CHUNK
+    pad = lambda k: -(-k // C) * C                   # noqa: E731
+    n, rc = pad(rep) + pad(mine), pad(rep) // C
+    live = torch.zeros(n, dtype=torch.bool, device=dev)
+    live[:rep] = True
+    live[pad(rep):pad(rep) + mine] = True
+    gg = torch.Generator(device=dev).manual_seed(8)
+
+    def rand(scale, fn=torch.randn):
+        return torch.where(live, scale * fn(n, generator=gg, device=dev),
+                           0.0)
+    shared = [rand(0.1), rand(0.01), rand(1e-3), rand(1e-6, torch.rand)]
+    ranks = []
+    for t in range(tp):
+        a = [rand(0.1), rand(0.01), rand(1e-3), rand(1e-6, torch.rand)]
+        ranks.append([torch.where(torch.arange(n, device=dev) < pad(rep),
+                                  s, x) for s, x in zip(shared, a)])
+    sc = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, wd=1e-4,
+              max_norm=1.0)
+    per_step = dict(bc1=np.float32(0.1), bc2=np.float32(1e-3),
+                    neg_lr=-np.float32(3e-3))
+    sums, part_err = [], 0.0
+    for r in ranks:
+        got = {}
+
+        def record(part, got=got):
+            got["part"] = part.clone()
+            return part
+        T.adamw_launcher(*[t.clone() for t in r], clip=True, tp_sums=record,
+                         **sc)(**per_step)
+        want = T.adamw_partials_plain(r[1])
+        part_err = max(part_err, float((got["part"] - want).abs().max()))
+        sums.append(got["part"])
+    gathered = torch.cat([sums[0][:rc]] + [s[rc:] for s in sums])
+    norm = T.adamw_norm_plain(gathered)
+    a = [t.clone() for t in ranks[0]]
+    b = [t.clone() for t in ranks[0]]
+    T.adamw_launcher(*a, clip=True, tp_sums=lambda part: gathered,
+                     **sc)(**per_step)
+    T.adamw_update_plain(*b, clip=True, gnorm=norm, **sc, **per_step)
+    err = max(float((u - v).abs().max()) for u, v in zip(a, b))
+    assert part_err == 0.0 and err <= 1e-6, \
+        f"K22's tp lane != plain: sums {part_err}, update {err}"
+    bound = T.adamw_launcher(*[t.clone() for t in ranks[0]], clip=True,
+                             tp_sums=lambda part: gathered, **sc)
+
+    def k22tp():
+        bound(**per_step)
+    plain_arena = [t.clone() for t in ranks[0]]
+
+    def plain():
+        T.adamw_partials_plain(plain_arena[1])
+        T.adamw_update_plain(*plain_arena, clip=True,
+                             gnorm=T.adamw_norm_plain(gathered), **sc,
+                             **per_step)
+    by, kms = train_device_ms(k22tp, True)
+    m_sums = gathered.numel()
+    return kernel_row(
+        "adamw_tp", launches["adamw_tp"], err, cuda_ms(k22tp),
+        cuda_ms(plain), n * 32 + (n // C + m_sums) * 4, n * 24,
+        kernel_ms=kms,
+        extra={"path": "parallel", "tp": tp, "rank_arena": n,
+               "replicated": rep, "slices": mine, "gathered_sums": m_sums,
+               "gradient_norm": float(norm),
+               "mode": "tp lane: the chunk sums, then the clipped update "
+                       "with the gathered sums' norm",
+               "max_abs_err_chunk_sums": part_err,
+               "launches_a_step": launches_a_call(
+                   k22tp, ("adamw_tp",))["adamw_tp"],
+               "library": "none (no one call clips by a norm it is given)",
+               "device_ms_by_kernel": by, "note": "gathers not timed"})
 
 
 def run_parallel(db, work, sep_scan, sep_report, device_name):
@@ -5219,12 +5397,17 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
     on one slab; the x-slab averaging volume at 4 ranks on phase 7's fruit
     masks bit-equal to one device's K5-avg; dp serving at 2 ranks on 32 of
     phase 5's images equal to one device; train_on_crops(use_mesh=True)
-    at 8 ranks (dp 8) at phase 22's width for 2 chunks against the
+    on best_dp_tp(8) (dp 2 x tp 4, the convolutions split over tp) at
+    phase 22's width on PAR_TP_CROP crops for 2 chunks against the
     one-device run, and a resume from chunk 0 bit-identical; the
-    trainer's clipped float32 steps against one device
-    (`_par_step_check`); then tools/evaluate_model on phase 5's scan. The launch counts are set to 0
-    just before the sharded programs and read just after (the ranks'
-    launches, merged into the controller's counts)."""
+    trainer's clipped float32 steps at dp 8 and at dp 2 x tp 4 against
+    one device computing the ranks' decomposition (`_par_reference`),
+    with each rank's parameters, conv multiply-adds and gathered bytes;
+    K22's tp lane against its plain version; then tools/evaluate_model
+    on phase 5's scan. The one-device references run first; the launch
+    counts are set to 0 just before the sharded programs and read just
+    after (the ranks' launches, merged into the controller's
+    counts)."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5240,7 +5423,7 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
     from plant3dvision_tpu_torch.parallel.carving import (
         average_grid_sharded, carve_2d_sharded, carve_grid_sharded,
         carve_sharded)
-    from plant3dvision_tpu_torch.parallel.mesh import make_mesh
+    from plant3dvision_tpu_torch.parallel.mesh import best_dp_tp, make_mesh
     from plant3dvision_tpu_torch.runtime.config import dump_toml
 
     dev = torch.device("cuda")
@@ -5292,6 +5475,15 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
     seg_route = segmentation_inference(seg_model, imgs, batch_size=ML_BATCH,
                                        data_parallel=False, device=dev)
     rgb, lab = _par_crops(work)
+    batches, cw = _par_check_batches(rgb, lab, dev)
+    ref_dp = _par_reference(PAR_DP, batches, cw, dev)
+    ref_tp = _par_reference(PAR_TP, batches, cw, dev,
+                            clip=ref_dp["spec"]["clip"])
+    lo = (rgb.shape[1] - PAR_TP_CROP) // 2
+    rgb = np.ascontiguousarray(rgb[:, lo:lo + PAR_TP_CROP,
+                                   lo:lo + PAR_TP_CROP])
+    lab = np.ascontiguousarray(lab[:, lo:lo + PAR_TP_CROP,
+                                   lo:lo + PAR_TP_CROP])
     # per-step losses of chunk 0 (reported: the dp split's other summation
     # order, amplified by Adam, moves them past the JAX test's bar within
     # a few steps at this width, in float32 too, run 22.3)
@@ -5327,17 +5519,22 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
         seg_model, imgs, batch_size=ML_BATCH, data_parallel=True, device=dev,
         mesh=mesh.view({"dp": 2})))
     states = {}
+    tmesh = mesh.view(best_dp_tp(PAR_RANKS))
     (full, _, h8), train8_s = _timed(lambda: S.train_on_crops(
         rgb, lab, steps=PAR_TRAIN_STEPS, device="cuda", use_mesh=True,
-        mesh=mesh, checkpoint_every_chunks=1,
+        mesh=tmesh, checkpoint_every_chunks=1,
         on_checkpoint=lambda b, ch: states.setdefault(ch, b),
         on_chunk=curve("bf16_mesh")))
+    got_dp = _par_mesh_steps(mesh, PAR_DP, ref_dp["spec"], batches, cw)
+    got_tp = _par_mesh_steps(mesh, PAR_TP, ref_tp["spec"], batches, cw)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    step_check = _par_step_check(mesh, rgb, lab, dev)
+    del batches
+    check_dp = _par_compare(PAR_DP, ref_dp, got_dp)
+    check_tp = _par_compare(PAR_TP, ref_tp, got_tp)
     (res, _, hr), resume_s = _timed(lambda: S.train_on_crops(
         rgb, lab, steps=PAR_TRAIN_STEPS, device="cuda", use_mesh=True,
-        mesh=mesh, resume_state=states[0]))
+        mesh=tmesh, resume_state=states[0]))
     resume_equal = ([x["loss"] for x in hr] == [x["loss"] for x in h8]
                     and all(torch.equal(a, b) for a, b in
                             zip(full.parameters(), res.parameters())))
@@ -5375,6 +5572,7 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
                "views": V, "slab_equals_grid_rows": bool(torch.equal(
                    ks, one[xs:xs + sx]))}))
     del plain
+    rows.append(par_k22_tp_row(launches))
 
     # tools/evaluate_model on phase 5's scan (phase 7's Segmentation2D)
     from plant3dvision_tpu_torch.tools.evaluate_model import main as evaluate
@@ -5404,14 +5602,16 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
                          "u8_max_abs_diff_from_batch_32_one_device": int(
                              (seg2.int() - seg_route.int()).abs().max()),
                          "one_device_s": seg_one_s, "dp_2_s": seg2_s},
-        "train_on_crops": {"mesh": {"dp": PAR_RANKS}, "width":
-                           [24, 48, 96, 192], "blocks": 2, "crop": 448,
-                           "batch": 8, "steps": PAR_TRAIN_STEPS,
+        "train_on_crops": {"mesh": tmesh.shape, "width":
+                           [24, 48, 96, 192], "blocks": 2,
+                           "crop": PAR_TP_CROP, "batch": 8,
+                           "steps": PAR_TRAIN_STEPS,
                            "one_device_s": train_one_s, "mesh_s": train8_s,
                            "resume_s": resume_s,
                            "curve_steps": PAR_CURVE_STEPS,
                            "curve_within_rtol_1e-3_atol_1e-4": curve_ok,
-                           "f32_steps_against_one_device": step_check,
+                           "f32_steps_against_one_device": {
+                               "dp": check_dp, "dp_tp": check_tp},
                            "bf16_step_losses_one_device":
                                c["bf16_one"].tolist(),
                            "bf16_step_losses_mesh": c["bf16_mesh"].tolist(),
@@ -5441,14 +5641,20 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
         "sharded averaging bit-equal": bool(torch.equal(avg4, avg_one)),
         "dp serving equals one device (uint8, element for element)": bool(
             torch.equal(seg2, seg_one)),
-        "trainer's clipped float32 steps at 8 ranks: losses, parameters "
+        "trainer's clipped float32 steps at dp 8: losses, parameters "
         "and both moments bit-equal to one device's decomposition":
-            step_check["loss_max_abs_diff"] == 0
-            and step_check["params_max_abs_diff"] == 0
-            and step_check["mu_max_abs_diff"] == 0
-            and step_check["nu_max_abs_diff"] == 0
-            and step_check["count_equal"],
-        "2-chunk resume at 8 ranks bit-identical": resume_equal,
+            _par_exact(check_dp),
+        "trainer's clipped float32 steps at dp 2 x tp 4: losses, "
+        "parameters and both moments bit-equal to one device's "
+        "decomposition": _par_exact(check_tp),
+        "each tp rank holds and computes its share": all(
+            p < check_tp["params_one_device"]
+            for p in check_tp["params_a_rank"])
+            and check_tp["conv_macs_equal_on_every_rank"]
+            and check_tp["conv_macs_a_step_rank_0"]["forward"] * PAR_RANKS
+            < 1.1 * check_tp["conv_macs_a_step_one_device"]["forward"],
+        "train_on_crops laid dp 2 x tp 4": tmesh.shape == PAR_TP,
+        "2-chunk resume at dp 2 x tp 4 bit-identical": resume_equal,
         # a label without ground-truth masks (flower) scores None
         "evaluate_model scored the scan": len(ev) >= 1 and all(
             np.isfinite(float(r["precision"])) for s in ev.values()

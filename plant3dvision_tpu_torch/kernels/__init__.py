@@ -61,6 +61,7 @@ SOURCES = {
     "weighted_ce": "train.cu",
     "weighted_ce_backward": "train.cu",
     "adamw": "train.cu",
+    "adamw_tp": "train.cu",
     "iou_counts": "train.cu",
 }
 
@@ -181,6 +182,12 @@ _ARGTYPES = {
     # eps_root, wd, neg_lr, max_norm, stream
     "p3d_adamw": [_P, _P, _P, _P, _L, _P, _I, _F, _F, _F, _F, _F, _F, _F,
                   _F, _F, _F, _F, _P],
+    # K22's tp lane: g, n, part, stream (the chunk sums), then p, g, mu,
+    # nu, n, sums, n_sums, b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd,
+    # neg_lr, max_norm, stream (the update with the norm of `sums`)
+    "p3d_adamw_tp_partials": [_P, _L, _P, _P],
+    "p3d_adamw_tp_update": [_P, _P, _P, _P, _L, _P, _I, _F, _F, _F, _F, _F,
+                            _F, _F, _F, _F, _F, _F, _P],
     # logits (or null), preds (or null), labels, C, HW, n, ignore, counts,
     # stream
     "p3d_iou_counts": [_P, _P, _P, _I, _L, _L, _I, _P, _P],

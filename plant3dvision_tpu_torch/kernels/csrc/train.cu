@@ -1,6 +1,7 @@
 // The training kernels: K20 batch gather, K21 weighted cross-entropy (the
 // loss and its gradient in one pass, and the general backward), K22
-// clipped AdamW in one launch, K23 IoU counts.
+// clipped AdamW in one launch (two and a gather on a rank of a tp group),
+// K23 IoU counts.
 //
 // They replace the jitted training programs of the JAX package
 // (ROADMAP Queue B, Q22), which XLA fused on the TPU:
@@ -399,7 +400,10 @@ __global__ void ce_backward_kernel(const float* __restrict__ logits,
 // each block updates its chunks, 16 bytes a load and a store where every
 // arena is 16-byte aligned (else, and in the last, partial chunk, one
 // element at a time), g read again from L2. Without the clip the same
-// kernel skips the sums and the barrier, and is launched normally.
+// kernel skips the sums and the barrier, and is launched normally. A rank
+// of a tp group runs the two halves as two launches with the tp group's
+// sums gathered between them (AdamMode), which equals the cooperative
+// launch over the tp ranks' arenas laid end to end.
 struct AdamScalars {
   float b1, b2, omb1, omb2;     // decays and f32(1 - decay)
   float bc1, bc2;               // 1 - b^count, computed by the caller
@@ -430,18 +434,26 @@ __device__ __forceinline__ void adam_element(float& p, float g, float& mu,
   nu = v;
 }
 
+// The kernel's modes. kNoClip and kClip are the one-device step (kClip a
+// cooperative launch); the tp lane (a rank of a tp group holds part of
+// the parameters) is kPartials, which writes the chunk sums and stops,
+// then kClipGiven, which takes the norm of the n_part sums in `part` (the
+// tp group's, gathered between the two launches in the norm's order) and
+// updates: kClip's two halves without its grid barrier.
+enum AdamMode { kNoClip = 0, kClip = 1, kPartials = 2, kClipGiven = 3 };
+
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
                  float* __restrict__ mu, float* __restrict__ nu, long long n,
-                 float* part, int clip, AdamScalars a) {
+                 float* part, int n_part, int mode, AdamScalars a) {
   __shared__ float s[kThreads];
   const long long chunks = (n + kChunk - 1) / kChunk;
   const long long c0 = chunks * blockIdx.x / gridDim.x;
   const long long c1 = chunks * (blockIdx.x + 1) / gridDim.x;
   bool clipped = false;
   float gnorm = 0.0f;
-  if (clip) {
+  if (mode == kClip || mode == kPartials) {
     for (long long c = c0; c < c1; ++c) {
       const long long base = c * kChunk + threadIdx.x;
       float v[kRun];
@@ -459,8 +471,11 @@ __global__ void __launch_bounds__(kThreads)
       block_tree_sum(s);
       if (threadIdx.x == 0) part[c] = s[0];
     }
+    if (mode == kPartials) return;
     cg::this_grid().sync();
-    gnorm = __fsqrt_rn(sum_partials(part, (int)chunks, s));
+  }
+  if (mode != kNoClip) {
+    gnorm = __fsqrt_rn(sum_partials(part, n_part, s));
     clipped = !(gnorm < a.max_norm);
   }
   for (long long c = c0; c < c1; ++c) {
@@ -704,20 +719,13 @@ extern "C" int p3d_adamw_partials(long long n) {
   return grid_for(n, kChunk, 0);
 }
 
-// K22. Arenas p, g, mu, nu of n f32 each; part p3d_adamw_partials(n)
-// floats (clip mode; else unused, may be null); clip = 1: the cooperative
-// launch with the norm, 0: a plain launch without it. One launch either
-// way; a cooperative launch the card refuses returns its error. Scalars
-// as AdamScalars, in its order.
-extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
-                         long long n, void* part, int clip, float b1,
-                         float b2, float omb1, float omb2, float bc1,
-                         float bc2, float eps, float eps_root, float wd,
-                         float neg_lr, float max_norm, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
+namespace {
+
+// One K22 launch in `mode` (cooperative for kClip); 0 or the CUDA error.
+int launch_adamw(void* p, const void* g, void* mu, void* nu, long long n,
+                 void* part, int n_part, int mode, const AdamScalars& a,
+                 cudaStream_t st) {
   if (n == 0) return 0;
-  AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
-                max_norm};
   const bool vec = aligned16(p) && aligned16(g) && aligned16(mu) &&
                    aligned16(nu);
   const long long chunks = grid_for(n, kChunk, 0);
@@ -730,21 +738,68 @@ extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
   float* pm = (float*)mu;
   float* pv = (float*)nu;
   float* ppart = (float*)part;
-  if (!clip) {
+  AdamScalars sa = a;
+  if (mode != kClip) {
     if (vec)
       adamw_kernel<true><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
-                                                      ppart, 0, a);
+                                                      ppart, n_part, mode, sa);
     else
       adamw_kernel<false><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
-                                                       ppart, 0, a);
+                                                       ppart, n_part, mode,
+                                                       sa);
     return (int)cudaGetLastError();
   }
-  void* args[] = {(void*)&pp, (void*)&pg, (void*)&pm, (void*)&pv,
-                  (void*)&n,  (void*)&ppart, (void*)&clip, (void*)&a};
+  void* args[] = {(void*)&pp,    (void*)&pg,     (void*)&pm,   (void*)&pv,
+                  (void*)&n,     (void*)&ppart,  (void*)&n_part,
+                  (void*)&mode,  (void*)&sa};
   err = cudaLaunchCooperativeKernel(
       vec ? (const void*)adamw_kernel<true> : (const void*)adamw_kernel<false>,
       dim3(blocks), dim3(kThreads), args, 0, st);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// K22. Arenas p, g, mu, nu of n f32 each; part p3d_adamw_partials(n)
+// floats (clip mode; else unused, may be null); clip = 1: the cooperative
+// launch with the norm, 0: a plain launch without it. One launch either
+// way; a cooperative launch the card refuses returns its error. Scalars
+// as AdamScalars, in its order.
+extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
+                         long long n, void* part, int clip, float b1,
+                         float b2, float omb1, float omb2, float bc1,
+                         float bc2, float eps, float eps_root, float wd,
+                         float neg_lr, float max_norm, void* stream) {
+  AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
+                max_norm};
+  return launch_adamw(p, g, mu, nu, n, part, (int)grid_for(n, kChunk, 0),
+                      clip ? kClip : kNoClip, a, (cudaStream_t)stream);
+}
+
+// K22's tp lane, first launch: part[c] = the sum of g^2 over chunk c of
+// the arena (p3d_adamw_partials(n) floats), in the cooperative launch's
+// order.
+extern "C" int p3d_adamw_tp_partials(const void* g, long long n, void* part,
+                                     void* stream) {
+  AdamScalars a{};
+  return launch_adamw(nullptr, g, nullptr, nullptr, n, part, 0, kPartials,
+                      a, (cudaStream_t)stream);
+}
+
+// K22's tp lane, second launch: the clipped update of the arenas with
+// g_norm = sqrt of the n_sums chunk sums in `sums` (the whole gradient's,
+// in the norm's order), added as the cooperative launch adds its own.
+extern "C" int p3d_adamw_tp_update(void* p, const void* g, void* mu,
+                                   void* nu, long long n, const void* sums,
+                                   int n_sums, float b1, float b2,
+                                   float omb1, float omb2, float bc1,
+                                   float bc2, float eps, float eps_root,
+                                   float wd, float neg_lr, float max_norm,
+                                   void* stream) {
+  AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
+                max_norm};
+  return launch_adamw(p, g, mu, nu, n, (void*)sums, n_sums, kClipGiven, a,
+                      (cudaStream_t)stream);
 }
 
 // K23. logits (B, C, HW) f32 or null, preds (B, HW) u8 (when logits is

@@ -14,10 +14,11 @@ that plant3dvision_tpu/models/train.py and train_synth.py use (optax
   gradients as views of a second (autograd accumulates into existing
   gradients in place), with the moments in two more; the step is K22
   (ops/training.py:adamw_launcher, bound to the arenas once), one launch
-  for the norm and the update. The per-step scalars (the learning rate at
-  the schedule's count, the bias corrections 1 - b^count) are float32
-  numbers computed here on the host, which knows the counts, so a step
-  needs no host read.
+  for the norm and the update (two and a gather of the norm's chunk sums
+  on a rank of a tp group, `regions`). The per-step scalars (the learning
+  rate at the schedule's count, the bias corrections 1 - b^count) are
+  float32 numbers computed here on the host, which knows the counts, so a
+  step needs no host read.
 - `state_leaves` / `load_state_leaves`: the optimizer state as optax's
   leaves in their order (the Adam count, the first moments, the second
   moments in flax's sorted parameter order, then the schedule's count
@@ -32,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from ..ops.training import adamw_launcher
+from ..ops.training import ADAMW_CHUNK, adamw_launcher
 
 _f32 = np.float32
 
@@ -72,44 +73,92 @@ def flax_leaf_order(model):
     return sorted(range(len(paths)), key=lambda i: paths[i])
 
 
+def optax_leaves(model, opt, mu, nu):
+    """optax's state leaves of an AdamW `opt` over `model` whose moments
+    are `mu` and `nu` (tensors in the order of model.parameters()): the
+    Adam count, the first moments, the second moments in flax's sorted
+    parameter order, then the schedule's count where there is one (numpy,
+    flax layout)."""
+    order = flax_leaf_order(model)
+    leaves = [np.asarray(opt.count, np.int32)]
+    leaves += [_port_to_flax(mu[i]) for i in order]
+    leaves += [_port_to_flax(nu[i]) for i in order]
+    if callable(opt.lr):
+        leaves.append(np.asarray(opt.sched_count, np.int32))
+    return leaves
+
+
 class AdamW:
     """optax.adamw (optionally after clip_by_global_norm) over `model`'s
     parameters, which must already be on their device; `lr` is a float or
     a schedule (count -> float32), `clip` the global-norm threshold or
-    None."""
+    None.
+
+    A rank of a tp group (parallel/train.py) gives `regions`, its
+    parameters in arena order as lists that each start on a multiple of
+    K22's chunk (parallel/tp.py:regions: the replicated parameters, then
+    its slices of the split weights), and `gather_sums`, which takes this
+    arena's chunk sums of g^2 and returns every tp rank's, in rank order:
+    the clip's norm is then the whole model's, the replicated chunks
+    counted once (those of rank 0) and the ranks' slices in rank order,
+    and the step is K22's tp lane (ops/training.py:adamw_launcher)."""
 
     def __init__(self, model, lr, clip=None, b1=0.9, b2=0.999, eps=1e-8,
-                 eps_root=0.0, weight_decay=1e-4):
+                 eps_root=0.0, weight_decay=1e-4, regions=None,
+                 gather_sums=None):
         self.model = model
         self.params = list(model.parameters())
         self.lr, self.clip = lr, clip
         self.b1, self.b2 = _f32(b1), _f32(b2)
         dev = self.params[0].device
-        n = sum(p.numel() for p in self.params)
-        self.arena = torch.empty(n, dtype=torch.float32, device=dev)
-        self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.mu = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.offsets = []
-        off = 0
-        with torch.no_grad():
-            for p in self.params:
+        layout = [self.params] if regions is None else regions
+        if {id(p) for r in layout for p in r} != {id(p) for p in self.params}:
+            raise ValueError("the regions must hold the model's parameters")
+        pad = (lambda k: k) if regions is None else \
+            (lambda k: -(-k // ADAMW_CHUNK) * ADAMW_CHUNK)
+        self._off, off, bounds = {}, 0, []
+        for region in layout:
+            off = pad(off)
+            bounds.append(off)
+            for p in region:
                 if p.dtype != torch.float32 or p.device != dev:
                     raise ValueError("AdamW takes float32 parameters on one "
                                      "device")
-                k = p.numel()
+                self._off[id(p)] = off
+                off += p.numel()
+        n = pad(off)
+        #: chunks of the first region (the replicated one on a tp rank)
+        self.rep_chunks = (bounds[1] if len(bounds) > 1 else n) // ADAMW_CHUNK
+        self.arena = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.mu = torch.zeros(n, dtype=torch.float32, device=dev)
+        self.nu = torch.zeros(n, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            for p in self.params:
+                off, k = self._off[id(p)], p.numel()
                 self.arena[off:off + k].copy_(p.reshape(-1))
                 p.data = self.arena[off:off + k].view_as(p)
                 p.grad = self.grad[off:off + k].view_as(p)
-                self.offsets.append(off)
-                off += k
         #: optax's counts: scale_by_adam's and scale_by_schedule's
         self.count = 0
         self.sched_count = 0
+        tp_sums = None
+        if gather_sums is not None and clip is not None:
+            r = self.rep_chunks
+
+            def tp_sums(part):
+                parts = gather_sums(part)
+                return torch.cat([parts[0][:r]] + [q[r:] for q in parts])
         self._step = adamw_launcher(
             self.arena, self.grad, self.mu, self.nu, clip=clip is not None,
             b1=b1, b2=b2, eps=eps, eps_root=eps_root, wd=weight_decay,
-            max_norm=1.0 if clip is None else clip)
+            max_norm=1.0 if clip is None else clip, tp_sums=tp_sums)
+
+    def view(self, arena, p):
+        """Parameter `p`'s elements of one of the arenas (arena, grad, mu,
+        nu), in p's shape."""
+        off = self._off[id(p)]
+        return arena[off:off + p.numel()].view_as(p)
 
     def zero_grad(self):
         self.grad.zero_()
@@ -125,21 +174,11 @@ class AdamW:
         if callable(self.lr):
             self.sched_count += 1
 
-    def _moment_leaves(self, arena):
-        out = []
-        for i in flax_leaf_order(self.model):
-            p, off = self.params[i], self.offsets[i]
-            out.append(_port_to_flax(arena[off:off + p.numel()].view_as(p)))
-        return out
-
     def state_leaves(self):
         """optax's state leaves in their order (numpy, flax layout)."""
-        leaves = [np.asarray(self.count, np.int32)]
-        leaves += self._moment_leaves(self.mu)
-        leaves += self._moment_leaves(self.nu)
-        if callable(self.lr):
-            leaves.append(np.asarray(self.sched_count, np.int32))
-        return leaves
+        return optax_leaves(self.model, self,
+                            [self.view(self.mu, p) for p in self.params],
+                            [self.view(self.nu, p) for p in self.params])
 
     def load_state_leaves(self, leaves):
         """Restore the state from `state_leaves`' layout (a JAX-written
@@ -153,10 +192,9 @@ class AdamW:
         with torch.no_grad():
             for arena, base in ((self.mu, 1), (self.nu, 1 + len(order))):
                 for j, i in enumerate(order):
-                    p, off = self.params[i], self.offsets[i]
+                    p = self.params[i]
                     a = _flax_to_port(leaves[base + j], p.ndim)
-                    arena[off:off + p.numel()].copy_(
-                        torch.from_numpy(np.ascontiguousarray(
-                            a, np.float32)).reshape(-1))
+                    self.view(arena, p).copy_(torch.from_numpy(
+                        np.ascontiguousarray(a, np.float32)).view_as(p))
         if callable(self.lr):
             self.sched_count = int(leaves[-1])

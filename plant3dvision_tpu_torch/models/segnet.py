@@ -79,7 +79,9 @@ class Conv(nn.Module):
 
     `int8` holds the quantised weight while the int8 lane is on
     (models/quant.py:int8_lane); the convolution is then `int8_conv` and
-    its float32 output gets the bias in float32."""
+    its float32 output gets the bias in float32. `tp` holds the tensor
+    parallel state of a conv whose weight is split over a tp group
+    (parallel/tp.py), which then computes the convolution."""
 
     def __init__(self, cin, cout, k, stride=1):
         super().__init__()
@@ -87,10 +89,13 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.int8 = None
+        self.tp = None
 
     def forward(self, x, dtype):
         ph = _same_pads(x.shape[2], self.k, self.stride)
         pw = _same_pads(x.shape[3], self.k, self.stride)
+        if self.tp is not None:
+            return self.tp.conv(self, x, dtype, ph, pw)
         x = x.to(dtype)
         if self.int8 is not None:
             return int8_conv(x, self.int8, self.bias.to(dtype), self.stride,

@@ -92,17 +92,18 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
     bit-identical to an uninterrupted one.
 
     `use_mesh` with more than one rank (those of `mesh`, else one a card
-    on the card, one on the CPU) runs each step over a "dp" mesh of
-    min(ranks, batch_size) ranks (parallel/train.py; the JAX package's
-    {"dp", "tp"} split would only replicate the step over tp here): the
-    batch split over dp in contiguous parts, the parameters and moments
-    resident on the ranks; the controller sends each step's batch."""
+    on the card, one on the CPU) runs each step over a {"dp", "tp"} mesh
+    (parallel/train.py): the JAX package's `best_dp_tp(ranks)`, or
+    `mesh`'s own layout where its axes are "dp" and "tp", with dp cut to
+    the batch size; the batch split over dp in contiguous parts, the
+    convolutions over tp, the parameters and moments resident on the
+    ranks; the controller sends each step's batch."""
     from ..runtime.config import resolve_device
     from .checkpoint import (flax_params, state_dict_from_flax,
                              training_state_from_npz_bytes,
                              training_state_to_npz_bytes)
     from .optim import AdamW
-    from ..parallel.mesh import default_ranks, make_mesh
+    from ..parallel.mesh import best_dp_tp, default_ranks, make_mesh
     from .train_synth import deterministic_backward
 
     dev = resolve_device(device)
@@ -112,11 +113,14 @@ def train(images, labels_int, label_names, widths=(32, 64, 128),
     w = torch.tensor(class_weights(labels_int, len(label_names)),
                      dtype=torch.float32, device=dev)
     ranks = mesh.size if mesh is not None else default_ranks(dev)
-    dp = min(ranks, int(batch_size))
-    trainer = own_mesh = None
-    if use_mesh and dp > 1:
+    trainer = own_mesh = layout = None
+    if use_mesh and ranks > 1:
+        layout = (dict(mesh.shape) if mesh is not None
+                  and set(mesh.axis_names) <= {"dp", "tp"}
+                  else best_dp_tp(ranks))
+        layout["dp"] = min(layout.get("dp", 1), int(batch_size))
+    if layout is not None and layout["dp"] * layout.get("tp", 1) > 1:
         from ..parallel.train import MeshTrainer
-        layout = {"dp": dp}
         if mesh is None:
             mesh = own_mesh = make_mesh(layout, device=dev)
         elif mesh.shape != layout:

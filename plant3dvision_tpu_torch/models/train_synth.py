@@ -271,15 +271,15 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
 
     `use_mesh` ("auto" / True / False): with more than one rank (the
     ranks of `mesh`, else one a card on the card and one on the CPU;
-    "auto" asks for exactly that) the trainer runs the dp policy of
-    parallel/train.py with every rank on "dp" (`mesh` is viewed so; the
-    JAX package's {"dp", "tp"} split would only replicate the step over
-    tp here): the crop set, the parameters and the optimizer state
+    "auto" asks for exactly that) the trainer runs the dp x tp policy of
+    parallel/train.py over the JAX package's layout, `best_dp_tp(ranks)`
+    (`mesh`'s own where its axes are "dp" and "tp"): the crop set, the
+    parameters (the convolutions split over tp) and the optimizer state
     resident on the ranks, each rank drawing the step's batch as one
     device draws it and taking its dp part, the batch size rounded up to
-    a multiple of dp. A resumed run at the same
-    rank count equals the uninterrupted one bit for bit; the state is the
-    one-device layout, so a state resumes at any rank count.
+    a multiple of dp. A resumed run at the same layout equals the
+    uninterrupted one bit for bit; the state is the one-device layout, so
+    a state resumes at any layout.
 
     `on_chunk(chunk, losses)`, when given, receives each chunk's per-step
     losses ((STEPS_PER_CALL,) float32, on the CPU).
@@ -288,7 +288,7 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
     from .checkpoint import (flax_params, state_dict_from_flax,
                              training_state_from_npz_bytes,
                              training_state_to_npz_bytes)
-    from ..parallel.mesh import default_ranks, make_mesh
+    from ..parallel.mesh import best_dp_tp, default_ranks, make_mesh
     from .optim import AdamW, cosine_decay_schedule
 
     dev = resolve_device(device)
@@ -298,12 +298,11 @@ def train_on_crops(rgb, lab, widths=(24, 48, 96, 192), blocks_per_stage=2,
     sharded = bool(use_mesh) and ranks > 1
     own_mesh = None
     if sharded:
-        layout = {"dp": ranks}
         if mesh is None:
-            mesh = own_mesh = make_mesh(layout, device=dev)
-        elif mesh.shape != layout:
-            mesh = mesh.view(layout)
-        dp = mesh.shape["dp"]
+            mesh = own_mesh = make_mesh(best_dp_tp(ranks), device=dev)
+        elif not set(mesh.axis_names) <= {"dp", "tp"}:
+            mesh = mesh.view(best_dp_tp(ranks))
+        dp = mesh.shape.get("dp", 1)
         if batch_size % dp:
             batch_size = -(-batch_size // dp) * dp
             logger.info(f"batch_size rounded to {batch_size} (multiple of "

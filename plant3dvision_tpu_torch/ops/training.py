@@ -271,8 +271,15 @@ def weighted_cross_entropy(logits, labels, weights, ignore_index=None):
 
 # ---------------------------------------------------------------- K22
 
+#: K22's threads a block and elements a thread sums in order
+#: (kernels/csrc/train.cu kThreads, kRun): the norm's chunk of
+#: ADAMW_CHUNK elements, one partial sum of g^2 a chunk
+_K22_THREADS, _K22_RUN = 256, 16
+ADAMW_CHUNK = _K22_THREADS * _K22_RUN
+
+
 def adamw_launcher(p, g, mu, nu, *, clip, b1, b2, eps, eps_root, wd,
-                   max_norm=1.0):
+                   max_norm=1.0, tp_sums=None):
     """K22 bound to flat float32 arenas p, g, mu, nu (one element a
     parameter): checks them and rounds the constant scalars to float32
     once, and returns step(bc1, bc2, neg_lr), which updates the arenas in
@@ -281,32 +288,64 @@ def adamw_launcher(p, g, mu, nu, *, clip, b1, b2, eps, eps_root, wd,
     corrections (`bc1`, `bc2` = 1 - b^count), update, decayed weight (`wd`
     * p) and the step `neg_lr` * u added to p. The kernel on the card (one
     launch in both modes), else the plain version. The step holds the
-    arenas and its own scratch."""
+    arenas and its own scratch.
+
+    `tp_sums` (with `clip`) is the tp lane, for an arena that holds a part
+    of the parameters (a rank of a tp group, models/optim.py): it takes
+    the arena's chunk sums of g^2 (ADAMW_CHUNK elements a chunk, float32,
+    on the arena's device) and returns the whole gradient's chunk sums in
+    the norm's order. The step is then two launches, counted under
+    "adamw_tp": the chunk sums, and after `tp_sums` the update with the
+    norm of the sums it returned (the cooperative launch's two halves,
+    without its grid barrier)."""
     n = p.numel()
     for t in (p, g, mu, nu):
         _check(t.dtype == _F32 and t.ndim == 1 and t.numel() == n,
                "adamw_update takes flat float32 arenas of one length")
+    lane = clip and tp_sums is not None
     if p.device.type == "cpu":
         def plain_step(bc1, bc2, neg_lr):
+            gnorm = adamw_norm_plain(tp_sums(adamw_partials_plain(g))) \
+                if lane else None
             adamw_update_plain(p, g, mu, nu, clip=clip, b1=b1, b2=b2,
                                bc1=bc1, bc2=bc2, eps=eps, eps_root=eps_root,
-                               wd=wd, neg_lr=neg_lr, max_norm=max_norm)
+                               wd=wd, neg_lr=neg_lr, max_norm=max_norm,
+                               gnorm=gnorm)
         return plain_step
     kernels.require_cuda("adamw", p, g, mu, nu)
     dev = p.device
     lib = kernels.lib()
-    fn = lib.p3d_adamw
     f = lambda v: float(np.float32(v))          # noqa: E731
     # the norm's chunk sums, owned by the step (clip mode only)
     part = torch.empty(lib.p3d_adamw_partials(n), dtype=_F32,
                        device=dev) if clip else None
-    decays = (int(bool(clip)), f(b1), f(b2), f(1 - b1), f(1 - b2))
+    decays = (f(b1), f(b2), f(1 - b1), f(1 - b2))
     rest = (f(eps), f(eps_root), f(wd))
     norm = f(max_norm)
+    if lane:
+        def tp_step(bc1, bc2, neg_lr):
+            st = kernels.stream_ptr(dev)
+            rc = lib.p3d_adamw_tp_partials(g.data_ptr(), n, part.data_ptr(),
+                                           st)
+            kernels.LAUNCHES["adamw_tp"] += 1
+            kernels.check("adamw_tp", rc)
+            sums = tp_sums(part).contiguous()
+            _check(sums.dtype == _F32 and sums.device == dev,
+                   "tp_sums must return float32 sums on the arena's device")
+            rc = lib.p3d_adamw_tp_update(
+                p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
+                sums.data_ptr(), sums.numel(), *decays, float(bc1),
+                float(bc2), *rest, float(neg_lr), norm,
+                kernels.stream_ptr(dev))
+            kernels.LAUNCHES["adamw_tp"] += 1
+            kernels.check("adamw_tp", rc)
+        return tp_step
+    fn = lib.p3d_adamw
+    mode = int(bool(clip))
 
     def step(bc1, bc2, neg_lr):
         rc = fn(p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(), n,
-                part.data_ptr() if clip else None, *decays, float(bc1),
+                part.data_ptr() if clip else None, mode, *decays, float(bc1),
                 float(bc2), *rest, float(neg_lr), norm,
                 kernels.stream_ptr(dev))
         kernels.LAUNCHES["adamw"] += 1
@@ -315,24 +354,67 @@ def adamw_launcher(p, g, mu, nu, *, clip, b1, b2, eps, eps_root, wd,
 
 
 def adamw_update(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps, eps_root,
-                 wd, neg_lr, max_norm=1.0):
+                 wd, neg_lr, max_norm=1.0, tp_sums=None):
     """K22 once over the arenas (`adamw_launcher`'s step); scalars are
     float32 values (the caller rounds them)."""
     adamw_launcher(p, g, mu, nu, clip=clip, b1=b1, b2=b2, eps=eps,
-                   eps_root=eps_root, wd=wd, max_norm=max_norm)(
-        bc1, bc2, neg_lr)
+                   eps_root=eps_root, wd=wd, max_norm=max_norm,
+                   tp_sums=tp_sums)(bc1, bc2, neg_lr)
+
+
+def _tree_sum(s):
+    """K22's block_tree_sum over the last axis (_K22_THREADS values)."""
+    w = s.shape[-1] // 2
+    while w:
+        s = s[..., :w] + s[..., w:2 * w]
+        w //= 2
+    return s[..., 0]
+
+
+def adamw_partials_plain(g):
+    """Plain version of the tp lane's first launch: the chunk sums of g^2
+    in K22's order (a thread's run of _K22_RUN elements _K22_THREADS
+    apart, then the block's tree), bit-equal to the kernel's."""
+    n = g.numel()
+    c = -(-n // ADAMW_CHUNK)
+    v = torch.zeros(c * ADAMW_CHUNK, dtype=_F32, device=g.device)
+    v[:n] = g
+    sq = v.view(c, _K22_RUN, _K22_THREADS)
+    sq = sq * sq
+    acc = sq[:, 0]
+    for r in range(1, _K22_RUN):
+        acc = acc + sq[:, r]
+    return _tree_sum(acc)
+
+
+def adamw_norm_plain(sums):
+    """sqrt of the sum of chunk sums in K22's order (sum_partials: thread
+    t adds sums t, t + _K22_THREADS, ... in order, then the tree), a 0-d
+    float32 tensor bit-equal to the kernel's."""
+    m = sums.numel()
+    k = -(-m // _K22_THREADS)
+    v = torch.zeros(k * _K22_THREADS, dtype=_F32, device=sums.device)
+    v[:m] = sums
+    v = v.view(k, _K22_THREADS)
+    acc = v[0]
+    for i in range(1, k):
+        acc = acc + v[i]
+    return torch.sqrt(_tree_sum(acc))
 
 
 def adamw_update_plain(p, g, mu, nu, *, clip, b1, b2, bc1, bc2, eps,
-                       eps_root, wd, neg_lr, max_norm=1.0):
-    """Plain PyTorch version of K22 (optax's operations in their order)."""
+                       eps_root, wd, neg_lr, max_norm=1.0, gnorm=None):
+    """Plain PyTorch version of K22 (optax's operations in their order);
+    `gnorm`, with `clip`, is the tp lane's norm (`adamw_norm_plain`), else
+    the whole arena's."""
     dev = p.device
 
     def s(v):
         return torch.tensor(np.float32(v), device=dev)
 
     if clip:
-        gnorm = torch.sqrt((g * g).sum())
+        if gnorm is None:
+            gnorm = torch.sqrt((g * g).sum())
         g = torch.where(gnorm < s(max_norm), g, (g / gnorm) * s(max_norm))
     m = s(1 - b1) * g + s(b1) * mu
     v = s(1 - b2) * (g * g) + s(b2) * nu

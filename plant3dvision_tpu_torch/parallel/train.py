@@ -1,28 +1,31 @@
-"""dp training over a mesh (port of plant3dvision_tpu/parallel/train.py:
+"""dp x tp training over a mesh (port of plant3dvision_tpu/parallel/train.py:
 `shard_params`, `make_train_step`; the policy that models/train.py and
 models/train_synth.py run under `use_mesh`).
 
 The JAX package annotates shardings and lets XLA insert the collectives;
-here each rank of a mesh keeps a `_RankTrainer` resident (the model, the
-optimizer state, and for the trainers the crop set) and one step is, on
-every rank:
+here each rank of a mesh keeps a `_RankTrainer` resident (its share of
+the model, the optimizer state, and for the trainers the crop set) and
+one step is, on every rank:
 
-1. dp: the rank's part of the batch through the model, K21's mean
-   cross-entropy and its backward.
-2. The gradient is all-gathered over dp and summed in rank order, each
-   part weighted by its share of the loss' denominator (pixels, or kept
-   pixels with an ignored label): a run at a given world size is
-   deterministic and resumes bit for bit.
-3. The one-device optimizer step (`models/optim.AdamW`, one K22 launch
-   over the whole parameter arena, the clip by the whole gradient's norm)
-   on every rank, so the replicas stay equal.
+1. tp: the conv weights that the JAX rule shards (parallel/tp.py:split,
+   Cout even and divisible by tp) hold the rank's block of Cout rows; each
+   such convolution computes the rank's output channels, all-gathers them
+   over the tp group and sums the input's gradient over it in rank order
+   (parallel/tp.py:ColumnParallel). Everything else is replicated over
+   tp.
+2. dp: the rank's part of the batch (the same part on every rank of a tp
+   group) through the model, K21's mean cross-entropy and its backward.
+3. The gradient is all-gathered over the dp group of the rank's tp index
+   and summed in rank order, each part weighted by its share of the
+   loss' denominator (pixels, or kept pixels with an ignored label): a
+   run at a given layout is deterministic and resumes bit for bit.
+4. The optimizer step (`models/optim.AdamW`) over the rank's arena, the
+   replicated parameters then its slices: one K22 launch at tp 1; at tp >
+   1 with the clip, K22's tp lane, whose norm is the whole gradient's
+   (the replicated chunks once, then each rank's slices in rank order).
 
-A "tp" axis of the mesh is accepted for the JAX package's layouts, and its
-ranks are replicas: the ranks of a tp group take the same dp part and
-compute the same step. The JAX package shards conv weights' Cout over tp
-and lets XLA split the convolutions; the port splits no convolution, so
-slicing the weights would save nothing, and its own lanes lay every rank
-on dp.
+The state leaves the mesh in the one-device layout (`MeshTrainer.state`
+gathers the tp slices), so a state resumes at any layout.
 """
 
 from __future__ import annotations
@@ -38,21 +41,49 @@ _ids = itertools.count()
 
 
 class _RankTrainer:
-    """One rank's resident training state (see the module docstring)."""
+    """One rank's resident training state (see the module docstring): the
+    model, placed and split at construction; the optimizer, built by
+    `init_opt`."""
 
-    def __init__(self, rt, layout, coords, dp_axis, model, opt_kw, weights,
-                 ignore_index):
-        from ..models.optim import AdamW
+    def __init__(self, rt, layout, coords, tp_axis, model):
+        from . import tp as tpm
 
         dev = rt.device
-        self.rt, self.layout, self.dp_axis = rt, layout, dp_axis
-        self.dp = dict(zip(*layout)).get(dp_axis, 1)
-        self.i_dp = coords.get(dp_axis, 0)
+        self.rt, self.layout, self.coords = rt, layout, coords
+        self.tp = dict(zip(*layout)).get(tp_axis, 1)
+        self.i_tp = coords.get(tp_axis, 0)
+        self.split, self.cp = [], None
+        if self.tp > 1:
+            self.tp_group = rt.group(layout, tp_axis)
+            self.cp = tpm.ColumnParallel(self.i_tp, self.tp, self.tp_group)
+            self.split = tpm.shard(model, self.cp)
         self.model = model.to(dev)
-        self.opt = AdamW(self.model, **opt_kw)
+        self.opt = None
+
+    def init_opt(self, dp_axis, opt_kw, weights, ignore_index):
+        from ..models.optim import AdamW
+        from . import tp as tpm
+
+        self.dp_axis = dp_axis
+        self.dp = dict(zip(*self.layout)).get(dp_axis, 1)
+        self.i_dp = self.coords.get(dp_axis, 0)
+        kw = {}
+        if self.tp > 1:
+            kw = dict(regions=tpm.regions(self.model),
+                      gather_sums=self._gather_sums)
+        self.opt = AdamW(self.model, **opt_kw, **kw)
         self.G = self.opt.grad
-        self.w = weights.to(dev)
+        self.w = weights.to(self.rt.device)
         self.ignore = ignore_index
+
+    def _gather_sums(self, part):
+        from .tp import _all_gather
+        return _all_gather(part, self.tp_group, self.tp)
+
+    def held(self):
+        """(parameters this rank holds, its arena's length)."""
+        n = sum(p.numel() for p in self.model.parameters())
+        return n, (self.opt.arena.numel() if self.opt is not None else n)
 
     def step(self, x, y):
         """One training step on this rank's part (x (b, 3, H, W) float32, y
@@ -62,12 +93,21 @@ class _RankTrainer:
 
         from ..models.train_synth import deterministic_backward
         from ..ops.training import weighted_cross_entropy
+        from .tp import conv_macs
 
         self.opt.zero_grad()
-        with deterministic_backward():
+        if self.cp is not None:
+            self.cp.gathered = 0
+        with deterministic_backward(), conv_macs(self.model) as macs:
             loss = weighted_cross_entropy(self.model(x), y, self.w,
                                           self.ignore)
             loss.backward()
+        self.macs = macs
+        # the bytes all-gathered into this rank: the convolutions' over
+        # tp, the gradient's over dp
+        self.gathered = {
+            "tp": self.cp.gathered if self.cp is not None else 0,
+            "dp": self.dp * self.G.numel() * 4 if self.dp > 1 else 0}
         if self.ignore is None:
             d = torch.tensor(float(y.numel()), device=y.device)
         else:
@@ -100,27 +140,79 @@ class _RankTrainer:
         return total
 
     def full_state(self):
-        """(flax params, optimizer leaves), as the one-device AdamW exports
-        them."""
+        """(flax params, optimizer leaves, the flax paths of the split
+        kernels) of this rank's share of the model."""
         from ..models.checkpoint import flax_params
+        from .tp import flax_path
 
-        return flax_params(self.model), self.opt.state_leaves()
+        return (flax_params(self.model), self.opt.state_leaves(),
+                [flax_path(n) for n in self.split])
 
     def load_full_state(self, params, leaves):
-        from ..models.checkpoint import state_dict_from_flax
+        """Load the one-device state, keeping this rank's rows of the
+        split kernels and of their moments."""
+        from ..models.checkpoint import flax_template, state_dict_from_flax
+        from ..models.optim import flax_leaf_order
+        from .tp import flax_path
 
+        t, T = self.i_tp, self.tp
+        split = {flax_path(n) for n in self.split}
+        rows = {n + ".weight" for n in self.split}
         with torch.no_grad():
             for k, v in state_dict_from_flax(params).items():
-                self.model.get_parameter(k).copy_(v.to(self.rt.device))
+                p = self.model.get_parameter(k)
+                if k in rows:
+                    c = v.shape[0] // T
+                    v = v[t * c:(t + 1) * c]
+                p.copy_(v.to(self.rt.device))
+        paths = list(flax_template(self.model))
+        order = flax_leaf_order(self.model)
+        K = len(order)
+        leaves = list(leaves)
+        for j, i in enumerate(order):
+            if paths[i] in split:
+                for base in (1, 1 + K):
+                    a = np.asarray(leaves[base + j])
+                    c = a.shape[-1] // T
+                    leaves[base + j] = a[..., t * c:(t + 1) * c]
         self.opt.load_state_leaves(leaves)
+
+
+def _merge_tp(states):
+    """The tp ranks' `full_state`s, in rank order -> the one-device (flax
+    params, optimizer leaves): each split kernel, and its moments,
+    concatenated along flax's Cout (last) axis."""
+    from ..models.checkpoint import _flatten, _unflatten
+
+    split = set(states[0][2])
+    if len(states) == 1 or not split:
+        return states[0][0], states[0][1]
+    flats = [_flatten(s[0]) for s in states]
+    params = {k: (np.concatenate([f[k] for f in flats], -1) if k in split
+                  else v) for k, v in flats[0].items()}
+    paths = sorted(flats[0], key=lambda k: tuple(k.split("/")))
+    K = len(paths)
+    leaves = list(states[0][1])
+    for j, k in enumerate(paths):
+        if k in split:
+            for base in (1, 1 + K):
+                leaves[base + j] = np.concatenate(
+                    [np.asarray(s[1][base + j]) for s in states], -1)
+    return _unflatten(params), leaves
 
 
 # ------------------------------------------------------ rank functions
 
-def _r_init(rt, key, layout, coords, dp_axis, model, opt_kw, weights,
-            ignore_index):
-    rt.store[key] = _RankTrainer(rt, layout, coords, dp_axis, model, opt_kw,
-                                 weights, ignore_index)
+def _r_place(rt, key, layout, coords, tp_axis, model):
+    rt.store[key] = _RankTrainer(rt, layout, coords, tp_axis, model)
+
+
+def _r_init(rt, key, dp_axis, opt_kw, weights, ignore_index):
+    rt.store[key].init_opt(dp_axis, opt_kw, weights, ignore_index)
+
+
+def _r_held(rt, key):
+    return rt.store[key].held()
 
 
 def _r_step(rt, key, x, y, keep):
@@ -161,52 +253,78 @@ def _r_chunk(rt, key, chunk, steps, seed, batch_size, draw, keep):
 
 
 def _r_val(rt, key, n_cls, ignore_index, keep):
+    """The held-out counts, computed by the tp group of dp index 0 (its
+    convolutions need every rank of the group)."""
     from ..models.train_synth import _val_counts
 
-    if not keep:
-        return None
     tr = rt.store[key]
-    return _val_counts(tr.model, tr.data[2], tr.data[3], n_cls,
-                       ignore_index).cpu()
+    if tr.i_dp != 0:
+        return None
+    c = _val_counts(tr.model, tr.data[2], tr.data[3], n_cls, ignore_index)
+    return c.cpu() if keep else None
 
 
-def _r_state(rt, key, keep):
-    st = rt.store[key].full_state()
-    return st if keep else None
+def _r_state(rt, key):
+    tr = rt.store[key]
+    return tr.full_state() if tr.i_dp == 0 else None
 
 
 def _r_load(rt, key, params, leaves):
     rt.store[key].load_full_state(params, leaves)
 
 
+def _r_stats(rt, key):
+    """This rank's parameters, arena length, and the last step's conv
+    multiply-adds and bytes all-gathered into the rank."""
+    tr = rt.store[key]
+    held, arena = tr.held()
+    return {"params": held, "arena": arena, "conv_macs": dict(tr.macs),
+            "gathered_bytes": dict(tr.gathered)}
+
+
 def _r_drop(rt, key):
     rt.store.pop(key, None)
 
 
+def _place(mesh, model, tp_axis):
+    """Place a copy of `model` on every rank of the mesh, split over
+    `tp_axis` (the rank functions' key, the ranks' coordinates)."""
+    key = f"trainer{next(_ids)}"
+    coords = [mesh.coords(i) for i in range(mesh.size)]
+    replica = _cpu_copy(model)
+    mesh.run(_r_place, [(key, mesh.layout, c, tp_axis, replica)
+                        for c in coords])
+    return key, coords
+
+
 class MeshTrainer:
     """The controller's handle on rank-resident training state over a
-    mesh: the batch is split over `dp_axis` (1 where the mesh lacks it);
-    the ranks along any other axis are replicas.
+    mesh: the batch is split over `dp_axis` (1 where the mesh lacks it),
+    the convolutions over `tp_axis` (parallel/tp.py); the ranks along any
+    other axis are replicas.
 
-    `model` is copied to every rank (its own device there); `optimizer`
-    is `models.optim.AdamW`'s keyword arguments (a dict);
-    `weights` the class weights of K21 (None: ones, the plain mean)."""
+    `model` is copied to every rank (its own device there) and split
+    there, unless `placed` (`shard_params`' result) already put it on the
+    ranks; `optimizer` is `models.optim.AdamW`'s keyword arguments (a
+    dict); `weights` the class weights of K21 (None: ones, the plain
+    mean)."""
 
     def __init__(self, mesh, model, optimizer, weights=None,
-                 ignore_index=None, dp_axis="dp"):
+                 ignore_index=None, dp_axis="dp", tp_axis="tp",
+                 placed=None):
         self.mesh = mesh
         self.dp_axis = dp_axis
         self.dp = mesh.shape.get(dp_axis, 1)
-        self.key = f"trainer{next(_ids)}"
+        self.tp = mesh.shape.get(tp_axis, 1)
         n_cls = list(model.parameters())[-1].shape[0]
         w = (torch.ones(n_cls) if weights is None
              else torch.as_tensor(weights, dtype=torch.float32).cpu())
-        self.coords = [mesh.coords(i) for i in range(mesh.size)]
-        replica = _cpu_copy(model)
-        opt_kw = dict(optimizer)
-        mesh.run(_r_init, [(self.key, mesh.layout, c, dp_axis, replica,
-                            opt_kw, w, ignore_index)
-                           for c in self.coords])
+        if placed is None:
+            self.key, self.coords = _place(mesh, model, tp_axis)
+        else:
+            self.key, self.coords = placed.key, placed.coords
+        mesh.run(_r_init, (self.key, dp_axis, dict(optimizer), w,
+                           ignore_index))
 
     def _first(self):
         """keep flags: the rank at index 0 of every axis answers."""
@@ -254,13 +372,19 @@ class MeshTrainer:
         return next(o for o in out if o is not None)
 
     def state(self):
-        """(flax params, optimizer leaves) of the whole model."""
-        out = self.mesh.run(_r_state, [(self.key, keep)
-                                       for keep in self._first()])
-        return next(o for o in out if o is not None)
+        """(flax params, optimizer leaves) of the whole model, the tp
+        slices gathered (the one-device layout)."""
+        out = self.mesh.run(_r_state, (self.key,))
+        return _merge_tp([o for o in out if o is not None])
 
     def load_state(self, params, leaves):
         self.mesh.run(_r_load, (self.key, params, leaves))
+
+    def rank_stats(self):
+        """Each rank's parameters, arena length, and conv multiply-adds
+        and gathered bytes of the last step (`_r_stats`), in rank
+        order."""
+        return self.mesh.run(_r_stats, (self.key,))
 
     def params_into(self, model):
         """Copy the trained parameters into the controller's `model`."""
@@ -284,21 +408,39 @@ def _cpu_copy(model):
 
 
 class ShardedParams:
-    """`shard_params`' result: the model whose parameters every rank of the
-    mesh holds, resident once `make_train_step`'s step has run; `trainer`
-    is the rank-resident state behind it."""
+    """`shard_params`' result: `model`'s parameters placed on the ranks of
+    `mesh`, each split conv weight's Cout rows over the tp axis
+    (`held()`: what each rank holds); `trainer` is the rank-resident
+    state that `make_train_step`'s first step builds over them."""
 
-    def __init__(self, model, mesh):
-        self.model, self.mesh = model, mesh
+    def __init__(self, model, mesh, tp_axis):
+        self.model, self.mesh, self.tp_axis = model, mesh, tp_axis
+        self.key, self.coords = _place(mesh, model, tp_axis)
         self.trainer = None
+
+    def held(self):
+        """The number of parameters each rank holds, in rank order."""
+        return [h for h, _ in self.mesh.run(_r_held, (self.key,))]
+
+    def split(self):
+        """The flax paths of the kernels split over tp."""
+        from .tp import flax_path, split_convs
+        return sorted(flax_path(n) for n, _ in split_convs(
+            self.model, self.mesh.shape.get(self.tp_axis, 1)))
+
+    def close(self):
+        """Drop the placed parameters (and the trainer built over them)
+        from the ranks."""
+        if not self.mesh.pool.closed:
+            self.mesh.run(_r_drop, (self.key,))
 
 
 def shard_params(model, mesh, tp_axis="tp"):
-    """Place `model`'s parameters on the mesh, replicated on every rank
-    (the counterpart of JAX's `shard_params`, which slices conv weights
-    over `tp_axis`; see the module docstring); the ranks receive them at
-    the first step."""
-    return ShardedParams(model, mesh)
+    """Place `model`'s parameters on the mesh's ranks (the counterpart of
+    JAX's `shard_params`): every conv weight (out, in, k, k) with out even
+    and divisible by the `tp_axis` size is split into its Cout row blocks,
+    rank t of a tp group holding block t; the rest is replicated."""
+    return ShardedParams(model, mesh, tp_axis)
 
 
 def make_train_step(model, optimizer, mesh, dp_axis="dp", tp_axis="tp"):
@@ -306,10 +448,9 @@ def make_train_step(model, optimizer, mesh, dp_axis="dp", tp_axis="tp"):
     train_step(params, opt_state, images, labels) -> (params, opt_state,
     loss): `params` from `shard_params`, `opt_state` None at the first
     step (the ranks then build `optimizer`, AdamW's keyword arguments,
-    over their parameters) and the returned state after; the loss is the
-    mean softmax cross-entropy (K21 with unit weights). `tp_axis` is
-    taken for the JAX package's signature: the ranks along it are
-    replicas (the module docstring).
+    over the parameters they hold) and the returned state after; the loss
+    is the mean softmax cross-entropy (K21 with unit weights), the batch
+    split over `dp_axis` and the convolutions over `tp_axis`.
     shard_batch(images (B, H, W, 3) float, labels (B, H, W) int) -> the
     batch in the port's layout (NCHW float32, uint8 labels), split over
     dp by the step."""
@@ -322,7 +463,8 @@ def make_train_step(model, optimizer, mesh, dp_axis="dp", tp_axis="tp"):
     def train_step(params, opt_state, images, labels):
         if opt_state is None:
             opt_state = MeshTrainer(mesh, params.model, optimizer,
-                                    dp_axis=dp_axis)
+                                    dp_axis=dp_axis, tp_axis=tp_axis,
+                                    placed=params)
             params.trainer = opt_state
         loss = opt_state.step(images, labels)
         return params, opt_state, loss

@@ -1,6 +1,7 @@
 """Run every multi-rank program of the port once over N ranks on small
 shapes (port of __graft_entry__.py's `dryrun_multichip(n)`): the train
-step on the JAX package's dp x tp layout (the tp ranks are replicas), `train_on_crops(use_mesh=True)`, the view-sharded,
+step on the JAX package's dp x tp layout (the convolutions split over
+tp), `train_on_crops(use_mesh=True)` on it, the view-sharded,
 grid-sharded, hierarchical and 2-D carves, the bench workload's carve
 (60 views of 1440x1080 into 301x301x561 at 0.5 mm) bit-equal to the
 one-device carve, dp inference, the x-slab averaging volume, and a
@@ -143,11 +144,8 @@ def _mini_pipeline(n, dev, mesh):
         run_task(ctx, "Voxels", report=False)
         b = outputs(ctx)
     assert len(a[0]) >= 3, f"the mini pipeline gave {len(a[0])} angles"
-    # the carve the angles come from is held bit for bit; the angles'
-    # count only: the port's host skeleton code moves them by up to ~0.07
-    # deg from run to run on the CPU, whatever the engine (ROADMAP Queue C)
     assert np.array_equal(a[3], b[3]), "the sharded carve differs"
-    assert len(a[0]) == len(b[0]), "sharded pipeline angle counts differ"
+    assert a[0] == b[0], "the sharded pipeline's angles differ"
     assert a[1].keys() == b[1].keys() and all(
         np.array_equal(a[1][k], b[1][k]) for k in a[1]), \
         "sharded averaging volumes differ"
@@ -181,11 +179,16 @@ def dryrun_multichip(n: int, device="cpu", backend=None,
         rng = np.random.default_rng(0)
         x, y = shard_batch(rng.random((B, 64, 64, 3)).astype(np.float32),
                            rng.integers(0, 6, (B, 64, 64)))
+        held = params.held()
         params, opt_state, loss = step(params, None, x, y)
         assert np.isfinite(loss)
+        macs = [s["conv_macs"]["forward"] for s in opt_state.rank_stats()]
         opt_state.close()
+        whole = sum(p.numel() for p in model.parameters())
         print(f"[dryrun] train step ok on mesh {tmesh.shape}; "
-              f"loss={loss:.4f}")
+              f"loss={loss:.4f}; parameters held a rank {held} of {whole} "
+              f"({len(params.split())} kernels split); conv MACs a rank "
+              f"forward {macs}")
 
         # 1b. train_on_crops through the same policy
         crops = rng.integers(0, 255, (8, 32, 32, 3), dtype=np.uint8)
@@ -193,9 +196,9 @@ def dryrun_multichip(n: int, device="cpu", backend=None,
         _, _, hist = train_on_crops(
             crops, labs, widths=(4, 8), blocks_per_stage=1, steps=25,
             batch_size=2 * axes["dp"], labels=["background", "plant"],
-            val_fraction=0.25, device=dev, use_mesh=True, mesh=mesh)
+            val_fraction=0.25, device=dev, use_mesh=True, mesh=tmesh)
         assert np.isfinite(hist[-1]["loss"])
-        print(f"[dryrun] train_on_crops sharded chunk ok; "
+        print(f"[dryrun] train_on_crops sharded chunk ok on {tmesh.shape}; "
               f"loss={hist[-1]['loss']:.4f}")
 
         # 2-4. view-sharded, grid-sharded, hierarchical carves
@@ -278,7 +281,7 @@ def dryrun_multichip(n: int, device="cpu", backend=None,
         # 9. the mini pipeline through the runtime
         n_angles, n_labels = _mini_pipeline(n, dev, mesh)
         print(f"[dryrun] FULL mini-pipeline ok on {n} ranks: the sharded "
-              f"carve bit-equal, {n_angles} angles as on one rank; dp seg "
+              f"carve and {n_angles} angles equal one rank's; dp seg "
               f"masks identical; sharded averaging equal ({n_labels} "
               "labels)")
     finally:

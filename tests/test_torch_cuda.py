@@ -1917,6 +1917,61 @@ def test_adamw_kernel_matches_plain(dev, clip, n, offset):
                 assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1001, 516_096])
+def test_adamw_tp_lane_matches_plain(dev, n, offset):
+    """K22's tp lane on a rank's arena (516,096: a dp 2 x tp 4 rank of
+    the ResUNet): its chunk sums bit-equal to the plain version's; the
+    update with another rank's sums appended (the gathered sums of a tp
+    group) bit-equal to the plain update at the sums' plain norm, clipped
+    and not; two launches a step, counted under "adamw_tp"; the lane over
+    its own sums equals the one-arena cooperative launch bit for bit."""
+    from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
+    g = torch.Generator(device=dev).manual_seed(4)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, wd=1e-4)
+    per = dict(bc1=np.float32(0.271), bc2=np.float32(0.00299),
+               neg_lr=-np.float32(2.9e-3))
+
+    def arena(t):
+        a = torch.empty(n + offset, device=dev)[offset:]
+        return a.copy_(t)
+    src = [torch.randn(n, generator=g, device=dev),
+           0.01 * torch.randn(n, generator=g, device=dev),
+           0.01 * torch.randn(n, generator=g, device=dev),
+           1e-4 * torch.rand(n, generator=g, device=dev)]
+    other = T.adamw_partials_plain(
+        0.01 * torch.randn(n, generator=g, device=dev))
+    for max_norm in (1e-3, 1e3):
+        a = [arena(t) for t in src]
+        got = {}
+
+        def gather(part):
+            got["part"] = part.clone()
+            return torch.cat([part, other])
+        kernels.reset_launches()
+        T.adamw_update(*a, clip=True, max_norm=max_norm, tp_sums=gather,
+                       **kw, **per)
+        assert kernels.LAUNCHES["adamw_tp"] == 2
+        assert kernels.LAUNCHES["adamw"] == 0
+        mine = T.adamw_partials_plain(src[1])
+        assert torch.equal(got["part"], mine)
+        b = [t.clone() for t in src]
+        norm = T.adamw_norm_plain(torch.cat([mine, other]))
+        assert (float(norm) >= max_norm) == (max_norm == 1e-3)
+        T.adamw_update_plain(*b, clip=True, gnorm=norm, max_norm=max_norm,
+                             **kw, **per)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    one = [arena(t) for t in src]
+    lane = [arena(t) for t in src]
+    T.adamw_update(*one, clip=True, max_norm=1e-3, **kw, **per)
+    T.adamw_update(*lane, clip=True, max_norm=1e-3, tp_sums=lambda p: p,
+                   **kw, **per)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(one, lane))
+
+
 @pytest.mark.parametrize("shape,ignore", [((3, 5, 16, 16), None),
                                           ((2, 6, 448, 448), None),
                                           ((1, 3, 1080, 1440), 255)])

@@ -341,10 +341,13 @@ def _port_from_flax(params, n_classes, widths=(8, 16), dtype=torch.float32):
     return m
 
 
-@pytest.mark.parametrize("axes", [{"dp": 2}, {"dp": 2, "tp": 2}])
+@pytest.mark.parametrize("axes", [{"dp": 2}, {"dp": 2, "tp": 2},
+                                  {"dp": 1, "tp": 4}, {"dp": 2, "tp": 4}])
 def test_make_train_step_matches_jax(mesh8, axes):
     """The dp and dp x tp train step (adam at lr 1e-2, the mean
-    cross-entropy) from the same converted weights (models/checkpoint.py),
+    cross-entropy; the port's tp ranks each convolve with their Cout rows
+    of the split kernels, parallel/tp.py) from the same converted weights
+    (models/checkpoint.py),
     float32 in both packages, 8 steps on one batch: the losses within
     rtol 2e-3 (the float32 bar of the one-device trainers against JAX,
     tests/test_torch_train.py), and the loss falls."""
