@@ -36,8 +36,9 @@
 6. Holds K5 (accumulate; bilinear, box and log modes, over the whole grid
    in one launch as the pass runs it, and through the 3-slab lane, bit for
    bit) on one real batch of 32 CNN outputs of that scan, with the
-   distribution of its tiles' pixel windows, K6 (select) on
-   the warm pass's label volumes and K2-K4 on its fruit selection, against
+   distribution of its tiles' pixel windows, K6 (select; with its device
+   time) on the warm pass's label volumes and K2-K4 on its fruit
+   selection, against
    their plain versions (K2 also in its 32-bit lane, cap None on the ML
    grid, bit for bit; every K2 row gives its lane, its launches a call and
    `bound_ms_yz`, the bound of the y and z passes' candidates alone),
@@ -56,7 +57,8 @@
    K8 in the binarised run, that at least 10 angles come out and that their
    mean error is below 25 degrees.
 8. Holds K5-avg (one label's 126 masks, plain and log'd; with its tiles'
-   windows), K7 (the warm
+   windows), K6 (the pass's averaged label volumes, its PointCloud
+   settings; with its device time, as phase 6's K6 row), K7 (the warm
    pass's points and 630 masks; with its camera runs and the bound of one
    projection a run, `bound_ms_runs`) and K8 (the pass's 756 masks
    thresholded at 0.01, radius 1 and 3) against their plain versions at
@@ -300,6 +302,7 @@ sys.path.insert(0, str(ROOT))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+L2_BYTES = 50 * 2**20          # H100 SXM L2, NVIDIA data sheet
 # --profile: each path's warm pass is followed by a profiled one
 # (`warm_pass`); off by default, so that warm_s is an unprofiled pass
 PROFILE = False
@@ -719,6 +722,19 @@ def cuda_ms(fn, reps=7, warmup=2):
     return statistics.median(times)
 
 
+def cold_turns(make, n_bytes):
+    """A call that runs make()'s calls in turn, as many as it takes for
+    their inputs (`n_bytes` each) to pass twice the card's L2 between two
+    runs of one, so each finds its inputs in HBM, not in the L2."""
+    fns = [make() for _ in range(-(-2 * L2_BYTES // n_bytes))]
+    turn = [0]
+
+    def call():
+        fns[turn[0] % len(fns)]()
+        turn[0] += 1
+    return call
+
+
 def device_ms(fn, reps=10, tries=3):
     """Mean device milliseconds of fn() (its kernels' time on the card,
     torch.profiler), after one warm-up call; None ("not measured") when
@@ -739,10 +755,18 @@ def device_ms(fn, reps=10, tries=3):
     return None
 
 
-def device_ms_by_kernel(fn, reps=10, tries=3):
-    """Mean device milliseconds of fn() by kernel name (torch.profiler),
-    after one warm-up call; None ("not measured") when `tries` profiler
-    sessions in a row record no device time, as `device_ms`."""
+def device_ms_by_kernel(fn, reps=10, tries=6, need=None, recorded=None):
+    """Mean device milliseconds of one launch of each kernel of fn(), by
+    name (torch.profiler), after one warm-up call: a kernel's device time
+    over `reps` calls divided by the launches of it the profiler recorded,
+    so a kernel launched once a call reads its call's time; those counts
+    go into the dict `recorded`, where given. The profiler records only
+    some launches in some sessions (3 of 10 of K6's), and the durations it
+    keeps there can be wrong (one K6 read half its bound), so a session
+    counts only when it recorded every kernel a whole number of times a
+    call (a multiple of `reps`), and one with a kernel whose name holds
+    `need` where given. None ("not measured") when `tries` sessions in a
+    row do not."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -752,11 +776,34 @@ def device_ms_by_kernel(fn, reps=10, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out = {e.key[:80]: e.self_device_time_total / reps / 1e3
-               for e in prof.key_averages() if e.self_device_time_total > 0}
-        if out:
+        ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if not ev or any(e.count % reps for e in ev):
+            continue
+        out = {e.key[:80]: e.self_device_time_total / e.count / 1e3
+               for e in ev}
+        if need is None or any(need in k for k in out):
+            if recorded is not None:
+                recorded.update({e.key[:80]: e.count for e in ev})
             return out
     return None
+
+
+def queued_ms(fn, n=20):
+    """Milliseconds a call of fn() over n calls queued back to back
+    between two CUDA events, after one warm-up call: a call's device time,
+    gaps between its launches included, where the host enqueues a call
+    faster than the card runs it."""
+    import torch
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def host_syncs(fn):
@@ -1431,7 +1478,7 @@ def check_ml_kernels(scan, vfile, launches):
     from plant3dvision_tpu_torch.fsdb import handoff, io
     from plant3dvision_tpu_torch.models.checkpoint import load_model
     from plant3dvision_tpu_torch.models.unet import forward_probs
-    from plant3dvision_tpu_torch.ops import ml_fused, multiclass
+    from plant3dvision_tpu_torch.ops import ml_fused
     from plant3dvision_tpu_torch.ops.carving import (_avg_chunk_voxels,
                                                      camera_from_metadata)
 
@@ -1538,40 +1585,8 @@ def check_ml_kernels(scan, vfile, launches):
     stack = torch.stack([torch.as_tensor(vols[l]).to(dev, torch.float32)
                          for l in labels]).contiguous()
     pc = ML_CONFIG["PointCloud"]
-    bg = labels.index("background")
-    for contrast in (pc["min_contrast"], 10.0):
-        args = (pc["background_prior"], contrast, pc["min_score"], bg,
-                contrast > 1.0)
-        k = multiclass.select_labels(stack, *args)
-        p = multiclass.select_labels_plain(stack, *args)
-        torch.cuda.synchronize()
-        assert torch.equal(k, p), f"select kernel != plain (contrast {contrast})"
-    args = (pc["background_prior"], pc["min_contrast"], pc["min_score"], bg,
-            False)
-
-    def k6_library():
-        s = stack.clone()
-        s[bg] *= pc["background_prior"]
-        org = s.clone()
-        org[bg] = -torch.inf
-        res = torch.where(s[bg] > org.amax(0), bg, org.argmax(0))
-        lane = torch.arange(C, device=dev).view(-1, 1, 1, 1)
-        out = (res[None] == lane) & (s > pc["min_score"])
-        out[bg] = False
-        return out
-
-    sel = multiclass.select_labels(stack, *args)
-    assert torch.equal(k6_library(), sel)
-    n = stack[0].numel()
-    rows.append(kernel_row(
-        "multiclass_select", launches["multiclass_select"], 0,
-        cuda_ms(lambda: multiclass.select_labels(stack, *args)),
-        cuda_ms(lambda: multiclass.select_labels_plain(stack, *args)),
-        C * n * 4 + C * n, (2 * C * C + 4 * C) * n,
-        library=cuda_ms(k6_library),
-        extra={"path": "ml", "shape": list(stack.shape),
-               "selected": {l: int(sel[i].sum())
-                            for i, l in enumerate(labels)}}))
+    sel, row = k6_row("ml", stack, labels, pc, launches)
+    rows.append(row)
 
     # K2-K4 on one label's selection at the path's grid (fruit: the organ
     # whose angles are measured)
@@ -1583,6 +1598,64 @@ def check_ml_kernels(scan, vfile, launches):
     emit({"ml_kernel_checks": {"grid": list(shape), "labels": labels,
                                "batch": ML_BATCH, "slab_nx": slab_nx}})
     return rows
+
+
+def k6_row(path, stack, labels, pc, launches):
+    """K6 on a route's label volumes with its PointCloud settings (and
+    at contrast 10) bit-equal to its plain version and to one PyTorch
+    chain (the library), timed beside both, with its kernel's device
+    time (the profiler's, and 20 calls queued back to back between two
+    events): (the selection at the route's settings, the row)."""
+    import torch
+    from plant3dvision_tpu_torch.ops import multiclass
+
+    C = stack.shape[0]
+    bg = labels.index("background")
+    for contrast in (pc["min_contrast"], 10.0):
+        args = (pc["background_prior"], contrast, pc["min_score"], bg,
+                contrast > 1.0)
+        k = multiclass.select_labels(stack, *args)
+        p = multiclass.select_labels_plain(stack, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), \
+            f"select kernel != plain on {path} (contrast {contrast})"
+    args = (pc["background_prior"], pc["min_contrast"], pc["min_score"], bg,
+            pc["min_contrast"] > 1.0)
+
+    def k6_library():
+        s = stack.clone()
+        s[bg] *= pc["background_prior"]
+        org = s.clone()
+        org[bg] = -torch.inf
+        res = torch.where(s[bg] > org.amax(0), bg, org.argmax(0))
+        lane = torch.arange(C, device=stack.device).view(-1, 1, 1, 1)
+        out = (res[None] == lane) & (s > pc["min_score"])
+        out[bg] = False
+        return out
+
+    sel = multiclass.select_labels(stack, *args)
+    recorded = {}
+    by = device_ms_by_kernel(lambda: multiclass.select_labels(stack, *args),
+                             need="select_kernel", recorded=recorded)
+    kms = next((v for k, v in (by or {}).items() if "select_kernel" in k),
+               None)
+    if not args[-1]:
+        assert torch.equal(k6_library(), sel), f"K6 library != kernel ({path})"
+    n = stack[0].numel()
+    return sel, kernel_row(
+        "multiclass_select", launches["multiclass_select"], 0,
+        cuda_ms(lambda: multiclass.select_labels(stack, *args)),
+        cuda_ms(lambda: multiclass.select_labels_plain(stack, *args)),
+        C * n * 4 + C * n, (2 * C * C + 4 * C) * n,
+        library=cuda_ms(k6_library),
+        kernel_ms=kms,
+        extra={"path": path, "shape": list(stack.shape),
+               "profiled_launches": sum(v for k, v in recorded.items()
+                                        if "select_kernel" in k),
+               "queued_ms": queued_ms(
+                   lambda: multiclass.select_labels(stack, *args)),
+               "selected": {l: int(sel[i].sum())
+                            for i, l in enumerate(labels)}})
 
 
 def separate_config(**seg):
@@ -1718,8 +1791,9 @@ def _library_reproject(points, masks, cams, label_idx, L):
 
 
 def check_separate_kernels(scan, report, launches):
-    """Phase 8: K5-avg, K7 and K8 against their plain versions at the
-    separate route's shapes (the warm pass's masks, grid and points)."""
+    """Phase 8: K5-avg, K6, K7 and K8 against their plain versions at the
+    separate route's shapes (the warm pass's masks, volumes, grid and
+    points)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1782,6 +1856,17 @@ def check_separate_kernels(scan, report, launches):
         m: {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by", "max_abs_err")}
         for m, r in modes.items()}))
+
+    # K6 on the pass's averaged label volumes with its PointCloud settings
+    from plant3dvision_tpu_torch.fsdb import handoff
+    vfile = scan.get_fileset(report["Voxels"]["fileset"]).get_files()[0]
+    vols = handoff.cache_get(vfile) or io.read_npz(vfile)
+    vlabels = list(vols.keys())
+    vstack = torch.stack([torch.as_tensor(vols[l]).to(dev, torch.float32)
+                          for l in vlabels]).contiguous()
+    rows.append(k6_row("ml_separate", vstack, vlabels,
+                       separate_config()["PointCloud"], launches)[1])
+    del vols, vstack
 
     # K7: the warm pass's points and its 630 organ masks, in fileset order
     pfile = scan.get_fileset(report["PointCloud"]["fileset"]).get_files()[0]
@@ -4554,21 +4639,28 @@ def run_train_synth(work, device_name):
 #: the kernels of train.cu, as the profiler names them
 TRAIN_CU_KERNELS = ("gather_batch_kernel", "ce_fused_kernel",
                     "ce_keep_kernel", "ce_backward_kernel", "adamw_kernel",
+                    "adamw_chunk_sums_kernel", "adamw_tp_update_kernel",
                     "iou_counts_kernel")
 
 
 def train_device_ms(fn, profile):
-    """(device ms by kernel, their sum over train.cu's kernels) of fn()
-    (torch.profiler), for `kernel_row`: (None, ...) where `profile` is off
-    (the row's kernel_ms is its call's), (None, None) where the profiler
-    recorded nothing (not measured)."""
+    """(device ms a launch by kernel, their sum over train.cu's kernels) of
+    fn() (torch.profiler), for `kernel_row`: a call's kernel time, since
+    every row that reads it launches each of train.cu's kernels at most
+    once a call (asserted: none recorded more often than the calls).
+    (None, ...) where `profile` is off (the row's kernel_ms is its
+    call's), (None, None) where the profiler recorded nothing (not
+    measured)."""
     if not profile:
         return None, ...
-    by = device_ms_by_kernel(fn)
+    reps, recorded = 10, {}
+    by = device_ms_by_kernel(fn, reps=reps, recorded=recorded)
     if by is None:
         return None, None
-    return by, sum(v for k, v in by.items()
-                   if any(n in k for n in TRAIN_CU_KERNELS))
+    mine = [k for k in by if any(n in k for n in TRAIN_CU_KERNELS)]
+    assert all(recorded[k] <= reps for k in mine), \
+        f"a train.cu kernel launched more than once a call: {recorded}"
+    return by, sum(by[k] for k in mine)
 
 
 def launches_a_call(fn, names):
@@ -5047,7 +5139,7 @@ def run_distill(db, device_name):
     vlab = torch.from_numpy(np.ascontiguousarray(label_maps[0], np.uint8)
                             ).to(dev)
     rows.append(iou_row(path, vlab[None], C, distill.IGNORE, launches,
-                        preds=pred[None]))
+                        preds=pred[None], profile=True))
     del model
     torch.cuda.empty_cache()
     return {
@@ -5306,7 +5398,9 @@ def par_k22_tp_row(launches, tp=4):
     (the chunk sums) against the plain version; the sums gathered as the
     trainer gathers them (rank 0's replicated chunks, then each rank's
     slice chunks); rank 0's two launches with them against the plain
-    version on the same inputs."""
+    version on the same inputs; the lane timed with its arenas in HBM and
+    in the L2. Its bound counts g read once (28 bytes a parameter) and the
+    sums."""
     import numpy as np
     import torch
     from plant3dvision_tpu_torch.ops import training as T
@@ -5357,13 +5451,15 @@ def par_k22_tp_row(launches, tp=4):
                      **sc)(**per_step)
     T.adamw_update_plain(*b, clip=True, gnorm=norm, **sc, **per_step)
     err = max(float((u - v).abs().max()) for u, v in zip(a, b))
-    assert part_err == 0.0 and err <= 1e-6, \
+    assert part_err == 0.0 and err == 0.0, \
         f"K22's tp lane != plain: sums {part_err}, update {err}"
-    bound = T.adamw_launcher(*[t.clone() for t in ranks[0]], clip=True,
-                             tp_sums=lambda part: gathered, **sc)
-
-    def k22tp():
-        bound(**per_step)
+    def make_step():
+        step = T.adamw_launcher(*[t.clone() for t in ranks[0]], clip=True,
+                                tp_sums=lambda part: gathered, **sc)
+        return lambda: step(**per_step)
+    # timed cold, as a training step finds p, mu and nu: copies of the
+    # arena in turn; and warm, one arena the L2 holds
+    k22tp, warm = cold_turns(make_step, 16 * n), make_step()
     plain_arena = [t.clone() for t in ranks[0]]
 
     def plain():
@@ -5372,10 +5468,11 @@ def par_k22_tp_row(launches, tp=4):
                              gnorm=T.adamw_norm_plain(gathered), **sc,
                              **per_step)
     by, kms = train_device_ms(k22tp, True)
+    by_warm, kms_warm = train_device_ms(warm, True)
     m_sums = gathered.numel()
     return kernel_row(
         "adamw_tp", launches["adamw_tp"], err, cuda_ms(k22tp),
-        cuda_ms(plain), n * 32 + (n // C + m_sums) * 4, n * 24,
+        cuda_ms(plain), n * 28 + (n // C + m_sums) * 4, n * 24,
         kernel_ms=kms,
         extra={"path": "parallel", "tp": tp, "rank_arena": n,
                "replicated": rep, "slices": mine, "gathered_sums": m_sums,
@@ -5386,7 +5483,10 @@ def par_k22_tp_row(launches, tp=4):
                "launches_a_step": launches_a_call(
                    k22tp, ("adamw_tp",))["adamw_tp"],
                "library": "none (no one call clips by a norm it is given)",
-               "device_ms_by_kernel": by, "note": "gathers not timed"})
+               "device_ms_by_kernel": by, "kernel_ms_warm": kms_warm,
+               "device_ms_by_kernel_warm": by_warm,
+               "note": "gathers not timed; ms and kernel_ms over arenas "
+                       "in HBM (cold_turns), *_warm over one in the L2"})
 
 
 def run_parallel(db, work, sep_scan, sep_report, device_name):
@@ -5403,7 +5503,8 @@ def run_parallel(db, work, sep_scan, sep_report, device_name):
     trainer's clipped float32 steps at dp 8 and at dp 2 x tp 4 against
     one device computing the ranks' decomposition (`_par_reference`),
     with each rank's parameters, conv multiply-adds and gathered bytes;
-    K22's tp lane against its plain version; then tools/evaluate_model
+    K22's tp lane against its plain version (bit-equal: the chunk sums and
+    the update); then tools/evaluate_model
     on phase 5's scan. The one-device references run first; the launch
     counts are set to 0 just before the sharded programs and read just
     after (the ranks' launches, merged into the controller's

@@ -400,10 +400,31 @@ __global__ void ce_backward_kernel(const float* __restrict__ logits,
 // each block updates its chunks, 16 bytes a load and a store where every
 // arena is 16-byte aligned (else, and in the last, partial chunk, one
 // element at a time), g read again from L2. Without the clip the same
-// kernel skips the sums and the barrier, and is launched normally. A rank
-// of a tp group runs the two halves as two launches with the tp group's
-// sums gathered between them (AdamMode), which equals the cooperative
-// launch over the tp ranks' arenas laid end to end.
+// kernel skips the sums and the barrier, and is launched normally.
+//
+// A rank of a tp group holds part of the parameters, and the norm is the
+// whole gradient's: the tp lane runs kClip's two halves as two kernels of
+// their own with the tp group's sums gathered between them, and equals the
+// cooperative launch over the tp ranks' arenas laid end to end bit for
+// bit (the same sums in the same order). A rank's arena is small (516,096
+// elements for a dp 2 x tp 4 rank of the ResUNet: 126 chunks), so the
+// one-device kernel's grid of a block a chunk would leave the card mostly
+// idle behind its barriers; the lane's design:
+// - adamw_chunk_sums_kernel: a warp a chunk, no shared memory and no
+//   barrier. The block tree's leaf j is thread j's run, the elements j +
+//   kThreads * r in r order; lane l loads the chunk's elements 128 m + 4 l
+//   + q (m = 0 .. 31, q = 0 .. 3) 16 bytes at a time, which are leaves
+//   128 (m % 2) + 4 l + q at r = m / 2: each lane holds 8 leaves and adds
+//   each in r order. The tree's levels pair leaf j with j + w: w = 128
+//   within a lane, w = 64 .. 4 in lanes 16 .. 1 apart (__shfl_down_sync),
+//   w = 2, 1 within lane 0 again: the same pairs as block_tree_sum.
+// - adamw_tp_update_kernel: a grid of its own, kUpdShare elements a block
+//   (several blocks an SM), no order to keep. Every thread issues its
+//   16-byte loads of p, g, mu and nu first; while they are in flight warp
+//   0 adds the gathered sums in sum_partials' order (warp_sum_partials:
+//   lane l holds the leaves l + 32 k, the tree's w >= 32 levels in
+//   registers, the rest by shuffles) and hands g_norm to the block through
+//   shared memory; one barrier, then the elements.
 struct AdamScalars {
   float b1, b2, omb1, omb2;     // decays and f32(1 - decay)
   float bc1, bc2;               // 1 - b^count, computed by the caller
@@ -415,45 +436,64 @@ struct AdamScalars {
 // the 16-byte lane's 96 registers hold an SM to two blocks of kThreads
 // anyway; one block an SM took 25 % longer (--variants)
 constexpr int kAdamBlocksPerSm = 2;
+// the tp lane: warps (chunks) a block of its first kernel, and quads of 4
+// elements a thread of its update (kUpdShare elements a block)
+constexpr int kSumWarps = 1;
+constexpr int kUpdQuads = 2;
+constexpr int kUpdShare = kThreads * 4 * kUpdQuads;
 
+// x / y and sqrt(x) rounded to nearest: __fdiv_rn and __fsqrt_rn, and
+// with ZEROS a zero x taken apart. Both sequences leave their fast path
+// for a zero x, and each quotient of an element whose g, mu and nu are 0
+// has one: the tp lane's arena pads each region with zeros (3204 in a dp 2
+// x tp 4 rank of the ResUNet), which took its update 1.7x as long. 0 / y
+// is the zero of sign(x) ^ sign(y) for a finite y != 0, sqrt(+-0) = +-0:
+// the same bits. The one-device modes keep the plain sequences, which the
+// checks slowed by 12-28 % on an arena without zeros (PERF.md, K22).
+template <bool ZEROS>
+__device__ __forceinline__ float quot(float x, float y) {
+  if (ZEROS && x == 0.0f && fabsf(y) < CUDART_INF_F && y != 0.0f)
+    return __int_as_float((__float_as_int(x) ^ __float_as_int(y)) &
+                          0x80000000);
+  return __fdiv_rn(x, y);
+}
+
+template <bool ZEROS>
+__device__ __forceinline__ float root(float x) {
+  return ZEROS && x == 0.0f ? x : __fsqrt_rn(x);
+}
+
+template <bool ZEROS>
 __device__ __forceinline__ void adam_element(float& p, float g, float& mu,
                                              float& nu, bool clip,
                                              float gnorm,
                                              const AdamScalars& a) {
-  if (clip) g = __fmul_rn(__fdiv_rn(g, gnorm), a.max_norm);
+  if (clip) g = __fmul_rn(quot<ZEROS>(g, gnorm), a.max_norm);
   const float m = __fadd_rn(__fmul_rn(a.omb1, g), __fmul_rn(a.b1, mu));
   const float v = __fadd_rn(__fmul_rn(a.omb2, __fmul_rn(g, g)),
                             __fmul_rn(a.b2, nu));
-  const float mh = __fdiv_rn(m, a.bc1);
-  const float vh = __fdiv_rn(v, a.bc2);
-  float u = __fdiv_rn(mh, __fadd_rn(__fsqrt_rn(__fadd_rn(vh, a.eps_root)),
-                                    a.eps));
+  const float mh = quot<ZEROS>(m, a.bc1);
+  const float vh = quot<ZEROS>(v, a.bc2);
+  float u = quot<ZEROS>(
+      mh, __fadd_rn(root<ZEROS>(__fadd_rn(vh, a.eps_root)), a.eps));
   u = __fadd_rn(u, __fmul_rn(a.wd, p));
   p = __fadd_rn(p, __fmul_rn(a.neg_lr, u));
   mu = m;
   nu = v;
 }
 
-// The kernel's modes. kNoClip and kClip are the one-device step (kClip a
-// cooperative launch); the tp lane (a rank of a tp group holds part of
-// the parameters) is kPartials, which writes the chunk sums and stops,
-// then kClipGiven, which takes the norm of the n_part sums in `part` (the
-// tp group's, gathered between the two launches in the norm's order) and
-// updates: kClip's two halves without its grid barrier.
-enum AdamMode { kNoClip = 0, kClip = 1, kPartials = 2, kClipGiven = 3 };
-
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
     adamw_kernel(float* __restrict__ p, const float* __restrict__ g,
                  float* __restrict__ mu, float* __restrict__ nu, long long n,
-                 float* part, int n_part, int mode, AdamScalars a) {
+                 float* part, int clip, AdamScalars a) {
   __shared__ float s[kThreads];
   const long long chunks = (n + kChunk - 1) / kChunk;
   const long long c0 = chunks * blockIdx.x / gridDim.x;
   const long long c1 = chunks * (blockIdx.x + 1) / gridDim.x;
   bool clipped = false;
   float gnorm = 0.0f;
-  if (mode == kClip || mode == kPartials) {
+  if (clip) {
     for (long long c = c0; c < c1; ++c) {
       const long long base = c * kChunk + threadIdx.x;
       float v[kRun];
@@ -471,11 +511,8 @@ __global__ void __launch_bounds__(kThreads)
       block_tree_sum(s);
       if (threadIdx.x == 0) part[c] = s[0];
     }
-    if (mode == kPartials) return;
     cg::this_grid().sync();
-  }
-  if (mode != kNoClip) {
-    gnorm = __fsqrt_rn(sum_partials(part, n_part, s));
+    gnorm = __fsqrt_rn(sum_partials(part, (int)chunks, s));
     clipped = !(gnorm < a.max_norm);
   }
   for (long long c = c0; c < c1; ++c) {
@@ -493,10 +530,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int r = 0; r < kRun / 4; ++r) {
         const long long e = base + (long long)(r * kThreads + threadIdx.x) * 4;
-        adam_element(pv[r].x, gv[r].x, mv[r].x, vv[r].x, clipped, gnorm, a);
-        adam_element(pv[r].y, gv[r].y, mv[r].y, vv[r].y, clipped, gnorm, a);
-        adam_element(pv[r].z, gv[r].z, mv[r].z, vv[r].z, clipped, gnorm, a);
-        adam_element(pv[r].w, gv[r].w, mv[r].w, vv[r].w, clipped, gnorm, a);
+        adam_element<false>(pv[r].x, gv[r].x, mv[r].x, vv[r].x, clipped,
+                            gnorm, a);
+        adam_element<false>(pv[r].y, gv[r].y, mv[r].y, vv[r].y, clipped,
+                            gnorm, a);
+        adam_element<false>(pv[r].z, gv[r].z, mv[r].z, vv[r].z, clipped,
+                            gnorm, a);
+        adam_element<false>(pv[r].w, gv[r].w, mv[r].w, vv[r].w, clipped,
+                            gnorm, a);
         *reinterpret_cast<float4*>(p + e) = pv[r];
         *reinterpret_cast<float4*>(mu + e) = mv[r];
         *reinterpret_cast<float4*>(nu + e) = vv[r];
@@ -507,7 +548,7 @@ __global__ void __launch_bounds__(kThreads)
         const long long i = base + j;
         if (i >= n) break;
         float pi = p[i], m = mu[i], v = nu[i];
-        adam_element(pi, g[i], m, v, clipped, gnorm, a);
+        adam_element<false>(pi, g[i], m, v, clipped, gnorm, a);
         p[i] = pi;
         mu[i] = m;
         nu[i] = v;
@@ -516,54 +557,378 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------------------------ K23
-// Per pixel with keep (label != ignore): pred = first argmax of the C
-// logits (or the given u8 prediction), l = its label;
-// counts[0*C + pred] += (pred == l)   intersection
-// counts[1*C + l] += 1, counts[1*C + pred] += (pred != l)   union
-// counts[2*C + l] += 1   the label's pixels
-// (a label >= C counts only its prediction's union). Integer counts in
-// shared memory, then one global add a class a block.
-template <int C>
-__global__ void iou_counts_kernel(const float* __restrict__ logits,
-                                  const uint8_t* __restrict__ preds,
-                                  const uint8_t* __restrict__ labels,
-                                  long long HW, long long n, int ignore,
-                                  unsigned long long* __restrict__ counts) {
-  __shared__ unsigned int sc[3 * C];
-  for (int j = threadIdx.x; j < 3 * C; j += blockDim.x) sc[j] = 0;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int l = labels[i];
-    if (l == ignore) continue;
-    int pr;
-    if (logits != nullptr) {
-      const long long b = i / HW;
-      const float* x = logits + b * C * HW + (i - b * HW);
-      float best = x[0];
-      pr = 0;
+// x[e .. e + 3] one element at a time, 0 past n; and the store of those
+// below n
+__device__ __forceinline__ float4 load4(const float* x, long long e,
+                                        long long n) {
+  return make_float4(e < n ? x[e] : 0.0f, e + 1 < n ? x[e + 1] : 0.0f,
+                     e + 2 < n ? x[e + 2] : 0.0f, e + 3 < n ? x[e + 3] : 0.0f);
+}
+
+__device__ __forceinline__ void store4(float* x, long long e, long long n,
+                                       float4 v) {
+  if (e < n) x[e] = v.x;
+  if (e + 1 < n) x[e + 1] = v.y;
+  if (e + 2 < n) x[e + 2] = v.z;
+  if (e + 3 < n) x[e + 3] = v.w;
+}
+
+// The tp lane's first kernel: part[c] = the sum of g^2 over chunk c, a
+// warp a chunk (kChunk / 128 = 32 loads of 16 bytes a lane, all issued
+// before the first add), bit-equal to adamw_kernel's chunk sums.
+template <bool VEC>
+__global__ void __launch_bounds__(kSumWarps * 32)
+    adamw_chunk_sums_kernel(const float* __restrict__ g, long long n,
+                            float* __restrict__ part) {
+  constexpr int kM = kChunk / 128;
+  const int lane = threadIdx.x & 31;
+  const long long c =
+      (long long)blockIdx.x * kSumWarps + (threadIdx.x >> 5);
+  if (c * kChunk >= n) return;
+  const long long base = c * kChunk + 4 * lane;
+  // acc[h][q]: leaf 128 h + 4 lane + q; past n the square is +0
+  float acc[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  if (VEC && c * kChunk + kChunk <= n) {
+    float4 v[kM];
 #pragma unroll
-      for (int c = 1; c < C; ++c) {
-        const float v = x[c * HW];
-        if (v > best) {
-          best = v;
-          pr = c;
+    for (int m = 0; m < kM; ++m)
+      v[m] = __ldg(reinterpret_cast<const float4*>(g + base + 128 * m));
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      float(&t)[4] = acc[m & 1];
+      t[0] = __fadd_rn(t[0], __fmul_rn(v[m].x, v[m].x));
+      t[1] = __fadd_rn(t[1], __fmul_rn(v[m].y, v[m].y));
+      t[2] = __fadd_rn(t[2], __fmul_rn(v[m].z, v[m].z));
+      t[3] = __fadd_rn(t[3], __fmul_rn(v[m].w, v[m].w));
+    }
+  } else {
+    // an unaligned arena, or the last, partial chunk: m = 2 r + h
+    for (int r = 0; r < kM / 2; ++r) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = load4(g, base + 128 * (2 * r + h), n);
+        acc[h][0] = __fadd_rn(acc[h][0], __fmul_rn(v.x, v.x));
+        acc[h][1] = __fadd_rn(acc[h][1], __fmul_rn(v.y, v.y));
+        acc[h][2] = __fadd_rn(acc[h][2], __fmul_rn(v.z, v.z));
+        acc[h][3] = __fadd_rn(acc[h][3], __fmul_rn(v.w, v.w));
+      }
+    }
+  }
+  // the tree: w = 128 in the lane, 64 .. 4 by shuffles, 2 and 1 in lane 0
+  float t[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) t[q] = __fadd_rn(acc[0][q], acc[1][q]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      t[q] = __fadd_rn(t[q], __shfl_down_sync(0xffffffffu, t[q], o));
+  }
+  if (lane == 0)
+    part[c] = __fadd_rn(__fadd_rn(t[0], t[2]), __fadd_rn(t[1], t[3]));
+}
+
+// sum_partials' sum of the n partials by one warp, in every lane: lane l
+// holds leaves l + 32 k (k = 0 .. 7), each adding partials j, j +
+// kThreads, ... in order; the tree's w = 128, 64, 32 levels pair leaves k
+// and k + 4, k + 2, k + 1 in a lane, w = 16 .. 1 by shuffles.
+__device__ float warp_sum_partials(const float* part, int n) {
+  const int lane = threadIdx.x & 31;
+  float t[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int r = 0; r < n; r += kThreads) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int i = r + lane + 32 * k;
+      v[k] = i < n ? __ldcg(part + i) : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      if (r + lane + 32 * k < n) t[k] = __fadd_rn(t[k], v[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) t[k] = __fadd_rn(t[k], t[k + 4]);
+  t[0] = __fadd_rn(t[0], t[2]);
+  t[1] = __fadd_rn(t[1], t[3]);
+  float x = __fadd_rn(t[0], t[1]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    x = __fadd_rn(x, __shfl_down_sync(0xffffffffu, x, o));
+  return __shfl_sync(0xffffffffu, x, 0);
+}
+
+// The tp lane's update: g_norm = sqrt of the n_sums sums (the whole
+// gradient's chunk sums in the norm's order), the clip, then adam_element;
+// block b takes elements b * kUpdShare + 4 (r * kThreads + t) + 0 .. 3.
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    adamw_tp_update_kernel(float* __restrict__ p, const float* __restrict__ g,
+                           float* __restrict__ mu, float* __restrict__ nu,
+                           long long n, const float* sums, int n_sums,
+                           AdamScalars a) {
+  __shared__ float norm;
+  const long long base = (long long)blockIdx.x * kUpdShare + 4 * threadIdx.x;
+  float4 pv[kUpdQuads], gv[kUpdQuads], mv[kUpdQuads], vv[kUpdQuads];
+#pragma unroll
+  for (int r = 0; r < kUpdQuads; ++r) {
+    const long long e = base + (long long)r * kThreads * 4;
+    if (VEC && e + 4 <= n) {
+      pv[r] = *reinterpret_cast<const float4*>(p + e);
+      gv[r] = *reinterpret_cast<const float4*>(g + e);
+      mv[r] = *reinterpret_cast<const float4*>(mu + e);
+      vv[r] = *reinterpret_cast<const float4*>(nu + e);
+    } else {
+      pv[r] = load4(p, e, n);
+      gv[r] = load4(g, e, n);
+      mv[r] = load4(mu, e, n);
+      vv[r] = load4(nu, e, n);
+    }
+  }
+  if (threadIdx.x < 32) {
+    const float gn = __fsqrt_rn(warp_sum_partials(sums, n_sums));
+    if (threadIdx.x == 0) norm = gn;
+  }
+  __syncthreads();
+  const float gnorm = norm;
+  const bool clipped = !(gnorm < a.max_norm);
+#pragma unroll
+  for (int r = 0; r < kUpdQuads; ++r) {
+    const long long e = base + (long long)r * kThreads * 4;
+    adam_element<true>(pv[r].x, gv[r].x, mv[r].x, vv[r].x, clipped,
+                       gnorm, a);
+    adam_element<true>(pv[r].y, gv[r].y, mv[r].y, vv[r].y, clipped,
+                       gnorm, a);
+    adam_element<true>(pv[r].z, gv[r].z, mv[r].z, vv[r].z, clipped,
+                       gnorm, a);
+    adam_element<true>(pv[r].w, gv[r].w, mv[r].w, vv[r].w, clipped,
+                       gnorm, a);
+    if (VEC && e + 4 <= n) {
+      *reinterpret_cast<float4*>(p + e) = pv[r];
+      *reinterpret_cast<float4*>(mu + e) = mv[r];
+      *reinterpret_cast<float4*>(nu + e) = vv[r];
+    } else {
+      store4(p, e, n, pv[r]);
+      store4(mu, e, n, mv[r]);
+      store4(nu, e, n, vv[r]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K23
+// Per pixel kept (label l != ignore), pred = the first argmax of the C
+// logits (or the given u8 prediction):
+//   tp[c] = #(pred == l == c), lab[c] = #(l == c), prd[c] = #(pred == c)
+// and counts = [tp, lab + prd - tp (the union), lab], (3, C): a label >= C
+// counts only in prd (its prediction's union), a prediction >= C only in
+// lab. Integer counts, exact in any order, and linear: a block's union is
+// its own lab + prd - tp.
+//
+// What bounds it: bytes at the logits' 4C + 1 bytes a pixel; with given
+// predictions (2 bytes a pixel) the integer operations a pixel come close
+// to the bytes' time, so a pixel's counting is ~11 operations whatever C
+// is: each of tp, prd and lab is one 32-bit word of 8 nibble counters, the
+// pixel adding 1 << 4 v (v = l or pred; 0 for v >= 8: PTX clamps the
+// shift), with no test of the ignored label but prd's (an ignored label
+// >= 8 adds nothing to lab and tp; one below 8 adds to its own class's,
+// which the block drops); the nibbles are moved into byte counters every
+// 8 pixels, into 16-bit ones before the warp's sums (__reduce_add_sync),
+// summed over the block's warps in shared memory, then one global atomic
+// a nonzero count a block into the counts. A thread takes 16 consecutive
+// pixels: one 16-byte load of labels (and of predictions), and C float4
+// loads of logits a quad where HW % 4 == 0, all issued before the first
+// count; a pixel at a time at a tail or where HW % 4 != 0. The logits'
+// grid is 2-D (tiles of HW, images), so no pixel divides by HW. The
+// counts are zeroed by a memset on the launch's stream just before it.
+constexpr int kIouPx = 16;
+
+template <bool LOGITS>
+struct IouShape {
+  static constexpr int kThreads = LOGITS ? 128 : 256;
+};
+
+// 1 << a (a = 4 v: v's nibble), 0 for a >= 32 (shl.b32 clamps the shift)
+__device__ __forceinline__ uint32_t nibble_at(uint32_t a) {
+  uint32_t r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(1u), "r"(a));
+  return r;
+}
+
+// a thread's counters: nib[h] 8 nibbles (h = 0 tp, 1 prd, 2 lab), ev[h] /
+// od[h] the even / odd classes in bytes
+struct IouAcc {
+  uint32_t nib[3] = {0u, 0u, 0u}, ev[3] = {0u, 0u, 0u}, od[3] = {0u, 0u, 0u};
+
+  // al, ap = 4 l, 4 pred; aign = 4 ignore (or ~0u: none)
+  __device__ __forceinline__ void pixel(uint32_t al, uint32_t ap,
+                                        uint32_t aign) {
+    const uint32_t ol = nibble_at(al);
+    nib[2] += ol;
+    if (al == ap) nib[0] += ol;
+    if (al != aign) nib[1] += nibble_at(ap);
+  }
+  // every 8 pixels: a nibble holds at most 15
+  __device__ __forceinline__ void flush() {
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+      ev[h] += nib[h] & 0x0F0F0F0Fu;
+      od[h] += (nib[h] >> 4) & 0x0F0F0F0Fu;
+      nib[h] = 0u;
+    }
+  }
+};
+
+// 4 x byte k of w
+__device__ __forceinline__ uint32_t byte_x4(uint32_t w, int k) {
+  return k == 0 ? (w << 2) & 0x3FCu : (w >> (8 * k - 2)) & 0x3FCu;
+}
+
+// the first maximum of x, as the plain version's argmax
+template <int C>
+__device__ __forceinline__ int first_argmax(const float (&x)[C]) {
+  float best = x[0];
+  int pr = 0;
+#pragma unroll
+  for (int c = 1; c < C; ++c) {
+    if (x[c] > best) {
+      best = x[c];
+      pr = c;
+    }
+  }
+  return pr;
+}
+
+// 16 bytes at q as 4 words: one 16-byte load where q is aligned
+__device__ __forceinline__ void load16(const uint8_t* q, uint32_t (&w)[4]) {
+  if (((uintptr_t)q & 15) == 0) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(q));
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = q[4 * j] | (uint32_t)q[4 * j + 1] << 8 |
+             (uint32_t)q[4 * j + 2] << 16 | (uint32_t)q[4 * j + 3] << 24;
+  }
+}
+
+// the word of class c's 16-bit counter after the widening: words (0 |
+// 4), (2 | 6), (1 | 5), (3 | 7), the higher class in the high half
+__device__ __forceinline__ constexpr int iou_word(int c) {
+  return ((c & 1) << 1) | ((c >> 1) & 1);
+}
+
+// counts (3, C) int64, zero on entry. VEC (the logits): HW % 4 == 0 and
+// the logits 16-byte aligned.
+template <int C, bool LOGITS, bool VEC>
+__global__ void __launch_bounds__(IouShape<LOGITS>::kThreads)
+    iou_counts_kernel(const float* __restrict__ logits,
+                      const uint8_t* __restrict__ preds,
+                      const uint8_t* __restrict__ labels, long long HW,
+                      long long n, int ignore,
+                      unsigned long long* __restrict__ counts) {
+  constexpr int T = IouShape<LOGITS>::kThreads;
+  constexpr int kWarps = T / 32;
+  __shared__ uint32_t sw[kWarps][12];
+  IouAcc acc;
+  const uint32_t aign = ignore >= 0 ? 4u * ignore : ~0u;
+  // the thread's pixels: o .. o + 15 of image blockIdx.y (logits), or of
+  // the flat B * HW pixels (predictions)
+  const long long o = ((long long)blockIdx.x * T + threadIdx.x) * kIouPx;
+  const long long len = LOGITS ? HW : n;
+  const uint8_t* lab = labels + (LOGITS ? blockIdx.y * HW : 0) + o;
+  const float* x = LOGITS ? logits + blockIdx.y * C * HW + o : nullptr;
+  const uint8_t* pp = LOGITS ? nullptr : preds + o;
+  if (VEC && o + kIouPx <= len) {
+    uint32_t lv[4];
+    load16(lab, lv);
+    if (LOGITS) {
+      float4 v[4][C];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          v[q][c] = __ldg(reinterpret_cast<const float4*>(x + c * HW + 4 * q));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float x0[C], x1[C], x2[C], x3[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          x0[c] = v[q][c].x;
+          x1[c] = v[q][c].y;
+          x2[c] = v[q][c].z;
+          x3[c] = v[q][c].w;
         }
+        acc.pixel(byte_x4(lv[q], 0), 4 * first_argmax<C>(x0), aign);
+        acc.pixel(byte_x4(lv[q], 1), 4 * first_argmax<C>(x1), aign);
+        acc.pixel(byte_x4(lv[q], 2), 4 * first_argmax<C>(x2), aign);
+        acc.pixel(byte_x4(lv[q], 3), 4 * first_argmax<C>(x3), aign);
+        if (q & 1) acc.flush();
       }
     } else {
-      pr = preds[i];
+      uint32_t pv[4];
+      load16(pp, pv);
+#pragma unroll
+      for (int k = 0; k < kIouPx; ++k) {
+        acc.pixel(byte_x4(lv[k >> 2], k & 3), byte_x4(pv[k >> 2], k & 3),
+                  aign);
+        if ((k & 7) == 7) acc.flush();
+      }
     }
-    if (pr < C) atomicAdd(&sc[pr == l ? pr : C + pr], 1u);
-    if (l < C) {
-      atomicAdd(&sc[C + l], 1u);
-      atomicAdd(&sc[2 * C + l], 1u);
+  } else if (o < len) {
+    // a pixel at a time: the tail, or logits without VEC
+    for (int k = 0; k < kIouPx && o + k < len; ++k) {
+      int pr;
+      if (LOGITS) {
+        float xs[C];
+#pragma unroll
+        for (int c = 0; c < C; ++c) xs[c] = x[c * HW + k];
+        pr = first_argmax<C>(xs);
+      } else {
+        pr = pp[k];
+      }
+      acc.pixel(4u * lab[k], 4u * pr, aign);
+      if ((k & 7) == 7) acc.flush();
+    }
+    acc.flush();
+  }
+  // 16-bit counters a class pair, summed over the warp, then the block
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int h = 0; h < 3; ++h) {
+    const uint32_t w[4] = {acc.ev[h] & 0x00FF00FFu,
+                           (acc.ev[h] >> 8) & 0x00FF00FFu,
+                           acc.od[h] & 0x00FF00FFu,
+                           (acc.od[h] >> 8) & 0x00FF00FFu};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      // word j's lower class is 2 (j & 1) + (j >> 1): skip words past C
+      if (2 * (j & 1) + (j >> 1) >= C) continue;
+      const uint32_t s = __reduce_add_sync(0xffffffffu, w[j]);
+      if ((threadIdx.x & 31) == 0) sw[warp][4 * h + j] = s;
     }
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < 3 * C; j += blockDim.x)
-    if (sc[j]) atomicAdd(&counts[j], (unsigned long long)sc[j]);
+  if (threadIdx.x < C) {
+    // a warp's counter is at most 512, a block's 4096: no carry between
+    // the halves
+    const int c = threadIdx.x;
+    uint32_t v[3];
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+      uint32_t sum = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += sw[w][4 * h + iou_word(c)];
+      v[h] = (sum >> (16 * (c >> 2))) & 0xFFFFu;
+    }
+    // an ignored label below 8 counted in its own class's tp and lab
+    if (c == ignore) v[0] = v[2] = 0;
+    const uint32_t add[3] = {v[0], v[2] + v[1] - v[0], v[2]};
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+      if (add[h]) atomicAdd(counts + h * C + c, (unsigned long long)add[h]);
+  }
 }
 
 int grid_for(long long n, int per_block, int cap) {
@@ -721,9 +1086,9 @@ extern "C" int p3d_adamw_partials(long long n) {
 
 namespace {
 
-// One K22 launch in `mode` (cooperative for kClip); 0 or the CUDA error.
+// One K22 launch (cooperative with the clip); 0 or the CUDA error.
 int launch_adamw(void* p, const void* g, void* mu, void* nu, long long n,
-                 void* part, int n_part, int mode, const AdamScalars& a,
+                 void* part, int clip, const AdamScalars& a,
                  cudaStream_t st) {
   if (n == 0) return 0;
   const bool vec = aligned16(p) && aligned16(g) && aligned16(mu) &&
@@ -739,19 +1104,17 @@ int launch_adamw(void* p, const void* g, void* mu, void* nu, long long n,
   float* pv = (float*)nu;
   float* ppart = (float*)part;
   AdamScalars sa = a;
-  if (mode != kClip) {
+  if (!clip) {
     if (vec)
       adamw_kernel<true><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
-                                                      ppart, n_part, mode, sa);
+                                                      ppart, 0, sa);
     else
       adamw_kernel<false><<<blocks, kThreads, 0, st>>>(pp, pg, pm, pv, n,
-                                                       ppart, n_part, mode,
-                                                       sa);
+                                                       ppart, 0, sa);
     return (int)cudaGetLastError();
   }
-  void* args[] = {(void*)&pp,    (void*)&pg,     (void*)&pm,   (void*)&pv,
-                  (void*)&n,     (void*)&ppart,  (void*)&n_part,
-                  (void*)&mode,  (void*)&sa};
+  void* args[] = {(void*)&pp, (void*)&pg,    (void*)&pm,   (void*)&pv,
+                  (void*)&n,  (void*)&ppart, (void*)&clip, (void*)&sa};
   err = cudaLaunchCooperativeKernel(
       vec ? (const void*)adamw_kernel<true> : (const void*)adamw_kernel<false>,
       dim3(blocks), dim3(kThreads), args, 0, st);
@@ -772,8 +1135,8 @@ extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
                          float neg_lr, float max_norm, void* stream) {
   AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
                 max_norm};
-  return launch_adamw(p, g, mu, nu, n, part, (int)grid_for(n, kChunk, 0),
-                      clip ? kClip : kNoClip, a, (cudaStream_t)stream);
+  return launch_adamw(p, g, mu, nu, n, part, clip ? 1 : 0, a,
+                      (cudaStream_t)stream);
 }
 
 // K22's tp lane, first launch: part[c] = the sum of g^2 over chunk c of
@@ -781,9 +1144,16 @@ extern "C" int p3d_adamw(void* p, const void* g, void* mu, void* nu,
 // order.
 extern "C" int p3d_adamw_tp_partials(const void* g, long long n, void* part,
                                      void* stream) {
-  AdamScalars a{};
-  return launch_adamw(nullptr, g, nullptr, nullptr, n, part, 0, kPartials,
-                      a, (cudaStream_t)stream);
+  if (n == 0) return 0;
+  const int nb = grid_for(grid_for(n, kChunk, 0), kSumWarps, 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (aligned16(g))
+    adamw_chunk_sums_kernel<true><<<nb, kSumWarps * 32, 0, st>>>(
+        (const float*)g, n, (float*)part);
+  else
+    adamw_chunk_sums_kernel<false><<<nb, kSumWarps * 32, 0, st>>>(
+        (const float*)g, n, (float*)part);
+  return (int)cudaGetLastError();
 }
 
 // K22's tp lane, second launch: the clipped update of the arenas with
@@ -796,33 +1166,60 @@ extern "C" int p3d_adamw_tp_update(void* p, const void* g, void* mu,
                                    float bc2, float eps, float eps_root,
                                    float wd, float neg_lr, float max_norm,
                                    void* stream) {
+  if (n == 0) return 0;
   AdamScalars a{b1, b2, omb1, omb2, bc1, bc2, eps, eps_root, wd, neg_lr,
                 max_norm};
-  return launch_adamw(p, g, mu, nu, n, (void*)sums, n_sums, kClipGiven, a,
-                      (cudaStream_t)stream);
+  const int nb = grid_for(n, kUpdShare, 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (aligned16(p) && aligned16(g) && aligned16(mu) && aligned16(nu))
+    adamw_tp_update_kernel<true><<<nb, kThreads, 0, st>>>(
+        (float*)p, (const float*)g, (float*)mu, (float*)nu, n,
+        (const float*)sums, n_sums, a);
+  else
+    adamw_tp_update_kernel<false><<<nb, kThreads, 0, st>>>(
+        (float*)p, (const float*)g, (float*)mu, (float*)nu, n,
+        (const float*)sums, n_sums, a);
+  return (int)cudaGetLastError();
 }
 
 // K23. logits (B, C, HW) f32 or null, preds (B, HW) u8 (when logits is
-// null), labels (B, HW) u8; counts (3, C) uint64, zeroed by the caller.
+// null), labels (B, HW) u8, B = n / HW; counts (3, C) int64, zeroed here
+// on `stream`, then the one launch.
 extern "C" int p3d_iou_counts(const void* logits, const void* preds,
                               const void* labels, int C, long long HW,
                               long long n, int ignore, void* counts,
                               void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (n == 0) return 0;
-  const int nb = grid_for(n, kThreads, 8 * sm_count());
+  if (C < 2 || C > 8) return (int)cudaErrorInvalidValue;
+  const cudaError_t zero = cudaMemsetAsync(counts, 0, 3 * C * 8, st);
+  if (zero != cudaSuccess || n == 0) return (int)zero;
+  const bool lg = logits != nullptr;
+  const int T = lg ? IouShape<true>::kThreads : IouShape<false>::kThreads;
+  const long long per_block = (long long)T * kIouPx;
+  const dim3 grid = lg ? dim3((unsigned)grid_for(HW, (int)per_block, 0),
+                              (unsigned)(n / HW))
+                       : dim3((unsigned)grid_for(n, (int)per_block, 0));
+  // the predictions' lane loads 16 bytes at a time wherever it may
+  const bool vec = !lg || (HW % 4 == 0 && aligned16(logits));
+  const float* lp = (const float*)logits;
+  const uint8_t* pp = (const uint8_t*)preds;
+  const uint8_t* lb = (const uint8_t*)labels;
+  unsigned long long* out = (unsigned long long*)counts;
   switch (C) {
-#define P3D_IOU(NC)                                                        \
-  case NC:                                                                 \
-    iou_counts_kernel<NC><<<nb, kThreads, 0, st>>>(                        \
-        (const float*)logits, (const uint8_t*)preds,                       \
-        (const uint8_t*)labels, HW, n, ignore,                             \
-        (unsigned long long*)counts);                                      \
+#define P3D_IOU(NC)                                                          \
+  case NC:                                                                   \
+    if (lg && vec)                                                           \
+      iou_counts_kernel<NC, true, true><<<grid, T, 0, st>>>(                 \
+          lp, pp, lb, HW, n, ignore, out);                                   \
+    else if (lg)                                                             \
+      iou_counts_kernel<NC, true, false><<<grid, T, 0, st>>>(                \
+          lp, pp, lb, HW, n, ignore, out);                                   \
+    else                                                                     \
+      iou_counts_kernel<NC, false, true><<<grid, T, 0, st>>>(                \
+          lp, pp, lb, HW, n, ignore, out);                                   \
     break;
     P3D_BY_C(P3D_IOU)
 #undef P3D_IOU
-    default:
-      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

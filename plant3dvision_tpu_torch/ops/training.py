@@ -295,9 +295,9 @@ def adamw_launcher(p, g, mu, nu, *, clip, b1, b2, eps, eps_root, wd,
     the arena's chunk sums of g^2 (ADAMW_CHUNK elements a chunk, float32,
     on the arena's device) and returns the whole gradient's chunk sums in
     the norm's order. The step is then two launches, counted under
-    "adamw_tp": the chunk sums, and after `tp_sums` the update with the
-    norm of the sums it returned (the cooperative launch's two halves,
-    without its grid barrier)."""
+    "adamw_tp": the chunk sums (a warp a chunk), and after `tp_sums` the
+    update with the norm of the sums it returned (a grid of its own), bit
+    for bit the cooperative launch's two halves."""
     n = p.numel()
     for t in (p, g, mu, nu):
         _check(t.dtype == _F32 and t.ndim == 1 and t.numel() == n,
@@ -431,7 +431,8 @@ def iou_counts(labels, n_cls, logits=None, preds=None, ignore_index=None):
     """K23: (3, n_cls) int64 [intersection, union, label pixels] per class
     of the first-max argmax of (B, C, H, W) float32 `logits` (or of (B, H,
     W) uint8 `preds`) against (B, H, W) uint8 `labels`, pixels labelled
-    `ignore_index` left out."""
+    `ignore_index` left out. On the card a memset of the counts and one
+    launch, both on the current stream."""
     _check((logits is None) != (preds is None), "give logits or preds")
     _check(labels.dtype == _U8, "labels must be uint8")
     if logits is not None:
@@ -448,7 +449,7 @@ def iou_counts(labels, n_cls, logits=None, preds=None, ignore_index=None):
         return iou_counts_plain(labels, n_cls, logits, preds, ignore)
     src = logits if logits is not None else preds
     kernels.require_cuda("iou_counts", labels, src)
-    counts = torch.zeros((3, n_cls), dtype=torch.int64, device=labels.device)
+    counts = torch.empty((3, n_cls), dtype=torch.int64, device=labels.device)
     HW = labels[0].numel() if labels.ndim > 1 else labels.numel()
     rc = kernels.lib().p3d_iou_counts(
         logits.data_ptr() if logits is not None else None,

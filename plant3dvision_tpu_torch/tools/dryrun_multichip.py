@@ -153,7 +153,7 @@ def _mini_pipeline(n, dev, mesh):
     return len(a[0]), len(a[1])
 
 
-def dryrun_multichip(n: int, device="cpu", backend=None,
+def dryrun_multichip(n: int, device="cuda", backend=None,
                      workload=True) -> None:
     from ..models.checkpoint import model_from_config
     from ..models.train_synth import _make_model, train_on_crops

@@ -1918,14 +1918,20 @@ def test_adamw_kernel_matches_plain(dev, clip, n, offset):
 
 
 @pytest.mark.parametrize("offset", [0, 1])
-@pytest.mark.parametrize("n", [1001, 516_096])
-def test_adamw_tp_lane_matches_plain(dev, n, offset):
-    """K22's tp lane on a rank's arena (516,096: a dp 2 x tp 4 rank of
-    the ResUNet): its chunk sums bit-equal to the plain version's; the
-    update with another rank's sums appended (the gathered sums of a tp
-    group) bit-equal to the plain update at the sums' plain norm, clipped
-    and not; two launches a step, counted under "adamw_tp"; the lane over
-    its own sums equals the one-arena cooperative launch bit for bit."""
+@pytest.mark.parametrize("n,tp", [(1001, 2), (300_001, 4), (516_096, 4),
+                                  (1_024_000, 2)])
+def test_adamw_tp_lane_matches_plain(dev, n, tp, offset):
+    """K22's tp lane on a rank's arena (516,096: a dp 2 x tp 4 rank of the
+    ResUNet, 1,024,000 a tp 2 rank; 1001 and 300,001 no multiple of 4, of
+    the update's 2048 elements a block or of the 4096-element chunk), with
+    a run of zeros as a region's padding and zeros scattered, some -0 (the
+    update's quotients of 0): its
+    chunk sums bit-equal to the plain version's; the update with the other
+    tp - 1 ranks' sums appended (the gathered sums of a tp group) bit-equal
+    to the plain update at the sums' plain norm, clipped and not; two
+    launches a step, counted under "adamw_tp"; the lane over its own sums
+    equals the one-arena cooperative launch bit for bit, clipped and
+    not."""
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops import training as T
     g = torch.Generator(device=dev).manual_seed(4)
@@ -1940,8 +1946,15 @@ def test_adamw_tp_lane_matches_plain(dev, n, offset):
            0.01 * torch.randn(n, generator=g, device=dev),
            0.01 * torch.randn(n, generator=g, device=dev),
            1e-4 * torch.rand(n, generator=g, device=dev)]
-    other = T.adamw_partials_plain(
+    for t in src:
+        t[n // 3:n // 3 + 5000] = 0.0
+    scatter = torch.rand(n, generator=g, device=dev)
+    for t in src[1:]:
+        t[scatter < 0.01] = 0.0
+        t[scatter < 0.005] = -0.0
+    other = torch.cat([T.adamw_partials_plain(
         0.01 * torch.randn(n, generator=g, device=dev))
+        for _ in range(tp - 1)])
     for max_norm in (1e-3, 1e3):
         a = [arena(t) for t in src]
         got = {}
@@ -1963,21 +1976,40 @@ def test_adamw_tp_lane_matches_plain(dev, n, offset):
                              **kw, **per)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-    one = [arena(t) for t in src]
-    lane = [arena(t) for t in src]
-    T.adamw_update(*one, clip=True, max_norm=1e-3, **kw, **per)
-    T.adamw_update(*lane, clip=True, max_norm=1e-3, tp_sums=lambda p: p,
-                   **kw, **per)
-    torch.cuda.synchronize()
-    assert all(torch.equal(x, y) for x, y in zip(one, lane))
+    for max_norm in (1e-3, 1e3):
+        one = [arena(t) for t in src]
+        lane = [arena(t) for t in src]
+        T.adamw_update(*one, clip=True, max_norm=max_norm, **kw, **per)
+        T.adamw_update(*lane, clip=True, max_norm=max_norm,
+                       tp_sums=lambda p: p, **kw, **per)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(one, lane))
 
 
+def _u8_at(t, offset):
+    """t copied into a uint8 buffer `offset` bytes past a 16-byte
+    boundary (a view of its shape)."""
+    buf = torch.empty(t.numel() + 16, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + t.numel()].view(t.shape)
+    assert out.data_ptr() % 16 == offset
+    return out.copy_(t)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("shape,ignore", [((3, 5, 16, 16), None),
                                           ((2, 6, 448, 448), None),
-                                          ((1, 3, 1080, 1440), 255)])
-def test_iou_counts_kernel_matches_plain(dev, shape, ignore):
+                                          ((1, 3, 1080, 1440), 255),
+                                          ((2, 2, 37, 29), None),
+                                          ((3, 8, 30, 34), 255),
+                                          ((2, 4, 12, 20), 0)])
+def test_iou_counts_kernel_matches_plain(dev, shape, ignore, offset):
     """K23's counts equal the plain version's, from logits (with ties)
-    and from predictions; one launch a call."""
+    and from predictions; one launch a call (after a memset of its
+    counts), repeated calls equal, a call under another stream equal, a
+    returned result untouched by later calls. C = 2 to
+    8; H * W a multiple of 16, of 4 only (30 x 34) and of neither (37 x
+    29); label and prediction tensors 1 byte off 16 (`offset`); labels
+    and given predictions >= C beside the ignored label."""
     from plant3dvision_tpu_torch import kernels
     from plant3dvision_tpu_torch.ops import training as T
     B, C, H, W = shape
@@ -1985,17 +2017,63 @@ def test_iou_counts_kernel_matches_plain(dev, shape, ignore):
     logits = torch.round(torch.randn(shape, generator=g, device=dev), decimals=1)
     lab = torch.randint(0, C, (B, H, W), generator=g, device=dev,
                         dtype=torch.uint8)
+    lab[torch.rand((B, H, W), generator=g, device=dev) < 0.05] = C
+    lab[torch.rand((B, H, W), generator=g, device=dev) < 0.05] = 254
     if ignore is not None:
         lab[torch.rand((B, H, W), generator=g, device=dev) < 0.25] = ignore
+    lab = _u8_at(lab, offset)
+    ig = -1 if ignore is None else ignore
     kernels.reset_launches()
     k = T.iou_counts(lab, C, logits=logits, ignore_index=ignore)
     assert kernels.LAUNCHES["iou_counts"] == 1
     assert torch.equal(k, T.iou_counts_plain(lab, C, logits=logits,
-                                             ignore=-1 if ignore is None
-                                             else ignore))
-    pred = logits.argmax(1).to(torch.uint8)
+                                             ignore=ig))
+    assert torch.equal(T.iou_counts(lab, C, logits=logits,
+                                    ignore_index=ignore), k)
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        ks = T.iou_counts(lab, C, logits=logits, ignore_index=ignore)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    assert torch.equal(ks, k)
+    pred = _u8_at(logits.argmax(1).to(torch.uint8), offset)
     assert torch.equal(T.iou_counts(lab, C, preds=pred, ignore_index=ignore),
                        k)
+    pred[torch.rand((B, H, W), generator=g, device=dev) < 0.1] = C + 1
+    pred[torch.rand((B, H, W), generator=g, device=dev) < 0.05] = 255
+    want = T.iou_counts_plain(lab, C, preds=pred, ignore=ig)
+    for _ in range(2):
+        assert torch.equal(T.iou_counts(lab, C, preds=pred,
+                                        ignore_index=ignore), want)
+    # a result the caller holds is not touched by later calls
+    assert torch.equal(k, T.iou_counts_plain(lab, C, logits=logits,
+                                             ignore=ig))
+
+
+@pytest.mark.parametrize("input_", ["logits", "preds"])
+@pytest.mark.parametrize("C", [2, 3, 8])
+def test_iou_counts_one_class_and_all_ignored(dev, C, input_):
+    """K23 on a 1080x1440 image of one class predicted right (every
+    pixel's counter the same: the contended case), and on one whose every
+    pixel is ignored (all counts 0): equal to the plain version's, and a
+    call after each equal to the plain version's on other inputs."""
+    from plant3dvision_tpu_torch.ops import training as T
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, W = 1080, 1440
+    one = torch.full((1, H, W), C - 1, dtype=torch.uint8, device=dev)
+    logits = torch.zeros((1, C, H, W), device=dev)
+    logits[:, C - 1] = 1.0
+    src = {"logits": logits} if input_ == "logits" else {"preds": one}
+    k = T.iou_counts(one, C, ignore_index=255, **src)
+    assert torch.equal(k, T.iou_counts_plain(one, C, ignore=255, **src))
+    assert k[0, C - 1] == H * W and k[1, C - 1] == H * W
+    ignored = torch.full_like(one, 255)
+    k = T.iou_counts(ignored, C, ignore_index=255, **src)
+    assert torch.equal(k, torch.zeros_like(k))
+    lab = torch.randint(0, C, (1, H, W), generator=g, device=dev,
+                        dtype=torch.uint8)
+    assert torch.equal(T.iou_counts(lab, C, ignore_index=255, **src),
+                       T.iou_counts_plain(lab, C, ignore=255, **src))
 
 
 def test_train_on_crops_resume_bit_identical_on_card(dev):

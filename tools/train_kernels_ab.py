@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""K21 (the weighted cross-entropy and its gradient) and K22 (clipped
-AdamW) of one or more checkouts of the port, timed in turns on one card,
-with K20 and K23 at phase 22's shapes and 50 warm training steps; with
---variants, build variants of this checkout's train.cu and time them on
-the same inputs.
+"""K21 (the weighted cross-entropy and its gradient), K22 (clipped
+AdamW, and its tp lane) and K23 (IoU counts) of one or more checkouts of
+the port, timed in turns on one card, with K20 at phase 22's shape and 50
+warm training steps; with --variants, build variants of this checkout's
+train.cu and time them on the same inputs.
 
 Each root is measured in its own process (each checkout builds its own
 kernels), in the order given, so `--roots parent change change parent`
@@ -20,15 +20,28 @@ compares two versions on one card. The inputs, the same for every root
   phase 22's width (24-192 x 2 blocks, 2.03 M), clipped (train_synth) and
   unclipped (train.py), and of TPUSegNet (128, 256, 256; 7.55 M),
   clipped; gradients 0.01 x N(0, 1) (a global norm above 1).
+- K22's tp lane on a dp 2 x tp 4 rank's arena of that ResUNet (516,096
+  elements, TP_N: its 6030 replicated parameters and 506,862 of the split
+  ones, each region padded with zeros to a 4096 chunk) with the tp
+  group's 498 gathered chunk sums (TP_SUMS):
+  its two launches (`adamw_tp`), the gather not timed; cold (copies of
+  the arena in turn, `chip_smoke.cold_turns`: p, g, mu and nu in HBM, as
+  a training step finds p, mu and nu) and warm (one arena, in the L2);
+  its bound counts g read once, 28 bytes a parameter, and the sums.
 - K20 on 24 resident 448 crops, a batch of 8; K23 on logits (2, 6, 448,
-  448): phase 22's shapes.
+  448): phase 22's shapes; K23 on phase 24's: the uint8 predictions of a
+  1080x1440 view, 3 classes, ignore 255 (a seeded plant-like label map:
+  background, a stem and fruits, an ignored band around them, the
+  predictions off by 3 %).
 - 50 warm `train_on_crops` steps at phase 22's size (ResUNet 24-192,
   crop 448, batch 8) on 24 synthetic crops, after 50 warm-up steps, then
   50 more under torch.profiler (device activity only): seconds a step and
   the device's idle share.
 
 For each call: the median of CUDA-event timings (`chip_smoke.cuda_ms`),
-the device time by kernel (`chip_smoke.device_ms_by_kernel`), the launches
+the device time a launch by kernel (`chip_smoke.device_ms_by_kernel`,
+with the launches it recorded: the parent's tp lane launches one kernel
+twice a call), the launches
 a call (`kernels.LAUNCHES`), and for K22 the host microseconds a step (50
 steps enqueued, no synchronisation inside). Each root saves its K21
 losses and gradients and its K22 arenas after one step from the seeded
@@ -38,7 +51,7 @@ for the variants), a line of comparisons, then the card's name and
 power limit.
 
     python tools/train_kernels_ab.py --roots .chipwork/parent . . .chipwork/parent
-    python tools/train_kernels_ab.py --variants
+    python tools/train_kernels_ab.py --variants [NAME ...]
 """
 
 from __future__ import annotations
@@ -67,6 +80,13 @@ ADAM_CASES = (
     ("tpusegnet_clip", {"arch": "tpusegnet", "widths": [128, 256, 256]},
      True))
 N_CLS, N_CROPS, CROP, BATCH = 6, 24, 448, 8
+#: K22's tp lane: a dp 2 x tp 4 rank's arena of the ResUNet (24-192 x 2
+#: blocks): its replicated parameters and its slices of the split ones,
+#: each region padded with zeros to K22's chunk (phase 25's `rank_arena`),
+#: and the gathered chunk sums of its tp group
+TP_REP, TP_MINE, TP_N, TP_SUMS = 6030, 506_862, 516_096, 498
+#: K23 at phase 24's shape: one view's predictions, distill's classes
+VIEW_H, VIEW_W, VIEW_CLS, IGNORE = 1080, 1440, 3, 255
 
 #: --variants: name -> edits of train.cu
 VARIANTS = {
@@ -85,6 +105,16 @@ VARIANTS = {
                        "constexpr int kAdamBlocksPerSm = 1;")],
     "adam_blocks_4": [("constexpr int kAdamBlocksPerSm = 2;",
                        "constexpr int kAdamBlocksPerSm = 4;")],
+    "tp_sum_warps_2": [("constexpr int kSumWarps = 1;",
+                        "constexpr int kSumWarps = 2;")],
+    "tp_sum_warps_4": [("constexpr int kSumWarps = 1;",
+                        "constexpr int kSumWarps = 4;")],
+    "tp_upd_quads_1": [("constexpr int kUpdQuads = 2;",
+                        "constexpr int kUpdQuads = 1;")],
+    "tp_upd_quads_4": [("constexpr int kUpdQuads = 2;",
+                        "constexpr int kUpdQuads = 4;")],
+    "iou_threads_256": [("LOGITS ? 128 : 256", "LOGITS ? 256 : 256")],
+    "iou_threads_128": [("LOGITS ? 128 : 256", "LOGITS ? 128 : 128")],
 }
 
 
@@ -99,6 +129,49 @@ def ce_inputs(shape, ignore, seed, dev):
         y[torch.rand((B, H, W), generator=g, device=dev) < 0.3] = ignore
     w = torch.rand(C, generator=g, device=dev) + 0.2
     return logits, y, w
+
+
+def view_labels(dev):
+    """A seeded 1080x1440 label map of distill's classes (0 background, 1
+    stem, 2 fruit) with an ignored band around the plant, and predictions
+    equal to it but for 3 % of the pixels (uint8, on `dev`)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(24)
+    lab = np.zeros((VIEW_H, VIEW_W), np.uint8)
+    lab[200:1000, 700:740] = 1
+    for r, c in rng.integers([250, 500], [950, 900], (12, 2)):
+        lab[r:r + 60, c:c + 40] = 2
+    near = np.zeros_like(lab, bool)
+    near[180:1020, 480:960] = True
+    lab[near & (lab == 0) & (rng.random(lab.shape) < 0.5)] = IGNORE
+    pred = np.where(lab == IGNORE, 0, lab).astype(np.uint8)
+    flip = rng.random(lab.shape) < 0.03
+    pred[flip] = rng.integers(0, VIEW_CLS, int(flip.sum()))
+    return (torch.from_numpy(lab[None]).to(dev),
+            torch.from_numpy(pred[None]).to(dev))
+
+
+def tp_arenas(dev):
+    """K22's tp lane inputs: p, g, mu, nu of TP_N elements, 0 in the
+    regions' padding, and TP_SUMS gathered chunk sums (this rank's first,
+    the rest another rank's)."""
+    import torch
+    from plant3dvision_tpu_torch.ops import training as T
+    g = torch.Generator(device=dev).manual_seed(12)
+    a = [torch.randn(TP_N, generator=g, device=dev),
+         0.01 * torch.randn(TP_N, generator=g, device=dev),
+         1e-3 * torch.randn(TP_N, generator=g, device=dev),
+         1e-6 * torch.rand(TP_N, generator=g, device=dev)]
+    rep = -(-TP_REP // T.ADAMW_CHUNK) * T.ADAMW_CHUNK
+    assert rep + -(-TP_MINE // T.ADAMW_CHUNK) * T.ADAMW_CHUNK == TP_N
+    for t in a:
+        t[TP_REP:rep] = 0.0
+        t[rep + TP_MINE:] = 0.0
+    own = T.adamw_partials_plain(a[1])
+    other = T.adamw_partials_plain(0.01 * torch.randn(
+        (TP_SUMS - own.numel()) * T.ADAMW_CHUNK, generator=g, device=dev))
+    return a, torch.cat([own, other])
 
 
 def synthetic_crops():
@@ -120,13 +193,17 @@ def synthetic_crops():
 
 
 def timed_call(fn, names, cuda_ms, device_ms_by_kernel):
-    """ms, device ms by kernel and launches a call of fn()."""
+    """ms, device ms a launch by kernel (and the launches the profiler
+    recorded of each in 20 calls) and launches a call of fn()."""
     from plant3dvision_tpu_torch import kernels
     before = {k: kernels.LAUNCHES[k] for k in names}
     fn()
     launches = {k: kernels.LAUNCHES[k] - before[k] for k in names}
+    recorded = {}
     return {"ms": cuda_ms(fn, reps=21),
-            "device_ms_by_kernel": device_ms_by_kernel(fn, reps=20),
+            "device_ms_by_kernel": device_ms_by_kernel(fn, reps=20,
+                                                       recorded=recorded),
+            "launches_recorded_in_20_calls": recorded,
             "launches_a_call": launches}
 
 
@@ -137,7 +214,7 @@ def measure(root, tmp, index):
     from plant3dvision_tpu_torch import kernels
     assert Path(kernels.__file__).resolve().is_relative_to(root)
     sys.path.append(str(ROOT))                      # the timing helpers
-    from chip_smoke import bound_ms, cuda_ms, device_ms_by_kernel
+    from chip_smoke import bound_ms, cold_turns, cuda_ms, device_ms_by_kernel
     from plant3dvision_tpu_torch.models import train_synth as S
     from plant3dvision_tpu_torch.models.checkpoint import model_from_config
     from plant3dvision_tpu_torch.models.optim import AdamW
@@ -213,6 +290,32 @@ def measure(root, tmp, index):
         del model, opt
         torch.cuda.empty_cache()
 
+    # K22's tp lane on a rank's arena with its group's gathered sums: cold
+    # (copies of the arena in turn, in HBM as a training step finds p, mu
+    # and nu) and warm (one arena, which the L2 holds)
+    arenas, gathered = tp_arenas(dev)
+    sc = dict(b1=0.9, b2=0.999, eps=1e-8, eps_root=0.0, wd=1e-4,
+              max_norm=1.0)
+    per_step = dict(bc1=0.1, bc2=1e-3, neg_lr=-3e-3)
+
+    def make_step():
+        a = [t.clone() for t in arenas]
+        step = T.adamw_launcher(*a, clip=True, tp_sums=lambda part: gathered,
+                                **sc)
+        return lambda: step(**per_step)
+    one = [t.clone() for t in arenas]
+    T.adamw_launcher(*one, clip=True, tp_sums=lambda part: gathered,
+                     **sc)(**per_step)
+    saved["k22_tp_lane"] = torch.stack(one).cpu()
+    out["k22_tp_lane"] = {
+        "arena": TP_N, "gathered_sums": TP_SUMS,
+        "step": timed(cold_turns(make_step, 16 * TP_N), ("adamw_tp",)),
+        "step_warm": timed(make_step(), ("adamw_tp",)),
+        "bound_ms": bound_ms(TP_N * 28 + (TP_N // T.ADAMW_CHUNK + TP_SUMS)
+                             * 4, TP_N * 24)}
+    del arenas, one
+    torch.cuda.empty_cache()
+
     # K20 and K23 at phase 22's shapes
     g = torch.Generator(device=dev).manual_seed(20)
     rgb = torch.randint(0, 256, (N_CROPS, CROP, CROP, 3), generator=g,
@@ -234,7 +337,15 @@ def measure(root, tmp, index):
                           ("iou_counts",)),
                   "bound_ms": bound_ms(nv * N_CLS * 4 + nv + 3 * N_CLS * 8,
                                        nv * (N_CLS + 4))}
-    del rgb, lab, vlog, vlab
+    vlab, vpred = view_labels(dev)
+    saved["k23_view"] = T.iou_counts(vlab, VIEW_CLS, preds=vpred,
+                                     ignore_index=IGNORE).cpu()
+    nv = vlab.numel()
+    out["k23_view"] = {**timed(lambda: T.iou_counts(
+        vlab, VIEW_CLS, preds=vpred, ignore_index=IGNORE), ("iou_counts",)),
+        "ignored_px": int((vlab == IGNORE).sum()),
+        "bound_ms": bound_ms(2 * nv + 3 * VIEW_CLS * 8, 4 * nv)}
+    del rgb, lab, vlog, vlab, vpred
     torch.cuda.empty_cache()
     out["train_steps"] = warm_steps(S)
     torch.save(saved, Path(tmp) / f"saved_{index}.pt")
@@ -293,17 +404,22 @@ def compare(tmp, n_roots):
     print(json.dumps({"against_first_root": out}), flush=True)
 
 
-def variants(tmp):
-    """Build VARIANTS of this checkout's train.cu, and time each one's K21
-    pass (with its gradient; phases 22 and 24's shapes) and K22 (clipped,
-    2.03 M and 7.55 M elements), twice in turns, then once as device time
-    by kernel; gradients and arenas held equal to the base build's, losses
+def variants(tmp, names):
+    """Build `names` of VARIANTS (all by default; "base" always) of this
+    checkout's train.cu, and time each one's K21 pass (with its gradient;
+    phases 22 and 24's shapes), K22 (clipped, 2.03 M and 7.55 M elements),
+    K22's tp lane (TP_N) and K23 (phase 22's logits, phase 24's
+    predictions), twice in turns, then once as device time by kernel;
+    gradients, arenas and counts held equal to the base build's, losses
     beside its."""
     import torch
     from plant3dvision_tpu_torch import kernels
+    from plant3dvision_tpu_torch.ops import training as T
     from chip_smoke import cuda_ms, device_ms_by_kernel
+    chosen = {k: v for k, v in VARIANTS.items()
+              if k == "base" or not names or k in names}
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in chosen.items():
         text = (CSRC / "train.cu").read_text()
         for old, new in edits:
             assert old in text, f"{name}: {old!r} not in train.cu"
@@ -324,7 +440,11 @@ def variants(tmp):
             for i in range(len(lines) - 2)
             if "Function properties" in lines[i]
             and ("ce_fused_kernelILi6ELb1ELb1" in lines[i]
-                 or "adamw_kernelILb1" in lines[i])]
+                 or "adamw_kernelILb1" in lines[i]
+                 or "adamw_chunk_sums_kernelILb1" in lines[i]
+                 or "adamw_tp_update_kernelILb1" in lines[i]
+                 or "iou_counts_kernelILi6ELb1ELb1" in lines[i]
+                 or "iou_counts_kernelILi3ELb0ELb1" in lines[i])]
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ce = [(name, *ce_inputs(shape, ig, seed, dev), ig)
@@ -337,11 +457,20 @@ def variants(tmp):
               for n in (2_030_000, 7_550_000)}
     # b1, b2, 1 - b1, 1 - b2, bc1, bc2, eps, eps_root, wd, -lr, max_norm
     scal = [0.9, 0.999, 0.1, 1e-3, 0.1, 1e-3, 1e-8, 0.0, 1e-4, -3e-3, 1.0]
+    tp_src, gathered = tp_arenas(dev)
+    vlog = torch.randn((2, N_CLS, CROP, CROP), generator=g, device=dev)
+    vl6 = torch.randint(0, N_CLS, (2, CROP, CROP), generator=g, device=dev,
+                        dtype=torch.uint8)
+    vlab, vpred = view_labels(dev)
+    iou_cases = {"logits": (vlog, None, vl6, N_CLS, CROP * CROP, -1),
+                 "view": (None, vpred, vlab, VIEW_CLS, VIEW_H * VIEW_W,
+                          IGNORE)}
     calls, results = {}, {}
-    for name in VARIANTS:
+    for name in chosen:
         so = ctypes.CDLL(str(tmp / f"{name}.so"))
         for fn in ("p3d_ce_blocks", "p3d_ce", "p3d_adamw_partials",
-                   "p3d_adamw"):
+                   "p3d_adamw", "p3d_adamw_tp_partials",
+                   "p3d_adamw_tp_update", "p3d_iou_counts"):
             getattr(so, fn).argtypes = kernels._ARGTYPES[fn]
             getattr(so, fn).restype = ctypes.c_int
         for cname, logits, y, w, ig in ce:
@@ -376,7 +505,40 @@ def variants(tmp):
             torch.cuda.synchronize()
             results[(name, n)] = torch.stack(b)
             calls[f"{name}_k22_{n}"] = call
-    checks = {}
+        a = [t.clone() for t in tp_src]
+        part = torch.empty(so.p3d_adamw_partials(TP_N), device=dev)
+
+        def tp_call(so=so, a=a, part=part):
+            assert so.p3d_adamw_tp_partials(a[1].data_ptr(), TP_N,
+                                            part.data_ptr(), stream) == 0
+            assert so.p3d_adamw_tp_update(
+                *(t.data_ptr() for t in a), TP_N, gathered.data_ptr(),
+                TP_SUMS, *scal, stream) == 0
+        b = [t.clone() for t in tp_src]
+        tp_call(a=b)
+        torch.cuda.synchronize()
+        results[(name, "tp")] = torch.stack(b)
+        calls[f"{name}_k22_tp_{TP_N}"] = tp_call
+        for cname, (lg, pr, lb, C, HW, ig) in iou_cases.items():
+            cnt = torch.empty((3, C), dtype=torch.int64, device=dev)
+
+            def iou_call(so=so, lg=lg, pr=pr, lb=lb, C=C, HW=HW, ig=ig,
+                         cnt=cnt):
+                assert so.p3d_iou_counts(
+                    None if lg is None else lg.data_ptr(),
+                    None if pr is None else pr.data_ptr(), lb.data_ptr(), C,
+                    HW, lb.numel(), ig, cnt.data_ptr(), stream) == 0
+                return cnt
+            got = iou_call().clone()
+            torch.cuda.synchronize()
+            results[(name, f"iou_{cname}")] = got
+            calls[f"{name}_k23_{cname}"] = iou_call
+    want = {"iou_logits": T.iou_counts_plain(vl6, N_CLS, logits=vlog),
+            "iou_view": T.iou_counts_plain(vlab, VIEW_CLS, preds=vpred,
+                                           ignore=IGNORE)}
+    checks = {f"{name}_{key}_equals_plain": torch.equal(results[(name, key)],
+                                                         w)
+              for name in chosen for key, w in want.items()}
     for (name, key), r in results.items():
         base = results[("base", key)]
         if isinstance(r, tuple):
@@ -386,7 +548,8 @@ def variants(tmp):
                                        / base[0][0].abs()),
                 "denominator_equal": bool(r[0][1] == base[0][1])}
         else:
-            checks[f"{name}_k22_{key}"] = {"equal": torch.equal(r, base)}
+            label = key if isinstance(key, str) else f"k22_{key}"
+            checks[f"{name}_{label}"] = {"equal": torch.equal(r, base)}
     ms = {k: [] for k in calls}
     for _ in range(2):
         for k, fn in calls.items():
@@ -399,7 +562,9 @@ def variants(tmp):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--roots", nargs="+", default=["."])
-    ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="variants of VARIANTS to build (all when none "
+                    "is named)")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--index", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--tmp", help=argparse.SUPPRESS)
@@ -412,8 +577,8 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("train_kernels_ab: needs a CUDA device")
     with tempfile.TemporaryDirectory() as tmp:
-        if a.variants:
-            variants(Path(tmp))
+        if a.variants is not None:
+            variants(Path(tmp), a.variants)
         else:
             for i, root in enumerate(a.roots):
                 subprocess.run([sys.executable, __file__, "--one", root,
